@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+1. build    — compile the CUDA kernels (``src/repro_torch/kernels/csrc``,
+              one nvcc per source, all at once) into ``build/kernels/``.
+2. kernels  — each hand-written kernel against its plain PyTorch version on
+              the card, in bf16, at the main path's shapes (ragged lengths
+              1 and mb*bs, a scratch-block row, S = 1023), within the
+              elementwise tolerances of tests/test_kernels.py and, for
+              attention, a per-row relative error norm (``ROW_REL_TOL``);
+              then its time beside the plain version's, a PyTorch library
+              call's where one computes the same function, and the least
+              time the card could take.
+3. serve    — ``serve_direct`` on full-width smollm-360m (random weights
+              from seed 0), 8 slots, max_len 1024, block 16: 16 requests,
+              prompts of 24-900 tokens, a budget of 64 new tokens each.
+              A prompt longer than 512 tokens is admitted at the 1023
+              bucket (max_len - 1), leaving room for one decode step: with
+              seed 0 that is 7 of the 16 (prompts of 588-812 tokens), which
+              finish with 2 tokens (admission + 1 step); the other 9 finish
+              with 65.  Every request finishes with that count
+              (``expected_tokens``), one device->host copy per step, no
+              leaked block, and every kernel was launched.
+4. model    — the same model teacher-forced for 8 paged decode steps with
+              the kernels and with the plain path; logits compared.
+
+Lines of JSON report each phase; the line before the last is nvidia-smi's
+name and power limit; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
+# flop/s, f32 non-tensor flop/s
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+ATTN_TOL = dict(rtol=5e-2, atol=2e-2)     # tests/test_kernels.py:54
+NORM_TOL = dict(rtol=5e-2, atol=5e-2)     # tests/test_kernels.py:193
+# At S = 1023 or cache_len ~1000 an attention output is ~N(0, 1/n), about
+# 0.03-0.07, so the elementwise bound above is half a typical value.  Each
+# output row (one query head, Dh values) is also held to
+# ||got - want|| / ||want|| below 2e-2: dropping the last 16 positions of
+# the 1024-position row of the paged case moves it by ~0.2, while the f32
+# and bf16 versions of that case differ by ~2e-3.
+ROW_REL_TOL = 2e-2
+# Teacher-forced logits, kernels vs plain path, full width: 32 layers of
+# bf16 activations rounded at the same points but summed in other orders
+# (scalar-FMA kernels vs cuBLAS/einsum); logits are bf16 products of
+# magnitude up to ~4, where one bf16 ulp is 1.6e-2.
+LOGIT_TOL = dict(rtol=5e-2, atol=1e-1)
+
+SERVE = dict(n_requests=16, slots=8, max_len=1024, seed=0,
+             prompt_len=(24, 900), max_new_tokens=64)
+
+
+def say(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def check_close(name, got, want, tol, row_rel=None):
+    """Max abs error; raises if any element is outside atol + rtol*|want|,
+    or, with ``row_rel``, if any last-axis row has a relative error norm
+    above it."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    bad = err > tol["atol"] + tol["rtol"] * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} elements outside "
+                             f"{tol}, max abs err {float(err.max())}")
+    if row_rel is not None:
+        rel = float((err.norm(dim=-1)
+                     / want.norm(dim=-1).clamp_min(1e-30)).max())
+        if rel > row_rel:
+            raise AssertionError(f"{name}: row relative error norm {rel} "
+                                 f"> {row_rel}")
+    return float(err.max())
+
+
+def time_ms(fn, n=50, warm=3):
+    """Mean device time of ``fn`` over ``n`` back-to-back calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def bf16(rng, shape, dev, scale=1.0):
+    return (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale)
+            .to(dev, torch.bfloat16))
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels
+# --------------------------------------------------------------------------
+
+def paged_inputs(rng, dev, B, H, K, Dh, bs, mb, lens, scratch_row):
+    """Pools with NaN in every row no valid position reads: the kernel must
+    skip them, as free slots decode over stale scratch rows."""
+    nb = B * mb + 1
+    q = bf16(rng, (B, H, Dh), dev)
+    kp = bf16(rng, (nb, bs, K, Dh), dev)
+    vp = bf16(rng, (nb, bs, K, Dh), dev)
+    perm = rng.permutation(np.arange(1, nb)).reshape(B, mb).astype(np.int32)
+    perm[scratch_row] = 0
+    lens = np.asarray(lens, np.int32)
+    read = np.zeros((nb, bs), bool)
+    for b in range(B):
+        p = np.arange(lens[b])
+        read[perm[b, p // bs], p % bs] = True
+    unread = torch.from_numpy(~read).to(dev)
+    kp[unread] = float("nan")
+    vp[unread] = float("nan")
+    return (q, kp, vp, torch.from_numpy(perm).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def check_paged(rng, dev):
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_decode_attention_plain)
+    cases = {
+        # smollm-360m decode: 8 slots, 15 heads / 5 kv heads, Dh 64, pool of
+        # 8 * 64 + 1 blocks of 16; lengths 1 and mb*bs, row 2 a free slot
+        "main": dict(B=8, H=15, K=5, Dh=64, bs=16, mb=64,
+                     lens=[1, 1024, 37, 500, 17, 16, 333, 900], scratch_row=2),
+        "smoke": dict(B=3, H=3, K=1, Dh=20, bs=16, mb=4, lens=[1, 64, 19],
+                      scratch_row=2),
+    }
+    errs = {}
+    for name, c in cases.items():
+        args = paged_inputs(rng, dev, **c)
+        got = paged_decode_attention(*args)
+        errs[name] = check_close(f"paged/{name}", got,
+                                 paged_decode_attention_plain(*args), ATTN_TOL,
+                                 ROW_REL_TOL)
+    args = paged_inputs(rng, dev, **cases["main"])
+    c = cases["main"]
+    live = sum(c["lens"])
+    blocks_read = sum(-(-n // c["bs"]) for n in c["lens"])
+    nbytes = (live * c["K"] * c["Dh"] * 2 * 2            # K and V rows read
+              + 2 * c["B"] * c["H"] * c["Dh"] * 2          # q in, out
+              + blocks_read * 4 + c["B"] * 4)              # table, lengths
+    flops = 4 * live * c["H"] * c["Dh"]
+    return {
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:75",
+        "shape": "q (8,15,64) bf16, pools (513,16,5,64), tables (8,64), "
+                 f"lens {c['lens']}",
+        "max_abs_err": errs["main"], "max_abs_err_smoke": errs["smoke"],
+        "ms": time_ms(lambda: paged_decode_attention(*args)),
+        "plain_ms": time_ms(lambda: paged_decode_attention_plain(*args)),
+        "library_ms": None,
+        **bound(nbytes, flops, BF16_FLOPS),
+    }
+
+
+def check_flash(rng, dev):
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    cases = {   # name: (B, S, T, H, K, Dh, causal, window, q_offset)
+        "main_S1023": (1, 1023, 1023, 15, 5, 64, True, None, 0),
+        "S16": (1, 16, 16, 15, 5, 64, True, None, 0),
+        "S100": (1, 100, 100, 15, 5, 64, True, None, 0),
+        "window_offset": (2, 48, 112, 4, 2, 32, True, 40, 64),
+        "noncausal_T100": (1, 48, 100, 6, 2, 32, False, None, 0),
+        "smoke": (1, 37, 37, 3, 1, 20, True, None, 0),
+    }
+    errs = {}
+    for name, (B, S, T, H, K, Dh, causal, window, off) in cases.items():
+        q, k, v = (bf16(rng, (B, S, H, Dh), dev), bf16(rng, (B, T, K, Dh), dev),
+                   bf16(rng, (B, T, K, Dh), dev))
+        kw = dict(causal=causal, window=window, q_offset=off)
+        errs[name] = check_close(f"flash/{name}", flash_attention(q, k, v, **kw),
+                                 flash_attention_plain(q, k, v, **kw), ATTN_TOL,
+                                 ROW_REL_TOL)
+    S, H, K, Dh = 1023, 15, 5, 64
+    q, k, v = (bf16(rng, (1, S, H, Dh), dev), bf16(rng, (1, S, K, Dh), dev),
+               bf16(rng, (1, S, K, Dh), dev))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes = 2 * (2 * S * H * Dh + 2 * S * K * Dh)
+    flops = 4 * Dh * H * S * (S + 1) // 2               # causal pairs only
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+        "shape": "q (1,1023,15,64), k/v (1,1023,5,64) bf16, causal",
+        "max_abs_err": errs["main_S1023"],
+        "max_abs_err_all_cases": max(errs.values()),
+        "ms": time_ms(lambda: flash_attention(q, k, v), n=20),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), n=20),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), n=20),
+        **bound(nbytes, flops, BF16_FLOPS),
+    }
+
+
+def check_rmsnorm(rng, dev):
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
+    errs = {}
+    for name, shape, with_res in (("decode_R8", (8, 960), False),
+                                  ("prefill_R1023_residual", (1023, 960), True),
+                                  ("smoke", (3, 37, 60), False)):
+        x = bf16(rng, shape, dev)
+        r = bf16(rng, shape, dev) if with_res else None
+        sc = (torch.from_numpy(rng.normal(size=shape[-1:]).astype(np.float32))
+              .to(dev) * 0.1)
+        errs[name] = max(
+            check_close(f"rmsnorm/{name}/{i}", got, want, NORM_TOL)
+            for i, (got, want) in enumerate(zip(rmsnorm_fused(x, sc, r),
+                                                rmsnorm_plain(x, sc, r))))
+    R, D = 8, 960
+    x = bf16(rng, (R, D), dev)
+    sc = torch.from_numpy(rng.normal(size=(D,)).astype(np.float32)).to(dev) * 0.1
+    w = (1.0 + sc).to(torch.bfloat16)
+    nbytes = R * D * 2 + D * 4 + 2 * R * D * 2          # x, scale, 2 outputs
+    flops = 5 * R * D
+    return {
+        "name": "rmsnorm_fused", "route": "triton",
+        "source": "src/repro_torch/kernels/rmsnorm/ops.py",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:33",
+        "shape": "x (8,960) bf16 (decode), scale (960,) f32",
+        "max_abs_err": errs["decode_R8"],
+        "max_abs_err_all_cases": max(errs.values()),
+        "ms": time_ms(lambda: rmsnorm_fused(x, sc)),
+        "plain_ms": time_ms(lambda: rmsnorm_plain(x, sc)),
+        "library_ms": time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)),
+        **bound(nbytes, flops, F32_FLOPS),
+    }
+
+
+def bound(nbytes, flops, peak_flops):
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# --------------------------------------------------------------------------
+# phases 3-4: serve and model check
+# --------------------------------------------------------------------------
+
+def serve_phase(wrappers):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import expected_tokens, make_trace, serve_direct
+    cfg = get_config("smollm-360m")
+    for w in wrappers:
+        w.launches = 0
+    stats = serve_direct(cfg, device="cuda", **SERVE)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    trace = make_trace(cfg.vocab_size, SERVE["n_requests"],
+                       max_len=SERVE["max_len"], seed=SERVE["seed"],
+                       prompt_len=SERVE["prompt_len"],
+                       max_new_tokens=SERVE["max_new_tokens"])
+    want = {e["rid"]: expected_tokens(e, SERVE["max_len"]) for e in trace}
+    out = {k: stats[k] for k in (
+        "completed", "decode_steps", "tokens_decoded", "d2h_transfers",
+        "wall_s", "tok_per_s", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+        "itl_p50_s", "itl_p99_s", "slot_utilization", "kv_pool_bytes",
+        "block_leaks")}
+    out["launches"] = launches
+    out["prompt_lens"] = [len(e["prompt"]) for e in trace]
+    out["tokens_per_request"] = [stats["tokens_per_request"][e["rid"]]
+                                 for e in trace]
+    say({"phase": "serve", "arch": cfg.name, **out})
+    assert stats["completed"] == SERVE["n_requests"], stats["completed"]
+    assert stats["tokens_per_request"] == want, (stats["tokens_per_request"], want)
+    assert stats["d2h_transfers"] == stats["decode_steps"] > 0
+    assert stats["block_leaks"] == 0
+    assert all(n > 0 for n in launches.values()), launches
+    return launches
+
+
+def model_phase(dev):
+    """Teacher-force full-width smollm-360m: kernels vs the plain path."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model, init_decode_state
+    from repro_torch.serving.engine import _install_slot_paged, admit_length
+    base = get_config("smollm-360m")
+    kern = dataclasses.replace(base, attn_impl="pallas", norm_impl="pallas")
+    plain = dataclasses.replace(base, attn_impl="chunked", norm_impl="jnp")
+    params = build_model(kern).init(0, device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, base.vocab_size, size=n).astype(np.int32)
+               for n in (300, 700)]
+    forced = rng.integers(0, base.vocab_size, size=(8, 2)).astype(np.int32)
+    runs = {}
+    for name, cfg in (("kernels", kern), ("plain", plain)):
+        bundle = build_model(cfg)
+        state = init_decode_state(cfg, 2, 1024, device=dev)
+        logits_all = []
+        for slot, prompt in enumerate(prompts):
+            plen = admit_length(len(prompt), 1024)
+            padded = np.zeros((plen,), np.int32)
+            padded[-len(prompt):] = prompt
+            logits, cache = bundle.prefill(
+                params, {"tokens": torch.from_numpy(padded[None]).to(dev)})
+            logits_all.append(logits[:, -1])
+            row = list(range(1 + slot * 64, 1 + (slot + 1) * 64))
+            _install_slot_paged(state, cache, slot, plen, 0, row, 0, 16)
+        for t in range(8):
+            state["token"] = torch.from_numpy(forced[t][:, None]).to(dev)
+            logits, state = bundle.decode(params, state)
+            logits_all.append(logits[:, 0])
+        runs[name] = torch.cat(logits_all).float()
+    err = check_close("model/logits", runs["kernels"], runs["plain"], LOGIT_TOL)
+    agree = float((runs["kernels"].argmax(-1) == runs["plain"].argmax(-1))
+                  .float().mean())
+    say({"phase": "model", "arch": base.name, "rows": runs["kernels"].shape[0],
+         "max_abs_err": err, "tol": LOGIT_TOL, "argmax_agreement": agree,
+         "max_abs_logit": float(runs["plain"].abs().max())})
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+         "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0)})
+
+    t0 = time.monotonic()
+    logs = _build.build_all()
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in logs.items()}
+    say({"phase": "build", "seconds": time.monotonic() - t0, "ptxas": ptxas})
+
+    rng = np.random.default_rng(0)
+    t0 = time.monotonic()
+    kernels = [check_paged(rng, dev), check_flash(rng, dev),
+               check_rmsnorm(rng, dev)]
+    say({"phase": "kernels", "seconds": time.monotonic() - t0})
+    wrappers = [paged_decode_attention, flash_attention, rmsnorm_fused]
+    launches = serve_phase(wrappers)
+    for k, w in zip(kernels, wrappers):
+        k["launches"] = launches[w.__name__]
+    model_phase(dev)
+    say({"kernels": kernels})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    say({"ok": True, "device": {"platform": "gpu",
+                                "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

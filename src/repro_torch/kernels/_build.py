@@ -1,0 +1,111 @@
+"""Build the CUDA C++ kernels under ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds, not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+The output lands in ``build/kernels/`` at the root of the checkout, keyed
+by a hash of the source and the flags, so an edited kernel is rebuilt and
+an unchanged one is loaded as it is.  ``build_all()`` starts one ``nvcc``
+per source at once and waits for all of them; ``library(name)`` builds on
+first use.  Each C entry returns ``cudaGetLastError()``; `check` raises
+when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of every kernel source (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built from source with the "
+            "CUDA toolkit on the machine with the card")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha1(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    """Start nvcc for one source unless its library is already built."""
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> str:
+    if job is None:
+        return ""
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)          # atomic: a concurrent loader sees all or none
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source that is not built yet, one nvcc per source, all
+    started together.  Returns each source's ptxas report (empty when the
+    library was already built)."""
+    with _lock:
+        jobs = {name: _start(name) for name in sources()}
+        return {name: _finish(name, job) for name, job in jobs.items()}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            _finish(name, _start(name))
+            _libs[name] = ctypes.CDLL(str(_target(name)))
+        return _libs[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str):
+    """Raise if a kernel's C entry reported a CUDA error (every source
+    exports ``cuda_error_string`` to name it)."""
+    if err != 0:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")

@@ -1,0 +1,107 @@
+"""Flash prefill attention: CUDA kernel wrapper + plain version.
+
+Replaces the TPU kernel ``flash_attention_kernel``
+(``src/repro/kernels/flash_attention/kernel.py``; wrapper
+``repro.kernels.flash_attention.ops.flash_attention``).  The kernel is
+``csrc/flash_prefill.cu``: one block per (batch, kv-head, q-tile) covers
+all G query heads of the group, stages K/V tiles in shared memory and stops
+the KV loop at the causal bound of the tile's last row.  It takes the
+model layout (q (B,S,H,Dh), k/v (B,T,K,Dh)) as it is: no transposes, no
+padding copies, ragged S and T are masked in the kernel.
+
+`flash_attention` launches the kernel for CUDA tensors and runs
+`flash_attention_plain` for CPU tensors; there is no other path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+
+
+def _mask(S, T, causal, window, q_offset, device):
+    q_pos = q_offset + torch.arange(S, device=device)
+    t_pos = torch.arange(T, device=device)
+    m = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        m &= t_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= t_pos[None, :] > (q_pos[:, None] - window)
+    return m
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0):
+    """The kernel's function in plain PyTorch, with its cast points: q, k,
+    p and v in bf16, f32 sums and softmax, masked scores at -1e30 (a fully
+    masked row is uniform, not NaN), normaliser clamped at 1e-30.
+
+    q: (B,S,H,Dh); k,v: (B,T,K,Dh).  Returns (B,S,H,Dh) in q's dtype."""
+    B, S, H, Dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.to(torch.bfloat16).float().reshape(B, S, K, G, Dh)
+    s = torch.einsum("bskgd,btkd->bkgst", qg,
+                     k.to(torch.bfloat16).float()) * (1.0 / Dh ** 0.5)
+    valid = _mask(S, T, causal, window, q_offset, q.device)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)                                   # (B,K,G,S)
+    o = torch.einsum("bkgst,btkd->bkgsd", p.to(torch.bfloat16).float(),
+                     v.to(torch.bfloat16).float())
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+
+
+def _lib():
+    lib = _build.library("flash_prefill")
+    fn = lib.flash_prefill_bf16
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """q: (B,S,H,Dh); k,v: (B,T,K,Dh) -> (B,S,H,Dh).  Query ``i`` sits at
+    absolute position ``q_offset + i``; ``window`` (None or > 0) keeps keys
+    ``t > pos - window``.  CUDA tensors launch the kernel; CPU tensors run
+    the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    B, S, H, Dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if H % K or Dh > 256 or k.shape[0] != B or k.shape[3] != Dh \
+            or v.shape != k.shape:
+        raise ValueError(f"flash_attention: unsupported shapes q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be > 0, got {window}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be a contiguous "
+                             f"bf16 tensor on {q.device}")
+    out = torch.empty_like(q)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        err = lib.flash_prefill_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, T, H, K, Dh, int(causal), int(window or 0), int(q_offset), T,
+            1.0 / Dh ** 0.5, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,100 @@
+"""Where a decode step's time goes: host clock, device busy time, kernels.
+
+    python -m repro_torch.launch.profile_serve [--steps 20]
+
+Builds the engine ``serve_direct`` serves from (``launch.serve.build_engine``:
+smollm-360m full width, random weights from seed 0, 8 slots, max_len 1024,
+block 16, the hand-written kernels), fills every slot with a request, then times ``--steps`` decode
+steps twice: once on the host clock alone (each step ends in the engine's
+one device->host copy, which waits for the device), and once under
+``torch.profiler`` for the device time of every kernel.  Prints one JSON
+object: host ms per step, device-busy ms per step, the device's idle share,
+and the kernels and host-side operators that take the most time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.launch.serve import build_engine
+from repro_torch.serving.engine import Request
+
+
+def _busy_ms(events) -> float:
+    """Union of device-kernel intervals (ms): overlapping kernels count once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy / 1e3                                    # us -> ms
+
+
+def profile(steps: int = 20, slots: int = 8, max_len: int = 1024,
+            prompt: int = 200, device="cuda") -> dict:
+    cfg = get_config("smollm-360m")
+    eng = build_engine(cfg, slots, max_len, device=device)
+    dev = eng.device
+    rng = np.random.default_rng(0)
+    budget = 2 * steps + 8
+    for rid in range(slots):
+        eng.submit(Request(rid, rng.integers(0, cfg.vocab_size, size=prompt)
+                           .astype(np.int32), max_new_tokens=budget))
+    for _ in range(3):                      # admissions + warm-up steps
+        eng.step()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        eng.step()
+    host_ms = (time.monotonic() - t0) * 1e3 / steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            eng.step()
+    events = prof.events()
+    busy = _busy_ms(events) / steps
+    by_kernel: dict[str, float] = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    top_kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    host_ops = sorted(
+        ((a.key, a.self_cpu_time_total / 1e3, a.count)
+         for a in prof.key_averages()), key=lambda r: -r[1])[:12]
+    return {
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
+        else "cpu",
+        "slots_live": sum(m.active for m in eng.slot_meta),
+        "steps": steps,
+        "host_ms_per_step": host_ms,
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": max(0.0, 1.0 - busy / host_ms),
+        "top_kernels_ms_per_step": [(k, v / steps) for k, v in top_kernels],
+        "top_host_ops_self_ms_per_step": [(k, v / steps, c // steps)
+                                          for k, v, c in host_ops],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=20)
+    args = ap.parse_args(argv)
+    print(json.dumps(profile(args.steps)))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,119 @@
+"""Serve entry point of the port: a request trace answered by one engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+        --requests 16 --slots 8 --max-len 1024
+
+Port of ``make_trace`` and ``serve_direct`` from ``repro.launch.serve``.
+The serve entry point builds the main path with the hand-written kernels
+(``attn_impl="pallas"``, ``norm_impl="pallas"``) on ``device`` ("cuda" by
+default; without a card it raises unless the caller asks for "cpu").
+Serving through the pilot system is a later slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+import numpy as np
+
+from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.models.api import build_model, resolve_device
+from repro_torch.serving.engine import ServeEngine, admit_length
+
+
+def make_trace(vocab_size: int, n_requests: int, *, max_len: int = 128,
+               seed: int = 0, dup_rate: float = 0.0,
+               prompt_len: tuple[int, int] | None = None,
+               max_new_tokens: int | None = None) -> list[dict]:
+    """Staggered-arrival request trace (the startup-spec format): request i
+    becomes visible at engine tick ``i``.  With the defaults it
+    is the reference's trace, draw for draw: prompt lengths in
+    ``[4, max_len // 4)`` and budgets from {6, 10, 18, 28}.
+    ``prompt_len=(lo, hi)`` draws lengths in ``[lo, hi]`` instead and
+    ``max_new_tokens`` fixes every budget.  ``dup_rate`` is the fraction of
+    requests that repeat an earlier prompt verbatim."""
+    rng = np.random.default_rng(seed)
+    trace = []
+    for i in range(n_requests):
+        if trace and rng.random() < dup_rate:
+            prompt = list(trace[int(rng.integers(0, len(trace)))]["prompt"])
+        else:
+            if prompt_len is None:
+                plen = int(rng.integers(4, max(5, max_len // 4)))
+            else:
+                plen = int(rng.integers(prompt_len[0], prompt_len[1] + 1))
+            prompt = rng.integers(0, vocab_size, size=plen).tolist()
+        budget = int(rng.choice([6, 10, 18, 28]))
+        trace.append({
+            "rid": i,
+            "prompt": prompt,
+            "max_new_tokens": budget if max_new_tokens is None
+            else int(max_new_tokens),
+            "at_step": i,
+        })
+    return trace
+
+
+def expected_tokens(entry: dict, max_len: int) -> int:
+    """Tokens a request of the trace finishes with: the admission token
+    plus one per decode step until its budget is spent or its slot
+    reaches ``max_len``."""
+    plen = admit_length(len(entry["prompt"]), max_len)
+    return 1 + min(int(entry["max_new_tokens"]), max_len - plen)
+
+
+def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
+                 num_blocks: int | None = None, block_size: int = 16,
+                 device="cuda") -> ServeEngine:
+    """The serve entry point's engine: ``cfg`` on the hand-written kernels,
+    weights from ``seed``, a paged pool of ``num_blocks`` blocks."""
+    dev = resolve_device(device)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas", norm_impl="pallas")
+    bundle = build_model(cfg)
+    params = bundle.init(seed, device=dev)
+    return ServeEngine(cfg, params, slots=slots, max_len=max_len,
+                       block_size=block_size, num_blocks=num_blocks,
+                       bundle=bundle, device=dev)
+
+
+def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
+                 seed: int = 0, num_blocks: int | None = None,
+                 block_size: int = 16,
+                 prompt_len: tuple[int, int] | None = None,
+                 max_new_tokens: int | None = None, device="cuda") -> dict:
+    """Build the model from ``seed`` and an engine over it, answer a
+    ``make_trace`` trace, and return the engine's stats plus
+    ``tokens_per_request`` ({rid: count}) and ``block_leaks``."""
+    eng = build_engine(cfg, slots, max_len, seed=seed, num_blocks=num_blocks,
+                       block_size=block_size, device=device)
+    trace = make_trace(cfg.vocab_size, n_requests, max_len=max_len,
+                       seed=seed, prompt_len=prompt_len,
+                       max_new_tokens=max_new_tokens)
+    stats = eng.run_trace(trace)
+    stats["tokens_per_request"] = {rid: len(r.tokens)
+                                   for rid, r in sorted(eng.done.items())}
+    stats["block_leaks"] = eng.block_leaks()
+    return stats
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced smoke config")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=1024)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    stats = serve_direct(cfg, args.requests, args.slots, args.max_len,
+                         seed=args.seed, device=args.device)
+    print(json.dumps(stats))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,102 @@
+"""Public model API of the port: ``build_model(cfg)`` -> :class:`ModelBundle`.
+
+Port of the decoder-LM part of ``repro.models.api``:
+
+* ``init(seed, device="cuda")``   -> :class:`LMParams`
+* ``prefill(params, batch)``     -> (last logits (B,1,V), dense cache)
+* ``decode(params, state)``      -> (logits (B,1,V), new state)
+
+``decode`` runs on a PAGED state (``init_decode_state(..., kv="paged")``)
+and updates its pools in place; the JAX reference returns new arrays and
+its engine donates the old ones, which is the same memory behaviour.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import COMPUTE
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  A CUDA device without a card
+    raises: the port never moves to the CPU unless the caller asks."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU")
+        if dev.index is None:                 # "cuda" -> "cuda:<current>"
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ArchConfig
+    init: Callable[..., Any]
+    prefill: Callable[[Any, Any], Any]
+    decode: Callable[[Any, Any], Any]
+
+
+def default_num_blocks(batch: int, max_len: int, block_size: int) -> int:
+    """Pool size matching a dense cache's token capacity, plus the reserved
+    scratch block (id 0, the garbage sink for free slots)."""
+    return batch * (max_len // block_size) + 1
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
+                      dtype=COMPUTE, kv: str = "paged",
+                      num_blocks: int | None = None, block_size: int = 16,
+                      device="cuda"):
+    """Zero decode state: per-slot pools, per-row ``token`` (batch,1) and
+    ``pos`` (batch,), and ``block_tables`` (batch, max_len // block_size).
+    Only ``kv="paged"`` is in this slice."""
+    if kv != "paged":
+        raise NotImplementedError("kv='dense' is a later slice of the port")
+    if max_len % block_size:
+        raise ValueError(f"paged KV needs max_len % block_size == 0, got "
+                         f"{max_len} % {block_size}")
+    dev = resolve_device(device)
+    nb = num_blocks or default_num_blocks(batch, max_len, block_size)
+    return {
+        "cache": tf.init_cache_paged(cfg, batch, max_len, nb, block_size,
+                                     dtype, dev),
+        "token": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "block_tables": torch.zeros((batch, max_len // block_size),
+                                    dtype=torch.int32, device=dev),
+    }
+
+
+def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
+    tf._check_slice(cfg)
+
+    def init(seed: int = 0, *, device="cuda"):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return tf.init_lm_params(cfg, gen, dev)
+
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        cache = tf.init_cache(cfg, B, S, dtype=compute, device=tokens.device)
+        return tf.lm_prefill(params, cfg, tokens, cache, compute=compute)
+
+    def decode(params, state):
+        bt = state["block_tables"]
+        logits, cache = tf.lm_decode(params, cfg, state["token"],
+                                     state["cache"], state["pos"],
+                                     block_tables=bt, compute=compute)
+        token = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        return logits, {"cache": cache, "token": token,
+                        "pos": state["pos"] + 1, "block_tables": bt}
+
+    return ModelBundle(cfg, init, prefill, decode)

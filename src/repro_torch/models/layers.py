@@ -1,0 +1,138 @@
+"""Shared building blocks: init, norms, RoPE, MLP, embedding and head.
+
+Port of ``repro.models.layers``.  Parameters are stored in the dtype they
+are used in (matrices bf16, norm scales f32); reductions that need
+precision (norm variance, softmax) run in f32.  Divergence traps against
+the JAX reference, each mirrored here: gelu is the tanh approximation,
+RMSNorm stores ``scale - 1`` and applies ``1 + scale`` in f32, and RoPE
+splits each head in half (no interleave).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+COMPUTE = torch.bfloat16
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+
+def dense_init(gen, shape, in_axis: int = 0, dtype=torch.float32, device="cpu"):
+    """Truncated normal on [-2, 2] times 1/sqrt(fan_in) (the reference's
+    maxtext/llama default).  ``gen`` is a torch.Generator on ``device``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * (1.0 / math.sqrt(shape[in_axis]))).to(dtype)
+
+
+def embed_init(gen, shape, dtype=torch.float32, device="cpu"):
+    """N(0, 0.02)."""
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (t * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(dt)
+
+
+def init_norm(cfg, d: int | None = None, device="cpu"):
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(
+            f"{cfg.norm}: only RMSNorm is ported (layernorm comes with the "
+            "starcoder2/whisper slice)")
+    d = d or cfg.d_model
+    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def apply_norm(x, p, cfg):
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"{cfg.norm}: only RMSNorm is ported")
+    if cfg.norm_impl == "pallas":
+        from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
+        return rmsnorm_fused(x.contiguous(), p["scale"], eps=cfg.norm_eps)[0]
+    return rmsnorm(x, p["scale"], cfg.norm_eps)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_table(positions, dim: int, theta: float):
+    """cos/sin tables for integer ``positions`` (any shape) and head
+    sub-dim ``dim``: each (..., dim/2) f32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / torch.pow(float(theta), exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, heads, dim); cos/sin: (S, dim/2) or (B, S, dim/2).  The
+    head splits in halves (no interleave); math in f32, result in x's dtype."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    elif cos.dim() == 3:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def act_fn(name: str):
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+def init_mlp(gen, cfg, dtype=COMPUTE, device="cpu"):
+    D, Fd = cfg.d_model, cfg.d_ff
+    p = {"up": dense_init(gen, (D, Fd), dtype=dtype, device=device),
+         "down": dense_init(gen, (Fd, D), dtype=dtype, device=device)}
+    if cfg.mlp_gated:
+        p["gate"] = dense_init(gen, (D, Fd), dtype=dtype, device=device)
+    return p
+
+
+def apply_mlp(x, p, cfg, compute=COMPUTE):
+    act = act_fn(cfg.activation)
+    up = x @ p["up"].to(compute)
+    if cfg.mlp_gated:
+        h = act(x @ p["gate"].to(compute)) * up
+    else:
+        h = act(up)
+    return h @ p["down"].to(compute)
+
+
+# --------------------------------------------------------------------------
+# Embedding / head
+# --------------------------------------------------------------------------
+
+def embed_lookup(tokens, table, compute=COMPUTE):
+    return table[tokens.long()].to(compute)
+
+
+def lm_logits(x, head, softcap: float | None = None):
+    """x: (B,S,D) compute dtype; head: (D,V).  Returns f32 logits (the
+    product is rounded to x's dtype first, as the reference's einsum is)."""
+    logits = (x @ head.to(x.dtype)).float()
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits

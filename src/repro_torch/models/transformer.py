@@ -1,0 +1,254 @@
+"""Decoder-only LM (dense GQA family): parameters, caches, prefill, decode.
+
+Port of the dense-attention part of ``repro.models.transformer``.  Layers
+are organised into groups of ``period`` layers exactly as in the reference,
+and the layer parameters keep its stacked ``(n_groups, ...)`` leaves, so
+the parameter bridge maps leaf to leaf.  The reference's ``lax.scan`` over
+groups is a Python loop here; its ``constrain*`` calls are identity without
+a mesh and are dropped.  Caches are stacked the same way: one pool per
+slot with a leading ``n_groups`` dim.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    COMPUTE, apply_mlp, apply_norm, embed_init, embed_lookup, init_mlp,
+    init_norm, lm_logits, rope_table,
+)
+
+
+# --------------------------------------------------------------------------
+# Layer-slot layout
+# --------------------------------------------------------------------------
+
+def group_period(cfg) -> int:
+    p = 1
+    if cfg.ssm is not None and not cfg.is_attention_free:
+        p = math.lcm(p, cfg.attn_period)
+    if cfg.moe is not None:
+        p = math.lcm(p, cfg.moe_period)
+    return p
+
+
+def layer_slots(cfg) -> list[dict]:
+    """Static per-slot structure within one group."""
+    period = group_period(cfg)
+    assert cfg.num_layers % period == 0, (cfg.name, cfg.num_layers, period)
+    attn_set = set(i % period for i in cfg.attn_layer_indices() if i < period)
+    moe_set = set(i % period for i in cfg.moe_layer_indices() if i < period)
+    slots = []
+    for i in range(period):
+        if cfg.is_attention_free:
+            mixer = "ssm"
+        else:
+            mixer = "attn" if (cfg.ssm is None or i in attn_set) else "ssm"
+        if cfg.moe is not None and i in moe_set:
+            ffn = "moe"
+        elif cfg.d_ff > 0:
+            ffn = "dense"
+        else:
+            ffn = "none"
+        slots.append({"mixer": mixer, "ffn": ffn})
+    return slots
+
+
+def _check_slice(cfg):
+    slots = layer_slots(cfg)
+    if cfg.is_encdec or any(s["mixer"] != "attn" or s["ffn"] == "moe"
+                            for s in slots):
+        raise NotImplementedError(
+            f"{cfg.name}: SSM, MoE and encoder-decoder layers are later "
+            "slices of the port; this one carries dense GQA decoders")
+    attn._check_gqa(cfg)
+
+
+# --------------------------------------------------------------------------
+# Parameters
+# --------------------------------------------------------------------------
+
+def _to_module(tree):
+    """Nested dict of tensors -> nn.ModuleDict/ParameterDict of frozen
+    parameters (same keys, same nesting)."""
+    if isinstance(tree, torch.Tensor):
+        return nn.Parameter(tree, requires_grad=False)
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: _to_module(v) for k, v in tree.items()})
+    return nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
+
+
+class LMParams(nn.Module):
+    """The decoder's parameters, laid out as the reference's pytree:
+    ``embed`` (V,D), ``final_norm["scale"]`` (D,), optional ``head`` (D,V),
+    and ``layers[slot]`` whose leaves are stacked ``(n_groups, ...)``.
+    Matrices are bf16 (the reference casts them to bf16 at use); norm
+    scales stay f32 (``1 + scale`` is taken in f32)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
+        self.final_norm = _to_module(tree["final_norm"])
+        self.head = (nn.Parameter(tree["head"], requires_grad=False)
+                     if "head" in tree else None)
+        self.layers = nn.ModuleList(_to_module(s) for s in tree["layers"])
+        self._views = None
+
+    def tree(self) -> dict:
+        """The parameters as a nested dict of tensors."""
+        def walk(m):
+            if isinstance(m, nn.Parameter):
+                return m.data
+            return {k: walk(v) for k, v in m.items()}
+        out = {"embed": self.embed.data,
+               "layers": [walk(s) for s in self.layers],
+               "final_norm": walk(self.final_norm)}
+        if self.head is not None:
+            out["head"] = self.head.data
+        return out
+
+    def group(self, g: int) -> list[dict]:
+        """Group ``g``'s per-slot parameter views (built once)."""
+        if self._views is None:
+            def take(t, i):
+                if isinstance(t, dict):
+                    return {k: take(v, i) for k, v in t.items()}
+                return t[i]
+            layers = self.tree()["layers"]
+            n_groups = next(iter(layers[0]["mixer"].values())).shape[0]
+            self._views = [[take(s, i) for s in layers]
+                           for i in range(n_groups)]
+        return self._views[g]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._views = None              # .to()/.cuda() replace the tensors
+        return super()._apply(fn, *args, **kwargs)
+
+    @property
+    def n_groups(self) -> int:
+        return next(iter(self.layers[0]["mixer"].values())).shape[0]
+
+
+def init_lm_params(cfg, gen: torch.Generator, device="cpu",
+                   dtype=COMPUTE) -> LMParams:
+    """Seeded random parameters (``gen`` lives on ``device``).  torch's
+    generator gives other numbers than jax.random, so tests bridge the
+    reference's parameters instead of comparing inits."""
+    _check_slice(cfg)
+    n_groups = cfg.num_layers // group_period(cfg)
+
+    def slot(_):
+        groups = []
+        for _g in range(n_groups):
+            groups.append({
+                "mixer_norm": init_norm(cfg, device=device),
+                "mixer": attn.init_attention(gen, cfg, dtype, device),
+                "ffn_norm": init_norm(cfg, device=device),
+                "ffn": init_mlp(gen, cfg, dtype, device),
+            })
+        return {k: {kk: torch.stack([gp[k][kk] for gp in groups])
+                    for kk in groups[0][k]} for k in groups[0]}
+
+    tree = {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, device),
+        "layers": [slot(s) for s in layer_slots(cfg)],
+        "final_norm": init_norm(cfg, device=device),
+    }
+    if not cfg.tie_embeddings:
+        tree["head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
+                                  device)
+    return LMParams(tree)
+
+
+def head_matrix(params: LMParams, cfg):
+    return params.embed.T if cfg.tie_embeddings else params.head
+
+
+# --------------------------------------------------------------------------
+# Caches
+# --------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, dtype=COMPUTE, device="cpu"):
+    """Stacked dense cache: one dict per slot, leaves (n_groups, ...)."""
+    _check_slice(cfg)
+    n_groups = cfg.num_layers // group_period(cfg)
+    out = []
+    for _ in layer_slots(cfg):
+        c = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+        out.append({k: v[None].expand((n_groups,) + v.shape).contiguous()
+                    for k, v in c.items()})
+    return out
+
+
+def init_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
+                     block_size: int, dtype=COMPUTE, device="cpu"):
+    """Stacked paged cache: per slot, pools (n_groups, nb, bs, K, Dh)."""
+    _check_slice(cfg)
+    n_groups = cfg.num_layers // group_period(cfg)
+    K, Dh = cfg.num_kv_heads, cfg.head_dim
+    shape = (n_groups, num_blocks, block_size, K, Dh)
+    return [{"kp": torch.zeros(shape, dtype=dtype, device=device),
+             "vp": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in layer_slots(cfg)]
+
+
+# --------------------------------------------------------------------------
+# Prefill / decode
+# --------------------------------------------------------------------------
+
+def _ffn(x, p, cfg, compute):
+    h = apply_norm(x, p["ffn_norm"], cfg)
+    return x + apply_mlp(h, p["ffn"], cfg, compute)
+
+
+def lm_prefill(params: LMParams, cfg, tokens, cache, *, compute=COMPUTE):
+    """Full-sequence prefill: returns (last-position logits (B,1,V) f32,
+    filled dense cache, stacked like ``cache``)."""
+    slots = layer_slots(cfg)
+    x = embed_lookup(tokens, params.embed, compute)
+    S = x.shape[1]
+    rope = rope_table(torch.arange(S, device=x.device), cfg.head_dim,
+                      cfg.rope_theta)
+    new = [{k: [] for k in c} for c in cache]
+    for g in range(params.n_groups):
+        gp = params.group(g)
+        for i, _slot in enumerate(slots):
+            p = gp[i]
+            h = apply_norm(x, p["mixer_norm"], cfg)
+            old = {k: v[g] for k, v in cache[i].items()}
+            out, nc = attn.attention_prefill(h, p["mixer"], cfg, rope, old,
+                                             compute=compute)
+            for k, v in nc.items():
+                new[i][k].append(v)
+            x = _ffn(x + out, p, cfg, compute)
+    x = apply_norm(x, params.final_norm, cfg)
+    logits = lm_logits(x[:, -1:], head_matrix(params, cfg), cfg.logit_softcap)
+    return logits, [{k: torch.stack(v) for k, v in c.items()} for c in new]
+
+
+def lm_decode(params: LMParams, cfg, token, cache, pos, *, block_tables,
+              compute=COMPUTE):
+    """One paged decode step.  token: (B,1) int; pos: (B,) int32 absolute
+    position of the new token; ``block_tables`` (B, mb) serves every layer.
+    The pools in ``cache`` are updated in place.  Returns (logits (B,1,V)
+    f32, cache)."""
+    slots = layer_slots(cfg)
+    x = embed_lookup(token, params.embed, compute)
+    ctx = attn.decode_context(cfg, attn._row_positions(pos, x.shape[0], x.device),
+                              block_tables, cache[0]["kp"].shape[2])
+    for g in range(params.n_groups):
+        gp = params.group(g)
+        for i, _slot in enumerate(slots):
+            p = gp[i]
+            h = apply_norm(x, p["mixer_norm"], cfg)
+            layer_cache = {k: v[g] for k, v in cache[i].items()}
+            h, _ = attn.attention_decode(h, p["mixer"], cfg, layer_cache, pos,
+                                         block_tables=block_tables, ctx=ctx,
+                                         compute=compute)
+            x = _ffn(x + h, p, cfg, compute)
+    x = apply_norm(x, params.final_norm, cfg)
+    return lm_logits(x, head_matrix(params, cfg), cfg.logit_softcap), cache

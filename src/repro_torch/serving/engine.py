@@ -1,0 +1,521 @@
+"""Batched serving engine: continuous batching over a PAGED KV cache.
+
+Port of ``repro.serving.engine`` for the unified-role, one-shot-prefill,
+non-speculative, single-device path.  The engine owns one block pool per
+attention slot — ``(n_groups, num_blocks, block_size, heads, dh)`` — plus
+a per-slot block table ``(slots, max_len // block_size)`` mapping logical
+position ``p`` of slot ``s`` to ``pool[table[s, p // bs], p % bs]``.  A
+host-side :class:`~repro_torch.serving.blockpool.BlockAllocator` hands out
+physical blocks at admission granularity (the request's whole reach:
+prompt bucket plus token budget, capped at ``max_len``), and eviction
+returns them all; the decode loop never touches the table.
+
+* **prefix reuse** — admission hashes the padded prompt per full block
+  (chain hash, so a hit guarantees bit-identical KV); matching leading
+  blocks are mapped into the slot's table copy-free with a refcount bump.
+  One-shot admission still recomputes the whole prefill and skips the
+  shared blocks' scatter.
+* **per-slot positions** — after admission into slot ``s`` with bucket
+  ``plen``, ``pos[s] == plen`` and rows ``0..plen-1`` hold the left-padded
+  prompt KV; each decode step writes row ``s`` at ``pos[s]`` and advances
+  it, so admitting a request mid-decode leaves the other slots' streams
+  bitwise identical to a solo run.  Free slots keep stepping over the
+  scratch block 0.
+* **one transfer per step** — the decode step is device-resident and
+  returns one packed ``(2, slots)`` int32 tensor (tokens, done flags); its
+  one ``.cpu()`` copy is the only device->host transfer of a step
+  (``d2h_transfers == steps``).  Table maintenance is host->device only.
+
+The JAX engine jits the step and donates the decode state; here the step
+runs eagerly and updates the pools in place (``index_put_``), which is the
+same memory behaviour.  CUDA graphs of the step are a later change.
+Chunked prefill, the dense-KV ablation, speculative decoding, tensor
+parallelism and the disaggregated roles are later slices: asking for them
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.models.api import (
+    build_model, default_num_blocks, init_decode_state, resolve_device)
+from repro_torch.serving.blockpool import BlockAllocator, PrefixCache
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # (prompt_len,) int32
+    max_new_tokens: int = 16
+    submitted: float = dataclasses.field(default_factory=time.monotonic)
+    # filled on completion
+    tokens: list = dataclasses.field(default_factory=list)
+    first_token_s: float | None = None
+    done_s: float | None = None
+
+
+@dataclasses.dataclass
+class SlotState:
+    rid: int = -1                      # -1 == free
+    active: bool = False               # decoding
+
+
+def admit_length(prompt_len: int, max_len: int) -> int:
+    """Round a prompt length up to its power-of-two bucket (at least 16),
+    capped at ``max_len - 1`` so decode has at least one KV row.  Raises
+    ValueError for a prompt that cannot fit instead of cropping it."""
+    if prompt_len >= max_len:
+        raise ValueError(
+            f"prompt length {prompt_len} exceeds the admission cap "
+            f"{max_len - 1} (= max_len {max_len} minus the >=1 KV row "
+            f"decode needs); truncate the prompt to <= {max_len - 1} "
+            f"tokens or build the engine with a larger max_len")
+    b = 16
+    while b < prompt_len:
+        b *= 2
+    return min(b, max_len - 1)
+
+
+def admit_buckets(max_len: int) -> list[int]:
+    """Every prompt bucket `admit_length` can produce for ``max_len``."""
+    out = []
+    b = 16
+    while b < max_len - 1:
+        out.append(b)
+        b *= 2
+    out.append(max_len - 1)
+    return out
+
+
+def make_engine_step(bundle, max_len: int):
+    """The engine's decode step: decode + argmax + per-slot budget debit +
+    done mask, all on the device, returning one packed (2, slots) int32
+    tensor.  Nothing in it reads a value back to the host."""
+
+    def step(params, state, active, budget):
+        _, new_state = bundle.decode(params, state)          # argmax inside
+        tok = new_state["token"][:, 0]
+        budget = budget - active.to(torch.int32)
+        done = active & ((budget <= 0) | (new_state["pos"] >= max_len))
+        packed = torch.stack([tok, done.to(torch.int32)])    # (2, slots)
+        return packed, new_state, active & ~done, budget
+
+    return step
+
+
+def _later(what: str, value, slice_name: str):
+    raise NotImplementedError(
+        f"{what}={value!r} is not in this slice of the port; it comes with "
+        f"the {slice_name}")
+
+
+class ServeEngine:
+    """Continuous-batching engine over a paged KV cache, on ``device``
+    ("cuda" by default; a missing card raises).
+
+    ``params`` is the port's :class:`LMParams` on that device.  This slice
+    serves ``kv="paged"``, ``prefill="oneshot"``, ``spec="off"``,
+    ``role="unified"`` and ``mesh=None``."""
+
+    def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
+                 kv: str | None = None, block_size: int = 16,
+                 num_blocks: int | None = None, prefill: str = "oneshot",
+                 prefix_sharing: bool = True, bundle=None, spec: str = "off",
+                 mesh=None, role: str = "unified", device="cuda"):
+        if kv not in (None, "paged"):
+            _later("kv", kv, "dense-KV ablation slice")
+        if prefill != "oneshot":
+            _later("prefill", prefill, "chunked-prefill slice")
+        if spec != "off":
+            _later("spec", spec, "speculative-decoding slice")
+        if role != "unified":
+            _later("role", role, "disaggregated prefill/decode slice")
+        if mesh is not None:
+            _later("mesh", mesh, "tensor-parallel serving slice")
+        self.device = resolve_device(device)
+        if params.embed.device != self.device:
+            raise ValueError(f"params live on {params.embed.device}, the "
+                             f"engine on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.kv = "paged"
+        self.role = role
+        self.block_size = block_size
+        self.bundle = bundle or build_model(cfg)
+        nb = num_blocks or default_num_blocks(slots, max_len, block_size)
+        self.allocator = BlockAllocator(nb, block_size)
+        self.prefix = PrefixCache(self.allocator) if prefix_sharing else None
+        self.state = init_decode_state(cfg, slots, max_len, kv="paged",
+                                       num_blocks=nb, block_size=block_size,
+                                       device=self.device)
+        self.max_blocks_per_slot = max_len // block_size
+        self.budget = torch.zeros((slots,), dtype=torch.int32,
+                                  device=self.device)
+        self.active = torch.zeros((slots,), dtype=torch.bool,
+                                  device=self.device)
+        self.slot_meta = [SlotState() for _ in range(slots)]
+        self.queue: deque[Request] = deque()
+        self.done: dict[int, Request] = {}
+        self._live: dict[int, Request] = {}
+        self._host_pos = [0] * slots
+        self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
+        self._tick_times: list[float] = []
+        self.steps = 0
+        self.idle_slot_steps = 0
+        self.d2h_transfers = 0         # must equal `steps` (one per step)
+        self.blocked_admissions = 0
+        self.prompt_tokens_total = 0
+        self.prefix_hit_tokens = 0
+        self._kv_util_sum = 0.0
+        self.kv_peak_live_tokens = 0
+        self.tokens_emitted = 0
+        self._step_fn = make_engine_step(self.bundle, max_len)
+        self._prefill = self.bundle.prefill
+
+    # ------------------------------------------------------------------
+
+    @property
+    def kv_capacity_tokens(self) -> int:
+        return self.allocator.capacity_tokens
+
+    def submit(self, req: Request):
+        """Queue a request.  A prompt that cannot fit the KV budget (prompt
+        + one generated token within ``max_len``, and a worst-case block
+        reach within the pool) is rejected here, explicitly."""
+        if req.rid == -1:
+            raise ValueError("request id -1 is reserved (the engine's "
+                             "free-slot sentinel)")
+        plen = admit_length(len(req.prompt), self.max_len)
+        end_max = min(plen + req.max_new_tokens, self.max_len)
+        need = -(-end_max // self.block_size)
+        if need > self.allocator.capacity_blocks:
+            raise ValueError(
+                f"request needs {need} KV blocks (prompt bucket {plen} "
+                f"+ budget {req.max_new_tokens}) but the pool holds "
+                f"{self.allocator.capacity_blocks}; admission could "
+                f"never succeed — shrink the request or grow num_blocks")
+        self.queue.append(req)
+
+    # ------------------------------------------------------------------
+    # slot-granular admission
+    # ------------------------------------------------------------------
+
+    def _admit(self):
+        """Fill free slots from the queue.  Pool pressure defers
+        admission."""
+        free = [i for i, m in enumerate(self.slot_meta) if m.rid == -1]
+        for si in free:
+            if not self.queue:
+                break
+            if not self._admit_into(si, self.queue[0]):
+                break
+            self.queue.popleft()
+
+    def _admit_into(self, si: int, req: Request) -> bool:
+        """Admit one request into batch row `si` with a one-shot prefill;
+        the other slots' decode state stays untouched.  Returns False when
+        the pool cannot hold the request yet."""
+        plen = admit_length(len(req.prompt), self.max_len)
+        bs = self.block_size
+        padded = np.zeros((plen,), np.int32)
+        padded[-len(req.prompt):] = req.prompt                # left-pad
+        end_max = min(plen + req.max_new_tokens, self.max_len)
+        total_blocks = -(-end_max // bs)
+        n_full = plen // bs
+        # keep >= 1 prompt position outside the shared prefix
+        shareable = min(n_full, (plen - 1) // bs)
+        keys = (PrefixCache.block_keys(padded, bs, n_full)
+                if self.prefix is not None else [])
+        hit = self.prefix.match(keys[:shareable]) if self.prefix else []
+        need = total_blocks - len(hit)
+        if self.allocator.available_blocks < need:
+            if self.prefix is not None:
+                self.prefix.evict_unreferenced(
+                    need - self.allocator.available_blocks)
+            if self.allocator.available_blocks < need:
+                for bid in hit:                        # undo the match refs
+                    self.allocator.free(bid)
+                self.blocked_admissions += 1
+                return False
+        row = hit + [self.allocator.alloc() for _ in range(need)]
+        self._slot_blocks[si] = list(row)
+        self.prefix_hit_tokens += len(hit) * bs
+        self.prompt_tokens_total += plen
+
+        tokens = torch.as_tensor(padded[None], device=self.device)
+        logits, cache = self._prefill(self.params, {"tokens": tokens})
+        nxt = int(torch.argmax(logits[0, -1]))                # admission-time
+        _install_slot_paged(self.state, cache, si, plen, nxt, row, len(hit),
+                            bs)
+        self._publish_prefix(keys, row, len(hit), shareable)
+        self._finish_admission(si, req, plen, nxt)
+        return True
+
+    def _finish_admission(self, si: int, req: Request, plen: int, nxt: int):
+        m = self.slot_meta[si]
+        m.rid = req.rid
+        m.active = True
+        self.active[si] = True
+        self.budget[si] = req.max_new_tokens
+        self._host_pos[si] = plen
+        req.tokens.append(nxt)
+        req.first_token_s = time.monotonic() - req.submitted
+        self._live[req.rid] = req
+
+    def _publish_prefix(self, keys, row, nhit: int, shareable: int):
+        """Register freshly filled full blocks, capped at the matchable
+        range (the block holding the last prompt position is never
+        matched, so publishing it would only pin capacity)."""
+        if self.prefix is None:
+            return
+        for j in range(nhit, shareable):
+            self.prefix.publish(keys[j], row[j])
+
+    def _evict_slot(self, si: int):
+        m = self.slot_meta[si]
+        for bid in self._slot_blocks[si]:
+            self.allocator.free(bid)
+        self._slot_blocks[si] = []
+        self.state["block_tables"][si] = 0
+        m.rid = -1
+        m.active = False
+        self._host_pos[si] = 0
+
+    # ------------------------------------------------------------------
+    # per-request drain/export
+    # ------------------------------------------------------------------
+
+    def cancel(self, rid: int) -> Request | None:
+        """Remove request ``rid`` from the queue or its decode slot and
+        return it (tokens so far intact); evicting a slot returns every
+        block it owned.  None when the engine does not hold ``rid``."""
+        for i, r in enumerate(self.queue):
+            if r.rid == rid:
+                del self.queue[i]
+                return r
+        for si, m in enumerate(self.slot_meta):
+            if m.rid == rid:
+                req = self._live.pop(rid, None)
+                self.active[si] = False
+                self._evict_slot(si)
+                return req
+        return None
+
+    def drain_requests(self) -> list[Request]:
+        """Evict every queued or decoding request and return them."""
+        rids = dict.fromkeys([r.rid for r in self.queue]
+                             + [m.rid for m in self.slot_meta if m.rid != -1])
+        return [r for r in (self.cancel(rid) for rid in rids) if r is not None]
+
+    def step(self) -> int:
+        """One engine iteration: admit into free slots, then one batched
+        decode step.  Returns the number of live slots decoded."""
+        t_tick = time.monotonic()
+        self._admit()
+        actives = [si for si, m in enumerate(self.slot_meta) if m.active]
+        if not actives:
+            return 0
+        packed, self.state, self.active, self.budget = self._step_fn(
+            self.params, self.state, self.active, self.budget)
+        self.steps += 1
+        self.idle_slot_steps += self.slots - len(actives)
+        out = packed.cpu().numpy()      # THE one device->host copy of a step
+        self.d2h_transfers += 1
+        toks, dones = out[0], out[1]
+        for si in actives:
+            self._host_pos[si] += 1
+        self._sample_kv_pressure()         # before evictions
+        now = time.monotonic()
+        for si in actives:
+            meta = self.slot_meta[si]
+            req = self._live[meta.rid]
+            req.tokens.append(int(toks[si]))
+            if dones[si]:
+                req.done_s = now - req.submitted
+                self.done[req.rid] = req
+                del self._live[meta.rid]
+                self._evict_slot(si)
+        self.tokens_emitted += len(actives)
+        self._tick_times.append(time.monotonic() - t_tick)
+        return len(actives)
+
+    def warm_admission(self):
+        """Run one prefill per admit-length bucket ahead of the first
+        request, so first-use costs (kernel compiles, library handles) do
+        not land on a live request."""
+        assert not self._live, "warm on an idle engine"
+        for pb in admit_buckets(self.max_len):
+            logits, _ = self._prefill(
+                self.params,
+                {"tokens": torch.zeros((1, pb), dtype=torch.int32,
+                                       device=self.device)})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def block_leaks(self) -> int:
+        """KV block leak audit for an IDLE engine: drops the prefix cache's
+        unreferenced blocks and returns how many blocks remain allocated
+        (zero when every admit/cancel path balanced its refcounts)."""
+        assert not self._live and not self.queue, \
+            "block_leaks() on a busy engine"
+        if self.prefix is not None:
+            self.prefix.evict_unreferenced(self.allocator.capacity_blocks)
+        return self.allocator.allocated_blocks
+
+    def kv_pool_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for leaf in self.state["cache"] for t in leaf.values())
+
+    def _live_tokens(self) -> int:
+        return sum(self._host_pos[si]
+                   for si, m in enumerate(self.slot_meta) if m.active)
+
+    def kv_pressure(self) -> dict:
+        """Instantaneous cache-pressure sample for heartbeat telemetry."""
+        live = self._live_tokens()
+        allocated = self.allocator.allocated_blocks * self.block_size
+        return {
+            "kv": self.kv,
+            "role": self.role,
+            "kv_memory_utilization": live / allocated if allocated else 0.0,
+            "kv_live_tokens": live,
+            "kv_peak_live_tokens": self.kv_peak_live_tokens,
+            "kv_capacity_tokens": self.kv_capacity_tokens,
+            "slots": self.slots,
+            "prefix_hit_rate": (self.prefix_hit_tokens
+                                / self.prompt_tokens_total
+                                if self.prompt_tokens_total else 0.0),
+            "tokens_per_step": (self.tokens_emitted / self.steps
+                                if self.steps else 0.0),
+        }
+
+    def _sample_kv_pressure(self):
+        live = self._live_tokens()
+        allocated = self.allocator.allocated_blocks * self.block_size
+        if allocated:
+            self._kv_util_sum += live / allocated
+        self.kv_peak_live_tokens = max(self.kv_peak_live_tokens, live)
+
+    # ------------------------------------------------------------------
+
+    def run(self, *, max_steps: int = 10_000) -> dict:
+        t0 = time.monotonic()
+        decoded = ticks = 0
+        while ((self.queue or self._live)
+               and self.steps < max_steps and ticks < max_steps):
+            decoded += self.step()
+            ticks += 1
+        return self._stats(decoded, time.monotonic() - t0)
+
+    def run_trace(self, trace, *, max_ticks: int = 100_000) -> dict:
+        """Drive the engine from a request trace with staggered arrivals:
+        ``{"rid", "prompt": [ints], "max_new_tokens", "at_step"}`` dicts;
+        a request becomes visible at tick ``at_step``."""
+        pending = sorted(enumerate(trace),
+                         key=lambda ie: int(ie[1].get("at_step", 0)))
+        t0 = time.monotonic()
+        decoded, tick, i = 0, 0, 0
+        while i < len(pending) or self.queue or self._live:
+            while i < len(pending) and int(pending[i][1].get("at_step", 0)) <= tick:
+                idx, e = pending[i]
+                i += 1
+                self.submit(Request(
+                    rid=int(e.get("rid", idx)),
+                    prompt=np.asarray(e["prompt"], np.int32),
+                    max_new_tokens=int(e.get("max_new_tokens", 16))))
+            decoded += self.step()
+            tick += 1
+            if tick >= max_ticks:
+                break
+        return self._stats(decoded, time.monotonic() - t0)
+
+    def _stats(self, decoded: int, wall: float) -> dict:
+        denom = self.steps * self.slots
+        util = (denom - self.idle_slot_steps) / denom if self.steps else 0.0
+        ttfts = [r.first_token_s for r in self.done.values()
+                 if r.first_token_s is not None]
+        tpots = [(r.done_s - r.first_token_s) / max(1, len(r.tokens) - 1)
+                 for r in self.done.values()
+                 if r.done_s is not None and r.first_token_s is not None
+                 and len(r.tokens) > 1]
+        pct = lambda v, q: float(np.percentile(v, q)) if v else None  # noqa: E731
+        return {
+            "completed": len(self.done),
+            "role": self.role,
+            "decode_steps": self.steps,
+            "tokens_decoded": decoded,
+            "slot_utilization": util,
+            "idle_slot_steps": self.idle_slot_steps,
+            "d2h_transfers": self.d2h_transfers,
+            "wall_s": wall,
+            "tok_per_s": decoded / wall if wall else 0.0,
+            "mean_ttft_s": float(np.mean(ttfts)) if ttfts else None,
+            "ttft_p50_s": pct(ttfts, 50),
+            "ttft_p99_s": pct(ttfts, 99),
+            "tpot_p50_s": pct(tpots, 50),
+            "tpot_p99_s": pct(tpots, 99),
+            "itl_p50_s": pct(self._tick_times, 50),
+            "itl_p99_s": pct(self._tick_times, 99),
+            "kv": self.kv,
+            "kv_memory_utilization": (self._kv_util_sum / self.steps
+                                      if self.steps else 0.0),
+            "kv_peak_live_tokens": self.kv_peak_live_tokens,
+            "kv_capacity_tokens": self.kv_capacity_tokens,
+            "prefix_hit_rate": (self.prefix_hit_tokens
+                                / self.prompt_tokens_total
+                                if self.prompt_tokens_total else 0.0),
+            "blocked_admissions": self.blocked_admissions,
+            "tokens_per_step": decoded / self.steps if self.steps else 0.0,
+            "slots": self.slots,
+            "kv_pool_bytes": self.kv_pool_bytes(),
+            "device": str(self.device),
+        }
+
+
+# --------------------------------------------------------------------------
+
+
+def _install_slot_paged(state, prefill_cache, slot: int, plen: int,
+                        next_token: int, row: list, nhit: int,
+                        block_size: int):
+    """Install a one-shot prefill into the paged decode state IN PLACE:
+    scatter the dense prefill rows into the slot's fresh blocks (prefix-hit
+    blocks already hold bit-identical content and are not written), then
+    set the slot's token, position and block-table row."""
+    for st_leaf, pf_leaf in zip(state["cache"], prefill_cache):
+        _scatter_blocks(st_leaf["kp"], pf_leaf["k"], row, nhit, block_size)
+        _scatter_blocks(st_leaf["vp"], pf_leaf["v"], row, nhit, block_size)
+    mb = state["block_tables"].shape[1]
+    row_arr = np.zeros((mb,), np.int32)
+    row_arr[:len(row)] = row
+    state["token"][slot, 0] = next_token
+    state["pos"][slot] = plen
+    state["block_tables"][slot] = torch.from_numpy(row_arr)
+    return state
+
+
+def _scatter_blocks(pool, src, row: list, nhit: int, block_size: int):
+    """Scatter a dense prefill leaf (groups, 1, T', ...) into pool blocks
+    (groups, nb, bs, ...) ``row[nhit:]`` in place (hit blocks untouched)."""
+    rows = src[:, 0]                                  # (groups, T', ...)
+    Tp = rows.shape[1]
+    n_pb = -(-Tp // block_size)
+    if nhit >= n_pb:
+        return pool
+    pad = n_pb * block_size - Tp
+    if pad:
+        rows = torch.nn.functional.pad(
+            rows, (0, 0) * (rows.dim() - 2) + (0, pad))
+    rows = rows.reshape((rows.shape[0], n_pb, block_size) + rows.shape[2:])
+    ids = torch.as_tensor(np.asarray(row[nhit:n_pb], np.int64),
+                          device=pool.device)
+    pool[:, ids] = rows[:, nhit:].to(pool.dtype)
+    return pool

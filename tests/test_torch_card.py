@@ -1,0 +1,96 @@
+"""The port's hand-written kernels against their plain versions, on the card.
+
+Marked ``gpu``: each test skips without a CUDA card (the CUDA and Triton
+kernels run only there).  This file imports no JAX, so it runs on the
+machine with the card as it is:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_card.py
+
+Inputs are bf16 at the main path's shapes (smollm-360m: 15 heads, 5 KV
+heads, head dim 64, d_model 960); tolerances are those of
+tests/test_kernels.py: attention rtol=5e-2, atol=2e-2; RMSNorm 5e-2.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_plain)
+from repro_torch.kernels.paged_attention.ops import (
+    paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
+
+pytestmark = pytest.mark.gpu
+
+ATTN_TOL = dict(rtol=5e-2, atol=2e-2)
+NORM_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel runs only there")
+    return torch.device("cuda")
+
+
+def _bf16(rng, shape, dev):
+    return (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dev, torch.bfloat16))
+
+
+@pytest.mark.parametrize("H,K,Dh", [(15, 5, 64), (3, 1, 20)])
+def test_paged_decode_kernel_matches_plain(card, H, K, Dh):
+    """Ragged lengths (1 and mb*bs among them), a free slot over the
+    scratch block 0, and NaN in every pool row no valid position reads."""
+    rng = np.random.default_rng(0)
+    B, bs, mb = 8, 16, 64
+    nb = B * mb + 1
+    tables = rng.permutation(np.arange(1, nb)).reshape(B, mb).astype(np.int32)
+    tables[2] = 0
+    lens = np.array([1, mb * bs, 37, 500, 17, 16, 333, 900], np.int32)
+    read = np.zeros((nb, bs), bool)
+    for b in range(B):
+        p = np.arange(lens[b])
+        read[tables[b, p // bs], p % bs] = True
+    kp, vp = _bf16(rng, (nb, bs, K, Dh), card), _bf16(rng, (nb, bs, K, Dh), card)
+    unread = torch.from_numpy(~read).to(card)
+    kp[unread] = float("nan")
+    vp[unread] = float("nan")
+    args = (_bf16(rng, (B, H, Dh), card), kp, vp,
+            torch.from_numpy(tables).to(card), torch.from_numpy(lens).to(card))
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(*args)
+    assert paged_decode_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(),
+                               paged_decode_attention_plain(*args).float(),
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("S,T,window,causal", [
+    (1023, 1023, None, True),       # the longest admission bucket
+    (100, 100, None, True),         # S not a multiple of the tile
+    (48, 112, 40, True),            # q_offset = 64 and a sliding window
+    (48, 100, None, False),         # non-causal, T unaligned
+])
+def test_flash_kernel_matches_plain(card, S, T, window, causal):
+    rng = np.random.default_rng(1)
+    q = _bf16(rng, (1, S, 15, 64), card)
+    k, v = _bf16(rng, (1, T, 5, 64), card), _bf16(rng, (1, T, 5, 64), card)
+    kw = dict(causal=causal, window=window, q_offset=T - S if causal else 0)
+    torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
+                               flash_attention_plain(q, k, v, **kw).float(),
+                               **ATTN_TOL)
+
+
+@pytest.mark.parametrize("R,with_residual", [(8, False), (1023, True)])
+def test_rmsnorm_kernel_matches_plain(card, R, with_residual):
+    rng = np.random.default_rng(2)
+    x = _bf16(rng, (R, 960), card)
+    r = _bf16(rng, (R, 960), card) if with_residual else None
+    sc = torch.from_numpy(rng.normal(size=(960,)).astype(np.float32) * 0.1).to(card)
+    for got, want in zip(rmsnorm_fused(x, sc, r), rmsnorm_plain(x, sc, r)):
+        torch.testing.assert_close(got.float(), want.float(), **NORM_TOL)

@@ -1,0 +1,240 @@
+"""The port's three kernel modules against the JAX package's.
+
+On the CPU each wrapper of ``repro_torch.kernels`` runs its plain PyTorch
+version (the kernels themselves are CUDA/Triton and run only on the card).
+The same inputs, made with numpy from a seed, go through the JAX wrappers
+in Pallas interpret mode (as tests/test_kernels.py runs them) and through
+the f32 oracles.  Tolerances are those of tests/test_kernels.py: attention
+rtol=5e-2, atol=2e-2 (bf16 operands of both products, summed in another
+order); RMSNorm 5e-2.  The kernels against their plain versions on the card are
+in tests/test_torch_card.py.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.kernels.paged_attention.ops import paged_decode_attention as jax_paged
+from repro.kernels.paged_attention.ref import paged_decode_attention_ref
+from repro.kernels.rmsnorm.ops import rmsnorm_fused as jax_rmsnorm
+from repro.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_plain)
+from repro_torch.kernels.paged_attention.ops import (
+    gather_kv, paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
+
+ATTN_TOL = dict(rtol=5e-2, atol=2e-2)
+NORM_TOL = dict(rtol=5e-2, atol=5e-2)
+DTYPES = {"f32": (torch.float32, jnp.float32),
+          "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _pair(rng, shape, dtype, scale=1.0):
+    """The same values as a torch tensor and a jax array (bf16-exact when
+    dtype is bf16)."""
+    tdt, jdt = DTYPES[dtype]
+    t = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale)
+    t = t.to(tdt)
+    return t, jnp.asarray(t.float().numpy(), jdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(B, H, K, Dh, bs, mb, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    nb = B * mb + 2
+    q = _pair(rng, (B, H, Dh), dtype)
+    kp = _pair(rng, (nb, bs, K, Dh), dtype)
+    vp = _pair(rng, (nb, bs, K, Dh), dtype)
+    tables = np.stack([rng.permutation(np.arange(1, nb))[:mb]
+                       for _ in range(B)]).astype(np.int32)
+    lens = rng.integers(1, mb * bs + 1, size=(B,)).astype(np.int32)
+    lens[0] = 1                          # a freshly admitted row
+    if B > 1:
+        lens[1] = mb * bs                # a full row
+    if B > 2:
+        tables[2] = 0                    # a free slot over the scratch block
+        lens[2] = bs + 3
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.parametrize("B,H,K,Dh,bs,mb,dtype", [
+    (3, 3, 1, 20, 16, 4, "f32"),     # smollm-360m smoke: G = 3, Dh = 20
+    (3, 3, 1, 20, 16, 4, "bf16"),
+    (4, 15, 5, 64, 16, 5, "bf16"),   # smollm-360m widths: G = 3, Dh = 64
+    (3, 4, 4, 32, 8, 6, "f32"),      # G = 1, small blocks
+])
+def test_paged_decode_matches_jax(B, H, K, Dh, bs, mb, dtype):
+    q, kp, vp, tables, lens = _paged_inputs(B, H, K, Dh, bs, mb, dtype)
+    out = paged_decode_attention(q[0], kp[0], vp[0], torch.from_numpy(tables),
+                                 torch.from_numpy(lens))
+    assert out.dtype == q[0].dtype and out.shape == (B, H, Dh)
+    ref = jax_paged(q[1], kp[1], vp[1], jnp.asarray(tables), jnp.asarray(lens))
+    np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL)
+    oracle = paged_decode_attention_ref(q[1], kp[1], vp[1], jnp.asarray(tables),
+                                        jnp.asarray(lens))
+    np.testing.assert_allclose(_np(out), _np(oracle), **ATTN_TOL)
+
+
+def test_paged_decode_ignores_rows_past_length():
+    """Pool rows no valid position reads may hold anything (the scratch
+    block keeps stale writes): NaN there must not reach the output, as in
+    the Pallas body, and must not change a bit of it."""
+    B, H, K, Dh, bs, mb = 3, 6, 2, 32, 16, 4
+    q, kp, vp, tables, lens = _paged_inputs(B, H, K, Dh, bs, mb, "bf16", 1)
+    lens[:] = [5, 20, 7]
+    tables[2] = 0                        # a free slot over the scratch block
+    args = (torch.from_numpy(tables), torch.from_numpy(lens))
+    clean = paged_decode_attention(q[0], kp[0], vp[0], *args)
+    read = {(int(tables[b, p // bs]), p % bs)
+            for b in range(B) for p in range(lens[b])}
+    kp_t, vp_t = kp[0].clone(), vp[0].clone()
+    for blk in range(kp_t.shape[0]):
+        for r in range(bs):
+            if (blk, r) not in read:
+                kp_t[blk, r] = float("nan")
+                vp_t[blk, r] = float("nan")
+    dirty = paged_decode_attention(q[0], kp_t, vp_t, *args)
+    assert torch.equal(clean, dirty)
+    ref = jax_paged(q[1], jnp.asarray(kp_t.float().numpy(), jnp.bfloat16),
+                    jnp.asarray(vp_t.float().numpy(), jnp.bfloat16),
+                    jnp.asarray(tables), jnp.asarray(lens))
+    np.testing.assert_allclose(_np(dirty), _np(ref), **ATTN_TOL)
+
+
+def test_paged_decode_rows_are_independent():
+    """Changing the other rows' lengths leaves a row bit-identical."""
+    q, kp, vp, tables, lens = _paged_inputs(4, 6, 2, 32, 16, 4, "bf16", 2)
+    a = paged_decode_attention(q[0], kp[0], vp[0], torch.from_numpy(tables),
+                               torch.from_numpy(lens))
+    lens2 = lens.copy()
+    lens2[1:] = [3, 40, 64]
+    b = paged_decode_attention(q[0], kp[0], vp[0], torch.from_numpy(tables),
+                               torch.from_numpy(lens2))
+    assert torch.equal(a[0], b[0])
+
+
+def test_gather_kv_matches_reference():
+    from repro.kernels.paged_attention.ref import gather_kv as jax_gather_kv
+    rng = np.random.default_rng(3)
+    pool = rng.normal(size=(9, 4, 2, 3)).astype(np.float32)
+    tables = rng.integers(0, 9, size=(3, 5)).astype(np.int32)
+    np.testing.assert_array_equal(
+        gather_kv(torch.from_numpy(pool), torch.from_numpy(tables)).numpy(),
+        np.asarray(jax_gather_kv(jnp.asarray(pool), jnp.asarray(tables))))
+
+
+# ---------------------------------------------------------------------------
+# flash prefill attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,T,H,K,Dh,window,causal,dtype", [
+    (1, 100, 100, 6, 2, 32, None, True, "f32"),    # S not a multiple of 128
+    (2, 37, 37, 15, 5, 64, None, True, "bf16"),    # smollm-360m widths, odd S
+    (1, 96, 96, 4, 2, 32, 40, True, "bf16"),       # sliding window
+    (1, 48, 112, 4, 2, 32, None, True, "f32"),     # T > S (q_offset)
+    (1, 48, 100, 4, 2, 32, None, False, "bf16"),   # non-causal, T unaligned
+])
+def test_flash_attention_matches_jax(B, S, T, H, K, Dh, window, causal, dtype):
+    rng = np.random.default_rng(4)
+    q = _pair(rng, (B, S, H, Dh), dtype)
+    k = _pair(rng, (B, T, K, Dh), dtype)
+    v = _pair(rng, (B, T, K, Dh), dtype)
+    off = T - S if causal else 0
+    out = flash_attention(q[0], k[0], v[0], causal=causal, window=window,
+                          q_offset=off)
+    assert out.dtype == q[0].dtype and out.shape == (B, S, H, Dh)
+    ref = jax_flash(q[1], k[1], v[1], causal=causal, window=window,
+                    q_offset=off)
+    np.testing.assert_allclose(_np(out), _np(ref), **ATTN_TOL)
+    oracle = attention_ref(q[1], k[1], v[1], causal=causal, window=window,
+                           q_offset=off)
+    np.testing.assert_allclose(_np(out), _np(oracle), **ATTN_TOL)
+
+
+def test_flash_attention_fully_masked_rows_are_uniform():
+    """With -1e30 masks a row that sees no key averages V instead of
+    producing NaN (the Pallas body's behaviour, not the oracle's -inf)."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.normal(size=(1, 4, 2, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 8, 1, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(1, 8, 1, 16)).astype(np.float32))
+    out = flash_attention_plain(q, k, v, causal=True, q_offset=-2)
+    assert torch.isfinite(out).all()
+    vb = v.to(torch.bfloat16).float()
+    np.testing.assert_allclose(out[0, 0, 0].numpy(), vb[0, :, 0].mean(0).numpy(),
+                               rtol=1e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 960), (3, 37, 60)])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_rmsnorm_matches_jax(shape, dtype, with_residual):
+    rng = np.random.default_rng(6)
+    x = _pair(rng, shape, dtype)
+    res = _pair(rng, shape, dtype) if with_residual else (None, None)
+    sc = torch.from_numpy(rng.normal(size=(shape[-1],)).astype(np.float32) * 0.1)
+    o, r = rmsnorm_fused(x[0], sc, res[0])
+    assert o.dtype == x[0].dtype and r.shape == x[0].shape
+    jo, jr = jax_rmsnorm(x[1], jnp.asarray(sc.numpy()), res[1])
+    np.testing.assert_allclose(_np(o), _np(jo), **NORM_TOL)
+    np.testing.assert_allclose(_np(r), _np(jr), **NORM_TOL)
+    ro, rr = rmsnorm_ref(x[1], jnp.asarray(sc.numpy()), residual=res[1])
+    np.testing.assert_allclose(_np(o), _np(ro), **NORM_TOL)
+    np.testing.assert_allclose(_np(r), _np(rr), **NORM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers' dispatch: plain only for CPU tensors, never a fallback
+# ---------------------------------------------------------------------------
+
+def test_cpu_path_launches_no_kernel():
+    before = (paged_decode_attention.launches, flash_attention.launches,
+              rmsnorm_fused.launches)
+    q, kp, vp, tables, lens = _paged_inputs(2, 3, 1, 20, 16, 2, "bf16")
+    paged_decode_attention(q[0], kp[0], vp[0], torch.from_numpy(tables),
+                           torch.from_numpy(lens))
+    x = torch.ones((2, 5, 3, 8), dtype=torch.bfloat16)
+    flash_attention(x, x[:, :, :1].contiguous(), x[:, :, :1].contiguous())
+    rmsnorm_fused(torch.ones((2, 8)), torch.zeros(8))
+    assert (paged_decode_attention.launches, flash_attention.launches,
+            rmsnorm_fused.launches) == before
+
+
+@pytest.mark.parametrize("which", ["paged", "flash", "rmsnorm"])
+def test_wrapper_refuses_devices_without_a_kernel(which):
+    """A tensor on neither the CPU nor a CUDA card is refused, not quietly
+    computed by the plain version."""
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        if which == "paged":
+            paged_decode_attention(
+                torch.empty((2, 3, 8), dtype=torch.bfloat16, **meta),
+                torch.empty((4, 16, 1, 8), dtype=torch.bfloat16, **meta),
+                torch.empty((4, 16, 1, 8), dtype=torch.bfloat16, **meta),
+                torch.empty((2, 2), dtype=torch.int32, **meta),
+                torch.empty((2,), dtype=torch.int32, **meta))
+        elif which == "flash":
+            x = torch.empty((1, 4, 2, 8), dtype=torch.bfloat16, **meta)
+            flash_attention(x, x, x)
+        else:
+            rmsnorm_fused(torch.empty((2, 8), **meta),
+                          torch.empty((8,), **meta))
