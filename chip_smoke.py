@@ -9,12 +9,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               one nvcc per source, all at once) into ``build/kernels/``.
 2. kernels  — each hand-written kernel against its plain PyTorch version on
               the card, in bf16, at the main path's shapes (ragged lengths
-              1 and mb*bs, a scratch-block row, S = 1023), within the
-              elementwise tolerances of tests/test_kernels.py and, for
-              attention, a per-row relative error norm (``ROW_REL_TOL``);
-              then its time beside the plain version's, a PyTorch library
-              call's where one computes the same function, and the least
-              time the card could take.
+              1 and mb*bs, a scratch-block row, S = 1023, verify offsets
+              past the table's reach), within the elementwise tolerances
+              of tests/test_kernels.py and, for attention, a per-row
+              relative error norm (``ROW_REL_TOL``); the verify kernel
+              bitwise equal to the paged decode kernel per query, the
+              dense decode kernel bitwise equal to the paged one on the
+              same rows; then each kernel's time beside the plain
+              version's, a PyTorch library call's where one computes the
+              same function, and the least time the card could take.
 3. serve    — ``serve_direct`` on full-width smollm-360m (random weights
               from seed 0), 8 slots, max_len 1024, block 16: 16 requests,
               prompts of 24-900 tokens, a budget of 64 new tokens each.
@@ -24,9 +27,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               finish with 2 tokens (admission + 1 step); the other 9 finish
               with 65.  Every request finishes with that count
               (``expected_tokens``), one device->host copy per step, no
-              leaked block, and every kernel was launched.
-4. model    — the same model teacher-forced for 8 paged decode steps with
-              the kernels and with the plain path; logits compared.
+              leaked block, and every kernel of the path was launched.
+4. spec     — the same trace with ``spec="draft", spec_k=4``, twice: the
+              target drafting for itself, and a cold 2-layer draft from
+              seed 1 (acceptance near 0: every step rejects).  The same
+              gates, the verify kernel launched, self-draft acceptance
+              above 0.5; whether each stream equals the serve phase's is
+              reported (the projections run at other row counts, where
+              cuBLAS may round differently).
+5. dense    — the same trace with ``kv="dense"``: the same gates, the
+              dense decode kernel launched, every stream equal to the
+              serve phase's (the dense kernel is the paged one's body).
+6. model    — the same model teacher-forced for 8 paged decode steps with
+              the kernels and with the plain path; logits compared.  Then
+              one verify forward of [pending, 4 forced tokens] against the
+              5 sequential decode steps it replaces.
 
 Lines of JSON report each phase; the line before the last is nvidia-smi's
 name and power limit; the last line is
@@ -122,19 +137,22 @@ def bf16(rng, shape, dev, scale=1.0):
 # phase 2: kernels
 # --------------------------------------------------------------------------
 
-def paged_inputs(rng, dev, B, H, K, Dh, bs, mb, lens, scratch_row):
+def paged_inputs(rng, dev, B, H, K, Dh, bs, mb, lens, scratch_row, S=None):
     """Pools with NaN in every row no valid position reads: the kernel must
-    skip them, as free slots decode over stale scratch rows."""
+    skip them, as free slots decode over stale scratch rows.  ``lens`` are
+    cache lengths, or with ``S`` the offsets of S verify queries (q is then
+    (B, S, H, Dh) and row b reads min(lens[b] + S, mb*bs) positions)."""
     nb = B * mb + 1
-    q = bf16(rng, (B, H, Dh), dev)
+    q = bf16(rng, (B, H, Dh) if S is None else (B, S, H, Dh), dev)
     kp = bf16(rng, (nb, bs, K, Dh), dev)
     vp = bf16(rng, (nb, bs, K, Dh), dev)
     perm = rng.permutation(np.arange(1, nb)).reshape(B, mb).astype(np.int32)
     perm[scratch_row] = 0
     lens = np.asarray(lens, np.int32)
+    reach = lens if S is None else np.minimum(lens + S, mb * bs)
     read = np.zeros((nb, bs), bool)
     for b in range(B):
-        p = np.arange(lens[b])
+        p = np.arange(reach[b])
         read[perm[b, p // bs], p % bs] = True
     unread = torch.from_numpy(~read).to(dev)
     kp[unread] = float("nan")
@@ -179,6 +197,117 @@ def check_paged(rng, dev):
         "ms": time_ms(lambda: paged_decode_attention(*args)),
         "plain_ms": time_ms(lambda: paged_decode_attention_plain(*args)),
         "library_ms": None,
+        **bound(nbytes, flops, BF16_FLOPS),
+    }
+
+
+def check_verify(rng, dev):
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_verify_attention,
+        paged_verify_attention_plain)
+    cases = {
+        # the verify forward of smollm-360m at spec_k 4: 8 slots, S = 5
+        # queries, offsets over 1..1023 (rows at 1022 and 1023 reach past
+        # the table, whose last position is 1023), row 2 a free slot
+        "main": dict(B=8, S=5, H=15, K=5, Dh=64, bs=16, mb=64,
+                     lens=[1, 1022, 37, 500, 17, 16, 333, 1023],
+                     scratch_row=2),
+        "smoke": dict(B=3, S=5, H=3, K=1, Dh=20, bs=16, mb=4,
+                      lens=[1, 62, 19], scratch_row=2),
+    }
+    errs = {}
+    for name, c in cases.items():
+        args = paged_inputs(rng, dev, **c)
+        got = paged_verify_attention(*args)
+        errs[name] = check_close(f"verify/{name}", got,
+                                 paged_verify_attention_plain(*args),
+                                 ATTN_TOL, ROW_REL_TOL)
+        q, kp, vp, tables, off = args
+        T = c["mb"] * c["bs"]
+        for s in range(c["S"]):
+            one = paged_decode_attention(q[:, s].contiguous(), kp, vp, tables,
+                                         torch.clamp(off + s + 1, max=T))
+            if not torch.equal(got[:, s], one):
+                raise AssertionError(f"verify/{name}: query {s} is not "
+                                     "bitwise the paged decode kernel's")
+    c = cases["main"]
+    args = paged_inputs(rng, dev, **c)
+    T = c["mb"] * c["bs"]
+    off = np.asarray(c["lens"])
+    reach = np.minimum(off + c["S"], T)
+    qlen = sum(int(min(o + s + 1, T)) for o in off for s in range(c["S"]))
+    nbytes = (int(reach.sum()) * c["K"] * c["Dh"] * 2 * 2     # K, V rows
+              + 2 * c["B"] * c["S"] * c["H"] * c["Dh"] * 2     # q in, out
+              + int((-(-reach // c["bs"])).sum()) * 4 + c["B"] * 4)
+    flops = 4 * c["H"] * c["Dh"] * qlen
+    return {
+        "name": "paged_verify_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_verify.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:179",
+        "shape": "q (8,5,15,64) bf16, pools (513,16,5,64), tables (8,64), "
+                 f"q_off {c['lens']}",
+        "max_abs_err": errs["main"], "max_abs_err_smoke": errs["smoke"],
+        "bitwise_vs_paged_decode": True,
+        "ms": time_ms(lambda: paged_verify_attention(*args)),
+        "plain_ms": time_ms(lambda: paged_verify_attention_plain(*args)),
+        "library_ms": None,
+        **bound(nbytes, flops, BF16_FLOPS),
+    }
+
+
+def check_dense(rng, dev):
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    cases = {   # name: (B, T, H, K, Dh, lens); dense rings of max_len 1024
+        "main": (8, 1024, 15, 5, 64, [1, 1024, 37, 500, 17, 16, 333, 900]),
+        "smoke": (3, 64, 3, 1, 20, [1, 64, 19]),
+    }
+    errs = {}
+    inputs = {}
+    for name, (B, T, H, K, Dh, lens) in cases.items():
+        q = bf16(rng, (B, H, Dh), dev)
+        kc, vc = bf16(rng, (B, T, K, Dh), dev), bf16(rng, (B, T, K, Dh), dev)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        past = torch.arange(T, device=dev)[None] >= ln[:, None]
+        kc[past] = float("nan")                 # rows no position reads
+        vc[past] = float("nan")
+        got = decode_attention(q, kc, vc, ln)
+        errs[name] = check_close(f"dense/{name}", got,
+                                 decode_attention_plain(q, kc, vc, ln),
+                                 ATTN_TOL, ROW_REL_TOL)
+        bs = 16                                 # the same rows, paged
+        mb, nb = T // bs, B * T // bs + 1
+        tables = torch.from_numpy(rng.permutation(np.arange(1, nb)).reshape(
+            B, mb).astype(np.int32)).to(dev)
+        pools = []
+        for cache in (kc, vc):
+            pool = torch.zeros((nb, bs, K, Dh), dtype=torch.bfloat16,
+                               device=dev)
+            pool[tables.reshape(-1).long()] = cache.reshape(B * mb, bs, K, Dh)
+            pools.append(pool)
+        if not torch.equal(got, paged_decode_attention(q, *pools, tables, ln)):
+            raise AssertionError(f"dense/{name}: not bitwise the paged "
+                                 "decode kernel on the same rows")
+        inputs[name] = (q, kc, vc, ln)
+    B, T, H, K, Dh, lens = cases["main"]
+    q, kc, vc, ln = inputs["main"]
+    qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = (torch.arange(T, device=dev)[None] < ln[:, None])[:, None, None]
+    live = sum(lens)
+    nbytes = (live * K * Dh * 2 * 2 + 2 * B * H * Dh * 2 + B * 4)
+    flops = 4 * live * H * Dh
+    return {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:73",
+        "shape": f"q (8,15,64) bf16, caches (8,1024,5,64), lens {lens}",
+        "max_abs_err": errs["main"], "max_abs_err_smoke": errs["smoke"],
+        "bitwise_vs_paged_decode": True,
+        "ms": time_ms(lambda: decode_attention(q, kc, vc, ln)),
+        "plain_ms": time_ms(lambda: decode_attention_plain(q, kc, vc, ln)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
         **bound(nbytes, flops, BF16_FLOPS),
     }
 
@@ -268,13 +397,15 @@ def bound(nbytes, flops, peak_flops):
 # phases 3-4: serve and model check
 # --------------------------------------------------------------------------
 
-def serve_phase(wrappers):
+def serve_run(phase, wrappers, **kw):
+    """One ``serve_direct`` run of the trace with every launch count set to
+    0 just before it and read just after; the gates every run must pass."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import expected_tokens, make_trace, serve_direct
     cfg = get_config("smollm-360m")
     for w in wrappers:
         w.launches = 0
-    stats = serve_direct(cfg, device="cuda", **SERVE)
+    stats = serve_direct(cfg, device="cuda", **SERVE, **kw)
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
     trace = make_trace(cfg.vocab_size, SERVE["n_requests"],
@@ -285,26 +416,93 @@ def serve_phase(wrappers):
     out = {k: stats[k] for k in (
         "completed", "decode_steps", "tokens_decoded", "d2h_transfers",
         "wall_s", "tok_per_s", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
-        "itl_p50_s", "itl_p99_s", "slot_utilization", "kv_pool_bytes",
-        "block_leaks")}
+        "itl_p50_s", "itl_p99_s", "slot_utilization", "kv",
+        "kv_pool_bytes", "block_leaks", "spec", "spec_k",
+        "spec_fallback_reason", "acceptance_rate", "tokens_per_step",
+        "draft_overhead_s")}
     out["launches"] = launches
     out["prompt_lens"] = [len(e["prompt"]) for e in trace]
     out["tokens_per_request"] = [stats["tokens_per_request"][e["rid"]]
                                  for e in trace]
-    say({"phase": "serve", "arch": cfg.name, **out})
+    say({"phase": phase, "arch": cfg.name, **out})
     assert stats["completed"] == SERVE["n_requests"], stats["completed"]
     assert stats["tokens_per_request"] == want, (stats["tokens_per_request"], want)
     assert stats["d2h_transfers"] == stats["decode_steps"] > 0
     assert stats["block_leaks"] == 0
-    assert all(n > 0 for n in launches.values()), launches
+    return stats, launches
+
+
+def serve_phase(wrappers):
+    """The paged, spec="off" serve path: every kernel but verify and dense
+    decode is launched."""
+    stats, launches = serve_run("serve", wrappers)
+    unused = ("paged_verify_attention", "decode_attention")
+    assert all(n > 0 for w, n in launches.items() if w not in unused), launches
+    return stats["streams"], launches
+
+
+def spec_phase(wrappers, off_streams):
+    """Draft-and-verify on the paged path: self-draft and a cold draft."""
+    from repro_torch.configs.base import get_config
+    cold = dataclasses.replace(get_config("smollm-360m"), num_layers=2)
+    runs = {}
+    for phase, kw in (("spec_self", {}),
+                      ("spec_cold", dict(draft_cfg=cold, draft_seed=1))):
+        stats, launches = serve_run(phase, wrappers, spec="draft", spec_k=4,
+                                    **kw)
+        assert stats["spec"] == "draft", stats["spec_fallback_reason"]
+        for w in ("paged_verify_attention", "paged_decode_attention",
+                  "flash_attention", "rmsnorm_fused"):
+            assert launches[w] > 0, (phase, launches)
+        if phase == "spec_self":
+            assert stats["acceptance_rate"] > 0.5, stats["acceptance_rate"]
+            assert stats["tokens_per_step"] > 1, stats["tokens_per_step"]
+        same = {rid: stats["streams"][rid] == t
+                for rid, t in off_streams.items()}
+        say({"phase": phase, "streams_equal_spec_off": sum(same.values()),
+             "of": len(same),
+             "differ": [rid for rid, ok in same.items() if not ok]})
+        runs[phase] = launches
+    return runs
+
+
+def dense_phase(wrappers, paged_streams):
+    """The dense-KV ablation: token streams equal to the paged serve's."""
+    stats, launches = serve_run("dense", wrappers, kv="dense")
+    assert stats["kv"] == "dense"
+    assert launches["decode_attention"] > 0, launches
+    assert launches["paged_decode_attention"] == 0, launches
+    differ = [rid for rid, t in paged_streams.items()
+              if stats["streams"][rid] != t]
+    assert not differ, f"dense streams differ from paged: {differ}"
     return launches
 
 
-def model_phase(dev):
-    """Teacher-force full-width smollm-360m: kernels vs the plain path."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.models.api import build_model, init_decode_state
+def prefilled_state(bundle, params, cfg, prompts, dev):
+    """A paged decode state of len(prompts) slots, max_len 1024, each slot
+    prefilled with its prompt (64 blocks per slot).  Returns the state and
+    each prefill's last logits."""
+    from repro_torch.models.api import init_decode_state
     from repro_torch.serving.engine import _install_slot_paged, admit_length
+    state = init_decode_state(cfg, len(prompts), 1024, device=dev)
+    logits_all = []
+    for slot, prompt in enumerate(prompts):
+        plen = admit_length(len(prompt), 1024)
+        padded = np.zeros((plen,), np.int32)
+        padded[-len(prompt):] = prompt
+        logits, cache = bundle.prefill(
+            params, {"tokens": torch.from_numpy(padded[None]).to(dev)})
+        logits_all.append(logits[:, -1])
+        row = list(range(1 + slot * 64, 1 + (slot + 1) * 64))
+        _install_slot_paged(state, cache, slot, plen, 0, row, 0, 16)
+    return state, logits_all
+
+
+def model_phase(dev):
+    """Teacher-force full-width smollm-360m: kernels vs the plain path; then
+    one verify forward against the sequential decode steps it replaces."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
     base = get_config("smollm-360m")
     kern = dataclasses.replace(base, attn_impl="pallas", norm_impl="pallas")
     plain = dataclasses.replace(base, attn_impl="chunked", norm_impl="jnp")
@@ -316,17 +514,7 @@ def model_phase(dev):
     runs = {}
     for name, cfg in (("kernels", kern), ("plain", plain)):
         bundle = build_model(cfg)
-        state = init_decode_state(cfg, 2, 1024, device=dev)
-        logits_all = []
-        for slot, prompt in enumerate(prompts):
-            plen = admit_length(len(prompt), 1024)
-            padded = np.zeros((plen,), np.int32)
-            padded[-len(prompt):] = prompt
-            logits, cache = bundle.prefill(
-                params, {"tokens": torch.from_numpy(padded[None]).to(dev)})
-            logits_all.append(logits[:, -1])
-            row = list(range(1 + slot * 64, 1 + (slot + 1) * 64))
-            _install_slot_paged(state, cache, slot, plen, 0, row, 0, 16)
+        state, logits_all = prefilled_state(bundle, params, cfg, prompts, dev)
         for t in range(8):
             state["token"] = torch.from_numpy(forced[t][:, None]).to(dev)
             logits, state = bundle.decode(params, state)
@@ -339,6 +527,30 @@ def model_phase(dev):
          "max_abs_err": err, "tol": LOGIT_TOL, "argmax_agreement": agree,
          "max_abs_logit": float(runs["plain"].abs().max())})
 
+    # verify: prompts whose buckets (512) leave room for the 5 positions
+    bundle = build_model(kern)
+    prompts = [rng.integers(0, base.vocab_size, size=n).astype(np.int32)
+               for n in (300, 450)]
+    state, pre = prefilled_state(bundle, params, kern, prompts, dev)
+    pending = torch.stack(pre).argmax(-1).to(torch.int32)        # (2, 1)
+    tokens = torch.cat([pending, torch.from_numpy(rng.integers(
+        0, base.vocab_size, size=(2, 4)).astype(np.int32)).to(dev)], dim=1)
+    snap = {**state, "cache": [{k: v.clone() for k, v in leaf.items()}
+                               for leaf in state["cache"]]}
+    vlogits, _ = bundle.verify(params, tokens, snap)
+    steps = []
+    for s in range(tokens.shape[1]):
+        state["token"] = tokens[:, s:s + 1].contiguous()
+        logits, state = bundle.decode(params, state)
+        steps.append(logits[:, 0])
+    seq = torch.stack(steps, dim=1)
+    verr = check_close("model/verify", vlogits, seq, LOGIT_TOL)
+    say({"phase": "model_verify", "arch": base.name,
+         "positions": list(vlogits.shape[:2]), "max_abs_err": verr,
+         "tol": LOGIT_TOL, "bitwise": bool(torch.equal(vlogits, seq)),
+         "argmax_agreement": float((vlogits.argmax(-1) == seq.argmax(-1))
+                                   .float().mean())})
+
 
 def main():
     if not torch.cuda.is_available():
@@ -346,8 +558,10 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_verify_attention)
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
 
     dev = torch.device("cuda")
@@ -366,13 +580,26 @@ def main():
     rng = np.random.default_rng(0)
     t0 = time.monotonic()
     kernels = [check_paged(rng, dev), check_flash(rng, dev),
-               check_rmsnorm(rng, dev)]
+               check_rmsnorm(rng, dev), check_verify(rng, dev),
+               check_dense(rng, dev)]
     say({"phase": "kernels", "seconds": time.monotonic() - t0})
-    wrappers = [paged_decode_attention, flash_attention, rmsnorm_fused]
-    launches = serve_phase(wrappers)
+    wrappers = [paged_decode_attention, flash_attention, rmsnorm_fused,
+                paged_verify_attention, decode_attention]
+    t0 = time.monotonic()
+    streams, runs = serve_phase(wrappers)
+    runs = {"serve": runs, **spec_phase(wrappers, streams),
+            "dense": dense_phase(wrappers, streams)}
+    say({"phase": "serve_all", "seconds": time.monotonic() - t0})
+    # a kernel's launches: the runs of the path that carries it
+    paths = {"paged_verify_attention": ("spec_self", "spec_cold"),
+             "decode_attention": ("dense",)}
     for k, w in zip(kernels, wrappers):
-        k["launches"] = launches[w.__name__]
+        name = w.__name__
+        k["launches"] = sum(runs[r][name] for r in paths.get(name, ("serve",)))
+        k["launches_by_run"] = {r: n[name] for r, n in runs.items()}
+    t0 = time.monotonic()
     model_phase(dev)
+    say({"phase": "model_all", "seconds": time.monotonic() - t0})
     say({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -99,13 +99,37 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             _finish(name, _start(name))
-            _libs[name] = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(_target(name)))
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
         return _libs[name]
 
 
-def check(lib: ctypes.CDLL, err: int, what: str):
-    """Raise if a kernel's C entry reported a CUDA error (every source
-    exports ``cuda_error_string`` to name it)."""
+def entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The C entry ``symbol`` of ``csrc/<name>.cu``, typed as the kernels'
+    entries are: ``n_ptrs`` pointers, ``n_ints`` ints, the softmax scale
+    (float) and the stream, returning the CUDA error code."""
+    fn = getattr(library(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_operands(what: str, device, operands):
+    """Raise unless every ``(name, tensor, dtype)`` is a contiguous tensor
+    of that dtype on ``device``: the kernels take raw pointers."""
+    for name, t, dt in operands:
+        if t.dtype != dt or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
+                             f"tensor on {device}")
+
+
+def check(name: str, err: int, what: str):
+    """Raise if a C entry of ``csrc/<name>.cu`` reported a CUDA error
+    (every source exports ``cuda_error_string`` to name it)."""
     if err != 0:
-        msg = lib.cuda_error_string(err).decode()
+        msg = library(name).cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")

@@ -15,7 +15,6 @@ padding copies, ragged S and T are masked in the kernel.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -57,18 +56,6 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0):
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
 
 
-def _lib():
-    lib = _build.library("flash_prefill")
-    fn = lib.flash_prefill_bf16
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     """q: (B,S,H,Dh); k,v: (B,T,K,Dh) -> (B,S,H,Dh).  Query ``i`` sits at
     absolute position ``q_offset + i``; ``window`` (None or > 0) keeps keys
@@ -87,19 +74,17 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
                          f"{tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be > 0, got {window}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
-                or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be a contiguous "
-                             f"bf16 tensor on {q.device}")
+    _build.check_operands("flash_attention", q.device, (
+        ("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
+        ("v", v, torch.bfloat16)))
     out = torch.empty_like(q)
-    lib = _lib()
+    fn = _build.entry("flash_prefill", "flash_prefill_bf16", 4, 10)
     with torch.cuda.device(q.device):
-        err = lib.flash_prefill_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, K, Dh, int(causal), int(window or 0), int(q_offset), T,
-            1.0 / Dh ** 0.5, torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "flash_attention")
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, T, H, K, Dh, int(causal), int(window or 0),
+                 int(q_offset), T, 1.0 / Dh ** 0.5,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_prefill", err, "flash_attention")
     flash_attention.launches += 1
     return out
 

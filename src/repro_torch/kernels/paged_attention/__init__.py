@@ -1,1 +1,1 @@
-"""Paged decode attention (CUDA kernel + plain version)."""
+"""Paged decode and speculative-verify attention (CUDA kernels + plain versions)."""

@@ -1,25 +1,27 @@
-"""Paged single-token decode attention: CUDA kernel wrapper + plain version.
+"""Paged decode and speculative-verify attention: CUDA kernel wrappers +
+plain versions.
 
-Replaces the TPU kernel ``paged_decode_attention_kernel``
-(``src/repro/kernels/paged_attention/kernel.py``; wrapper
-``repro.kernels.paged_attention.ops.paged_decode_attention``).  The kernel
-is ``csrc/paged_decode.cu``: one block per (row, kv-head) walks the row's
-block table up to ``ceil(cache_len / bs)`` entries, reading each live K/V
-row once.  It is bound by memory on the H100 (see the source's header).
+Replaces the TPU kernels ``paged_decode_attention_kernel`` and
+``paged_verify_attention_kernel``
+(``src/repro/kernels/paged_attention/kernel.py``; wrappers
+``repro.kernels.paged_attention.ops.paged_{decode,verify}_attention``).
+The kernels are ``csrc/paged_decode.cu`` and ``csrc/paged_verify.cu``: one
+block per (row, kv-head) walks the row's block table once, reading each
+live K/V row once; the verify block holds the S queries of the row and
+shares the decode kernel's block body, so its query ``s`` is bitwise the
+decode at ``cache_len = min(q_off + s + 1, mb * bs)``.  Both are bound by
+memory on the H100 (see the sources' headers).
 
-`paged_decode_attention` launches the kernel for CUDA tensors and runs
-`paged_decode_attention_plain` for CPU tensors; there is no other path.
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors; there is no other path.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
-
-NEG_INF = -1e30
+from repro_torch.kernels.decode_attention.ops import decode_attention_plain
 
 
 def gather_kv(pool, block_tables):
@@ -32,43 +34,44 @@ def gather_kv(pool, block_tables):
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, cache_len):
-    """The kernel's function in plain PyTorch, with its cast points: q, k,
-    p and v in bf16, f32 sums and softmax, masked scores at -1e30, invalid
-    V rows zeroed before P.V, normaliser clamped at 1e-30.
+    """The kernel's function in plain PyTorch: each row's logical view,
+    gathered, through `decode_attention_plain` (the kernel's cast points).
 
     q: (B,H,Dh); pools: (nb,bs,K,Dh); block_tables: (B,mb); cache_len:
     scalar or (B,).  Returns (B,H,Dh) in q's dtype."""
-    B, H, Dh = q.shape
+    return decode_attention_plain(q, gather_kv(k_pool, block_tables),
+                                  gather_kv(v_pool, block_tables), cache_len)
+
+
+def paged_verify_attention_plain(q, k_pool, v_pool, block_tables, q_off):
+    """The verify kernel's function in plain PyTorch, in the shape of the
+    reference oracle (``ref.py: paged_verify_attention_ref``): query ``s``
+    is one paged decode at ``cache_len = min(q_off + s + 1, mb * bs)``.
+
+    q: (B,S,H,Dh); pools: (nb,bs,K,Dh); block_tables: (B,mb); q_off:
+    scalar or (B,) position of query 0.  Returns (B,S,H,Dh)."""
+    B, S = q.shape[:2]
+    T = block_tables.shape[1] * k_pool.shape[1]
+    off = torch.as_tensor(q_off, dtype=torch.int32, device=q.device).expand(B)
+    return torch.stack(
+        [paged_decode_attention_plain(q[:, s], k_pool, v_pool, block_tables,
+                                      torch.clamp(off + s + 1, max=T))
+         for s in range(S)], dim=1)
+
+
+def _check_paged(what, q, H, Dh, k_pool, v_pool, block_tables, lens, B):
     K = k_pool.shape[2]
-    G = H // K
-    kg = gather_kv(k_pool, block_tables)          # (B, T, K, Dh)
-    vg = gather_kv(v_pool, block_tables)
-    T = kg.shape[1]
-    lens = torch.as_tensor(cache_len, dtype=torch.int32,
-                           device=q.device).expand(B)
-    valid = torch.arange(T, device=q.device)[None, :] < lens[:, None]
-    qg = q.to(torch.bfloat16).float().reshape(B, K, G, Dh)
-    s = torch.einsum("bkgd,btkd->bkgt", qg,
-                     kg.to(torch.bfloat16).float()) * (1.0 / Dh ** 0.5)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1)
-    v = torch.where(valid[:, :, None, None], vg.to(torch.bfloat16).float(), 0.0)
-    o = torch.einsum("bkgt,btkd->bkgd", p.to(torch.bfloat16).float(), v)
-    o = o / torch.clamp(l, min=1e-30)[..., None]
-    return o.reshape(B, H, Dh).to(q.dtype)
-
-
-def _lib():
-    lib = _build.library("paged_decode")
-    fn = lib.paged_decode_attention_bf16
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    if H % K or Dh > 256 or k_pool.shape[3] != Dh:
+        raise ValueError(f"{what}: unsupported heads/dims q "
+                         f"{tuple(q.shape)} pool {tuple(k_pool.shape)}")
+    _build.check_operands(what, q.device, (
+        ("q", q, torch.bfloat16), ("k_pool", k_pool, torch.bfloat16),
+        ("v_pool", v_pool, torch.bfloat16),
+        ("block_tables", block_tables, torch.int32),
+        ("lengths", lens, torch.int32)))
+    if v_pool.shape != k_pool.shape or block_tables.shape[0] != B \
+            or tuple(lens.shape) != (B,):
+        raise ValueError(f"{what}: shape mismatch")
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len):
@@ -84,30 +87,48 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len):
     B, H, Dh = q.shape
     nb, bs, K, _ = k_pool.shape
     mb = block_tables.shape[1]
-    if H % K or Dh > 256 or k_pool.shape[3] != Dh:
-        raise ValueError(f"paged_decode_attention: unsupported heads/dims "
-                         f"q {tuple(q.shape)} pool {tuple(k_pool.shape)}")
-    for name, t, dt in (("q", q, torch.bfloat16), ("k_pool", k_pool, torch.bfloat16),
-                        ("v_pool", v_pool, torch.bfloat16),
-                        ("block_tables", block_tables, torch.int32),
-                        ("cache_len", cache_len, torch.int32)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"paged_decode_attention: {name} must be a "
-                             f"contiguous {dt} tensor on {q.device}")
-    if v_pool.shape != k_pool.shape or block_tables.shape[0] != B \
-            or tuple(cache_len.shape) != (B,):
-        raise ValueError("paged_decode_attention: shape mismatch")
+    _check_paged("paged_decode_attention", q, H, Dh, k_pool, v_pool,
+                 block_tables, cache_len, B)
     out = torch.empty_like(q)
-    lib = _lib()
+    fn = _build.entry("paged_decode", "paged_decode_attention_bf16", 6, 7)
     with torch.cuda.device(q.device):
-        err = lib.paged_decode_attention_bf16(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-            B, H, K, Dh, nb, bs, mb, 1.0 / Dh ** 0.5,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "paged_decode_attention")
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 block_tables.data_ptr(), cache_len.data_ptr(),
+                 out.data_ptr(), B, H, K, Dh, nb, bs, mb, 1.0 / Dh ** 0.5,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check("paged_decode", err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_tables, q_off):
+    """q: (B,S,H,Dh) the S = k+1 verify queries of each row, query ``s`` at
+    absolute position ``q_off[b] + s``; pools: (nb,bs,K,Dh); block_tables:
+    (B,mb) int32; q_off: (B,) int32.  Returns (B,S,H,Dh).  CUDA tensors
+    launch the kernel; CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        return paged_verify_attention_plain(q, k_pool, v_pool, block_tables,
+                                            q_off)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_verify_attention: no kernel for {q.device}")
+    B, S, H, Dh = q.shape
+    nb, bs, K, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    _check_paged("paged_verify_attention", q, H, Dh, k_pool, v_pool,
+                 block_tables, q_off, B)
+    out = torch.empty_like(q)
+    fn = _build.entry("paged_verify", "paged_verify_attention_bf16", 6, 8)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 block_tables.data_ptr(), q_off.data_ptr(), out.data_ptr(),
+                 B, S, H, K, Dh, nb, bs, mb, 1.0 / Dh ** 0.5,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check("paged_verify", err, "paged_verify_attention")
+    paged_verify_attention.launches += 1
+    return out
+
+
+paged_verify_attention.launches = 0

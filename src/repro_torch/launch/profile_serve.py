@@ -1,10 +1,11 @@
 """Where a decode step's time goes: host clock, device busy time, kernels.
 
-    python -m repro_torch.launch.profile_serve [--steps 20]
+    python -m repro_torch.launch.profile_serve [--steps 20] [--spec draft] [--kv dense]
 
 Builds the engine ``serve_direct`` serves from (``launch.serve.build_engine``:
 smollm-360m full width, random weights from seed 0, 8 slots, max_len 1024,
-block 16, the hand-written kernels), fills every slot with a request, then times ``--steps`` decode
+block 16, the hand-written kernels; paged or dense KV, speculation off or
+self-draft), fills every slot with a request, then times ``--steps`` engine
 steps twice: once on the host clock alone (each step ends in the engine's
 one device->host copy, which waits for the device), and once under
 ``torch.profiler`` for the device time of every kernel.  Prints one JSON
@@ -44,12 +45,15 @@ def _busy_ms(events) -> float:
 
 
 def profile(steps: int = 20, slots: int = 8, max_len: int = 1024,
-            prompt: int = 200, device="cuda") -> dict:
+            prompt: int = 200, kv: str | None = None, spec: str = "off",
+            device="cuda") -> dict:
     cfg = get_config("smollm-360m")
-    eng = build_engine(cfg, slots, max_len, device=device)
+    eng = build_engine(cfg, slots, max_len, kv=kv, spec=spec, device=device)
     dev = eng.device
     rng = np.random.default_rng(0)
-    budget = 2 * steps + 8
+    # every slot stays live through both timed passes, at up to k+1 tokens
+    # a step with speculation
+    budget = (2 * steps + 8) * (eng.spec_k + 1 if eng.spec == "draft" else 1)
     for rid in range(slots):
         eng.submit(Request(rid, rng.integers(0, cfg.vocab_size, size=prompt)
                            .astype(np.int32), max_new_tokens=budget))
@@ -78,8 +82,11 @@ def profile(steps: int = 20, slots: int = 8, max_len: int = 1024,
     return {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
         else "cpu",
+        "kv": eng.kv,
+        "spec": eng.spec,
         "slots_live": sum(m.active for m in eng.slot_meta),
         "steps": steps,
+        "tokens_per_step": eng.tokens_emitted / eng.steps,
         "host_ms_per_step": host_ms,
         "device_busy_ms_per_step": busy,
         "device_idle_share": max(0.0, 1.0 - busy / host_ms),
@@ -92,8 +99,10 @@ def profile(steps: int = 20, slots: int = 8, max_len: int = 1024,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--kv", choices=("paged", "dense"), default=None)
+    ap.add_argument("--spec", choices=("off", "draft"), default="off")
     args = ap.parse_args(argv)
-    print(json.dumps(profile(args.steps)))
+    print(json.dumps(profile(args.steps, kv=args.kv, spec=args.spec)))
 
 
 if __name__ == "__main__":

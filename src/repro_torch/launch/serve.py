@@ -1,12 +1,13 @@
 """Serve entry point of the port: a request trace answered by one engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
-        --requests 16 --slots 8 --max-len 1024
+        --requests 16 --slots 8 --max-len 1024 [--spec draft] [--kv dense]
 
 Port of ``make_trace`` and ``serve_direct`` from ``repro.launch.serve``.
 The serve entry point builds the main path with the hand-written kernels
 (``attn_impl="pallas"``, ``norm_impl="pallas"``) on ``device`` ("cuda" by
-default; without a card it raises unless the caller asks for "cpu").
+default; without a card it raises unless the caller asks for "cpu"): a
+paged or dense KV cache, with or without draft-and-verify speculation.
 Serving through the pilot system is a later slice.
 """
 
@@ -64,36 +65,58 @@ def expected_tokens(entry: dict, max_len: int) -> int:
     return 1 + min(int(entry["max_new_tokens"]), max_len - plen)
 
 
+def _on_kernels(cfg):
+    return dataclasses.replace(cfg, attn_impl="pallas", norm_impl="pallas")
+
+
 def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
                  num_blocks: int | None = None, block_size: int = 16,
+                 kv: str | None = None, spec: str = "off", spec_k: int = 4,
+                 draft_cfg=None, draft_seed: int = 0,
                  device="cuda") -> ServeEngine:
     """The serve entry point's engine: ``cfg`` on the hand-written kernels,
-    weights from ``seed``, a paged pool of ``num_blocks`` blocks."""
+    weights from ``seed``, a paged pool of ``num_blocks`` blocks (or a
+    dense cache with ``kv="dense"``).  ``spec="draft"`` proposes
+    ``spec_k`` tokens a step from ``draft_cfg`` with weights from
+    ``draft_seed`` (``draft_cfg=None``: the target drafts for itself)."""
     dev = resolve_device(device)
-    cfg = dataclasses.replace(cfg, attn_impl="pallas", norm_impl="pallas")
+    cfg = _on_kernels(cfg)
     bundle = build_model(cfg)
     params = bundle.init(seed, device=dev)
-    return ServeEngine(cfg, params, slots=slots, max_len=max_len,
+    draft_params = None
+    if draft_cfg is not None:
+        draft_cfg = _on_kernels(draft_cfg)
+        draft_params = build_model(draft_cfg).init(draft_seed, device=dev)
+    return ServeEngine(cfg, params, slots=slots, max_len=max_len, kv=kv,
                        block_size=block_size, num_blocks=num_blocks,
-                       bundle=bundle, device=dev)
+                       bundle=bundle, spec=spec, spec_k=spec_k,
+                       draft_cfg=draft_cfg, draft_params=draft_params,
+                       device=dev)
 
 
 def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
                  seed: int = 0, num_blocks: int | None = None,
                  block_size: int = 16,
                  prompt_len: tuple[int, int] | None = None,
-                 max_new_tokens: int | None = None, device="cuda") -> dict:
-    """Build the model from ``seed`` and an engine over it, answer a
-    ``make_trace`` trace, and return the engine's stats plus
-    ``tokens_per_request`` ({rid: count}) and ``block_leaks``."""
+                 max_new_tokens: int | None = None, kv: str | None = None,
+                 spec: str = "off", spec_k: int = 4, draft_cfg=None,
+                 draft_seed: int = 0, device="cuda") -> dict:
+    """Build the model from ``seed`` and an engine over it
+    (`build_engine`), answer a ``make_trace`` trace, and return the
+    engine's stats plus ``streams`` ({rid: tokens}), ``tokens_per_request``
+    ({rid: count}) and ``block_leaks``."""
     eng = build_engine(cfg, slots, max_len, seed=seed, num_blocks=num_blocks,
-                       block_size=block_size, device=device)
+                       block_size=block_size, kv=kv, spec=spec,
+                       spec_k=spec_k, draft_cfg=draft_cfg,
+                       draft_seed=draft_seed, device=device)
     trace = make_trace(cfg.vocab_size, n_requests, max_len=max_len,
                        seed=seed, prompt_len=prompt_len,
                        max_new_tokens=max_new_tokens)
     stats = eng.run_trace(trace)
-    stats["tokens_per_request"] = {rid: len(r.tokens)
-                                   for rid, r in sorted(eng.done.items())}
+    stats["streams"] = {rid: list(r.tokens)
+                        for rid, r in sorted(eng.done.items())}
+    stats["tokens_per_request"] = {rid: len(t)
+                                   for rid, t in stats["streams"].items()}
     stats["block_leaks"] = eng.block_leaks()
     return stats
 
@@ -107,11 +130,19 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv", choices=("paged", "dense"), default=None,
+                    help="KV layout (default: paged where the arch pages)")
+    ap.add_argument("--spec", choices=("off", "draft"), default="off",
+                    help="draft-and-verify speculative decoding (self-draft)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per speculative step")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     stats = serve_direct(cfg, args.requests, args.slots, args.max_len,
-                         seed=args.seed, device=args.device)
+                         seed=args.seed, kv=args.kv, spec=args.spec,
+                         spec_k=args.spec_k, device=args.device)
+    del stats["streams"]
     print(json.dumps(stats))
 
 

@@ -5,10 +5,13 @@ Port of the decoder-LM part of ``repro.models.api``:
 * ``init(seed, device="cuda")``   -> :class:`LMParams`
 * ``prefill(params, batch)``     -> (last logits (B,1,V), dense cache)
 * ``decode(params, state)``      -> (logits (B,1,V), new state)
+* ``verify(params, tokens, state)`` -> (logits (B,S,V), new state)
 
-``decode`` runs on a PAGED state (``init_decode_state(..., kv="paged")``)
-and updates its pools in place; the JAX reference returns new arrays and
-its engine donates the old ones, which is the same memory behaviour.
+``decode`` runs on a paged state (``init_decode_state(..., kv="paged")``,
+with ``block_tables``) or a dense one (``kv="dense"``); ``verify`` on a
+paged state.  Both update the caches in place; the JAX reference returns
+new arrays and its engine donates the old ones, which is the same memory
+behaviour.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ class ModelBundle:
     init: Callable[..., Any]
     prefill: Callable[[Any, Any], Any]
     decode: Callable[[Any, Any], Any]
+    verify: Callable[[Any, Any, Any], Any]
 
 
 def default_num_blocks(batch: int, max_len: int, block_size: int) -> int:
@@ -55,21 +59,26 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       dtype=COMPUTE, kv: str = "paged",
                       num_blocks: int | None = None, block_size: int = 16,
                       device="cuda"):
-    """Zero decode state: per-slot pools, per-row ``token`` (batch,1) and
-    ``pos`` (batch,), and ``block_tables`` (batch, max_len // block_size).
-    Only ``kv="paged"`` is in this slice."""
-    if kv != "paged":
-        raise NotImplementedError("kv='dense' is a later slice of the port")
+    """Zero decode state: the caches, per-row ``token`` (batch,1) and
+    ``pos`` (batch,).  ``kv="paged"``: per-slot block pools plus
+    ``block_tables`` (batch, max_len // block_size).  ``kv="dense"``:
+    per-slot rings (n_groups, batch, max_len, K, Dh) and no tables."""
+    if kv not in ("paged", "dense"):
+        raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
+    dev = resolve_device(device)
+    state = {"token": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
+             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if kv == "dense":
+        return {"cache": tf.init_cache(cfg, batch, max_len, dtype, dev),
+                **state}
     if max_len % block_size:
         raise ValueError(f"paged KV needs max_len % block_size == 0, got "
                          f"{max_len} % {block_size}")
-    dev = resolve_device(device)
     nb = num_blocks or default_num_blocks(batch, max_len, block_size)
     return {
         "cache": tf.init_cache_paged(cfg, batch, max_len, nb, block_size,
                                      dtype, dev),
-        "token": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        **state,
         "block_tables": torch.zeros((batch, max_len // block_size),
                                     dtype=torch.int32, device=dev),
     }
@@ -91,12 +100,19 @@ def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
         return tf.lm_prefill(params, cfg, tokens, cache, compute=compute)
 
     def decode(params, state):
-        bt = state["block_tables"]
         logits, cache = tf.lm_decode(params, cfg, state["token"],
                                      state["cache"], state["pos"],
-                                     block_tables=bt, compute=compute)
+                                     block_tables=state.get("block_tables"),
+                                     compute=compute)
         token = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-        return logits, {"cache": cache, "token": token,
-                        "pos": state["pos"] + 1, "block_tables": bt}
+        return logits, {**state, "cache": cache, "token": token,
+                        "pos": state["pos"] + 1}
 
-    return ModelBundle(cfg, init, prefill, decode)
+    def verify(params, tokens, state):
+        logits, cache = tf.lm_verify(params, cfg, tokens, state["cache"],
+                                     state["pos"],
+                                     block_tables=state["block_tables"],
+                                     compute=compute)
+        return logits, {**state, "cache": cache}
+
+    return ModelBundle(cfg, init, prefill, decode, verify)

@@ -1,19 +1,22 @@
-"""Attention (GQA): prefill and paged decode paths.
+"""Attention (GQA): prefill, decode (paged or dense KV) and speculative
+verify paths.
 
 Port of the GQA part of ``repro.models.attention``.  ``cfg.attn_impl``
 selects the attend step:
 
 * ``"pallas"`` — the hand-written kernels: flash prefill
-  (`repro_torch.kernels.flash_attention`) and paged decode
-  (`repro_torch.kernels.paged_attention`).  For CPU tensors their wrappers
-  run the kernels' plain versions.
+  (`repro_torch.kernels.flash_attention`), paged decode and paged verify
+  (`repro_torch.kernels.paged_attention`) and dense decode
+  (`repro_torch.kernels.decode_attention`).  For CPU tensors their
+  wrappers run the kernels' plain versions.
 * anything else — the plain PyTorch version of the reference's pure-JAX
-  path: `chunked_attention` for prefill, `decode_attend` over `gather_kv`
-  for decode.
+  path: `chunked_attention` for prefill, `decode_attend` over the dense
+  cache or the gathered pool for decode, one `decode_attend` per query for
+  verify.
 
 Masks use ``NEG_INF = -1e30`` (a fully masked row is uniform, not NaN);
-Q.K and P.V take bf16 operands and sum in f32.  MLA, sliding-window rings,
-speculative verify and chunked prefill are later slices.
+Q.K and P.V take bf16 operands and sum in f32.  MLA, sliding-window rings
+and chunked prefill are later slices.
 """
 
 from __future__ import annotations
@@ -178,14 +181,18 @@ def attention_prefill(x, p, cfg, rope, cache, *, compute=COMPUTE):
 
 
 # ==========================================================================
-# Paged decode
+# Decode (paged or dense) and speculative verify
 # ==========================================================================
 #
 # The paged cache is a shared pool ``(num_blocks, block_size, K, Dh)`` plus
 # a per-row block table ``(B, max_blocks)``: logical position ``p`` of row
 # ``b`` lives at ``pool[table[b, p // bs], p % bs]``.  Block 0 is the
 # scratch block: free slots keep decoding over it and their writes land
-# there, never in a live request's blocks.
+# there, never in a live request's blocks.  The dense cache (the kv="dense"
+# ablation) is a per-row ring ``(B, T, K, Dh)``: position ``p`` of row ``b``
+# lives at ``cache[b, p % T]``.  With ``T == max_blocks * block_size`` both
+# layouts give the attend step the same shapes, so paged and dense decode
+# agree bit for bit.
 
 def _row_positions(pos, batch: int, device):
     """Scalar or (B,) decode position(s) -> (B,) int32."""
@@ -202,13 +209,38 @@ def _paged_write_index(block_tables, pos, block_size: int):
     return blk, pos % block_size
 
 
-def _paged_write_rows(pool, new, index):
-    """Per-row paged write IN PLACE: pool (nb, bs, ...), new (B, 1, ...) at
-    ``index`` from `_paged_write_index`.  The JAX reference returns a new
-    pool (its engine donates the old one); writing in place is the
-    counterpart and keeps one pool in memory."""
-    pool.index_put_(index, new[:, 0].to(pool.dtype))
-    return pool
+def _ring_write_index(pos, T: int):
+    """Where row b's new entry lands in a dense ring: ``(b, pos_b % T)`` —
+    the reference's `_ring_write_rows` slot."""
+    return (torch.arange(pos.shape[0], device=pos.device),
+            pos.long() % T)
+
+
+def _paged_write_seq_index(block_tables, positions, block_size: int):
+    """Where entry ``s`` of row ``b`` lands for a verify burst at absolute
+    ``positions`` (B, S) — the reference's `_paged_write_seq`.  Positions at
+    or past the table's reach ``mb * bs`` go to the scratch block 0
+    explicitly: a burst can run up to k positions past a row's end before
+    acceptance clamps it, and those writes must never land in a live (or
+    prefix-shared) block."""
+    mb = block_tables.shape[1]
+    positions = positions.long()
+    inb = positions < mb * block_size
+    blk = torch.where(inb, positions // block_size, 0)
+    pb = torch.where(inb, torch.gather(block_tables.long(), 1, blk), 0)
+    return pb, positions % block_size
+
+
+def _write_rows(buf, new, index):
+    """Write ``new`` (B, S, ...) IN PLACE at ``index`` (two (B, S) or (B,)
+    index tensors into ``buf``'s first two dims: a pool's (block, offset)
+    or a ring's (row, slot)).  The JAX reference returns a new buffer (its
+    engine donates the old one); writing in place is the counterpart and
+    keeps one copy in memory."""
+    if index[0].dim() == 1:
+        new = new[:, 0]
+    buf.index_put_(index, new.to(buf.dtype))
+    return buf
 
 
 def _paged_gather(pool, block_tables):
@@ -216,49 +248,119 @@ def _paged_gather(pool, block_tables):
     return gather_kv(pool, block_tables)
 
 
-def decode_context(cfg, pos, block_tables, block_size: int) -> dict:
+def decode_context(cfg, pos, cache, block_tables=None) -> dict:
     """What every layer of one decode step shares: the RoPE tables of the
-    rows' positions, the paged write slots and the valid lengths.  The
-    reference computes them inside each layer; computing them once per
-    step gives the same values with 32x fewer launches."""
+    rows' positions, the write slots and the valid lengths.  ``cache`` is
+    any attention layer's cache (stacked or not): a paged pool when
+    ``block_tables`` is given, else a dense ring.  The reference computes
+    these inside each layer; computing them once per step gives the same
+    values with 32x fewer launches."""
     cos, sin = rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    T = block_tables.shape[1] * block_size
-    return {"cos": cos, "sin": sin,
-            "write": _paged_write_index(block_tables, pos, block_size),
+    if block_tables is None:
+        T = cache["k"].shape[-3]
+        write = _ring_write_index(pos, T)
+    else:
+        bs = cache["kp"].shape[-3]
+        T = block_tables.shape[1] * bs
+        write = _paged_write_index(block_tables, pos, bs)
+    return {"cos": cos, "sin": sin, "write": write,
             "cache_len": torch.clamp(pos + 1, max=T).to(torch.int32)}
 
 
-def attention_decode(x, p, cfg, cache, pos, *, block_tables, ctx=None,
+def verify_context(cfg, pos, S: int, cache, block_tables) -> dict:
+    """`decode_context` of a verify burst: S positions ``pos..pos+S-1`` per
+    row, overflow writes routed to the scratch block."""
+    positions = pos[:, None] + torch.arange(S, dtype=torch.int32,
+                                            device=pos.device)
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    return {"cos": cos, "sin": sin, "pos": pos,
+            "write": _paged_write_seq_index(block_tables, positions,
+                                            cache["kp"].shape[-3])}
+
+
+def _qkv(x, p, ctx, compute):
+    """The new tokens' q, k (both rotated to their positions) and v."""
+    q = apply_rope(_project(x, p["wq"], compute), ctx["cos"], ctx["sin"])
+    k = apply_rope(_project(x, p["wk"], compute), ctx["cos"], ctx["sin"])
+    return q, k, _project(x, p["wv"], compute)
+
+
+def attention_decode(x, p, cfg, cache, pos, *, block_tables=None, ctx=None,
                      compute=COMPUTE):
-    """One paged decode step.  x: (B,1,D); cache {"kp","vp"}: (nb,bs,K,Dh)
-    pools, updated in place; block_tables (B,mb) int32; pos: scalar or (B,)
-    absolute position of the new token; ``ctx`` the step's
-    `decode_context` (computed here when None).  Returns
-    (out (B,1,D), cache)."""
+    """One decode step.  x: (B,1,D); cache {"kp","vp"}: (nb,bs,K,Dh) pools
+    (then ``block_tables`` (B,mb) int32 maps rows to blocks) or {"k","v"}:
+    (B,T,K,Dh) dense rings, updated in place; pos: scalar or (B,) absolute
+    position of the new token; ``ctx`` the step's `decode_context`
+    (computed here when None).  Returns (out (B,1,D), cache)."""
     _check_gqa(cfg)
-    if "kp" not in cache:
-        raise NotImplementedError("dense (kv='dense') decode is a later slice")
+    paged = "kp" in cache
+    if paged and block_tables is None:
+        raise ValueError("a paged cache needs block_tables")
     B = x.shape[0]
     if ctx is None:
-        ctx = decode_context(cfg, _row_positions(pos, B, x.device),
-                             block_tables, cache["kp"].shape[1])
-    q = _project(x, p["wq"], compute)
-    k = _project(x, p["wk"], compute)
-    v = _project(x, p["wv"], compute)
-    q = apply_rope(q, ctx["cos"], ctx["sin"])
-    k = apply_rope(k, ctx["cos"], ctx["sin"])
-    k_pool = _paged_write_rows(cache["kp"], k, ctx["write"])
-    v_pool = _paged_write_rows(cache["vp"], v, ctx["write"])
+        ctx = decode_context(cfg, _row_positions(pos, B, x.device), cache,
+                             block_tables)
+    q, k, v = _qkv(x, p, ctx, compute)
+    kc, vc = (cache["kp"], cache["vp"]) if paged else (cache["k"], cache["v"])
+    _write_rows(kc, k, ctx["write"])
+    _write_rows(vc, v, ctx["write"])
+    if cfg.attn_impl == "pallas":
+        if paged:
+            from repro_torch.kernels.paged_attention.ops import (
+                paged_decode_attention)
+            out = paged_decode_attention(q[:, 0].contiguous(), kc, vc,
+                                         block_tables, ctx["cache_len"])
+        else:
+            from repro_torch.kernels.decode_attention.ops import (
+                decode_attention)
+            out = decode_attention(q[:, 0].contiguous(), kc, vc,
+                                   ctx["cache_len"])
+        out = out[:, None]
+    elif paged:
+        out = decode_attend(q, _paged_gather(kc, block_tables),
+                            _paged_gather(vc, block_tables), ctx["cache_len"])
+    else:
+        out = decode_attend(q, kc, vc, ctx["cache_len"])
+    return _out_project(out, p["wo"], compute), cache
+
+
+def attention_verify(x, p, cfg, cache, pos, *, block_tables, ctx=None,
+                     compute=COMPUTE):
+    """Speculative-verify attention: S = k+1 positions of every row in ONE
+    forward.  x: (B,S,D); pos: (B,) absolute position of x[:,0]; paged
+    cache only (the engine gates speculation to paged KV), updated in
+    place; ``ctx`` the burst's `verify_context` (computed here when None).
+
+    Writes the S new KV rows at ``pos..pos+S-1`` (overflow past the table's
+    reach lands in the scratch block), then attends each query with its own
+    causal frontier ``cache_len = pos+s+1``.  The plain path loops the S
+    queries through `decode_attend`, the exact shapes, masks and reduction
+    order of a decode step; the kernel runs the decode kernel's arithmetic
+    per query.  Either way accepted speculative tokens are those of
+    spec="off" greedy decode.  Returns (out (B,S,D), cache)."""
+    _check_gqa(cfg)
+    if "kp" not in cache:
+        raise ValueError("attention_verify requires a paged KV cache")
+    B, S, _ = x.shape
+    if ctx is None:
+        ctx = verify_context(cfg, _row_positions(pos, B, x.device), S, cache,
+                             block_tables)
+    q, k, v = _qkv(x, p, ctx, compute)
+    kc = _write_rows(cache["kp"], k, ctx["write"])
+    vc = _write_rows(cache["vp"], v, ctx["write"])
     if cfg.attn_impl == "pallas":
         from repro_torch.kernels.paged_attention.ops import (
-            paged_decode_attention)
-        out = paged_decode_attention(q[:, 0].contiguous(), k_pool, v_pool,
-                                     block_tables, ctx["cache_len"])[:, None]
+            paged_verify_attention)
+        out = paged_verify_attention(q.contiguous(), kc, vc, block_tables,
+                                     ctx["pos"])
     else:
-        out = decode_attend(q, _paged_gather(k_pool, block_tables),
-                            _paged_gather(v_pool, block_tables),
-                            ctx["cache_len"])
-    return _out_project(out, p["wo"], compute), {"kp": k_pool, "vp": v_pool}
+        T = block_tables.shape[1] * kc.shape[1]
+        kg = _paged_gather(kc, block_tables)
+        vg = _paged_gather(vc, block_tables)
+        out = torch.cat([decode_attend(q[:, s:s + 1], kg, vg,
+                                       torch.clamp(ctx["pos"] + s + 1, max=T))
+                         for s in range(S)], dim=1)
+    return _out_project(out, p["wo"], compute), cache
 
 
 # ==========================================================================

@@ -230,16 +230,17 @@ def lm_prefill(params: LMParams, cfg, tokens, cache, *, compute=COMPUTE):
     return logits, [{k: torch.stack(v) for k, v in c.items()} for c in new]
 
 
-def lm_decode(params: LMParams, cfg, token, cache, pos, *, block_tables,
+def lm_decode(params: LMParams, cfg, token, cache, pos, *, block_tables=None,
               compute=COMPUTE):
-    """One paged decode step.  token: (B,1) int; pos: (B,) int32 absolute
-    position of the new token; ``block_tables`` (B, mb) serves every layer.
-    The pools in ``cache`` are updated in place.  Returns (logits (B,1,V)
-    f32, cache)."""
+    """One decode step.  token: (B,1) int; pos: (B,) int32 absolute
+    position of the new token; ``block_tables`` (B, mb) serves every layer
+    of a paged cache (None for a dense cache).  The caches in ``cache`` are
+    updated in place.  Returns (logits (B,1,V) f32, cache)."""
     slots = layer_slots(cfg)
     x = embed_lookup(token, params.embed, compute)
-    ctx = attn.decode_context(cfg, attn._row_positions(pos, x.shape[0], x.device),
-                              block_tables, cache[0]["kp"].shape[2])
+    ctx = attn.decode_context(
+        cfg, attn._row_positions(pos, x.shape[0], x.device), cache[0],
+        block_tables)
     for g in range(params.n_groups):
         gp = params.group(g)
         for i, _slot in enumerate(slots):
@@ -247,6 +248,42 @@ def lm_decode(params: LMParams, cfg, token, cache, pos, *, block_tables,
             h = apply_norm(x, p["mixer_norm"], cfg)
             layer_cache = {k: v[g] for k, v in cache[i].items()}
             h, _ = attn.attention_decode(h, p["mixer"], cfg, layer_cache, pos,
+                                         block_tables=block_tables, ctx=ctx,
+                                         compute=compute)
+            x = _ffn(x + h, p, cfg, compute)
+    x = apply_norm(x, params.final_norm, cfg)
+    return lm_logits(x, head_matrix(params, cfg), cfg.logit_softcap), cache
+
+
+def lm_verify(params: LMParams, cfg, tokens, cache, pos, *, block_tables,
+              compute=COMPUTE):
+    """Speculative-verify forward: score S = k+1 consecutive positions of
+    every row in ONE pass.  tokens: (B,S) int — ``tokens[:,0]`` is the
+    pending token at ``pos`` and ``tokens[:,1:]`` the draft proposals; pos:
+    (B,) int32 absolute position of tokens[:,0].  Structurally `lm_decode`
+    with an S-wide token axis: every position-wise op (embed, norms, MLP,
+    logits) batches over S, while attention gives each query the exact
+    single-token attend (`attention.attention_verify`), which keeps each
+    position's logits those of the sequential decode steps it replaces.
+    Paged attention-only archs.  Returns (logits (B,S,V) f32, cache)."""
+    slots = layer_slots(cfg)
+    for slot in slots:
+        if slot["mixer"] != "attn":
+            raise ValueError(
+                f"{cfg.name}: speculative verify needs every mixer to be "
+                "paged attention; SSM state rows advance one token at a time "
+                "and cannot roll back a rejected suffix")
+    x = embed_lookup(tokens, params.embed, compute)
+    ctx = attn.verify_context(
+        cfg, attn._row_positions(pos, x.shape[0], x.device), x.shape[1],
+        cache[0], block_tables)
+    for g in range(params.n_groups):
+        gp = params.group(g)
+        for i, _slot in enumerate(slots):
+            p = gp[i]
+            h = apply_norm(x, p["mixer_norm"], cfg)
+            layer_cache = {k: v[g] for k, v in cache[i].items()}
+            h, _ = attn.attention_verify(h, p["mixer"], cfg, layer_cache, pos,
                                          block_tables=block_tables, ctx=ctx,
                                          compute=compute)
             x = _ffn(x + h, p, cfg, compute)

@@ -1,37 +1,46 @@
-"""Batched serving engine: continuous batching over a PAGED KV cache.
+"""Batched serving engine: continuous batching over a paged (or dense) KV
+cache, with optional draft-and-verify speculative decoding.
 
 Port of ``repro.serving.engine`` for the unified-role, one-shot-prefill,
-non-speculative, single-device path.  The engine owns one block pool per
-attention slot — ``(n_groups, num_blocks, block_size, heads, dh)`` — plus
-a per-slot block table ``(slots, max_len // block_size)`` mapping logical
-position ``p`` of slot ``s`` to ``pool[table[s, p // bs], p % bs]``.  A
-host-side :class:`~repro_torch.serving.blockpool.BlockAllocator` hands out
-physical blocks at admission granularity (the request's whole reach:
-prompt bucket plus token budget, capped at ``max_len``), and eviction
-returns them all; the decode loop never touches the table.
+single-device path.  With ``kv="paged"`` (the default) the engine owns one
+block pool per attention slot — ``(n_groups, num_blocks, block_size,
+heads, dh)`` — plus a per-slot block table ``(slots, max_len //
+block_size)`` mapping logical position ``p`` of slot ``s`` to
+``pool[table[s, p // bs], p % bs]``.  A host-side
+:class:`~repro_torch.serving.blockpool.BlockAllocator` hands out physical
+blocks at admission granularity (the request's whole reach: prompt bucket
+plus token budget, capped at ``max_len``), and eviction returns them all;
+the decode loop never touches the table.  ``kv="dense"`` keeps a
+``(slots, max_len)`` ring per slot instead: the ablation, bitwise equal to
+paged decode (same shapes, same masks, same reduction order).
 
-* **prefix reuse** — admission hashes the padded prompt per full block
-  (chain hash, so a hit guarantees bit-identical KV); matching leading
-  blocks are mapped into the slot's table copy-free with a refcount bump.
-  One-shot admission still recomputes the whole prefill and skips the
-  shared blocks' scatter.
+* **prefix reuse** (paged) — admission hashes the padded prompt per full
+  block (chain hash, so a hit guarantees bit-identical KV); matching
+  leading blocks are mapped into the slot's table copy-free with a
+  refcount bump.  One-shot admission still recomputes the whole prefill
+  and skips the shared blocks' scatter.
 * **per-slot positions** — after admission into slot ``s`` with bucket
   ``plen``, ``pos[s] == plen`` and rows ``0..plen-1`` hold the left-padded
   prompt KV; each decode step writes row ``s`` at ``pos[s]`` and advances
   it, so admitting a request mid-decode leaves the other slots' streams
   bitwise identical to a solo run.  Free slots keep stepping over the
-  scratch block 0.
-* **one transfer per step** — the decode step is device-resident and
-  returns one packed ``(2, slots)`` int32 tensor (tokens, done flags); its
-  one ``.cpu()`` copy is the only device->host transfer of a step
+  scratch block 0 (paged) or their own row (dense).
+* **speculative decoding** (``spec="draft"``, paged only) — each step runs
+  ``spec_k`` draft decodes into shadow pools addressed by the target's
+  block ids, then one ``spec_k + 1``-query verify forward of the target;
+  greedy acceptance commits exactly the tokens of ``spec="off"``.  A
+  rejected suffix is rolled back by not advancing the frontier.
+* **one transfer per step** — the step is device-resident and returns one
+  packed int32 tensor (``(2, slots)`` tokens and done flags, or ``(k+3,
+  slots)`` accepted lengths, done flags and verified tokens); its one
+  ``.cpu()`` copy is the only device->host transfer of a step
   (``d2h_transfers == steps``).  Table maintenance is host->device only.
 
 The JAX engine jits the step and donates the decode state; here the step
-runs eagerly and updates the pools in place (``index_put_``), which is the
-same memory behaviour.  CUDA graphs of the step are a later change.
-Chunked prefill, the dense-KV ablation, speculative decoding, tensor
-parallelism and the disaggregated roles are later slices: asking for them
-raises ``NotImplementedError``.
+runs eagerly and updates the caches in place (``index_put_``), which is
+the same memory behaviour.  CUDA graphs of the step are a later change.
+Chunked prefill, tensor parallelism and the disaggregated roles are later
+slices: asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -109,6 +118,91 @@ def make_engine_step(bundle, max_len: int):
     return step
 
 
+def make_draft_step(bundle, k: int, max_len: int):
+    """The draft half of a speculative step: ``k`` autoregressive draft
+    decodes (a Python loop; nothing is read back to the host).  The draft
+    writes its KV into its OWN paged pools, addressed by the TARGET's block
+    tables — same physical block ids, so admission/eviction bookkeeping
+    covers both caches.  Returns ``(drafts (slots, k) int32, draft
+    cache)``."""
+
+    def draft(params, cache, token, pos, block_tables):
+        state = {"cache": cache, "token": token, "pos": pos,
+                 "block_tables": block_tables}
+        toks = []
+        for _ in range(k):
+            # clamp the write position: a row whose speculative reach
+            # crosses max_len keeps overwriting its last in-bounds
+            # position, a block only this row owns (prefix sharing never
+            # reaches the final position's block); drafts past the end are
+            # never accepted (acceptance clamps at max_len - pos)
+            _, nst = bundle.decode(
+                params, {**state, "pos": torch.clamp(state["pos"],
+                                                     max=max_len - 1)})
+            state = {**nst, "pos": state["pos"] + 1}
+            toks.append(nst["token"][:, 0])
+        return torch.stack(toks, dim=1), state["cache"]
+
+    return draft
+
+
+def make_verify_step(bundle, max_len: int, k: int):
+    """The verify half of a speculative step: ONE batched (k+1)-position
+    target forward over [pending token, k drafts], then greedy acceptance
+    (truncate at the first draft/target mismatch), budget debit and done
+    mask, all on the device.  The packed return is one (k+3, slots) int32
+    tensor: row 0 the accepted length ``a`` (0 for free slots), row 1 the
+    done flags, rows 2..k+2 the k+1 target-verified tokens (the host
+    appends the first ``a``).  A rejected suffix needs no device work to
+    roll back: the frontier does not advance over it, the next step's
+    writes land at the committed frontier and overwrite it, and each
+    query's causal mask hides anything past its own position."""
+
+    def step(params, state, active, budget, drafts):
+        tokens = torch.cat([state["token"], drafts], dim=1)
+        logits, new_state = bundle.verify(params, tokens, state)
+        preds = torch.argmax(logits, dim=-1).to(torch.int32)   # (B, k+1)
+        # t_{s+1} is valid iff its input d_s matched the target's own pick
+        # t_s at every position up to s: cumprod of the match mask
+        match = (preds[:, :k] == drafts).to(torch.int32)
+        a = 1 + torch.cumprod(match, dim=1, dtype=torch.int32).sum(
+            dim=1, dtype=torch.int32)
+        # clamp to the slot's budget and max_len room (verify probes up to
+        # k positions past both; the overshoot is never committed), zero
+        # for free slots
+        a = torch.minimum(a, torch.minimum(budget, max_len - state["pos"]))
+        a = torch.clamp(a, min=0) * active.to(torch.int32)
+        budget = budget - a
+        pos = state["pos"] + a
+        done = active & ((budget <= 0) | (pos >= max_len))
+        token = torch.gather(preds, 1, torch.clamp(a - 1, min=0)[:, None]
+                             .long())
+        token = torch.where(active[:, None], token, state["token"])
+        packed = torch.cat([a[None], done.to(torch.int32)[None], preds.T])
+        return (packed, {**new_state, "token": token, "pos": pos},
+                active & ~done, budget)
+
+    return step
+
+
+def spec_ineligible_reason(cfg, kv: str) -> str | None:
+    """Why an arch cannot run draft-and-verify speculation (None == it
+    can).  Instead of failing, the engine records the reason and serves
+    non-speculatively."""
+    if cfg.is_encdec:
+        return "enc-dec archs have no decoder-only verify path"
+    if cfg.is_attention_free or cfg.ssm is not None:
+        return ("SSM state rows advance one token at a time and cannot "
+                "roll back a rejected speculative suffix")
+    if cfg.sliding_window is not None:
+        return ("SWA rolling rings overwrite history in place and cannot "
+                "roll back a rejected speculative suffix")
+    if kv != "paged":
+        return ("speculative rollback rides the paged block tables; "
+                "kv='dense' has no frontier to truncate")
+    return None
+
+
 def _later(what: str, value, slice_name: str):
     raise NotImplementedError(
         f"{what}={value!r} is not in this slice of the port; it comes with "
@@ -116,47 +210,73 @@ def _later(what: str, value, slice_name: str):
 
 
 class ServeEngine:
-    """Continuous-batching engine over a paged KV cache, on ``device``
-    ("cuda" by default; a missing card raises).
+    """Continuous-batching engine on ``device`` ("cuda" by default; a
+    missing card raises).  ``params`` is the port's :class:`LMParams` on
+    that device.
 
-    ``params`` is the port's :class:`LMParams` on that device.  This slice
-    serves ``kv="paged"``, ``prefill="oneshot"``, ``spec="off"``,
-    ``role="unified"`` and ``mesh=None``."""
+    * ``kv`` — "paged" (default for decoder LMs) or "dense" (the ablation).
+    * ``spec`` — "off" or "draft": ``spec_k`` draft tokens per step from
+      ``draft_cfg`` (None: the target drafts for itself) with
+      ``draft_params`` (None: ``build_model(draft_cfg).init(0)``), verified
+      by one target forward.  An arch or layout that cannot roll back a
+      rejected suffix serves with ``spec="off"`` and records why in
+      ``spec_fallback_reason``.
+
+    This slice serves ``prefill="oneshot"``, ``role="unified"`` and
+    ``mesh=None``."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  kv: str | None = None, block_size: int = 16,
                  num_blocks: int | None = None, prefill: str = "oneshot",
                  prefix_sharing: bool = True, bundle=None, spec: str = "off",
-                 mesh=None, role: str = "unified", device="cuda"):
-        if kv not in (None, "paged"):
-            _later("kv", kv, "dense-KV ablation slice")
+                 spec_k: int = 4, draft_cfg=None, draft_params=None,
+                 draft_bundle=None, mesh=None, role: str = "unified",
+                 device="cuda"):
         if prefill != "oneshot":
             _later("prefill", prefill, "chunked-prefill slice")
-        if spec != "off":
-            _later("spec", spec, "speculative-decoding slice")
         if role != "unified":
             _later("role", role, "disaggregated prefill/decode slice")
         if mesh is not None:
             _later("mesh", mesh, "tensor-parallel serving slice")
+        if spec not in ("off", "draft"):
+            raise ValueError(f"spec must be 'off' or 'draft', got {spec!r}")
         self.device = resolve_device(device)
         if params.embed.device != self.device:
             raise ValueError(f"params live on {params.embed.device}, the "
                              f"engine on {self.device}")
+        # an arch pages only if some attention layer's per-token state can
+        # live in blocks (all-SWA rings and pure SSM state cannot)
+        pages = (not cfg.is_encdec and not cfg.is_attention_free
+                 and (cfg.mla is not None or cfg.sliding_window is None))
+        if kv is None or (kv == "paged" and not pages):
+            kv = "paged" if pages else "dense"
+        if kv not in ("paged", "dense"):
+            raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
         self.cfg = cfg
         self.params = params
         self.slots = slots
         self.max_len = max_len
-        self.kv = "paged"
+        self.kv = kv
         self.role = role
         self.block_size = block_size
         self.bundle = bundle or build_model(cfg)
-        nb = num_blocks or default_num_blocks(slots, max_len, block_size)
-        self.allocator = BlockAllocator(nb, block_size)
-        self.prefix = PrefixCache(self.allocator) if prefix_sharing else None
-        self.state = init_decode_state(cfg, slots, max_len, kv="paged",
-                                       num_blocks=nb, block_size=block_size,
-                                       device=self.device)
-        self.max_blocks_per_slot = max_len // block_size
+        if kv == "paged":
+            nb = num_blocks or default_num_blocks(slots, max_len, block_size)
+            self._num_blocks = nb
+            self.allocator = BlockAllocator(nb, block_size)
+            self.prefix = PrefixCache(self.allocator) if prefix_sharing else None
+            self.state = init_decode_state(cfg, slots, max_len, kv="paged",
+                                           num_blocks=nb,
+                                           block_size=block_size,
+                                           device=self.device)
+            self.max_blocks_per_slot = max_len // block_size
+        else:
+            self._num_blocks = 0
+            self.allocator = None
+            self.prefix = None
+            self.state = init_decode_state(cfg, slots, max_len, kv="dense",
+                                           device=self.device)
+            self.max_blocks_per_slot = 0
         self.budget = torch.zeros((slots,), dtype=torch.int32,
                                   device=self.device)
         self.active = torch.zeros((slots,), dtype=torch.bool,
@@ -176,15 +296,73 @@ class ServeEngine:
         self.prefix_hit_tokens = 0
         self._kv_util_sum = 0.0
         self.kv_peak_live_tokens = 0
-        self.tokens_emitted = 0
+        self.tokens_emitted = 0        # committed tokens (all modes)
+        # speculative-decode accounting (all zero when spec == "off")
+        self.spec_drafted = 0          # draft proposals scored by verify
+        self.spec_accepted = 0         # of those, committed to requests
+        self.draft_time_s = 0.0        # time inside the draft chain
+        self._draft_events = None      # CUDA events around this step's chain
         self._step_fn = make_engine_step(self.bundle, max_len)
         self._prefill = self.bundle.prefill
+
+        # ---- speculative decoding: draft-and-verify multi-token steps ----
+        self.spec = "off"
+        self.spec_k = int(spec_k)
+        self.spec_fallback_reason = None
+        if spec == "draft":
+            reason = spec_ineligible_reason(cfg, self.kv)
+            if reason is None and draft_cfg is not None:
+                dr = spec_ineligible_reason(draft_cfg, "paged")
+                if dr is not None:
+                    reason = f"draft arch: {dr}"
+                elif draft_cfg.vocab_size != cfg.vocab_size:
+                    reason = ("draft vocab differs from target "
+                              f"({draft_cfg.vocab_size} vs "
+                              f"{cfg.vocab_size}); proposals would not be "
+                              "target token ids")
+            if reason is not None:
+                self.spec_fallback_reason = reason
+            else:
+                self.spec = "draft"
+        if self.spec == "draft":
+            # draft_cfg None == self-draft: the target proposes for itself
+            # (the upper-bound ablation; every proposal is accepted)
+            self.draft_cfg = draft_cfg or cfg
+            self.draft_bundle = draft_bundle or (
+                self.bundle if draft_cfg is None
+                else build_model(self.draft_cfg))
+            if draft_params is not None:
+                self.draft_params = draft_params
+            elif draft_cfg is None:
+                self.draft_params = params
+            else:
+                # a fixed seed: every engine builds the same draft weights
+                self.draft_params = self.draft_bundle.init(
+                    0, device=self.device)
+            if self.draft_params.embed.device != self.device:
+                raise ValueError(f"draft params live on "
+                                 f"{self.draft_params.embed.device}, the "
+                                 f"engine on {self.device}")
+            # the draft's pools shadow the target's: same num_blocks and
+            # block_size, addressed through the SAME block-table ids, so
+            # admission/eviction bookkeeping covers both caches at once
+            self._draft_cache = init_decode_state(
+                self.draft_cfg, slots, max_len, kv="paged",
+                num_blocks=self._num_blocks, block_size=block_size,
+                device=self.device)["cache"]
+            self._draft_fn = make_draft_step(self.draft_bundle, self.spec_k,
+                                             max_len)
+            self._verify_fn = make_verify_step(self.bundle, max_len,
+                                               self.spec_k)
+            self._draft_prefill = self.draft_bundle.prefill
 
     # ------------------------------------------------------------------
 
     @property
     def kv_capacity_tokens(self) -> int:
-        return self.allocator.capacity_tokens
+        if self.kv == "paged":
+            return self.allocator.capacity_tokens
+        return self.slots * self.max_len
 
     def submit(self, req: Request):
         """Queue a request.  A prompt that cannot fit the KV budget (prompt
@@ -196,7 +374,7 @@ class ServeEngine:
         plen = admit_length(len(req.prompt), self.max_len)
         end_max = min(plen + req.max_new_tokens, self.max_len)
         need = -(-end_max // self.block_size)
-        if need > self.allocator.capacity_blocks:
+        if self.kv == "paged" and need > self.allocator.capacity_blocks:
             raise ValueError(
                 f"request needs {need} KV blocks (prompt bucket {plen} "
                 f"+ budget {req.max_new_tokens}) but the pool holds "
@@ -227,35 +405,42 @@ class ServeEngine:
         bs = self.block_size
         padded = np.zeros((plen,), np.int32)
         padded[-len(req.prompt):] = req.prompt                # left-pad
-        end_max = min(plen + req.max_new_tokens, self.max_len)
-        total_blocks = -(-end_max // bs)
-        n_full = plen // bs
-        # keep >= 1 prompt position outside the shared prefix
-        shareable = min(n_full, (plen - 1) // bs)
-        keys = (PrefixCache.block_keys(padded, bs, n_full)
-                if self.prefix is not None else [])
-        hit = self.prefix.match(keys[:shareable]) if self.prefix else []
-        need = total_blocks - len(hit)
-        if self.allocator.available_blocks < need:
-            if self.prefix is not None:
-                self.prefix.evict_unreferenced(
-                    need - self.allocator.available_blocks)
+        row, keys, nhit, shareable = [], [], 0, 0
+        if self.kv == "paged":
+            end_max = min(plen + req.max_new_tokens, self.max_len)
+            total_blocks = -(-end_max // bs)
+            n_full = plen // bs
+            # keep >= 1 prompt position outside the shared prefix
+            shareable = min(n_full, (plen - 1) // bs)
+            keys = (PrefixCache.block_keys(padded, bs, n_full)
+                    if self.prefix is not None else [])
+            hit = self.prefix.match(keys[:shareable]) if self.prefix else []
+            need = total_blocks - len(hit)
             if self.allocator.available_blocks < need:
-                for bid in hit:                        # undo the match refs
-                    self.allocator.free(bid)
-                self.blocked_admissions += 1
-                return False
-        row = hit + [self.allocator.alloc() for _ in range(need)]
-        self._slot_blocks[si] = list(row)
-        self.prefix_hit_tokens += len(hit) * bs
+                if self.prefix is not None:
+                    self.prefix.evict_unreferenced(
+                        need - self.allocator.available_blocks)
+                if self.allocator.available_blocks < need:
+                    for bid in hit:                    # undo the match refs
+                        self.allocator.free(bid)
+                    self.blocked_admissions += 1
+                    return False
+            row = hit + [self.allocator.alloc() for _ in range(need)]
+            self._slot_blocks[si] = list(row)
+            nhit = len(hit)
+            self.prefix_hit_tokens += nhit * bs
         self.prompt_tokens_total += plen
 
         tokens = torch.as_tensor(padded[None], device=self.device)
         logits, cache = self._prefill(self.params, {"tokens": tokens})
         nxt = int(torch.argmax(logits[0, -1]))                # admission-time
-        _install_slot_paged(self.state, cache, si, plen, nxt, row, len(hit),
-                            bs)
-        self._publish_prefix(keys, row, len(hit), shareable)
+        if self.kv == "paged":
+            _install_slot_paged(self.state, cache, si, plen, nxt, row, nhit,
+                                bs)
+            self._publish_prefix(keys, row, nhit, shareable)
+            self._install_draft(tokens, row, nhit)
+        else:
+            _install_slot(self.state, cache, si, plen, nxt)
         self._finish_admission(si, req, plen, nxt)
         return True
 
@@ -279,12 +464,35 @@ class ServeEngine:
         for j in range(nhit, shareable):
             self.prefix.publish(keys[j], row[j])
 
+    def _install_draft(self, tokens, row, nhit: int):
+        """Prompt-prefill the DRAFT model for a freshly admitted request and
+        scatter its KV into the draft pools at the same physical block ids
+        the target admission mapped.  Prefix-hit blocks are skipped: the
+        admission that published a shared block already left bit-identical
+        draft KV there (draft prefill is deterministic), and writing it
+        again would write a shared block twice."""
+        if self.spec != "draft":
+            return
+        _, dcache = self._draft_prefill(self.draft_params, {"tokens": tokens})
+        _install_draft_paged(self._draft_cache, dcache, row, nhit,
+                             self.block_size)
+
     def _evict_slot(self, si: int):
+        # Frontier truncation doubles as the speculative rollback: a cancel
+        # or eviction can land MID-VERIFY, with draft/verify KV written up
+        # to spec_k positions past the committed frontier (in the target
+        # and the shadow draft pools).  Speculation never allocates
+        # (admission maps the request's whole reach), so every frontier
+        # extension lives in blocks this row already owns or in the
+        # scratch block; freeing `_slot_blocks` releases all of them and
+        # zeroing the table row makes the stale entries unreachable.  One
+        # free per admission-time alloc/share, nothing left to leak.
         m = self.slot_meta[si]
-        for bid in self._slot_blocks[si]:
-            self.allocator.free(bid)
-        self._slot_blocks[si] = []
-        self.state["block_tables"][si] = 0
+        if self.kv == "paged":
+            for bid in self._slot_blocks[si]:
+                self.allocator.free(bid)
+            self._slot_blocks[si] = []
+            self.state["block_tables"][si] = 0
         m.rid = -1
         m.active = False
         self._host_pos[si] = 0
@@ -317,35 +525,79 @@ class ServeEngine:
 
     def step(self) -> int:
         """One engine iteration: admit into free slots, then one batched
-        decode step.  Returns the number of live slots decoded."""
+        decode step (or one draft-and-verify step).  Returns the number of
+        tokens committed to live requests."""
         t_tick = time.monotonic()
         self._admit()
         actives = [si for si, m in enumerate(self.slot_meta) if m.active]
         if not actives:
             return 0
-        packed, self.state, self.active, self.budget = self._step_fn(
-            self.params, self.state, self.active, self.budget)
+        if self.spec == "draft":
+            packed = self._spec_step()
+        else:
+            packed, self.state, self.active, self.budget = self._step_fn(
+                self.params, self.state, self.active, self.budget)
         self.steps += 1
         self.idle_slot_steps += self.slots - len(actives)
         out = packed.cpu().numpy()      # THE one device->host copy of a step
         self.d2h_transfers += 1
-        toks, dones = out[0], out[1]
+        if self.spec == "draft":
+            acc, dones, tok_rows = out[0], out[1], out[2:]
+            if self._draft_events is not None:
+                self.draft_time_s += (self._draft_events[0].elapsed_time(
+                    self._draft_events[1]) / 1e3)
+        else:
+            acc = np.ones((self.slots,), np.int64)
+            dones, tok_rows = out[1], out[:1]
+        emitted = 0
         for si in actives:
-            self._host_pos[si] += 1
+            self._host_pos[si] += int(acc[si])
+            emitted += int(acc[si])
         self._sample_kv_pressure()         # before evictions
         now = time.monotonic()
         for si in actives:
             meta = self.slot_meta[si]
             req = self._live[meta.rid]
-            req.tokens.append(int(toks[si]))
+            req.tokens.extend(int(tok_rows[s][si])
+                              for s in range(int(acc[si])))
             if dones[si]:
                 req.done_s = now - req.submitted
                 self.done[req.rid] = req
                 del self._live[meta.rid]
                 self._evict_slot(si)
-        self.tokens_emitted += len(actives)
+        if self.spec == "draft":
+            self.spec_drafted += self.spec_k * len(actives)
+            # of each slot's a committed tokens, a-1 were draft proposals
+            # the target ratified; the last is the target's own next token
+            self.spec_accepted += emitted - len(actives)
+        self.tokens_emitted += emitted
         self._tick_times.append(time.monotonic() - t_tick)
-        return len(actives)
+        return emitted
+
+    def _spec_step(self):
+        """The draft chain, then the verify step; returns the packed
+        (k+3, slots) tensor.  The drafts stay on the device and feed verify
+        directly; nothing is read back here.  On a card the chain's time is
+        taken with CUDA events, read after the step's one copy (which
+        waits for the device); on the CPU every op is synchronous and the
+        host clock measures it."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            self._draft_events = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+            self._draft_events[0].record()
+        else:
+            t0 = time.monotonic()
+        drafts, self._draft_cache = self._draft_fn(
+            self.draft_params, self._draft_cache, self.state["token"],
+            self.state["pos"], self.state["block_tables"])
+        if cuda:
+            self._draft_events[1].record()
+        else:
+            self.draft_time_s += time.monotonic() - t0
+        packed, self.state, self.active, self.budget = self._verify_fn(
+            self.params, self.state, self.active, self.budget, drafts)
+        return packed
 
     def warm_admission(self):
         """Run one prefill per admit-length bucket ahead of the first
@@ -353,17 +605,21 @@ class ServeEngine:
         not land on a live request."""
         assert not self._live, "warm on an idle engine"
         for pb in admit_buckets(self.max_len):
-            logits, _ = self._prefill(
-                self.params,
-                {"tokens": torch.zeros((1, pb), dtype=torch.int32,
-                                       device=self.device)})
+            batch = {"tokens": torch.zeros((1, pb), dtype=torch.int32,
+                                           device=self.device)}
+            self._prefill(self.params, batch)
+            if self.spec == "draft":
+                self._draft_prefill(self.draft_params, batch)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def block_leaks(self) -> int:
         """KV block leak audit for an IDLE engine: drops the prefix cache's
         unreferenced blocks and returns how many blocks remain allocated
-        (zero when every admit/cancel path balanced its refcounts)."""
+        (zero when every admit/cancel path balanced its refcounts; always
+        zero for a dense cache, which has no blocks)."""
+        if self.kv != "paged":
+            return 0
         assert not self._live and not self.queue, \
             "block_leaks() on a busy engine"
         if self.prefix is not None:
@@ -381,7 +637,7 @@ class ServeEngine:
     def kv_pressure(self) -> dict:
         """Instantaneous cache-pressure sample for heartbeat telemetry."""
         live = self._live_tokens()
-        allocated = self.allocator.allocated_blocks * self.block_size
+        allocated = self._allocated_tokens()
         return {
             "kv": self.kv,
             "role": self.role,
@@ -393,13 +649,20 @@ class ServeEngine:
             "prefix_hit_rate": (self.prefix_hit_tokens
                                 / self.prompt_tokens_total
                                 if self.prompt_tokens_total else 0.0),
+            "acceptance_rate": (self.spec_accepted / self.spec_drafted
+                                if self.spec_drafted else 0.0),
             "tokens_per_step": (self.tokens_emitted / self.steps
                                 if self.steps else 0.0),
         }
 
+    def _allocated_tokens(self) -> int:
+        if self.kv == "paged":
+            return self.allocator.allocated_blocks * self.block_size
+        return self.slots * self.max_len
+
     def _sample_kv_pressure(self):
         live = self._live_tokens()
-        allocated = self.allocator.allocated_blocks * self.block_size
+        allocated = self._allocated_tokens()
         if allocated:
             self._kv_util_sum += live / allocated
         self.kv_peak_live_tokens = max(self.kv_peak_live_tokens, live)
@@ -473,7 +736,13 @@ class ServeEngine:
                                 / self.prompt_tokens_total
                                 if self.prompt_tokens_total else 0.0),
             "blocked_admissions": self.blocked_admissions,
+            "spec": self.spec,
+            "spec_k": self.spec_k if self.spec != "off" else 0,
+            "spec_fallback_reason": self.spec_fallback_reason,
+            "acceptance_rate": (self.spec_accepted / self.spec_drafted
+                                if self.spec_drafted else 0.0),
             "tokens_per_step": decoded / self.steps if self.steps else 0.0,
+            "draft_overhead_s": self.draft_time_s,
             "slots": self.slots,
             "kv_pool_bytes": self.kv_pool_bytes(),
             "device": str(self.device),
@@ -481,6 +750,29 @@ class ServeEngine:
 
 
 # --------------------------------------------------------------------------
+
+
+def _install_slot(state, prefill_cache, slot: int, plen: int,
+                  next_token: int):
+    """Install a one-shot prefill into row ``slot`` of the DENSE decode
+    state IN PLACE: each ring row takes the prefill's rows (zeros past
+    them), then the slot's token and position are set."""
+    for st_leaf, pf_leaf in zip(state["cache"], prefill_cache):
+        for key, dst in st_leaf.items():
+            _merge_row(dst, pf_leaf[key], slot)
+    state["token"][slot, 0] = next_token
+    state["pos"][slot] = plen
+    return state
+
+
+def _merge_row(dst, src, slot: int):
+    """Write prefill leaf ``src`` (groups, 1, T', ...) into row ``slot`` of
+    the engine leaf ``dst`` (groups, B, T, ...) in place, cropped or
+    zero-padded to T."""
+    rows = src[:, 0, :dst.shape[2]]
+    dst[:, slot, :rows.shape[1]] = rows.to(dst.dtype)
+    dst[:, slot, rows.shape[1]:] = 0
+    return dst
 
 
 def _install_slot_paged(state, prefill_cache, slot: int, plen: int,
@@ -500,6 +792,17 @@ def _install_slot_paged(state, prefill_cache, slot: int, plen: int,
     state["pos"][slot] = plen
     state["block_tables"][slot] = torch.from_numpy(row_arr)
     return state
+
+
+def _install_draft_paged(cache, prefill_cache, row: list, nhit: int,
+                         block_size: int):
+    """Scatter a DRAFT-model prefill into the draft's shadow block pools IN
+    PLACE, at the same physical ids the target admission mapped (hit
+    blocks untouched).  Spec eligibility makes every draft leaf paged."""
+    for st_leaf, pf_leaf in zip(cache, prefill_cache):
+        _scatter_blocks(st_leaf["kp"], pf_leaf["k"], row, nhit, block_size)
+        _scatter_blocks(st_leaf["vp"], pf_leaf["v"], row, nhit, block_size)
+    return cache
 
 
 def _scatter_blocks(pool, src, row: list, nhit: int, block_size: int):

@@ -8,7 +8,9 @@ machine with the card as it is:
 
 Inputs are bf16 at the main path's shapes (smollm-360m: 15 heads, 5 KV
 heads, head dim 64, d_model 960); tolerances are those of
-tests/test_kernels.py: attention rtol=5e-2, atol=2e-2; RMSNorm 5e-2.
+tests/test_kernels.py: attention rtol=5e-2, atol=2e-2; RMSNorm 5e-2.  The
+verify and dense decode kernels share the paged decode kernel's block
+body, so they are also held to it bitwise.
 """
 
 from __future__ import annotations
@@ -17,10 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.paged_attention.ops import (
-    paged_decode_attention, paged_decode_attention_plain)
+    paged_decode_attention, paged_decode_attention_plain,
+    paged_verify_attention, paged_verify_attention_plain)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
 
 pytestmark = pytest.mark.gpu
@@ -94,3 +99,78 @@ def test_rmsnorm_kernel_matches_plain(card, R, with_residual):
     sc = torch.from_numpy(rng.normal(size=(960,)).astype(np.float32) * 0.1).to(card)
     for got, want in zip(rmsnorm_fused(x, sc, r), rmsnorm_plain(x, sc, r)):
         torch.testing.assert_close(got.float(), want.float(), **NORM_TOL)
+
+
+def _pool_with_nan(rng, dev, tables, reach, nb, bs, K, Dh):
+    """Pools with NaN in every row no query reads (reach[b] positions of
+    row b are read)."""
+    read = np.zeros((nb, bs), bool)
+    for b, n in enumerate(reach):
+        p = np.arange(n)
+        read[tables[b, p // bs], p % bs] = True
+    kp, vp = _bf16(rng, (nb, bs, K, Dh), dev), _bf16(rng, (nb, bs, K, Dh), dev)
+    unread = torch.from_numpy(~read).to(dev)
+    kp[unread] = float("nan")
+    vp[unread] = float("nan")
+    return kp, vp
+
+
+@pytest.mark.parametrize("H,K,Dh", [(15, 5, 64), (3, 1, 20)])
+def test_paged_verify_kernel_matches_plain_and_decode(card, H, K, Dh):
+    """S = 5 queries per row at ragged offsets, one of them overflowing the
+    table (q_off = mb*bs - 2), a free slot over the scratch block: within
+    tolerance of the plain version, and query s bitwise the paged decode
+    kernel at cache_len = min(q_off + s + 1, mb*bs)."""
+    rng = np.random.default_rng(3)
+    B, S, bs, mb = 8, 5, 16, 64
+    T, nb = mb * bs, B * mb + 1
+    tables = rng.permutation(np.arange(1, nb)).reshape(B, mb).astype(np.int32)
+    tables[2] = 0
+    off = np.array([0, T - 2, 37, 500, 17, 15, 333, 900], np.int32)
+    kp, vp = _pool_with_nan(rng, card, tables, np.minimum(off + S, T), nb,
+                            bs, K, Dh)
+    q = _bf16(rng, (B, S, H, Dh), card)
+    tb, qo = torch.from_numpy(tables).to(card), torch.from_numpy(off).to(card)
+    before = paged_verify_attention.launches
+    out = paged_verify_attention(q, kp, vp, tb, qo)
+    assert paged_verify_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), paged_verify_attention_plain(q, kp, vp, tb, qo).float(),
+        **ATTN_TOL)
+    for s in range(S):
+        one = paged_decode_attention(q[:, s].contiguous(), kp, vp, tb,
+                                     torch.clamp(qo + s + 1, max=T))
+        assert torch.equal(out[:, s], one), s
+
+
+@pytest.mark.parametrize("H,K,Dh", [(15, 5, 64), (3, 1, 20)])
+def test_decode_attention_kernel_matches_plain_and_paged(card, H, K, Dh):
+    """Dense rings (B, T, K, Dh) with ragged lengths 1..T and NaN past
+    them: within tolerance of the plain version, and bitwise the paged
+    decode kernel over the same rows scattered into a permuted pool."""
+    rng = np.random.default_rng(4)
+    B, bs, mb = 8, 16, 64
+    T, nb = mb * bs, B * mb + 1
+    lens = np.array([1, T, 37, 500, 17, 16, 333, 900], np.int32)
+    kc, vc = _bf16(rng, (B, T, K, Dh), card), _bf16(rng, (B, T, K, Dh), card)
+    past = torch.arange(T, device=card)[None] >= torch.from_numpy(lens).to(
+        card)[:, None]
+    kc[past] = float("nan")
+    vc[past] = float("nan")
+    q = _bf16(rng, (B, H, Dh), card)
+    ln = torch.from_numpy(lens).to(card)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, ln)
+    assert decode_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), decode_attention_plain(q, kc, vc, ln).float(), **ATTN_TOL)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb)).reshape(
+        B, mb).astype(np.int32)).to(card)
+    pools = []
+    for c in (kc, vc):
+        pool = torch.zeros((nb, bs, K, Dh), dtype=torch.bfloat16, device=card)
+        pool[tables.reshape(-1).long()] = c.reshape(B * mb, bs, K, Dh)
+        pools.append(pool)
+    assert torch.equal(out, paged_decode_attention(q, *pools, tables, ln))

@@ -254,8 +254,7 @@ def test_serve_direct_answers_a_trace():
     assert stats["block_leaks"] == 0
 
 
-@pytest.mark.parametrize("kw", [dict(kv="dense"), dict(prefill="chunked"),
-                                dict(spec="draft"), dict(role="prefill"),
+@pytest.mark.parametrize("kw", [dict(prefill="chunked"), dict(role="prefill"),
                                 dict(mesh=object())])
 def test_later_slices_raise(model, kw):
     with pytest.raises(NotImplementedError, match="later|slice"):
