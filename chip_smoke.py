@@ -42,6 +42,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the kernels and with the plain path; logits compared.  Then
               one verify forward of [pending, 4 forced tokens] against the
               5 sequential decode steps it replaces.
+7. moe_serve — the serve trace on full-width granite-moe-3b-a800m (random
+              weights from seed 0; 40 experts, top 8): admission prefill
+              runs the MoE FFN through the grouped-matmul kernel (3
+              launches a layer), decode the dense-gated MoE.  The gates of
+              phase 3, and the grouped-matmul, flash, paged decode and
+              RMSNorm kernels each launched.
+8. moe_model — granite teacher-forced as in phase 6 (kernels, moe "gmm",
+              against the plain path, moe "einsum"); logits compared, and
+              how often the router's top-k expert sets of the two runs
+              agree (token x layer) reported.
+
+The kernels phase also checks every kernel at granite's shapes (24 heads,
+8 KV heads, d_model 1536) and the grouped matmul at its capacity buckets
+(C = 256 and the ragged 136), ragged group sizes and an empty group.
 
 Lines of JSON report each phase; the line before the last is nvidia-smi's
 name and power limit; the last line is
@@ -71,6 +85,7 @@ F32_FLOPS = 67e12
 
 ATTN_TOL = dict(rtol=5e-2, atol=2e-2)     # tests/test_kernels.py:54
 NORM_TOL = dict(rtol=5e-2, atol=5e-2)     # tests/test_kernels.py:193
+GMM_TOL = dict(rtol=5e-2, atol=5e-2)      # tests/test_kernels.py:166
 # At S = 1023 or cache_len ~1000 an attention output is ~N(0, 1/n), about
 # 0.03-0.07, so the elementwise bound above is half a typical value.  Each
 # output row (one query head, Dh values) is also held to
@@ -86,6 +101,8 @@ LOGIT_TOL = dict(rtol=5e-2, atol=1e-1)
 
 SERVE = dict(n_requests=16, slots=8, max_len=1024, seed=0,
              prompt_len=(24, 900), max_new_tokens=64)
+DENSE_ARCH = "smollm-360m"
+MOE_ARCH = "granite-moe-3b-a800m"
 
 
 def say(obj):
@@ -169,6 +186,10 @@ def check_paged(rng, dev):
         # 8 * 64 + 1 blocks of 16; lengths 1 and mb*bs, row 2 a free slot
         "main": dict(B=8, H=15, K=5, Dh=64, bs=16, mb=64,
                      lens=[1, 1024, 37, 500, 17, 16, 333, 900], scratch_row=2),
+        # granite-moe-3b-a800m decode: 24 heads / 8 kv heads
+        "granite": dict(B=8, H=24, K=8, Dh=64, bs=16, mb=64,
+                        lens=[1, 1024, 37, 500, 17, 16, 333, 900],
+                        scratch_row=2),
         "smoke": dict(B=3, H=3, K=1, Dh=20, bs=16, mb=4, lens=[1, 64, 19],
                       scratch_row=2),
     }
@@ -194,6 +215,7 @@ def check_paged(rng, dev):
         "shape": "q (8,15,64) bf16, pools (513,16,5,64), tables (8,64), "
                  f"lens {c['lens']}",
         "max_abs_err": errs["main"], "max_abs_err_smoke": errs["smoke"],
+        "max_abs_err_granite": errs["granite"],
         "ms": time_ms(lambda: paged_decode_attention(*args)),
         "plain_ms": time_ms(lambda: paged_decode_attention_plain(*args)),
         "library_ms": None,
@@ -317,6 +339,7 @@ def check_flash(rng, dev):
         flash_attention, flash_attention_plain)
     cases = {   # name: (B, S, T, H, K, Dh, causal, window, q_offset)
         "main_S1023": (1, 1023, 1023, 15, 5, 64, True, None, 0),
+        "granite_S1023": (1, 1023, 1023, 24, 8, 64, True, None, 0),
         "S16": (1, 16, 16, 15, 5, 64, True, None, 0),
         "S100": (1, 100, 100, 15, 5, 64, True, None, 0),
         "window_offset": (2, 48, 112, 4, 2, 32, True, 40, 64),
@@ -343,6 +366,7 @@ def check_flash(rng, dev):
         "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
         "shape": "q (1,1023,15,64), k/v (1,1023,5,64) bf16, causal",
         "max_abs_err": errs["main_S1023"],
+        "max_abs_err_granite": errs["granite_S1023"],
         "max_abs_err_all_cases": max(errs.values()),
         "ms": time_ms(lambda: flash_attention(q, k, v), n=20),
         "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), n=20),
@@ -357,6 +381,9 @@ def check_rmsnorm(rng, dev):
     errs = {}
     for name, shape, with_res in (("decode_R8", (8, 960), False),
                                   ("prefill_R1023_residual", (1023, 960), True),
+                                  ("granite_decode_R8", (8, 1536), False),
+                                  ("granite_prefill_R1023", (1, 1023, 1536),
+                                   False),
                                   ("smoke", (3, 37, 60), False)):
         x = bf16(rng, shape, dev)
         r = bf16(rng, shape, dev) if with_res else None
@@ -378,11 +405,76 @@ def check_rmsnorm(rng, dev):
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:33",
         "shape": "x (8,960) bf16 (decode), scale (960,) f32",
         "max_abs_err": errs["decode_R8"],
+        "max_abs_err_granite": max(errs["granite_decode_R8"],
+                                   errs["granite_prefill_R1023"]),
         "max_abs_err_all_cases": max(errs.values()),
         "ms": time_ms(lambda: rmsnorm_fused(x, sc)),
         "plain_ms": time_ms(lambda: rmsnorm_plain(x, sc)),
         "library_ms": time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)),
         **bound(nbytes, flops, F32_FLOPS),
+    }
+
+
+def check_grouped_matmul(rng, dev):
+    from repro_torch.kernels.grouped_matmul.ops import (
+        bucket_matmul, grouped_matmul, grouped_matmul_plain)
+    E = 40
+
+    def buckets(C, D, F):
+        return (bf16(rng, (E, C, D), dev),
+                bf16(rng, (E, D, F), dev, scale=D ** -0.5))
+
+    errs = {}
+    # granite's capacity buckets, one launch per product: up/gate and down
+    # at the 1023-token admission (C = 256), and the 512 bucket's C = 136
+    for name, (C, D, F) in (("up_C256", (256, 1536, 512)),
+                            ("down_C256", (256, 512, 1536)),
+                            ("up_C136", (136, 1536, 512))):
+        b, w = buckets(C, D, F)
+        want = grouped_matmul_plain(b.reshape(E * C, D), w, [C] * E)
+        errs[name] = check_close(f"gmm/{name}", bucket_matmul(b, w),
+                                 want.reshape(E, C, F), GMM_TOL)
+    # ragged sizes with empty groups, and tail rows owned by no group
+    # (NaN there: the kernel writes them as 0 without reading them)
+    for name, (Eg, D, F, sizes, tail) in (
+            ("empty_group", (3, 96, 96, [0, 64, 32], 32)),
+            ("ragged_40", (E, 1536, 512,
+                           [0 if g % 13 == 3 else int(s) for g, s in
+                            enumerate(rng.integers(1, 300, size=E))], 100))):
+        n = sum(sizes)
+        x = bf16(rng, (n + tail, D), dev)
+        x[n:] = float("nan")
+        w = bf16(rng, (Eg, D, F), dev, scale=D ** -0.5)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        got = grouped_matmul(x, w, gs)
+        if got[n:].any():
+            raise AssertionError(f"gmm/{name}: tail rows are not 0")
+        errs[name] = check_close(f"gmm/{name}", got,
+                                 grouped_matmul_plain(x, w, gs), GMM_TOL)
+
+    def timed(C, D, F):
+        b, w = buckets(C, D, F)
+        T = E * C
+        nbytes = T * D * 2 + E * D * F * 2 + T * F * 4   # x, w in; y f32 out
+        return {
+            "ms": time_ms(lambda: bucket_matmul(b, w), n=20),
+            "plain_ms": time_ms(lambda: grouped_matmul_plain(
+                b.reshape(T, D), w, [C] * E), n=5),
+            "library_ms": time_ms(lambda: torch.bmm(b, w), n=20),
+            **bound(nbytes, 2 * T * D * F, BF16_FLOPS),
+        }
+    down = timed(256, 512, 1536)
+    return {
+        "name": "grouped_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/kernels/grouped_matmul/kernel.py:34",
+        "shape": "buckets (40,256,1536) bf16 x w (40,1536,512) bf16 -> f32 "
+                 "(up/gate, 1023-token admission); library: torch.bmm, bf16 "
+                 "out",
+        "max_abs_err": errs["up_C256"],
+        "max_abs_err_all_cases": max(errs.values()),
+        **timed(256, 1536, 512),
+        "down": {"shape": "(40,256,512) x (40,512,1536)", **down},
     }
 
 
@@ -397,12 +489,13 @@ def bound(nbytes, flops, peak_flops):
 # phases 3-4: serve and model check
 # --------------------------------------------------------------------------
 
-def serve_run(phase, wrappers, **kw):
-    """One ``serve_direct`` run of the trace with every launch count set to
-    0 just before it and read just after; the gates every run must pass."""
+def serve_run(phase, wrappers, arch=DENSE_ARCH, **kw):
+    """One ``serve_direct`` run of the trace on ``arch`` with every launch
+    count set to 0 just before it and read just after; the gates every run
+    must pass."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import expected_tokens, make_trace, serve_direct
-    cfg = get_config("smollm-360m")
+    cfg = get_config(arch)
     for w in wrappers:
         w.launches = 0
     stats = serve_direct(cfg, device="cuda", **SERVE, **kw)
@@ -433,18 +526,28 @@ def serve_run(phase, wrappers, **kw):
 
 
 def serve_phase(wrappers):
-    """The paged, spec="off" serve path: every kernel but verify and dense
-    decode is launched."""
+    """The paged, spec="off" serve path of the dense model: the flash,
+    paged decode and RMSNorm kernels are launched."""
     stats, launches = serve_run("serve", wrappers)
-    unused = ("paged_verify_attention", "decode_attention")
-    assert all(n > 0 for w, n in launches.items() if w not in unused), launches
+    for w in ("paged_decode_attention", "flash_attention", "rmsnorm_fused"):
+        assert launches[w] > 0, launches
     return stats["streams"], launches
+
+
+def moe_serve_phase(wrappers):
+    """The paged serve path of the MoE model: its admissions run the
+    grouped-matmul kernel beside the attention and RMSNorm kernels."""
+    _, launches = serve_run("moe_serve", wrappers, arch=MOE_ARCH)
+    for w in ("grouped_matmul", "flash_attention", "paged_decode_attention",
+              "rmsnorm_fused"):
+        assert launches[w] > 0, launches
+    return launches
 
 
 def spec_phase(wrappers, off_streams):
     """Draft-and-verify on the paged path: self-draft and a cold draft."""
     from repro_torch.configs.base import get_config
-    cold = dataclasses.replace(get_config("smollm-360m"), num_layers=2)
+    cold = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2)
     runs = {}
     for phase, kw in (("spec_self", {}),
                       ("spec_cold", dict(draft_cfg=cold, draft_seed=1))):
@@ -498,34 +601,69 @@ def prefilled_state(bundle, params, cfg, prompts, dev):
     return state, logits_all
 
 
-def model_phase(dev):
-    """Teacher-force full-width smollm-360m: kernels vs the plain path; then
-    one verify forward against the sequential decode steps it replaces."""
+def teacher_forced(arch, kern, plain, dev):
+    """``arch`` teacher-forced with the kernels (``kern``) and with the
+    plain path (``plain``) from the same weights: prefill of prompts of 300
+    and 700 tokens (buckets 512 and 1023), then 8 paged decode steps of
+    forced tokens.  Returns each run's logits, the weights, the rng, and
+    each run's router top-k expert sets (sorted, one tensor per MoE call;
+    empty for a dense arch)."""
     from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
     from repro_torch.models.api import build_model
-    base = get_config("smollm-360m")
-    kern = dataclasses.replace(base, attn_impl="pallas", norm_impl="pallas")
-    plain = dataclasses.replace(base, attn_impl="chunked", norm_impl="jnp")
+    base = get_config(arch)
+    kern = dataclasses.replace(base, **kern)
+    plain = dataclasses.replace(base, **plain)
     params = build_model(kern).init(0, device=dev)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, base.vocab_size, size=n).astype(np.int32)
                for n in (300, 700)]
     forced = rng.integers(0, base.vocab_size, size=(8, 2)).astype(np.int32)
-    runs = {}
+    top_k = moe.top_k
+    runs, routes = {}, {}
     for name, cfg in (("kernels", kern), ("plain", plain)):
-        bundle = build_model(cfg)
-        state, logits_all = prefilled_state(bundle, params, cfg, prompts, dev)
-        for t in range(8):
-            state["token"] = torch.from_numpy(forced[t][:, None]).to(dev)
-            logits, state = bundle.decode(params, state)
-            logits_all.append(logits[:, 0])
+        routes[name] = []
+
+        def recording(probs, k, seen=routes[name]):
+            wts, idx = top_k(probs, k)
+            seen.append(idx.sort(dim=-1).values.cpu())
+            return wts, idx
+        moe.top_k = recording
+        try:
+            bundle = build_model(cfg)
+            state, logits_all = prefilled_state(bundle, params, cfg, prompts,
+                                                dev)
+            for t in range(8):
+                state["token"] = torch.from_numpy(forced[t][:, None]).to(dev)
+                logits, state = bundle.decode(params, state)
+                logits_all.append(logits[:, 0])
+        finally:
+            moe.top_k = top_k
         runs[name] = torch.cat(logits_all).float()
-    err = check_close("model/logits", runs["kernels"], runs["plain"], LOGIT_TOL)
+    return runs, params, rng, routes
+
+
+def compare_logits(phase, arch, runs, **extra):
+    err = check_close(f"{phase}/logits", runs["kernels"], runs["plain"],
+                      LOGIT_TOL)
     agree = float((runs["kernels"].argmax(-1) == runs["plain"].argmax(-1))
                   .float().mean())
-    say({"phase": "model", "arch": base.name, "rows": runs["kernels"].shape[0],
+    say({"phase": phase, "arch": arch, "rows": runs["kernels"].shape[0],
          "max_abs_err": err, "tol": LOGIT_TOL, "argmax_agreement": agree,
-         "max_abs_logit": float(runs["plain"].abs().max())})
+         "max_abs_logit": float(runs["plain"].abs().max()), **extra})
+
+
+def model_phase(dev):
+    """Teacher-force full-width smollm-360m: kernels vs the plain path; then
+    one verify forward against the sequential decode steps it replaces."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model
+    base = get_config(DENSE_ARCH)
+    on = dict(attn_impl="pallas", norm_impl="pallas")
+    runs, params, rng, _ = teacher_forced(
+        DENSE_ARCH, on, dict(attn_impl="chunked", norm_impl="jnp"), dev)
+    compare_logits("model", base.name, runs)
+    kern = dataclasses.replace(base, **on)
 
     # verify: prompts whose buckets (512) leave room for the 5 positions
     bundle = build_model(kern)
@@ -552,6 +690,24 @@ def model_phase(dev):
                                    .float().mean())})
 
 
+def moe_model_phase(dev):
+    """Teacher-force full-width granite-moe-3b-a800m: the kernels (moe
+    "gmm") vs the plain path (moe "einsum"), and how often the two runs'
+    routers chose the same top-k expert set for a token in a layer."""
+    runs, _, _, routes = teacher_forced(
+        MOE_ARCH, dict(attn_impl="pallas", norm_impl="pallas", moe_impl="gmm"),
+        dict(attn_impl="chunked", norm_impl="jnp", moe_impl="einsum"), dev)
+    same = total = 0
+    for a, b in zip(routes["kernels"], routes["plain"]):
+        eq = (a == b).all(dim=-1)
+        same += int(eq.sum())
+        total += eq.numel()
+    assert len(routes["kernels"]) == len(routes["plain"]) > 0
+    compare_logits("moe_model", MOE_ARCH, runs,
+                   topk_set_agreement=same / total, routed_rows=total,
+                   router_calls=len(routes["kernels"]))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -560,6 +716,7 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_verify_attention)
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
@@ -581,18 +738,22 @@ def main():
     t0 = time.monotonic()
     kernels = [check_paged(rng, dev), check_flash(rng, dev),
                check_rmsnorm(rng, dev), check_verify(rng, dev),
-               check_dense(rng, dev)]
+               check_dense(rng, dev), check_grouped_matmul(rng, dev)]
     say({"phase": "kernels", "seconds": time.monotonic() - t0})
     wrappers = [paged_decode_attention, flash_attention, rmsnorm_fused,
-                paged_verify_attention, decode_attention]
+                paged_verify_attention, decode_attention, grouped_matmul]
     t0 = time.monotonic()
     streams, runs = serve_phase(wrappers)
     runs = {"serve": runs, **spec_phase(wrappers, streams),
             "dense": dense_phase(wrappers, streams)}
     say({"phase": "serve_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    runs["moe_serve"] = moe_serve_phase(wrappers)
+    say({"phase": "moe_serve_all", "seconds": time.monotonic() - t0})
     # a kernel's launches: the runs of the path that carries it
     paths = {"paged_verify_attention": ("spec_self", "spec_cold"),
-             "decode_attention": ("dense",)}
+             "decode_attention": ("dense",),
+             "grouped_matmul": ("moe_serve",)}
     for k, w in zip(kernels, wrappers):
         name = w.__name__
         k["launches"] = sum(runs[r][name] for r in paths.get(name, ("serve",)))
@@ -600,6 +761,9 @@ def main():
     t0 = time.monotonic()
     model_phase(dev)
     say({"phase": "model_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    moe_model_phase(dev)
+    say({"phase": "moe_model_all", "seconds": time.monotonic() - t0})
     say({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -6,8 +6,10 @@ per slot, leaves stacked ``(n_groups, ...)``), ``final_norm`` and an
 optional ``head`` — and map leaf to leaf onto :class:`LMParams`.  bf16
 arrays (numpy's ``ml_dtypes`` bfloat16, which torch cannot take) go
 through float32, which is exact.  Norm scales stay float32 because the
-reference takes ``1 + scale`` in f32; every other leaf is stored in bf16,
-which rounds exactly as the reference's ``.astype(bf16)`` at use does.
+reference takes ``1 + scale`` in f32, and so do MoE routers, whose f32
+logits decide which experts a token reaches (``moe.router_probs`` casts
+both operands to f32); every other leaf is stored in bf16, which rounds
+exactly as the reference's ``.astype(bf16)`` at use does.
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ import torch
 from repro_torch.models.transformer import LMParams
 
 
-def _is_norm_scale(path: tuple) -> bool:
-    return path[-1] == "scale"
+def _keeps_f32(path: tuple) -> bool:
+    return path[-1] in ("scale", "router")
 
 
 def _convert(tree, path, device, matrix_dtype):
@@ -30,7 +32,7 @@ def _convert(tree, path, device, matrix_dtype):
         return [_convert(v, path + (i,), device, matrix_dtype)
                 for i, v in enumerate(tree)]
     t = torch.from_numpy(np.array(tree, dtype=np.float32))   # own copy
-    dt = torch.float32 if _is_norm_scale(path) else matrix_dtype
+    dt = torch.float32 if _keeps_f32(path) else matrix_dtype
     return t.to(device=device, dtype=dt)
 
 

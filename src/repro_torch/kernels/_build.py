@@ -106,14 +106,16 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
+def entry(name: str, symbol: str, n_ptrs: int, n_ints: int,
+          scale: bool = True):
     """The C entry ``symbol`` of ``csrc/<name>.cu``, typed as the kernels'
     entries are: ``n_ptrs`` pointers, ``n_ints`` ints, the softmax scale
-    (float) and the stream, returning the CUDA error code."""
+    (float; attention kernels only, ``scale=False`` for the others) and the
+    stream, returning the CUDA error code."""
     fn = getattr(library(name), symbol)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] * scale + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 

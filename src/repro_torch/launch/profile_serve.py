@@ -1,11 +1,13 @@
 """Where a decode step's time goes: host clock, device busy time, kernels.
 
-    python -m repro_torch.launch.profile_serve [--steps 20] [--spec draft] [--kv dense]
+    python -m repro_torch.launch.profile_serve [--arch smollm-360m] \
+        [--steps 20] [--spec draft] [--kv dense]
 
 Builds the engine ``serve_direct`` serves from (``launch.serve.build_engine``:
-smollm-360m full width, random weights from seed 0, 8 slots, max_len 1024,
-block 16, the hand-written kernels; paged or dense KV, speculation off or
-self-draft), fills every slot with a request, then times ``--steps`` engine
+``--arch`` at full width, smollm-360m by default or granite-moe-3b-a800m,
+random weights from seed 0, 8 slots, max_len 1024, block 16, the
+hand-written kernels; paged or dense KV, speculation off or self-draft),
+fills every slot with a request, then times ``--steps`` engine
 steps twice: once on the host clock alone (each step ends in the engine's
 one device->host copy, which waits for the device), and once under
 ``torch.profiler`` for the device time of every kernel.  Prints one JSON
@@ -44,10 +46,10 @@ def _busy_ms(events) -> float:
     return busy / 1e3                                    # us -> ms
 
 
-def profile(steps: int = 20, slots: int = 8, max_len: int = 1024,
-            prompt: int = 200, kv: str | None = None, spec: str = "off",
-            device="cuda") -> dict:
-    cfg = get_config("smollm-360m")
+def profile(arch: str = "smollm-360m", steps: int = 20, slots: int = 8,
+            max_len: int = 1024, prompt: int = 200, kv: str | None = None,
+            spec: str = "off", device="cuda") -> dict:
+    cfg = get_config(arch)
     eng = build_engine(cfg, slots, max_len, kv=kv, spec=spec, device=device)
     dev = eng.device
     rng = np.random.default_rng(0)
@@ -82,6 +84,7 @@ def profile(steps: int = 20, slots: int = 8, max_len: int = 1024,
     return {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
         else "cpu",
+        "arch": cfg.name,
         "kv": eng.kv,
         "spec": eng.spec,
         "slots_live": sum(m.active for m in eng.slot_meta),
@@ -98,11 +101,13 @@ def profile(steps: int = 20, slots: int = 8, max_len: int = 1024,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--kv", choices=("paged", "dense"), default=None)
     ap.add_argument("--spec", choices=("off", "draft"), default="off")
     args = ap.parse_args(argv)
-    print(json.dumps(profile(args.steps, kv=args.kv, spec=args.spec)))
+    print(json.dumps(profile(args.arch, args.steps, kv=args.kv,
+                             spec=args.spec)))
 
 
 if __name__ == "__main__":

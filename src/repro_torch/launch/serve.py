@@ -5,7 +5,8 @@
 
 Port of ``make_trace`` and ``serve_direct`` from ``repro.launch.serve``.
 The serve entry point builds the main path with the hand-written kernels
-(``attn_impl="pallas"``, ``norm_impl="pallas"``) on ``device`` ("cuda" by
+(``attn_impl="pallas"``, ``norm_impl="pallas"``, and ``moe_impl="gmm"``
+for an MoE arch such as granite-moe-3b-a800m) on ``device`` ("cuda" by
 default; without a card it raises unless the caller asks for "cpu"): a
 paged or dense KV cache, with or without draft-and-verify speculation.
 Serving through the pilot system is a later slice.
@@ -66,7 +67,8 @@ def expected_tokens(entry: dict, max_len: int) -> int:
 
 
 def _on_kernels(cfg):
-    return dataclasses.replace(cfg, attn_impl="pallas", norm_impl="pallas")
+    return dataclasses.replace(cfg, attn_impl="pallas", norm_impl="pallas",
+                               moe_impl="gmm")
 
 
 def build_engine(cfg, slots: int, max_len: int, seed: int = 0,

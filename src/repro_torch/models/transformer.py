@@ -1,12 +1,15 @@
-"""Decoder-only LM (dense GQA family): parameters, caches, prefill, decode.
+"""Decoder-only LM (GQA attention, dense or MoE FFN): parameters, caches,
+prefill, decode.
 
-Port of the dense-attention part of ``repro.models.transformer``.  Layers
-are organised into groups of ``period`` layers exactly as in the reference,
+Port of the attention part of ``repro.models.transformer``.  Layers are
+organised into groups of ``period`` layers exactly as in the reference,
 and the layer parameters keep its stacked ``(n_groups, ...)`` leaves, so
 the parameter bridge maps leaf to leaf.  The reference's ``lax.scan`` over
 groups is a Python loop here; its ``constrain*`` calls are identity without
 a mesh and are dropped.  Caches are stacked the same way: one pool per
-slot with a leading ``n_groups`` dim.
+slot with a leading ``n_groups`` dim.  An MoE slot runs the capacity
+dispatch (``moe.apply_moe``) in prefill and the dense-gated MoE
+(``moe.apply_moe_dense``) in decode and verify, as in the reference.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.layers import (
     COMPUTE, apply_mlp, apply_norm, embed_init, embed_lookup, init_mlp,
     init_norm, lm_logits, rope_table,
@@ -60,11 +64,11 @@ def layer_slots(cfg) -> list[dict]:
 
 def _check_slice(cfg):
     slots = layer_slots(cfg)
-    if cfg.is_encdec or any(s["mixer"] != "attn" or s["ffn"] == "moe"
-                            for s in slots):
+    if cfg.is_encdec or any(s["mixer"] != "attn" for s in slots):
         raise NotImplementedError(
-            f"{cfg.name}: SSM, MoE and encoder-decoder layers are later "
-            "slices of the port; this one carries dense GQA decoders")
+            f"{cfg.name}: SSM and encoder-decoder layers are later slices "
+            "of the port; this one carries GQA decoders with dense or MoE "
+            "FFNs")
     attn._check_gqa(cfg)
 
 
@@ -87,7 +91,8 @@ class LMParams(nn.Module):
     ``embed`` (V,D), ``final_norm["scale"]`` (D,), optional ``head`` (D,V),
     and ``layers[slot]`` whose leaves are stacked ``(n_groups, ...)``.
     Matrices are bf16 (the reference casts them to bf16 at use); norm
-    scales stay f32 (``1 + scale`` is taken in f32)."""
+    scales (``1 + scale`` is taken in f32) and MoE routers (f32 logits)
+    stay f32."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -141,14 +146,16 @@ def init_lm_params(cfg, gen: torch.Generator, device="cpu",
     _check_slice(cfg)
     n_groups = cfg.num_layers // group_period(cfg)
 
-    def slot(_):
+    def slot(s):
         groups = []
         for _g in range(n_groups):
             groups.append({
                 "mixer_norm": init_norm(cfg, device=device),
                 "mixer": attn.init_attention(gen, cfg, dtype, device),
                 "ffn_norm": init_norm(cfg, device=device),
-                "ffn": init_mlp(gen, cfg, dtype, device),
+                "ffn": (moe.init_moe(gen, cfg, dtype, device)
+                        if s["ffn"] == "moe"
+                        else init_mlp(gen, cfg, dtype, device)),
             })
         return {k: {kk: torch.stack([gp[k][kk] for gp in groups])
                     for kk in groups[0][k]} for k in groups[0]}
@@ -200,9 +207,15 @@ def init_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
 # Prefill / decode
 # --------------------------------------------------------------------------
 
-def _ffn(x, p, cfg, compute):
+def _ffn(x, p, cfg, slot, compute, *, prefill=False):
+    """The slot's FFN with its residual.  An MoE slot dispatches by
+    capacity in prefill (its aux loss is dropped, as in the reference's
+    prefill) and runs every expert on the tokens in decode and verify."""
     h = apply_norm(x, p["ffn_norm"], cfg)
-    return x + apply_mlp(h, p["ffn"], cfg, compute)
+    if slot["ffn"] != "moe":
+        return x + apply_mlp(h, p["ffn"], cfg, compute)
+    moe_fn = moe.apply_moe if prefill else moe.apply_moe_dense
+    return x + moe_fn(h, p["ffn"], cfg, compute)[0]
 
 
 def lm_prefill(params: LMParams, cfg, tokens, cache, *, compute=COMPUTE):
@@ -216,7 +229,7 @@ def lm_prefill(params: LMParams, cfg, tokens, cache, *, compute=COMPUTE):
     new = [{k: [] for k in c} for c in cache]
     for g in range(params.n_groups):
         gp = params.group(g)
-        for i, _slot in enumerate(slots):
+        for i, slot in enumerate(slots):
             p = gp[i]
             h = apply_norm(x, p["mixer_norm"], cfg)
             old = {k: v[g] for k, v in cache[i].items()}
@@ -224,7 +237,7 @@ def lm_prefill(params: LMParams, cfg, tokens, cache, *, compute=COMPUTE):
                                              compute=compute)
             for k, v in nc.items():
                 new[i][k].append(v)
-            x = _ffn(x + out, p, cfg, compute)
+            x = _ffn(x + out, p, cfg, slot, compute, prefill=True)
     x = apply_norm(x, params.final_norm, cfg)
     logits = lm_logits(x[:, -1:], head_matrix(params, cfg), cfg.logit_softcap)
     return logits, [{k: torch.stack(v) for k, v in c.items()} for c in new]
@@ -243,14 +256,14 @@ def lm_decode(params: LMParams, cfg, token, cache, pos, *, block_tables=None,
         block_tables)
     for g in range(params.n_groups):
         gp = params.group(g)
-        for i, _slot in enumerate(slots):
+        for i, slot in enumerate(slots):
             p = gp[i]
             h = apply_norm(x, p["mixer_norm"], cfg)
             layer_cache = {k: v[g] for k, v in cache[i].items()}
             h, _ = attn.attention_decode(h, p["mixer"], cfg, layer_cache, pos,
                                          block_tables=block_tables, ctx=ctx,
                                          compute=compute)
-            x = _ffn(x + h, p, cfg, compute)
+            x = _ffn(x + h, p, cfg, slot, compute)
     x = apply_norm(x, params.final_norm, cfg)
     return lm_logits(x, head_matrix(params, cfg), cfg.logit_softcap), cache
 
@@ -279,13 +292,13 @@ def lm_verify(params: LMParams, cfg, tokens, cache, pos, *, block_tables,
         cache[0], block_tables)
     for g in range(params.n_groups):
         gp = params.group(g)
-        for i, _slot in enumerate(slots):
+        for i, slot in enumerate(slots):
             p = gp[i]
             h = apply_norm(x, p["mixer_norm"], cfg)
             layer_cache = {k: v[g] for k, v in cache[i].items()}
             h, _ = attn.attention_verify(h, p["mixer"], cfg, layer_cache, pos,
                                          block_tables=block_tables, ctx=ctx,
                                          compute=compute)
-            x = _ffn(x + h, p, cfg, compute)
+            x = _ffn(x + h, p, cfg, slot, compute)
     x = apply_norm(x, params.final_norm, cfg)
     return lm_logits(x, head_matrix(params, cfg), cfg.logit_softcap), cache

@@ -6,11 +6,13 @@ machine with the card as it is:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_card.py
 
-Inputs are bf16 at the main path's shapes (smollm-360m: 15 heads, 5 KV
-heads, head dim 64, d_model 960); tolerances are those of
-tests/test_kernels.py: attention rtol=5e-2, atol=2e-2; RMSNorm 5e-2.  The
-verify and dense decode kernels share the paged decode kernel's block
-body, so they are also held to it bitwise.
+Inputs are bf16 at the main paths' shapes (smollm-360m: 15 heads, 5 KV
+heads, head dim 64, d_model 960; granite-moe-3b-a800m's experts: 40 of
+1536 x 512, capacity 256 at the 1023-token admission and the ragged 136 at
+512); tolerances are those of tests/test_kernels.py: attention rtol=5e-2,
+atol=2e-2; RMSNorm and grouped matmul 5e-2.  The verify and dense decode
+kernels share the paged decode kernel's block body, so they are also held
+to it bitwise.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention, flash_attention_plain)
+from repro_torch.kernels.grouped_matmul.ops import (
+    bucket_matmul, grouped_matmul, grouped_matmul_plain)
 from repro_torch.kernels.paged_attention.ops import (
     paged_decode_attention, paged_decode_attention_plain,
     paged_verify_attention, paged_verify_attention_plain)
@@ -32,6 +36,7 @@ pytestmark = pytest.mark.gpu
 
 ATTN_TOL = dict(rtol=5e-2, atol=2e-2)
 NORM_TOL = dict(rtol=5e-2, atol=5e-2)
+GMM_TOL = dict(rtol=5e-2, atol=5e-2)
 
 
 @pytest.fixture
@@ -174,3 +179,67 @@ def test_decode_attention_kernel_matches_plain_and_paged(card, H, K, Dh):
         pool[tables.reshape(-1).long()] = c.reshape(B * mb, bs, K, Dh)
         pools.append(pool)
     assert torch.equal(out, paged_decode_attention(q, *pools, tables, ln))
+
+
+@pytest.mark.parametrize("C,D,F", [
+    (256, 1536, 512),      # up/gate at the 1023-token admission
+    (256, 512, 1536),      # down
+    (136, 1536, 512),      # the 512 bucket: C not a multiple of the tile
+])
+def test_grouped_matmul_kernel_matches_plain(card, C, D, F):
+    """granite-moe's capacity buckets (40 experts), one launch."""
+    rng = np.random.default_rng(5)
+    E = 40
+    b = _bf16(rng, (E, C, D), card)
+    w = _bf16(rng, (E, D, F), card) * D ** -0.5
+    before = grouped_matmul.launches
+    got = bucket_matmul(b, w)
+    assert grouped_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = grouped_matmul_plain(b.reshape(E * C, D), w, [C] * E)
+    torch.testing.assert_close(got, want.reshape(E, C, F), **GMM_TOL)
+
+
+@pytest.mark.parametrize("E,D,F,sizes,tail", [
+    (3, 96, 96, (0, 64, 32), 32),                  # empty group
+    (40, 1536, 512, "ragged", 100),                # granite, ragged sizes
+])
+def test_grouped_matmul_kernel_ragged_groups(card, E, D, F, sizes, tail):
+    """Ragged group sizes (empty groups among them) and tail rows owned by
+    no group: the kernel writes the tail as 0 without reading it (NaN
+    there), and the groups within tolerance of the plain version."""
+    rng = np.random.default_rng(6)
+    if sizes == "ragged":
+        sizes = rng.integers(0, 300, size=E)
+        sizes[[3, 17]] = 0
+    sizes = np.asarray(sizes, np.int32)
+    n = int(sizes.sum())
+    x = _bf16(rng, (n + tail, D), card)
+    x[n:] = float("nan")
+    w = _bf16(rng, (E, D, F), card) * D ** -0.5
+    gs = torch.from_numpy(sizes).to(card)
+    got = grouped_matmul(x, w, gs)
+    assert torch.isfinite(got).all() and not got[n:].any()
+    torch.testing.assert_close(got, grouped_matmul_plain(x, w, gs), **GMM_TOL)
+
+
+def test_router_runs_in_full_f32_when_tf32_is_on(card):
+    """The MoE router product stays full f32 on the card even where the
+    caller turned TF32 on (TF32 moves the probabilities by up to ~1e-3
+    relative, enough to reorder close experts), and the caller's setting
+    comes back."""
+    from repro_torch.models.moe import router_probs
+    rng = np.random.default_rng(7)
+    x = _bf16(rng, (1023, 1536), card)
+    w = torch.from_numpy(rng.normal(size=(1536, 40)).astype(np.float32)
+                         * 1536 ** -0.5).to(card)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = router_probs(x, w)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    want = torch.softmax(x.double().cpu() @ w.double().cpu(), dim=-1)
+    torch.testing.assert_close(got.double().cpu(), want, rtol=1e-5,
+                               atol=1e-9)
