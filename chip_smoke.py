@@ -52,10 +52,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
               against the plain path, moe "einsum"); logits compared, and
               how often the router's top-k expert sets of the two runs
               agree (token x layer) reported.
+9. mamba_serve — the serve trace on full-width mamba2-370m (random weights
+              from seed 0; 48 attention-free Mamba-2 layers), which the
+              engine serves on the dense layout (per-row SSM state):
+              every admission prefill runs each layer's SSD scan through
+              the SSD-scan kernel (48 launches an admission), decode the
+              O(1) recurrent update.  The gates of phase 3, the SSD-scan
+              and RMSNorm kernels launched, the scan 48 times per
+              admission.
+10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
+              admission (the kernel path's own activations), its output
+              with the SSD-scan kernel against the same mixer on the
+              scan's plain version (``mamba_layers``); then the model
+              teacher-forced as in phase 6 on its dense layout, the
+              kernels (ssm and norm "pallas") against the plain path (ssm
+              "chunked", norm "jnp"): the first 12 layers gated by
+              LOGIT_TOL, all 48 reported beside the plain path's own move
+              when only the RMSNorm kernel is swapped in.
 
 The kernels phase also checks every kernel at granite's shapes (24 heads,
-8 KV heads, d_model 1536) and the grouped matmul at its capacity buckets
-(C = 256 and the ragged 136), ragged group sizes and an empty group.
+8 KV heads, d_model 1536), the grouped matmul at its capacity buckets
+(C = 256 and the ragged 136), ragged group sizes and an empty group, and
+the SSD scan at mamba2-370m's admission buckets (S = 1023 with chunk 256,
+and S = 32, 64, 128, 512), a padded S = 100 and grouped B/C (G = 2).
 
 Lines of JSON report each phase; the line before the last is nvidia-smi's
 name and power limit; the last line is
@@ -86,6 +105,11 @@ F32_FLOPS = 67e12
 ATTN_TOL = dict(rtol=5e-2, atol=2e-2)     # tests/test_kernels.py:54
 NORM_TOL = dict(rtol=5e-2, atol=5e-2)     # tests/test_kernels.py:193
 GMM_TOL = dict(rtol=5e-2, atol=5e-2)      # tests/test_kernels.py:166
+SSD_TOL = {torch.bfloat16: dict(rtol=6e-2, atol=6e-2),   # tests/test_kernels.py:140
+           torch.float32: dict(rtol=1e-3, atol=1e-3)}
+# One SSM mixer's bf16 output, kernel scan vs plain scan on the same input:
+# that of tests/test_torch_ssm.py (one bf16 ulp at |y| in [1, 2) is 7.8e-3).
+MIXER_TOL = dict(rtol=1e-2, atol=1e-2)
 # At S = 1023 or cache_len ~1000 an attention output is ~N(0, 1/n), about
 # 0.03-0.07, so the elementwise bound above is half a typical value.  Each
 # output row (one query head, Dh values) is also held to
@@ -93,16 +117,25 @@ GMM_TOL = dict(rtol=5e-2, atol=5e-2)      # tests/test_kernels.py:166
 # the 1024-position row of the paged case moves it by ~0.2, while the f32
 # and bf16 versions of that case differ by ~2e-3.
 ROW_REL_TOL = 2e-2
-# Teacher-forced logits, kernels vs plain path, full width: 32 layers of
-# bf16 activations rounded at the same points but summed in other orders
-# (scalar-FMA kernels vs cuBLAS/einsum); logits are bf16 products of
-# magnitude up to ~4, where one bf16 ulp is 1.6e-2.
+# Teacher-forced logits, kernels vs plain path, full width: 32 (smollm,
+# granite) or 48 (mamba2) layers of bf16 activations rounded at the same
+# points but summed in other orders (scalar-FMA kernels vs cuBLAS/einsum);
+# logits are bf16 products of magnitude up to ~4, where one bf16 ulp is
+# 1.6e-2.
 LOGIT_TOL = dict(rtol=5e-2, atol=1e-1)
+# mamba2-370m's random-weight stack compounds a rounding difference with
+# depth: on the card, with every mixer within MIXER_TOL of its plain scan,
+# the kernel path's logits over all 48 layers leave LOGIT_TOL of the plain
+# path's, and swapping only the RMSNorm kernel into the plain path moves
+# them by most of it (`mamba_model_full_depth` reports both).  The
+# teacher-forced logits are held to LOGIT_TOL over the first 12 layers.
+MAMBA_GATED_LAYERS = 12
 
 SERVE = dict(n_requests=16, slots=8, max_len=1024, seed=0,
              prompt_len=(24, 900), max_new_tokens=64)
 DENSE_ARCH = "smollm-360m"
 MOE_ARCH = "granite-moe-3b-a800m"
+SSM_ARCH = "mamba2-370m"
 
 
 def say(obj):
@@ -478,6 +511,80 @@ def check_grouped_matmul(rng, dev):
     }
 
 
+def ssd_work(b, S, H, P, G, N, Q, itemsize):
+    """Bytes (each input read once, each output written once) and f32
+    operations of the chunked SSD scan: per chunk of q steps, C.B^T over
+    the causal q(q+1)/2 pairs once per group, and per head its product with
+    x dt, the carry-in C.state and the state update (an FMA counts 2)."""
+    nbytes = (2 * b * S * H * P * itemsize + b * S * H * 4 + H * 4
+              + 2 * b * S * G * N * itemsize + b * H * N * P * 4)
+    flops = 0
+    for t0 in range(0, S, Q):
+        q = min(Q, S - t0)
+        pairs = q * (q + 1) // 2
+        flops += 2 * pairs * N * G + H * (2 * pairs * P + 4 * q * N * P)
+    return nbytes, b * flops
+
+
+def check_ssd_scan(rng, dev):
+    from repro_torch.kernels.ssd_scan.ops import (
+        chunk_for, ssd_scan, ssd_scan_plain)
+
+    def inputs(b, S, H, P, G, N, dtype):
+        def n(shape, scale=1.0):
+            return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                    * scale).to(dev)
+        return (n((b, S, H, P)).to(dtype), F.softplus(n((b, S, H))),
+                -torch.exp(n((H,), 0.5)), n((b, S, G, N), 0.3).to(dtype),
+                n((b, S, G, N), 0.3).to(dtype))
+
+    bf = torch.bfloat16
+    cases = {   # name: (b, S, H, P, G, N, chunk, dtype)
+        # mamba2-370m's admissions: 32 heads of 64, state 128, chunk 256;
+        # S = 1023 runs 4 chunks, the last with 255 steps; S <= 256 one
+        # chunk of S (chunks 32, 64, 128)
+        "main_S1023": (1, 1023, 32, 64, 1, 128, 256, bf),
+        "S512": (1, 512, 32, 64, 1, 128, 256, bf),
+        "S128": (1, 128, 32, 64, 1, 128, 256, bf),
+        "S64": (1, 64, 32, 64, 1, 128, 256, bf),
+        "S32": (1, 32, 32, 64, 1, 128, 256, bf),
+        "padded_S100": (1, 100, 32, 64, 1, 128, 32, bf),
+        "G2_S1023": (1, 1023, 32, 64, 2, 128, 256, bf),
+        "G2_ref": (1, 192, 8, 32, 2, 64, 64, bf),
+        "f32_S1023": (1, 1023, 32, 64, 1, 128, 256, torch.float32),
+        "f32_padded_ref": (1, 100, 4, 32, 1, 64, 32, torch.float32),
+    }
+    errs = {}
+    for name, (b, S, H, P, G, N, Q, dtype) in cases.items():
+        args = inputs(b, S, H, P, G, N, dtype)
+        y, st = ssd_scan(*args, chunk=Q)
+        torch.cuda.synchronize()
+        if y.dtype != dtype or st.dtype != torch.float32:
+            raise AssertionError(f"ssd/{name}: y {y.dtype}, state {st.dtype}")
+        yw, sw = ssd_scan_plain(*args, chunk=Q)
+        errs[name] = max(check_close(f"ssd/{name}/y", y, yw, SSD_TOL[dtype]),
+                         check_close(f"ssd/{name}/state", st, sw,
+                                     SSD_TOL[dtype]))
+    b, S, H, P, G, N, Q, dtype = cases["main_S1023"]
+    args = inputs(b, S, H, P, G, N, dtype)
+    nbytes, flops = ssd_work(b, S, H, P, G, N, chunk_for(S, Q), 2)
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",
+        "shape": "x (1,1023,32,64) bf16, dt (1,1023,32) f32, B/C "
+                 "(1,1023,1,128) bf16, chunk 256 -> y bf16, state "
+                 "(1,32,128,64) f32",
+        "max_abs_err": errs["main_S1023"],
+        "max_abs_err_all_cases": max(errs.values()),
+        "max_abs_err_by_case": errs,
+        "ms": time_ms(lambda: ssd_scan(*args, chunk=Q), n=20),
+        "plain_ms": time_ms(lambda: ssd_scan_plain(*args, chunk=Q), n=5),
+        "library_ms": None,
+        **bound(nbytes, flops, F32_FLOPS),
+    }
+
+
 def bound(nbytes, flops, peak_flops):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -534,6 +641,21 @@ def serve_phase(wrappers):
     return stats["streams"], launches
 
 
+def mamba_serve_phase(wrappers):
+    """The serve path of the Mamba-2 model, on the dense layout: every
+    admission runs the SSD-scan kernel once per layer, every step the
+    RMSNorm kernel; no attention kernel runs."""
+    from repro_torch.configs.base import get_config
+    stats, launches = serve_run("mamba_serve", wrappers, arch=SSM_ARCH)
+    assert stats["kv"] == "dense" and stats["spec"] == "off", stats["kv"]
+    layers = get_config(SSM_ARCH).num_layers
+    assert launches["ssd_scan"] == layers * SERVE["n_requests"], launches
+    assert launches["rmsnorm_fused"] > 0, launches
+    for w in ("flash_attention", "paged_decode_attention", "decode_attention"):
+        assert launches[w] == 0, launches
+    return launches
+
+
 def moe_serve_phase(wrappers):
     """The paged serve path of the MoE model: its admissions run the
     grouped-matmul kernel beside the attention and RMSNorm kernels."""
@@ -581,13 +703,14 @@ def dense_phase(wrappers, paged_streams):
     return launches
 
 
-def prefilled_state(bundle, params, cfg, prompts, dev):
-    """A paged decode state of len(prompts) slots, max_len 1024, each slot
-    prefilled with its prompt (64 blocks per slot).  Returns the state and
-    each prefill's last logits."""
+def prefilled_state(bundle, params, cfg, prompts, dev, kv="paged"):
+    """A ``kv`` decode state of len(prompts) slots, max_len 1024, each slot
+    prefilled with its prompt (paged: 64 blocks per slot).  Returns the
+    state and each prefill's last logits."""
     from repro_torch.models.api import init_decode_state
-    from repro_torch.serving.engine import _install_slot_paged, admit_length
-    state = init_decode_state(cfg, len(prompts), 1024, device=dev)
+    from repro_torch.serving.engine import (
+        _install_slot, _install_slot_paged, admit_length)
+    state = init_decode_state(cfg, len(prompts), 1024, kv=kv, device=dev)
     logits_all = []
     for slot, prompt in enumerate(prompts):
         plen = admit_length(len(prompt), 1024)
@@ -596,22 +719,28 @@ def prefilled_state(bundle, params, cfg, prompts, dev):
         logits, cache = bundle.prefill(
             params, {"tokens": torch.from_numpy(padded[None]).to(dev)})
         logits_all.append(logits[:, -1])
+        if kv == "dense":
+            _install_slot(state, cache, slot, plen, 0)
+            continue
         row = list(range(1 + slot * 64, 1 + (slot + 1) * 64))
         _install_slot_paged(state, cache, slot, plen, 0, row, 0, 16)
     return state, logits_all
 
 
-def teacher_forced(arch, kern, plain, dev):
-    """``arch`` teacher-forced with the kernels (``kern``) and with the
-    plain path (``plain``) from the same weights: prefill of prompts of 300
-    and 700 tokens (buckets 512 and 1023), then 8 paged decode steps of
-    forced tokens.  Returns each run's logits, the weights, the rng, and
-    each run's router top-k expert sets (sorted, one tensor per MoE call;
-    empty for a dense arch)."""
+def teacher_forced(arch, kern, plain, dev, kv="paged", layers=None):
+    """``arch`` (its first ``layers`` layers, all by default) teacher-forced
+    with the kernels (``kern``) and with the plain path (``plain``) from
+    the same weights: prefill of prompts of 300 and 700 tokens (buckets 512
+    and 1023), then 8 decode steps of forced tokens on a ``kv`` state.
+    Returns each run's logits, the weights, the rng, and each run's router
+    top-k expert sets (sorted, one tensor per MoE call; empty for a dense
+    arch)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import moe
     from repro_torch.models.api import build_model
     base = get_config(arch)
+    if layers is not None:
+        base = dataclasses.replace(base, num_layers=layers)
     kern = dataclasses.replace(base, **kern)
     plain = dataclasses.replace(base, **plain)
     params = build_model(kern).init(0, device=dev)
@@ -632,7 +761,7 @@ def teacher_forced(arch, kern, plain, dev):
         try:
             bundle = build_model(cfg)
             state, logits_all = prefilled_state(bundle, params, cfg, prompts,
-                                                dev)
+                                                dev, kv)
             for t in range(8):
                 state["token"] = torch.from_numpy(forced[t][:, None]).to(dev)
                 logits, state = bundle.decode(params, state)
@@ -708,6 +837,92 @@ def moe_model_phase(dev):
                    router_calls=len(routes["kernels"]))
 
 
+def mamba_layers_check(dev):
+    """Every mixer of full-width mamba2-370m on a 1023-token admission, on
+    the kernel path's own activations: the mixer with the SSD-scan kernel
+    against the same mixer with the scan's plain version (the same bf16
+    rounding of y), out within MIXER_TOL and ROW_REL_TOL, the state within
+    the f32 scan tolerance.  Layer by layer the comparison is not
+    compounded through the stack."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models import ssm
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import apply_norm, embed_lookup
+    cfg = dataclasses.replace(get_config(SSM_ARCH), ssm_impl="pallas",
+                              norm_impl="pallas")
+    params = build_model(cfg).init(0, device=dev)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, 1023))
+                              .astype(np.int32)).to(dev)
+    x = embed_lookup(tokens, params.embed)
+    kernel = ops.ssd_scan
+    errs, rels, state_errs = [], [], []
+    for g in range(params.n_groups):
+        p = params.group(g)[0]
+        h = apply_norm(x, p["mixer_norm"], cfg)
+        out, cache = ssm.ssm_forward_with_cache(h, p["mixer"], cfg)
+        ops.ssd_scan = ops.ssd_scan_plain
+        try:
+            want, wcache = ssm.ssm_forward_with_cache(h, p["mixer"], cfg)
+        finally:
+            ops.ssd_scan = kernel
+        errs.append(check_close(f"mamba_layers/{g}/out", out, want, MIXER_TOL,
+                                ROW_REL_TOL))
+        err = (out.float() - want.float()).norm(dim=-1)
+        rels.append(float((err / want.float().norm(dim=-1)
+                           .clamp_min(1e-30)).max()))
+        state_errs.append(check_close(f"mamba_layers/{g}/state",
+                                      cache["ssd"], wcache["ssd"],
+                                      SSD_TOL[torch.float32]))
+        x = x + out
+    say({"phase": "mamba_layers", "arch": SSM_ARCH, "layers": len(errs),
+         "tokens": 1023, "max_abs_err": max(errs), "tol": MIXER_TOL,
+         "max_row_rel_err": max(rels), "row_rel_tol": ROW_REL_TOL,
+         "state_max_abs_err": max(state_errs),
+         "max_abs_out": float(want.float().abs().max())})
+
+
+def mamba_model_phase(dev):
+    """mamba2-370m on its dense layout: each mixer at full depth
+    (`mamba_layers_check`); the first ``MAMBA_GATED_LAYERS`` layers
+    teacher-forced, the SSD-scan and RMSNorm kernels against the plain path
+    (ssm "chunked", norm "jnp") within LOGIT_TOL; and all 48 layers
+    teacher-forced the same way, reported beside the plain path's own
+    spread when only the RMSNorm kernel changes."""
+    from repro_torch.configs.base import get_config
+    mamba_layers_check(dev)
+    kern = dict(ssm_impl="pallas", norm_impl="pallas")
+    plain = dict(ssm_impl="chunked", norm_impl="jnp")
+    runs, _, _, _ = teacher_forced(SSM_ARCH, kern, plain, dev, kv="dense",
+                                   layers=MAMBA_GATED_LAYERS)
+    compare_logits("mamba_model", SSM_ARCH, runs, layers=MAMBA_GATED_LAYERS)
+    full, _, _, _ = teacher_forced(SSM_ARCH, kern, plain, dev, kv="dense")
+    spread, _, _, _ = teacher_forced(
+        SSM_ARCH, dict(ssm_impl="chunked", norm_impl="pallas"), plain, dev,
+        kv="dense")
+
+    def gap(runs):
+        a, b = runs["kernels"], runs["plain"]
+        err = (a - b).abs()
+        return {"max_abs_err": float(err.max()),
+                "outside_logit_tol": int((err > LOGIT_TOL["atol"]
+                                          + LOGIT_TOL["rtol"] * b.abs())
+                                         .sum()),
+                "argmax_agreement": float((a.argmax(-1) == b.argmax(-1))
+                                          .float().mean())}
+    if not (torch.isfinite(full["kernels"]).all()
+            and torch.isfinite(full["plain"]).all()):
+        raise AssertionError("mamba_model_full_depth: non-finite logits")
+    say({"phase": "mamba_model_full_depth", "arch": SSM_ARCH,
+         "layers": get_config(SSM_ARCH).num_layers,
+         "elements": full["plain"].numel(),
+         "kernels_vs_plain": gap(full),
+         "plain_with_rmsnorm_kernel_vs_plain": gap(spread),
+         "max_abs_logit": float(full["plain"].abs().max())})
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
@@ -720,6 +935,7 @@ def main():
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_verify_attention)
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -738,10 +954,12 @@ def main():
     t0 = time.monotonic()
     kernels = [check_paged(rng, dev), check_flash(rng, dev),
                check_rmsnorm(rng, dev), check_verify(rng, dev),
-               check_dense(rng, dev), check_grouped_matmul(rng, dev)]
+               check_dense(rng, dev), check_grouped_matmul(rng, dev),
+               check_ssd_scan(rng, dev)]
     say({"phase": "kernels", "seconds": time.monotonic() - t0})
     wrappers = [paged_decode_attention, flash_attention, rmsnorm_fused,
-                paged_verify_attention, decode_attention, grouped_matmul]
+                paged_verify_attention, decode_attention, grouped_matmul,
+                ssd_scan]
     t0 = time.monotonic()
     streams, runs = serve_phase(wrappers)
     runs = {"serve": runs, **spec_phase(wrappers, streams),
@@ -750,10 +968,14 @@ def main():
     t0 = time.monotonic()
     runs["moe_serve"] = moe_serve_phase(wrappers)
     say({"phase": "moe_serve_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    runs["mamba_serve"] = mamba_serve_phase(wrappers)
+    say({"phase": "mamba_serve_all", "seconds": time.monotonic() - t0})
     # a kernel's launches: the runs of the path that carries it
     paths = {"paged_verify_attention": ("spec_self", "spec_cold"),
              "decode_attention": ("dense",),
-             "grouped_matmul": ("moe_serve",)}
+             "grouped_matmul": ("moe_serve",),
+             "ssd_scan": ("mamba_serve",)}
     for k, w in zip(kernels, wrappers):
         name = w.__name__
         k["launches"] = sum(runs[r][name] for r in paths.get(name, ("serve",)))
@@ -764,6 +986,9 @@ def main():
     t0 = time.monotonic()
     moe_model_phase(dev)
     say({"phase": "moe_model_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    mamba_model_phase(dev)
+    say({"phase": "mamba_model_all", "seconds": time.monotonic() - t0})
     say({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -8,7 +8,9 @@ arrays (numpy's ``ml_dtypes`` bfloat16, which torch cannot take) go
 through float32, which is exact.  Norm scales stay float32 because the
 reference takes ``1 + scale`` in f32, and so do MoE routers, whose f32
 logits decide which experts a token reaches (``moe.router_probs`` casts
-both operands to f32); every other leaf is stored in bf16, which rounds
+both operands to f32), and the SSM mixer's ``A_log``, ``dt_bias``,
+``D_skip`` and ``norm_scale``, which the reference reads in f32
+(``models/ssm.py``); every other leaf is stored in bf16, which rounds
 exactly as the reference's ``.astype(bf16)`` at use does.
 """
 
@@ -20,8 +22,11 @@ import torch
 from repro_torch.models.transformer import LMParams
 
 
+F32_LEAVES = ("scale", "router", "A_log", "dt_bias", "D_skip", "norm_scale")
+
+
 def _keeps_f32(path: tuple) -> bool:
-    return path[-1] in ("scale", "router")
+    return path[-1] in F32_LEAVES
 
 
 def _convert(tree, path, device, matrix_dtype):

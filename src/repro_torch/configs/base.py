@@ -324,4 +324,5 @@ def _ensure_loaded():
         return
     _LOADED = True
     from repro_torch.configs import granite_moe_3b_a800m  # noqa: F401
+    from repro_torch.configs import mamba2_370m  # noqa: F401
     from repro_torch.configs import smollm_360m  # noqa: F401

@@ -4,11 +4,11 @@
         [--steps 20] [--spec draft] [--kv dense]
 
 Builds the engine ``serve_direct`` serves from (``launch.serve.build_engine``:
-``--arch`` at full width, smollm-360m by default or granite-moe-3b-a800m,
-random weights from seed 0, 8 slots, max_len 1024, block 16, the
-hand-written kernels; paged or dense KV, speculation off or self-draft),
-fills every slot with a request, then times ``--steps`` engine
-steps twice: once on the host clock alone (each step ends in the engine's
+``--arch`` at full width, smollm-360m by default, granite-moe-3b-a800m or
+mamba2-370m (on the dense layout, its only one), random weights from seed
+0, 8 slots, max_len 1024, block 16, the hand-written kernels; paged or
+dense KV, speculation off or self-draft), fills every slot with a request,
+then times ``--steps`` engine steps twice: once on the host clock alone (each step ends in the engine's
 one device->host copy, which waits for the device), and once under
 ``torch.profiler`` for the device time of every kernel.  Prints one JSON
 object: host ms per step, device-busy ms per step, the device's idle share,

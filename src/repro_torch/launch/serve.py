@@ -2,13 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --requests 16 --slots 8 --max-len 1024 [--spec draft] [--kv dense]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+        [--smoke --device cpu]
 
 Port of ``make_trace`` and ``serve_direct`` from ``repro.launch.serve``.
 The serve entry point builds the main path with the hand-written kernels
-(``attn_impl="pallas"``, ``norm_impl="pallas"``, and ``moe_impl="gmm"``
-for an MoE arch such as granite-moe-3b-a800m) on ``device`` ("cuda" by
-default; without a card it raises unless the caller asks for "cpu"): a
-paged or dense KV cache, with or without draft-and-verify speculation.
+(``attn_impl="pallas"``, ``norm_impl="pallas"``, ``moe_impl="gmm"`` for
+an MoE arch such as granite-moe-3b-a800m, ``ssm_impl="pallas"`` for a
+Mamba-2 arch such as mamba2-370m) on ``device`` ("cuda" by default;
+without a card it raises unless the caller asks for "cpu"): a paged or
+dense KV cache, with or without draft-and-verify speculation.  An
+attention-free arch serves on the dense layout (its per-row SSM state has
+nothing to page) with speculation off, as the reference's engine chooses.
 Serving through the pilot system is a later slice.
 """
 
@@ -68,7 +73,7 @@ def expected_tokens(entry: dict, max_len: int) -> int:
 
 def _on_kernels(cfg):
     return dataclasses.replace(cfg, attn_impl="pallas", norm_impl="pallas",
-                               moe_impl="gmm")
+                               moe_impl="gmm", ssm_impl="pallas")
 
 
 def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
@@ -125,7 +130,8 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="smollm-360m, granite-moe-3b-a800m or mamba2-370m")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config")
     ap.add_argument("--requests", type=int, default=16)

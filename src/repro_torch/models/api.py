@@ -62,7 +62,9 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     """Zero decode state: the caches, per-row ``token`` (batch,1) and
     ``pos`` (batch,).  ``kv="paged"``: per-slot block pools plus
     ``block_tables`` (batch, max_len // block_size).  ``kv="dense"``:
-    per-slot rings (n_groups, batch, max_len, K, Dh) and no tables."""
+    per-slot rings (n_groups, batch, max_len, K, Dh) and no tables.  SSM
+    slots hold per-row state in both layouts: ``conv`` (n_groups, batch,
+    W-1, conv_dim) bf16 and ``ssd`` (n_groups, batch, H, N, P) f32."""
     if kv not in ("paged", "dense"):
         raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
     dev = resolve_device(device)
@@ -111,7 +113,7 @@ def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
     def verify(params, tokens, state):
         logits, cache = tf.lm_verify(params, cfg, tokens, state["cache"],
                                      state["pos"],
-                                     block_tables=state["block_tables"],
+                                     block_tables=state.get("block_tables"),
                                      compute=compute)
         return logits, {**state, "cache": cache}
 

@@ -1,7 +1,7 @@
-"""Decoder-only LM (GQA attention, dense or MoE FFN): parameters, caches,
-prefill, decode.
+"""Decoder-only LM (GQA attention with a dense or MoE FFN, or Mamba-2 SSM
+mixers): parameters, caches, prefill, decode.
 
-Port of the attention part of ``repro.models.transformer``.  Layers are
+Port of the attention and SSM parts of ``repro.models.transformer``.  Layers are
 organised into groups of ``period`` layers exactly as in the reference,
 and the layer parameters keep its stacked ``(n_groups, ...)`` leaves, so
 the parameter bridge maps leaf to leaf.  The reference's ``lax.scan`` over
@@ -9,7 +9,11 @@ groups is a Python loop here; its ``constrain*`` calls are identity without
 a mesh and are dropped.  Caches are stacked the same way: one pool per
 slot with a leading ``n_groups`` dim.  An MoE slot runs the capacity
 dispatch (``moe.apply_moe``) in prefill and the dense-gated MoE
-(``moe.apply_moe_dense``) in decode and verify, as in the reference.
+(``moe.apply_moe_dense``) in decode and verify, as in the reference.  An
+SSM slot (attention-free archs such as mamba2-370m) runs the SSD mixer
+(``ssm.ssm_forward_with_cache`` in prefill, ``ssm.ssm_decode`` in decode)
+over per-row ``{"conv", "ssd"}`` state, and a slot with ``ffn == "none"``
+has no FFN.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     COMPUTE, apply_mlp, apply_norm, embed_init, embed_lookup, init_mlp,
     init_norm, lm_logits, rope_table,
@@ -63,13 +68,20 @@ def layer_slots(cfg) -> list[dict]:
 
 
 def _check_slice(cfg):
-    slots = layer_slots(cfg)
-    if cfg.is_encdec or any(s["mixer"] != "attn" for s in slots):
+    mixers = {s["mixer"] for s in layer_slots(cfg)}
+    if cfg.is_encdec or len(mixers) > 1:
         raise NotImplementedError(
-            f"{cfg.name}: SSM and encoder-decoder layers are later slices "
-            "of the port; this one carries GQA decoders with dense or MoE "
-            "FFNs")
-    attn._check_gqa(cfg)
+            f"{cfg.name}: hybrid (SSM + attention) and encoder-decoder "
+            "archs are later slices of the port; this one carries GQA "
+            "decoders with dense or MoE FFNs and attention-free SSM stacks")
+    if "attn" in mixers:
+        attn._check_gqa(cfg)
+
+
+def _attn_slot(slots) -> int | None:
+    """Index of the first attention slot (None for an SSM-only stack)."""
+    return next((i for i, s in enumerate(slots) if s["mixer"] == "attn"),
+                None)
 
 
 # --------------------------------------------------------------------------
@@ -91,7 +103,8 @@ class LMParams(nn.Module):
     ``embed`` (V,D), ``final_norm["scale"]`` (D,), optional ``head`` (D,V),
     and ``layers[slot]`` whose leaves are stacked ``(n_groups, ...)``.
     Matrices are bf16 (the reference casts them to bf16 at use); norm
-    scales (``1 + scale`` is taken in f32) and MoE routers (f32 logits)
+    scales (``1 + scale`` is taken in f32), MoE routers (f32 logits) and
+    the SSM mixer's ``A_log``, ``dt_bias``, ``D_skip`` and ``norm_scale``
     stay f32."""
 
     def __init__(self, tree: dict):
@@ -149,14 +162,16 @@ def init_lm_params(cfg, gen: torch.Generator, device="cpu",
     def slot(s):
         groups = []
         for _g in range(n_groups):
-            groups.append({
-                "mixer_norm": init_norm(cfg, device=device),
-                "mixer": attn.init_attention(gen, cfg, dtype, device),
-                "ffn_norm": init_norm(cfg, device=device),
-                "ffn": (moe.init_moe(gen, cfg, dtype, device)
-                        if s["ffn"] == "moe"
-                        else init_mlp(gen, cfg, dtype, device)),
-            })
+            gp = {"mixer_norm": init_norm(cfg, device=device),
+                  "mixer": (attn.init_attention(gen, cfg, dtype, device)
+                            if s["mixer"] == "attn"
+                            else ssm.init_ssm(gen, cfg, dtype, device))}
+            if s["ffn"] != "none":
+                gp["ffn_norm"] = init_norm(cfg, device=device)
+                gp["ffn"] = (moe.init_moe(gen, cfg, dtype, device)
+                             if s["ffn"] == "moe"
+                             else init_mlp(gen, cfg, dtype, device))
+            groups.append(gp)
         return {k: {kk: torch.stack([gp[k][kk] for gp in groups])
                     for kk in groups[0][k]} for k in groups[0]}
 
@@ -179,28 +194,38 @@ def head_matrix(params: LMParams, cfg):
 # Caches
 # --------------------------------------------------------------------------
 
+def _stacked(c: dict, n_groups: int) -> dict:
+    return {k: v[None].expand((n_groups,) + v.shape).contiguous()
+            for k, v in c.items()}
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=COMPUTE, device="cpu"):
-    """Stacked dense cache: one dict per slot, leaves (n_groups, ...)."""
+    """Stacked dense cache: one dict per slot, leaves (n_groups, ...):
+    rings ``{"k", "v"}`` for attention slots, per-row ``{"conv", "ssd"}``
+    state for SSM slots."""
     _check_slice(cfg)
     n_groups = cfg.num_layers // group_period(cfg)
-    out = []
-    for _ in layer_slots(cfg):
-        c = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
-        out.append({k: v[None].expand((n_groups,) + v.shape).contiguous()
-                    for k, v in c.items()})
-    return out
+    return [_stacked(attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+                     if s["mixer"] == "attn"
+                     else ssm.init_ssm_cache(cfg, batch, dtype, device),
+                     n_groups)
+            for s in layer_slots(cfg)]
 
 
 def init_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
                      block_size: int, dtype=COMPUTE, device="cpu"):
-    """Stacked paged cache: per slot, pools (n_groups, nb, bs, K, Dh)."""
+    """Stacked paged cache: per attention slot, pools (n_groups, nb, bs, K,
+    Dh); SSM state stays per row (it is O(1) per row, nothing to page)."""
     _check_slice(cfg)
     n_groups = cfg.num_layers // group_period(cfg)
     K, Dh = cfg.num_kv_heads, cfg.head_dim
     shape = (n_groups, num_blocks, block_size, K, Dh)
     return [{"kp": torch.zeros(shape, dtype=dtype, device=device),
              "vp": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in layer_slots(cfg)]
+            if s["mixer"] == "attn"
+            else _stacked(ssm.init_ssm_cache(cfg, batch, dtype, device),
+                          n_groups)
+            for s in layer_slots(cfg)]
 
 
 # --------------------------------------------------------------------------
@@ -208,9 +233,12 @@ def init_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
 # --------------------------------------------------------------------------
 
 def _ffn(x, p, cfg, slot, compute, *, prefill=False):
-    """The slot's FFN with its residual.  An MoE slot dispatches by
-    capacity in prefill (its aux loss is dropped, as in the reference's
-    prefill) and runs every expert on the tokens in decode and verify."""
+    """The slot's FFN with its residual (none for ``ffn == "none"``).  An
+    MoE slot dispatches by capacity in prefill (its aux loss is dropped, as
+    in the reference's prefill) and runs every expert on the tokens in
+    decode and verify."""
+    if slot["ffn"] == "none":
+        return x
     h = apply_norm(x, p["ffn_norm"], cfg)
     if slot["ffn"] != "moe":
         return x + apply_mlp(h, p["ffn"], cfg, compute)
@@ -224,17 +252,22 @@ def lm_prefill(params: LMParams, cfg, tokens, cache, *, compute=COMPUTE):
     slots = layer_slots(cfg)
     x = embed_lookup(tokens, params.embed, compute)
     S = x.shape[1]
-    rope = rope_table(torch.arange(S, device=x.device), cfg.head_dim,
-                      cfg.rope_theta)
+    rope = (rope_table(torch.arange(S, device=x.device), cfg.head_dim,
+                       cfg.rope_theta)
+            if _attn_slot(slots) is not None else None)
     new = [{k: [] for k in c} for c in cache]
     for g in range(params.n_groups):
         gp = params.group(g)
         for i, slot in enumerate(slots):
             p = gp[i]
             h = apply_norm(x, p["mixer_norm"], cfg)
-            old = {k: v[g] for k, v in cache[i].items()}
-            out, nc = attn.attention_prefill(h, p["mixer"], cfg, rope, old,
-                                             compute=compute)
+            if slot["mixer"] == "attn":
+                old = {k: v[g] for k, v in cache[i].items()}
+                out, nc = attn.attention_prefill(h, p["mixer"], cfg, rope,
+                                                 old, compute=compute)
+            else:
+                out, nc = ssm.ssm_forward_with_cache(h, p["mixer"], cfg,
+                                                     compute=compute)
             for k, v in nc.items():
                 new[i][k].append(v)
             x = _ffn(x + out, p, cfg, slot, compute, prefill=True)
@@ -248,21 +281,27 @@ def lm_decode(params: LMParams, cfg, token, cache, pos, *, block_tables=None,
     """One decode step.  token: (B,1) int; pos: (B,) int32 absolute
     position of the new token; ``block_tables`` (B, mb) serves every layer
     of a paged cache (None for a dense cache).  The caches in ``cache`` are
-    updated in place.  Returns (logits (B,1,V) f32, cache)."""
+    updated in place (SSM slots advance their per-row state; ``pos`` only
+    positions attention).  Returns (logits (B,1,V) f32, cache)."""
     slots = layer_slots(cfg)
     x = embed_lookup(token, params.embed, compute)
-    ctx = attn.decode_context(
-        cfg, attn._row_positions(pos, x.shape[0], x.device), cache[0],
-        block_tables)
+    a = _attn_slot(slots)
+    ctx = (attn.decode_context(
+        cfg, attn._row_positions(pos, x.shape[0], x.device), cache[a],
+        block_tables) if a is not None else None)
     for g in range(params.n_groups):
         gp = params.group(g)
         for i, slot in enumerate(slots):
             p = gp[i]
             h = apply_norm(x, p["mixer_norm"], cfg)
             layer_cache = {k: v[g] for k, v in cache[i].items()}
-            h, _ = attn.attention_decode(h, p["mixer"], cfg, layer_cache, pos,
-                                         block_tables=block_tables, ctx=ctx,
-                                         compute=compute)
+            if slot["mixer"] == "attn":
+                h, _ = attn.attention_decode(h, p["mixer"], cfg, layer_cache,
+                                             pos, block_tables=block_tables,
+                                             ctx=ctx, compute=compute)
+            else:
+                h, _ = ssm.ssm_decode(h, p["mixer"], cfg, layer_cache,
+                                      compute=compute)
             x = _ffn(x + h, p, cfg, slot, compute)
     x = apply_norm(x, params.final_norm, cfg)
     return lm_logits(x, head_matrix(params, cfg), cfg.logit_softcap), cache

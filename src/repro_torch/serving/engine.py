@@ -12,7 +12,10 @@ blocks at admission granularity (the request's whole reach: prompt bucket
 plus token budget, capped at ``max_len``), and eviction returns them all;
 the decode loop never touches the table.  ``kv="dense"`` keeps a
 ``(slots, max_len)`` ring per slot instead: the ablation, bitwise equal to
-paged decode (same shapes, same masks, same reduction order).
+paged decode (same shapes, same masks, same reduction order).  An
+attention-free arch (Mamba-2) has nothing to page: it serves on the dense
+layout, whose SSM slots hold per-row ``{conv, ssd}`` state that admission
+writes whole.
 
 * **prefix reuse** (paged) — admission hashes the padded prompt per full
   block (chain hash, so a hit guarantees bit-identical KV); matching
@@ -214,7 +217,8 @@ class ServeEngine:
     missing card raises).  ``params`` is the port's :class:`LMParams` on
     that device.
 
-    * ``kv`` — "paged" (default for decoder LMs) or "dense" (the ablation).
+    * ``kv`` — "paged" (default for decoder LMs) or "dense" (the ablation;
+      the only layout of an attention-free arch, whatever ``kv`` asks).
     * ``spec`` — "off" or "draft": ``spec_k`` draft tokens per step from
       ``draft_cfg`` (None: the target drafts for itself) with
       ``draft_params`` (None: ``build_model(draft_cfg).init(0)``), verified
@@ -756,19 +760,25 @@ def _install_slot(state, prefill_cache, slot: int, plen: int,
                   next_token: int):
     """Install a one-shot prefill into row ``slot`` of the DENSE decode
     state IN PLACE: each ring row takes the prefill's rows (zeros past
-    them), then the slot's token and position are set."""
+    them), each SSM state row (``conv``, ``ssd``) the prefill's whole row,
+    then the slot's token and position are set."""
     for st_leaf, pf_leaf in zip(state["cache"], prefill_cache):
         for key, dst in st_leaf.items():
-            _merge_row(dst, pf_leaf[key], slot)
+            _merge_row(dst, pf_leaf[key], slot, ring=key in ("k", "v"))
     state["token"][slot, 0] = next_token
     state["pos"][slot] = plen
     return state
 
 
-def _merge_row(dst, src, slot: int):
-    """Write prefill leaf ``src`` (groups, 1, T', ...) into row ``slot`` of
-    the engine leaf ``dst`` (groups, B, T, ...) in place, cropped or
-    zero-padded to T."""
+def _merge_row(dst, src, slot: int, ring: bool = True):
+    """Write prefill leaf ``src`` (groups, 1, ...) into row ``slot`` of the
+    engine leaf ``dst`` (groups, B, ...) in place.  A ring (groups, B, T,
+    ...) takes the prefill's T' rows cropped or zero-padded to T; a
+    per-row state leaf (``ring=False``) has the engine's shape and is
+    written whole."""
+    if not ring:
+        dst[:, slot] = src[:, 0].to(dst.dtype)
+        return dst
     rows = src[:, 0, :dst.shape[2]]
     dst[:, slot, :rows.shape[1]] = rows.to(dst.dtype)
     dst[:, slot, rows.shape[1]:] = 0

@@ -9,10 +9,12 @@ machine with the card as it is:
 Inputs are bf16 at the main paths' shapes (smollm-360m: 15 heads, 5 KV
 heads, head dim 64, d_model 960; granite-moe-3b-a800m's experts: 40 of
 1536 x 512, capacity 256 at the 1023-token admission and the ragged 136 at
-512); tolerances are those of tests/test_kernels.py: attention rtol=5e-2,
-atol=2e-2; RMSNorm and grouped matmul 5e-2.  The verify and dense decode
-kernels share the paged decode kernel's block body, so they are also held
-to it bitwise.
+512; mamba2-370m's SSD scan: 32 heads of 64, state 128, chunk 256 at the
+1023-token admission); tolerances are those of tests/test_kernels.py:
+attention rtol=5e-2, atol=2e-2; RMSNorm and grouped matmul 5e-2; SSD scan
+1e-3 for f32 inputs, 6e-2 for bf16.  The verify and dense decode kernels
+share the paged decode kernel's block body, so they are also held to it
+bitwise.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from repro_torch.kernels.paged_attention.ops import (
     paged_decode_attention, paged_decode_attention_plain,
     paged_verify_attention, paged_verify_attention_plain)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -243,3 +246,55 @@ def test_router_runs_in_full_f32_when_tf32_is_on(card):
     want = torch.softmax(x.double().cpu() @ w.double().cpu(), dim=-1)
     torch.testing.assert_close(got.double().cpu(), want, rtol=1e-5,
                                atol=1e-9)
+
+
+def _ssd_inputs(rng, dev, b, S, H, P, G, N, dtype):
+    """The reference sweep's recipe (tests/test_kernels.py): dt after a
+    softplus, A = -exp(0.5 n), B and C scaled by 0.3."""
+    def n(shape, scale=1.0):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                * scale).to(dev)
+    return (n((b, S, H, P)).to(dtype),
+            torch.nn.functional.softplus(n((b, S, H))),
+            -torch.exp(n((H,), 0.5)), n((b, S, G, N), 0.3).to(dtype),
+            n((b, S, G, N), 0.3).to(dtype))
+
+
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk,dtype", [
+    (1, 1023, 32, 64, 1, 128, 256, torch.bfloat16),  # the 1023 admission
+    (1, 512, 32, 64, 1, 128, 256, torch.bfloat16),   # the 512 bucket
+    (1, 128, 32, 64, 1, 128, 256, torch.bfloat16),   # chunk 128 (S = 128)
+    (1, 64, 32, 64, 1, 128, 256, torch.bfloat16),    # chunk 64
+    (1, 32, 32, 64, 1, 128, 256, torch.bfloat16),    # chunk 32
+    (1, 100, 4, 32, 1, 64, 32, torch.bfloat16),      # padded: 4 chunks of 32
+    (1, 192, 8, 32, 2, 64, 64, torch.bfloat16),      # grouped B/C
+    (2, 256, 4, 64, 1, 128, 64, torch.float32),      # the reference sweep
+    (1, 192, 8, 32, 2, 64, 64, torch.float32),
+    (2, 128, 2, 64, 1, 128, 128, torch.float32),
+    (1, 100, 4, 32, 1, 64, 32, torch.float32),
+])
+def test_ssd_scan_kernel_matches_plain(card, b, S, H, P, G, N, chunk, dtype):
+    """The SSD-scan kernel against its plain version (chunk by chunk, the
+    same masked-decay math in f32), y and the final state."""
+    rng = np.random.default_rng(8)
+    args = _ssd_inputs(rng, card, b, S, H, P, G, N, dtype)
+    before = ssd_scan.launches
+    y, st = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    yw, sw = ssd_scan_plain(*args, chunk=chunk)
+    tol = 1e-3 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(y.float(), yw.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, sw, rtol=tol, atol=tol)
+
+
+def test_ssd_scan_kernel_writes_y_in_x_dtype(card):
+    """On the kernel path y comes back in x's dtype (bf16 on the serve
+    path; the mixer then casts it to f32 before the D skip, as the
+    reference's kernel path does) and the state in f32, shaped (b,H,N,P)."""
+    rng = np.random.default_rng(9)
+    args = _ssd_inputs(rng, card, 2, 40, 4, 16, 1, 16, torch.bfloat16)
+    y, st = ssd_scan(*args, chunk=32)
+    assert y.dtype == torch.bfloat16 and y.shape == (2, 40, 4, 16)
+    assert st.dtype == torch.float32 and st.shape == (2, 4, 16, 16)

@@ -63,9 +63,11 @@ def _f(x):
 # ---------------------------------------------------------------------------
 
 def test_bridge_round_trip(ref_tree):
-    """Norm scales come back exactly; matrices come back as their bf16
-    rounding (what the reference's ``.astype(bf16)`` gives at use), and a
-    bf16 tree round-trips bit for bit."""
+    """Norm scales (and every other leaf the bridge keeps f32: routers,
+    the SSM mixer's A_log, dt_bias, D_skip, norm_scale) come back exactly;
+    matrices come back as their bf16 rounding (what the reference's
+    ``.astype(bf16)`` gives at use), and a bf16 tree round-trips bit for
+    bit."""
     cfg, _ = _cfgs()
     params = params_from_numpy(ref_tree, cfg, device="cpu")
     assert params.layers[0]["mixer"]["wq"].dtype == torch.bfloat16
@@ -77,7 +79,9 @@ def test_bridge_round_trip(ref_tree):
         return np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
     for (path, got), want in zip(jax.tree_util.tree_leaves_with_path(back),
                                  jax.tree.leaves(ref_tree)):
-        exact = "scale" in jax.tree_util.keystr(path)
+        exact = any(name in jax.tree_util.keystr(path)
+                    for name in ("scale", "router", "A_log", "dt_bias",
+                                 "D_skip"))
         np.testing.assert_array_equal(got, want if exact else bf16_round(want))
     bf16_tree = jax.tree.map(
         lambda a: a if a.ndim == 1 else np.asarray(jnp.asarray(a, jnp.bfloat16)),
