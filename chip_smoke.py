@@ -71,10 +71,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               when only the RMSNorm kernel is swapped in.
 
 The kernels phase also checks every kernel at granite's shapes (24 heads,
-8 KV heads, d_model 1536), the grouped matmul at its capacity buckets
+8 KV heads, d_model 1536); flash prefill at head widths 128 and 256 (MQA,
+as gemma), at S = 1, 65 and B = 2, and at the smoke widths its wrapper
+pads; RMSNorm at D = 1024, 2048, 4096, R = 1 and with a residual; the
+grouped matmul at its capacity buckets
 (C = 256 and the ragged 136), ragged group sizes and an empty group, and
 the SSD scan at mamba2-370m's admission buckets (S = 1023 with chunk 256,
 and S = 32, 64, 128, 512), a padded S = 100 and grouped B/C (G = 2).
+
+Flash prefill and RMSNorm (and their library calls) are timed twice:
+``ms`` back to back from the host, as the serve path calls them, and
+``device_ms`` from replaying a CUDA graph of 50 captured calls, which
+leaves the host's launch path out; flash also at the S = 512 and 128
+admission buckets.  The flash entry records its instance, nvcc's register
+and spill report and the tensor-core instructions in its SASS (a build
+without ``HGMMA`` fails).
 
 Lines of JSON report each phase; the line before the last is nvidia-smi's
 name and power limit; the last line is
@@ -85,6 +96,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -367,7 +380,83 @@ def check_dense(rng, dev):
     }
 
 
-def check_flash(rng, dev):
+def graph_ms(fn, n=50, reps=5):
+    """Device time per call of ``fn``: ``n`` calls captured in one CUDA
+    graph, the graph replayed ``reps`` times, timed with CUDA events.  The
+    host's launch path is out of it; a capture that fails fails the phase."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del graph
+    return ms
+
+
+def sass_counts(lib, ops=("HGMMA", "HMMA", "FFMA")):
+    """How often each SASS opcode occurs in a built kernel library
+    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+
+
+def kernel_name(mangled):
+    """``flash_prefill_kernel<64,false>`` from its mangled name (the
+    templates of this repo's kernels: ints, bools, float and bf16)."""
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+        n, ident = int(m.group(1)), m.group(2)
+        if len(ident) >= n and ident[:n].endswith("kernel"):
+            args = re.match(r"I(.*?E)E", ident[n:])
+            if args is None:
+                return ident[:n]
+            a = re.sub(r"Li(\d+)E", r"\1,", args.group(1))
+            a = a.replace("Lb0E", "false,").replace("Lb1E", "true,")
+            a = re.sub(r"^f", "float,", a.replace("13__nv_bfloat16", "bf16,"))
+            return f"{ident[:n]}<{a.rstrip(',E')}>"
+    return mangled
+
+
+def ptxas_report(log):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from nvcc's
+    ``-Xptxas -v`` output (empty when the library was already built)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", ln)):
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def flash_work(B, S, H, K, Dh):
+    """Bytes (q, k, v read once, out written once) and causal-pair flops."""
+    return (2 * (2 * B * S * H * Dh + 2 * B * S * K * Dh),
+            4 * Dh * H * B * S * (S + 1) // 2)
+
+
+def check_flash(rng, dev, ptxas):
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     cases = {   # name: (B, S, T, H, K, Dh, causal, window, q_offset)
@@ -375,6 +464,12 @@ def check_flash(rng, dev):
         "granite_S1023": (1, 1023, 1023, 24, 8, 64, True, None, 0),
         "S16": (1, 16, 16, 15, 5, 64, True, None, 0),
         "S100": (1, 100, 100, 15, 5, 64, True, None, 0),
+        "S1": (1, 1, 1, 15, 5, 64, True, None, 0),
+        "S65": (1, 65, 65, 15, 5, 64, True, None, 0),
+        "B2_S300": (2, 300, 300, 15, 5, 64, True, None, 0),
+        "granite_B2_S300": (2, 300, 300, 24, 8, 64, True, None, 0),
+        "Dh128": (1, 300, 300, 16, 4, 128, True, None, 0),
+        "Dh256_mqa": (1, 200, 200, 8, 1, 256, True, None, 0),
         "window_offset": (2, 48, 112, 4, 2, 32, True, 40, 64),
         "noncausal_T100": (1, 48, 100, 6, 2, 32, False, None, 0),
         "smoke": (1, 37, 37, 3, 1, 20, True, None, 0),
@@ -387,36 +482,63 @@ def check_flash(rng, dev):
         errs[name] = check_close(f"flash/{name}", flash_attention(q, k, v, **kw),
                                  flash_attention_plain(q, k, v, **kw), ATTN_TOL,
                                  ROW_REL_TOL)
-    S, H, K, Dh = 1023, 15, 5, 64
-    q, k, v = (bf16(rng, (1, S, H, Dh), dev), bf16(rng, (1, S, K, Dh), dev),
-               bf16(rng, (1, S, K, Dh), dev))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    nbytes = 2 * (2 * S * H * Dh + 2 * S * K * Dh)
-    flops = 4 * Dh * H * S * (S + 1) // 2               # causal pairs only
+    sass = sass_counts(_build._target("flash_prefill"))
+    if sass is not None and sass["HGMMA"] == 0:
+        raise AssertionError(f"flash: no wgmma (HGMMA) in the SASS: {sass}")
+
+    def timed(B, S, H, K, Dh):
+        q, k, v = (bf16(rng, (B, S, H, Dh), dev), bf16(rng, (B, S, K, Dh), dev),
+                   bf16(rng, (B, S, K, Dh), dev))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        nbytes, flops = flash_work(B, S, H, K, Dh)
+        return {
+            "ms": time_ms(lambda: flash_attention(q, k, v), n=20),
+            "device_ms": graph_ms(lambda: flash_attention(q, k, v)),
+            "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), n=20),
+            "library_ms": time_ms(sdpa, n=20),
+            "library_device_ms": graph_ms(sdpa),
+            **bound(nbytes, flops, BF16_FLOPS),
+        }
+    main = timed(1, 1023, 15, 5, 64)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+        "instance": "wgmma + TMA (m64n64k16; 64-row query tile; two "
+                    "consumer warpgroups over alternate 64-key tiles; TMA "
+                    "ring of 4 K/V tiles)",
+        "ptxas": ptxas.get("flash_prefill", {}),
+        "sass": sass,
         "shape": "q (1,1023,15,64), k/v (1,1023,5,64) bf16, causal",
         "max_abs_err": errs["main_S1023"],
         "max_abs_err_granite": errs["granite_S1023"],
+        "max_abs_err_by_case": errs,
         "max_abs_err_all_cases": max(errs.values()),
-        "ms": time_ms(lambda: flash_attention(q, k, v), n=20),
-        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), n=20),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), n=20),
-        **bound(nbytes, flops, BF16_FLOPS),
+        **main,
+        "buckets": {"granite_S1023 (1,1023,24/8,64)": timed(1, 1023, 24, 8, 64),
+                    "S512 (1,512,15/5,64)": timed(1, 512, 15, 5, 64),
+                    "S128 (1,128,15/5,64)": timed(1, 128, 15, 5, 64)},
     }
 
 
-def check_rmsnorm(rng, dev):
+def check_rmsnorm(rng, dev, ptxas):
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
     errs = {}
     for name, shape, with_res in (("decode_R8", (8, 960), False),
+                                  ("decode_R8_residual", (8, 960), True),
+                                  ("R1", (1, 960), False),
                                   ("prefill_R1023_residual", (1023, 960), True),
                                   ("granite_decode_R8", (8, 1536), False),
                                   ("granite_prefill_R1023", (1, 1023, 1536),
                                    False),
+                                  ("mamba_decode_R8", (8, 1024), False),
+                                  ("D2048_R8_residual", (8, 2048), True),
+                                  ("D4096_R8", (8, 4096), False),
+                                  ("D4096_R1023_residual", (1023, 4096), True),
                                   ("smoke", (3, 37, 60), False)):
         x = bf16(rng, shape, dev)
         r = bf16(rng, shape, dev) if with_res else None
@@ -433,17 +555,21 @@ def check_rmsnorm(rng, dev):
     nbytes = R * D * 2 + D * 4 + 2 * R * D * 2          # x, scale, 2 outputs
     flops = 5 * R * D
     return {
-        "name": "rmsnorm_fused", "route": "triton",
-        "source": "src/repro_torch/kernels/rmsnorm/ops.py",
+        "name": "rmsnorm_fused", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:33",
+        "ptxas": ptxas.get("rmsnorm", {}),
         "shape": "x (8,960) bf16 (decode), scale (960,) f32",
         "max_abs_err": errs["decode_R8"],
         "max_abs_err_granite": max(errs["granite_decode_R8"],
                                    errs["granite_prefill_R1023"]),
+        "max_abs_err_by_case": errs,
         "max_abs_err_all_cases": max(errs.values()),
         "ms": time_ms(lambda: rmsnorm_fused(x, sc)),
+        "device_ms": graph_ms(lambda: rmsnorm_fused(x, sc)),
         "plain_ms": time_ms(lambda: rmsnorm_plain(x, sc)),
         "library_ms": time_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)),
+        "library_device_ms": graph_ms(lambda: F.rms_norm(x, (D,), w, 1e-5)),
         **bound(nbytes, flops, F32_FLOPS),
     }
 
@@ -945,15 +1071,13 @@ def main():
 
     t0 = time.monotonic()
     logs = _build.build_all()
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in logs.items()}
+    ptxas = {name: ptxas_report(log) for name, log in logs.items()}
     say({"phase": "build", "seconds": time.monotonic() - t0, "ptxas": ptxas})
 
     rng = np.random.default_rng(0)
     t0 = time.monotonic()
-    kernels = [check_paged(rng, dev), check_flash(rng, dev),
-               check_rmsnorm(rng, dev), check_verify(rng, dev),
+    kernels = [check_paged(rng, dev), check_flash(rng, dev, ptxas),
+               check_rmsnorm(rng, dev, ptxas), check_verify(rng, dev),
                check_dense(rng, dev), check_grouped_matmul(rng, dev),
                check_ssd_scan(rng, dev)]
     say({"phase": "kernels", "seconds": time.monotonic() - t0})

@@ -25,6 +25,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -118,6 +120,19 @@ def entry(name: str, symbol: str, n_ptrs: int, n_ints: int,
                        + [ctypes.c_float] * scale + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def call(fn, device, *args):
+    """Call the C entry ``fn`` with ``args`` and the raw handle of the
+    current stream of CUDA ``device``, on that device: the short launch
+    path (no stream object is built, and the current device is switched
+    only when it is another)."""
+    cur = torch.cuda.current_device()
+    idx = cur if device.index is None else device.index
+    if idx == cur:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def check_operands(what: str, device, operands):

@@ -1,4 +1,4 @@
-// Blocked flash attention (prefill) for Hopper (sm_90a).
+// Flash attention (prefill) on Hopper's tensor cores (sm_90a): wgmma + TMA.
 //
 // Replaces the TPU kernel `flash_attention_kernel`
 // (src/repro/kernels/flash_attention/kernel.py, body `_attn_kernel`).
@@ -8,190 +8,593 @@
 // with kh = h / G, query i at absolute position q_offset + i, and the mask
 //   t < t_total  &&  (!causal || t <= pos)  &&  (window <= 0 || t > pos - window).
 // Same rounding points as the Pallas body: q, k, p and v are bf16, Q.K and
-// P.V are summed in f32, the online softmax is f32 with masked scores set
-// to -1e30 (not -inf) and the normaliser clamped at 1e-30, so a fully
-// masked row comes out uniform over the tiles it saw instead of NaN.  The
-// output is cast to bf16.
+// P.V are summed in f32, the online softmax is f32 (the unrounded p is
+// summed into the normaliser, P.V takes p rounded to bf16), masked scores
+// are -1e30 (not -inf) and the normaliser is clamped at 1e-30, so a row
+// that sees no key in a tile averages that tile's V until a real score
+// rescales it away.  The output is cast to bf16.
 //
 // What bounds it on the H100: operations.  A causal prefill of S tokens
-// does about 2 * S^2 * H * Dh flops against 2 * S * (H + K) * Dh * 2 bytes;
-// at S = 1023 that is ~500 flop/byte, above the card's ~295.  This first
-// version uses scalar f32 FMAs from shared memory (no tensor cores), so it
-// runs far below the bf16 tensor-core peak; `mma.sync`/`wgmma` tiles are a
-// later change.  What the design does about the bound now: it never
-// computes a tile the mask removes.  One block per (batch, kv-head, q-tile)
-// covers all G query heads of the group, so each K/V tile staged in shared
-// memory serves G heads; the KV loop starts at the window's first tile and
-// stops at the causal bound of the tile's last row.  Ragged S and T are
-// masked in the kernel; nothing is padded or copied.
+// does about 2 * S^2 * H * Dh flops against 2 * S * (H + 2K) * Dh bytes; at
+// S = 1023 that is ~500 flop/byte, above the card's ~295, so only the bf16
+// tensor cores come near the bound.  What the design does about it
+// (FlashAttention-3 in miniature):
+//  - one CTA per (batch, query head, 64-row query tile), launched last
+//    q-tile first (the heaviest causal tiles start first); the G heads of a
+//    group share K/V through the L2 cache, not through one CTA;
+//  - two consumer warpgroups per CTA take alternate 64-key tiles of the
+//    tile's key range, each with its own online softmax, and merge their
+//    (m, l, O) at the end: the longest causal chain (16 tiles at S = 1023)
+//    is halved, and one warpgroup's softmax overlaps the other's products;
+//  - each warpgroup issues `wgmma.mma_async` m64n64k16: S = Q.K^T with both
+//    operands in shared memory and S in f32 registers; scale, mask and the
+//    online softmax run on that fragment (row max and row sum are two
+//    __shfl_xor steps inside a quad); P is packed to bf16 in registers and
+//    fed as the register A operand of O += P.V, with V read K-by-N through
+//    the B operand's transpose bit; O stays in registers until the merge;
+//  - the per-score instructions of the softmax, not the products, set the
+//    pace (4096 exponentials per 64 x 64 tile against 8 wgmmas), so scores
+//    are kept in log2 units and each p is one FFMA and one `ex2.approx` (an
+//    interior tile folds the scale into that FFMA); at Dh = 64 registers
+//    are capped so that two CTAs share an SM;
+//  - one producer warp keeps a ring of K/V tiles in flight (two per
+//    warpgroup; one at Dh = 256) with TMA (cp.async.bulk.tensor, 128-byte
+//    swizzle, completion on mbarriers); TMA's out-of-bounds zero fill
+//    covers ragged S and T, the position mask still decides validity;
+//  - the key loop starts at the window's first tile and stops at the causal
+//    bound of the tile's last row; only tiles that cross a bound evaluate
+//    the mask.
+// Head widths 64, 128 and 256 are instances (one 64-column swizzled panel
+// per 64 of Dh); the wrapper zero-pads any other width up to the next one.
 //
-// Layouts (all contiguous): q (B, S, H, Dh), k/v (B, T, K, Dh), out like q,
-// all bf16.
+// Layouts (all contiguous, 16-byte aligned): q (B, S, H, Dh), k/v (B, T, K,
+// Dh), out like q, all bf16, Dh one of 64, 128, 256.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kBlockK = 32;      // KV rows per shared-memory tile
-constexpr int kMaxRows = 64;     // query rows (positions x heads) per block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBM = 64;                 // query rows per CTA (one wgmma M)
+constexpr int kBN = 64;                 // keys per K/V tile
+constexpr int kWarpgroups = 2;          // consumer warpgroups, alternate tiles
+constexpr int kConsumers = 128 * kWarpgroups;
+constexpr int kThreads = kConsumers + 32;   // + one producer warp
+constexpr int kPanelBytes = 64 * 64 * 2;    // 64 rows x 64 bf16, 128B swizzle
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
+template <int DH>
+struct Smem {
+  static constexpr int kPanels = DH / 64;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;   // one Q/K/V tile
+  // K/V ring: two tiles in flight per consumer warpgroup (one at Dh = 256,
+  // for room); stage s always serves warpgroup s % 2
+  static constexpr int kStages = DH <= 128 ? 4 : 2;
+  // two CTAs per SM at Dh = 64 (ptxas caps the registers to fit them)
+  static constexpr int kMinBlocks = DH == 64 ? 2 : 1;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTileBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;     // 8-byte barriers
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;  // + align
+  // after the key loop the ring holds warpgroup 1's O, m and l for the merge
+  static constexpr int kXchFloats = 32 * kPanels + 4;
+  static_assert(kXchFloats * 4 * 128 <= 2 * kStages * kTileBytes, "merge");
+};
+
+// ---- shared memory, barriers, TMA -----------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void flash_prefill_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    int S, int T, int H, int K, int Dh, int block_q, int causal, int window,
-    int q_offset, int t_total, float scale) {
-  const int b = blockIdx.x / K;
-  const int kh = blockIdx.x - b * K;
-  const int q0 = blockIdx.y * block_q;
-  const int G = H / K;
-  const int R = block_q * G;          // query rows; row r = (i = r / G, g = r % G)
-  const int ldq = Dh + 1;             // padded strides: conflict-free columns
-  const int ldk = Dh + 1;
-  const int lds = kBlockK + 1;
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // (R, ldq)
-  float* acc = q_s + R * ldq;         // (R, Dh)
-  float* k_s = acc + R * Dh;          // (kBlockK, ldk)
-  float* v_s = k_s + kBlockK * ldk;   // (kBlockK, ldk)
-  float* p_s = v_s + kBlockK * ldk;   // (R, lds)
-  float* m_s = p_s + R * lds;         // (R,)
-  float* l_s = m_s + R;               // (R,)
-  float* a_s = l_s + R;               // (R,)
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
 
-  const size_t q_row = (size_t)H * Dh;    // between positions of q / out
-  const size_t kv_row = (size_t)K * Dh;   // between positions of k / v
-  for (int idx = tid; idx < R * Dh; idx += blockDim.x) {
-    const int r = idx / Dh, d = idx - r * Dh;
-    const int i = q0 + r / G, h = kh * G + r % G;
-    q_s[r * ldq + d] = i < S
-        ? __bfloat162float(q[((size_t)b * S + i) * q_row + (size_t)h * Dh + d])
-        : 0.f;
-    acc[idx] = 0.f;
-  }
-  for (int r = tid; r < R; r += blockDim.x) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
 
-  // KV range this q-tile can see: [kv_lo, kv_hi)
-  const int last_i = min(S, q0 + block_q) - 1;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 64 x 64 bf16 box of a (B, rows, heads, Dh) tensor: columns c0..c0+63 of
+// head `head`, rows r0..r0+63 of batch b (rows past the end read as zero).
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int c0, int head, int r0,
+                                        int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(head),
+        "r"(r0), "r"(b), "r"(bar) : "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  K-major tiles (Q, K:
+// 64-element rows of 128 bytes, 8-row groups 1024 bytes apart): LBO unused,
+// SBO 1024; a 16-wide k-slice starts 32 bytes further into the row.
+// MN-major tiles (V read as B = V, k = key): SBO 1024 between 8-key groups,
+// LBO the stride between 64-wide N panels.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from touching an accumulator across an async wgmma.
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WG_OUT32(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) . B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {    // 2^x, one MUFU.EX2
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---- the kernel -------------------------------------------------------------
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// One CTA: the producer warp streams Q and the K/V tiles; consumer
+// warpgroup w takes tiles w, w + 2, ... with its own online softmax (m, l,
+// O), and warpgroup 0 merges warpgroup 1's state into its own at the end.
+// Splitting the key range halves the longest causal tile's chain.
+// QK_ONLY: write the raw f32 Q.K^T accumulator of the CTA's first K tile to
+// `out` ((rows, 64) f32) and stop; the card test holds the TMA swizzle and
+// the wgmma descriptors to torch with it before any softmax runs.
+template <int DH, bool QK_ONLY>
+__global__ void __launch_bounds__(kThreads, Smem<DH>::kMinBlocks)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     void* __restrict__ out, int S, int H, int K, int causal,
+                     int window, int q_offset, int t_total, float scale) {
+  using L = Smem<DH>;
+  constexpr int P = L::kPanels;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t s_base = smem_u32(smem);
+  const uint32_t bar_q = s_base + L::kBar;
+  auto bar_full = [&](int s) { return s_base + L::kBar + 8 * (1 + s); };
+  auto bar_empty = [&](int s) {
+    return s_base + L::kBar + 8 * (1 + kStages + s);
+  };
+
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;   // heaviest tile first
+  const int last_i = min(S, q0 + kBM) - 1;
   const int pos_first = q_offset + q0, pos_last = q_offset + last_i;
   int kv_hi = t_total;
   if (causal) kv_hi = min(kv_hi, pos_last + 1);
-  int kv_lo = 0;
-  if (window > 0) kv_lo = max(0, pos_first - window + 1) / kBlockK * kBlockK;
+  const int tile_lo = window > 0 ? max(0, pos_first - window + 1) / kBN : 0;
+  int n_tiles = kv_hi > 0 ? (kv_hi + kBN - 1) / kBN - tile_lo : 0;
+  if constexpr (QK_ONLY) n_tiles = min(n_tiles, 1);
 
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += kBlockK) {
-    const int nk = min(kBlockK, T - t0);   // rows that exist in memory
-    __syncthreads();
-    for (int idx = tid; idx < kBlockK * Dh; idx += blockDim.x) {
-      const int c = idx / Dh, d = idx - c * Dh;
-      float kv = 0.f, vv = 0.f;
-      if (c < nk) {
-        const size_t off = ((size_t)b * T + t0 + c) * kv_row + (size_t)kh * Dh + d;
-        kv = __bfloat162float(k[off]);
-        vv = __bfloat162float(v[off]);
-      }
-      k_s[c * ldk + d] = kv;
-      v_s[c * ldk + d] = vv;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), 128);
     }
-    __syncthreads();
-    for (int idx = tid; idx < R * kBlockK; idx += blockDim.x) {
-      const int r = idx / kBlockK, c = idx - r * kBlockK;
-      const int pos = q_offset + q0 + r / G, t = t0 + c;
-      bool valid = t < t_total && c < nk;
-      if (causal) valid = valid && t <= pos;
-      if (window > 0) valid = valid && t > pos - window;
-      float s = kNegInf;
-      if (valid) {
-        const float* qr = q_s + r * ldq;
-        const float* kr = k_s + c * ldk;
-        float dot = 0.f;
-        for (int d = 0; d < Dh; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-      }
-      p_s[r * lds + c] = s;
-    }
-    __syncthreads();
-    for (int r = tid; r < R; r += blockDim.x) {
-      float* pr = p_s + r * lds;
-      const float m_prev = m_s[r];
-      float m_new = m_prev;
-      for (int c = 0; c < kBlockK; ++c) m_new = fmaxf(m_new, pr[c]);
-      const float alpha = expf(m_prev - m_new);
-      float sum = 0.f;
-      for (int c = 0; c < kBlockK; ++c) {
-        const float p = expf(pr[c] - m_new);
-        sum += p;
-        pr[c] = bf16_round(p);
-      }
-      l_s[r] = l_s[r] * alpha + sum;
-      m_s[r] = m_new;
-      a_s[r] = alpha;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < R * Dh; idx += blockDim.x) {
-      const int r = idx / Dh, d = idx - r * Dh;
-      const float* pr = p_s + r * lds;
-      float a = acc[idx] * a_s[r];
-      for (int c = 0; c < kBlockK; ++c) a = fmaf(pr[c], v_s[c * ldk + d], a);
-      acc[idx] = a;
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   __syncthreads();
-  for (int idx = tid; idx < R * Dh; idx += blockDim.x) {
-    const int r = idx / Dh, d = idx - r * Dh;
-    const int i = q0 + r / G, h = kh * G + r % G;
-    if (i < S) {
-      const float l = fmaxf(l_s[r], 1e-30f);
-      out[((size_t)b * S + i) * q_row + (size_t)h * Dh + d] =
-          __float2bfloat16(acc[idx] / l);
+
+  if (tid >= kConsumers) {
+    // ---- producer: Q once, then the K/V ring in key order ----
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_q, L::kTileBytes);
+      for (int p = 0; p < P; ++p)
+        tma_box(s_base + L::kQ + p * kPanelBytes, &tm_q, bar_q, 64 * p, h, q0,
+                b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(bar_empty(s), (j / kStages - 1) & 1);
+        mbar_expect_tx(bar_full(s), 2 * L::kTileBytes);
+        const int t0 = (tile_lo + j) * kBN;
+        for (int p = 0; p < P; ++p) {
+          tma_box(s_base + L::kK + s * L::kTileBytes + p * kPanelBytes, &tm_k,
+                  bar_full(s), 64 * p, kh, t0, b);
+          tma_box(s_base + L::kV + s * L::kTileBytes + p * kPanelBytes, &tm_v,
+                  bar_full(s), 64 * p, kh, t0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  const int wg = tid / 128, t = tid % 128;
+  const int lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;      // this thread's rows r0, r0+8
+  const int c_lane = 2 * (lane % 4);            // + 8 * (n8 block) + {0, 1}
+  float o[P][32];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+  float m_row[2] = {kNegInf, kNegInf}, l_row[2] = {0.f, 0.f};
+  const float scale2 = scale * kLog2e;   // scores in log2 units: p = 2^(x - m)
+
+  mbar_wait(bar_q, 0);
+  for (int j = wg; j < n_tiles; j += kWarpgroups) {
+    const int s = j % kStages;
+    const int t0 = (tile_lo + j) * kBN;
+    mbar_wait(bar_full(s), (j / kStages) & 1);
+    const uint32_t k_tile = s_base + L::kK + s * L::kTileBytes;
+    const uint32_t v_tile = s_base + L::kV + s * L::kTileBytes;
+
+    // S = Q . K^T over Dh in 16-wide k-slices
+    float sc[32];
+    reg_fence(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      wgmma_ss(sc, sw128_desc(s_base + L::kQ + off, 16),
+               sw128_desc(k_tile + off, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(sc);
+
+    if constexpr (QK_ONLY) {
+      float* o32 = static_cast<float*>(out);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = r0 + 8 * ((i >> 1) & 1);
+        const int c = 8 * (i >> 2) + c_lane + (i & 1);
+        if (q0 + r < S) o32[(size_t)(q0 + r) * kBN + c] = sc[i];
+      }
+      return;
+    }
+
+    // online softmax in log2 units; only a tile that crosses a bound is
+    // masked, an interior tile folds the scale into the exponent's FFMA
+    const bool interior = t0 + kBN <= t_total &&
+                          (!causal || t0 + kBN - 1 <= pos_first) &&
+                          (window <= 0 || t0 > pos_last - window);
+    float alpha[2];
+    if (interior) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i >> 1) & 1) == half) mx = fmaxf(mx, sc[i]);
+        mx = fmaxf(m_row[half], quad_max(mx) * scale2);
+        alpha[half] = ex2(m_row[half] - mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i >> 1) & 1) == half) {
+            sc[i] = ex2(fmaf(sc[i], scale2, -mx));
+            sum += sc[i];
+          }
+        l_row[half] = l_row[half] * alpha[half] + sum;   // partial, per quad
+        m_row[half] = mx;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int pos = pos_first + r0 + 8 * ((i >> 1) & 1);
+        const int key = t0 + 8 * (i >> 2) + c_lane + (i & 1);
+        bool valid = key < t_total;
+        if (causal) valid = valid && key <= pos;
+        if (window > 0) valid = valid && key > pos - window;
+        sc[i] = valid ? sc[i] * scale2 : kNegInf;
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float mx = m_row[half];
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i >> 1) & 1) == half) mx = fmaxf(mx, sc[i]);
+        mx = quad_max(mx);
+        alpha[half] = ex2(m_row[half] - mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i >> 1) & 1) == half) {
+            sc[i] = ex2(sc[i] - mx);
+            sum += sc[i];
+          }
+        l_row[half] = l_row[half] * alpha[half] + sum;
+        m_row[half] = mx;
+      }
+    }
+    // P as the register A operand: k-slice kk holds keys 16kk..16kk+15
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[p][i] *= alpha[(i >> 1) & 1];
+      reg_fence(o[p]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        wgmma_rs(o[p], pa[kk],
+                 sw128_desc(v_tile + p * kPanelBytes + kk * 16 * 128,
+                            kPanelBytes));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int p = 0; p < P; ++p) reg_fence(o[p]);
+    mbar_arrive(bar_empty(s));
+  }
+
+  if constexpr (!QK_ONLY) {
+    // merge warpgroup 1's (m, l, O) into warpgroup 0's through the ring,
+    // which every tile has left once both warpgroups are past their loops
+    float* xch = reinterpret_cast<float*>(smem + L::kK);
+    consumers_sync();
+    if (wg == 1) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) xch[(32 * p + i) * 128 + t] = o[p][i];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        xch[(32 * P + half) * 128 + t] = m_row[half];
+        xch[(32 * P + 2 + half) * 128 + t] = l_row[half];
+      }
+    }
+    consumers_sync();
+    if (wg == 1) return;
+    float a1[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float m1 = xch[(32 * P + half) * 128 + t];
+      const float mx = fmaxf(m_row[half], m1);
+      const float a0 = ex2(m_row[half] - mx);
+      a1[half] = ex2(m1 - mx);
+      l_row[half] = l_row[half] * a0 +
+                    xch[(32 * P + 2 + half) * 128 + t] * a1[half];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (((i >> 1) & 1) == half) o[p][i] *= a0;
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        o[p][i] += xch[(32 * p + i) * 128 + t] * a1[(i >> 1) & 1];
+
+    // epilogue: O / max(l, 1e-30) in bf16, rows past S dropped
+    float inv[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      inv[half] = 1.f / fmaxf(quad_sum(l_row[half]), 1e-30f);
+    __nv_bfloat16* o16 = static_cast<__nv_bfloat16*>(out);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = q0 + r0 + 8 * half;
+      if (i >= S) continue;
+      __nv_bfloat16* row = o16 + (((size_t)b * S + i) * H + h) * DH;
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8) {
+          const int e = 4 * n8 + 2 * half;
+          *reinterpret_cast<__nv_bfloat162*>(row + 64 * p + 8 * n8 + c_lane) =
+              __floats2bfloat162_rn(o[p][e] * inv[half],
+                                    o[p][e + 1] * inv[half]);
+        }
     }
   }
+}
+
+// ---- host side --------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime so that
+// the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// (B, rows, heads, dh) bf16 -> boxes of 64 columns x 64 rows, 128B swizzle.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
+              int dh) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)heads * dh * 2,
+                                 (cuuint64_t)rows * heads * dh * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Dynamic shared memory above 48 KB is opted into once per device.
+template <int DH, bool QK_ONLY>
+cudaError_t allow_smem() {
+  constexpr int bytes = Smem<DH>::kBytes;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(flash_prefill_kernel<DH, QK_ONLY>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
+template <int DH, bool QK_ONLY>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int S, int T, int H, int K, int causal, int window, int q_offset,
+           int t_total, float scale, void* stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, S, H, DH) || !make_map(&tk, k, B, T, K, DH) ||
+      !make_map(&tv, v, B, T, K, DH))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem<DH, QK_ONLY>();
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (S + kBM - 1) / kBM);
+  flash_prefill_kernel<DH, QK_ONLY>
+      <<<grid, kThreads, Smem<DH>::kBytes, (cudaStream_t)stream>>>(
+          tq, tk, tv, out, S, H, K, causal, window, q_offset, t_total, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int flash_prefill_block_q(int G) {
-  const int bq = kMaxRows / G;
-  return bq < 1 ? 1 : (bq > 16 ? 16 : bq);
-}
-
-extern "C" size_t flash_prefill_smem_bytes(int G, int Dh) {
-  const int R = flash_prefill_block_q(G) * G;
-  return sizeof(float) * ((size_t)R * (Dh + 1) + (size_t)R * Dh +
-                          2 * (size_t)kBlockK * (Dh + 1) +
-                          (size_t)R * (kBlockK + 1) + 3 * (size_t)R);
-}
-
+// The head widths that are instances; the wrapper pads others up to one.
 extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                                   void* out, int B, int S, int T, int H, int K,
                                   int Dh, int causal, int window, int q_offset,
                                   int t_total, float scale, void* stream) {
-  const int G = H / K;
-  const int block_q = flash_prefill_block_q(G);
-  const size_t smem = flash_prefill_smem_bytes(G, Dh);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (S <= 0 || B <= 0) return 0;
+  switch (Dh) {
+    case 64:
+      return launch<64, false>(q, k, v, out, B, S, T, H, K, causal, window,
+                               q_offset, t_total, scale, stream);
+    case 128:
+      return launch<128, false>(q, k, v, out, B, S, T, H, K, causal, window,
+                                q_offset, t_total, scale, stream);
+    case 256:
+      return launch<256, false>(q, k, v, out, B, S, T, H, K, causal, window,
+                                q_offset, t_total, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  dim3 grid(B * K, (S + block_q - 1) / block_q);
-  flash_prefill_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, T, H, K, Dh, block_q,
-      causal, window, q_offset, t_total, scale);
-  return (int)cudaGetLastError();
+}
+
+// Q.K^T (raw f32 sums) of the first 64-key tile for each 64-row query tile
+// of batch 0, head 0, Dh = 64: out (S, 64) f32.  For the card test only.
+extern "C" int flash_prefill_qk_tile_bf16(const void* q, const void* k,
+                                          void* out, int S, int T,
+                                          void* stream) {
+  return launch<64, true>(q, k, k, out, 1, S, T, 1, 1, 0, 0, 0, T, 1.f,
+                          stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

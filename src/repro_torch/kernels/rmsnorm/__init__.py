@@ -1,1 +1,1 @@
-"""Fused residual-add + RMSNorm (Triton kernel + plain version)."""
+"""Fused residual-add + RMSNorm (CUDA kernel + plain version)."""

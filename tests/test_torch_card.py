@@ -1,7 +1,7 @@
 """The port's hand-written kernels against their plain versions, on the card.
 
-Marked ``gpu``: each test skips without a CUDA card (the CUDA and Triton
-kernels run only there).  This file imports no JAX, so it runs on the
+Marked ``gpu``: each test skips without a CUDA card (the CUDA kernels run
+only there).  This file imports no JAX, so it runs on the
 machine with the card as it is:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_card.py
@@ -12,7 +12,10 @@ heads, head dim 64, d_model 960; granite-moe-3b-a800m's experts: 40 of
 512; mamba2-370m's SSD scan: 32 heads of 64, state 128, chunk 256 at the
 1023-token admission); tolerances are those of tests/test_kernels.py:
 attention rtol=5e-2, atol=2e-2; RMSNorm and grouped matmul 5e-2; SSD scan
-1e-3 for f32 inputs, 6e-2 for bf16.  The verify and dense decode kernels
+1e-3 for f32 inputs, 6e-2 for bf16.  The flash kernel is also held at head
+widths 128 and 256 (the next families) and at the smoke widths the wrapper
+pads, and one raw Q.K^T tile of it against torch; flash and RMSNorm are
+also captured in a CUDA graph and replayed.  The verify and dense decode kernels
 share the paged decode kernel's block body, so they are also held to it
 bitwise.
 """
@@ -83,30 +86,99 @@ def test_paged_decode_kernel_matches_plain(card, H, K, Dh):
                                **ATTN_TOL)
 
 
-@pytest.mark.parametrize("S,T,window,causal", [
-    (1023, 1023, None, True),       # the longest admission bucket
-    (100, 100, None, True),         # S not a multiple of the tile
-    (48, 112, 40, True),            # q_offset = 64 and a sliding window
-    (48, 100, None, False),         # non-causal, T unaligned
+@pytest.mark.parametrize("B,S,T,H,K,Dh,window,causal", [
+    (1, 1023, 1023, 15, 5, 64, None, True),   # the longest admission bucket
+    (1, 100, 100, 15, 5, 64, None, True),     # S not a multiple of the tile
+    (1, 48, 112, 15, 5, 64, 40, True),        # q_offset = 64, sliding window
+    (1, 48, 100, 15, 5, 64, None, False),     # non-causal, T unaligned
+    (1, 1, 1, 15, 5, 64, None, True),         # one token
+    (1, 65, 65, 15, 5, 64, None, True),       # one row past a tile
+    (2, 300, 300, 15, 5, 64, None, True),     # two prompts
+    (1, 1023, 1023, 24, 8, 64, None, True),   # granite's heads
+    (1, 300, 300, 16, 4, 128, None, True),    # Dh = 128
+    (1, 200, 200, 8, 1, 256, None, True),     # Dh = 256, MQA (gemma)
+    (1, 130, 130, 8, 1, 256, 50, True),       # Dh = 256 with a window
+    (1, 37, 37, 3, 1, 20, None, True),        # smoke widths, padded to 64
+    (1, 70, 70, 4, 2, 100, None, True),       # padded to 128
 ])
-def test_flash_kernel_matches_plain(card, S, T, window, causal):
+def test_flash_kernel_matches_plain(card, B, S, T, H, K, Dh, window, causal):
     rng = np.random.default_rng(1)
-    q = _bf16(rng, (1, S, 15, 64), card)
-    k, v = _bf16(rng, (1, T, 5, 64), card), _bf16(rng, (1, T, 5, 64), card)
+    q = _bf16(rng, (B, S, H, Dh), card)
+    k, v = _bf16(rng, (B, T, K, Dh), card), _bf16(rng, (B, T, K, Dh), card)
     kw = dict(causal=causal, window=window, q_offset=T - S if causal else 0)
-    torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(),
                                flash_attention_plain(q, k, v, **kw).float(),
                                **ATTN_TOL)
 
 
-@pytest.mark.parametrize("R,with_residual", [(8, False), (1023, True)])
-def test_rmsnorm_kernel_matches_plain(card, R, with_residual):
+@pytest.mark.parametrize("S,T", [(64, 64), (128, 64), (100, 100)])
+def test_flash_qk_tile_matches_torch(card, S, T):
+    """The raw f32 Q.K^T accumulator of the first 64-key tile (TMA with the
+    128-byte swizzle, wgmma descriptors), before any softmax: products of
+    bf16 values are exact in f32, so only the summation order differs."""
+    from repro_torch.kernels import _build
+    rng = np.random.default_rng(10)
+    q, k = _bf16(rng, (1, S, 1, 64), card), _bf16(rng, (1, T, 1, 64), card)
+    out = torch.full((S, 64), float("nan"), device=card)
+    fn = _build.entry("flash_prefill", "flash_prefill_qk_tile_bf16", 3, 2,
+                      scale=False)
+    _build.check("flash_prefill", fn(q.data_ptr(), k.data_ptr(),
+                                     out.data_ptr(), S, T,
+                                     torch.cuda.current_stream().cuda_stream),
+                 "qk tile")
+    torch.cuda.synchronize()
+    kt = torch.zeros((64, 64), device=card)
+    kt[:min(T, 64)] = k[0, :64, 0].float()
+    want = q[0, :, 0].float() @ kt.T
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [60, 960, 1536, 4096])
+@pytest.mark.parametrize("R", [1, 8, 1023])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_rmsnorm_kernel_matches_plain(card, R, D, with_residual):
     rng = np.random.default_rng(2)
-    x = _bf16(rng, (R, 960), card)
-    r = _bf16(rng, (R, 960), card) if with_residual else None
-    sc = torch.from_numpy(rng.normal(size=(960,)).astype(np.float32) * 0.1).to(card)
-    for got, want in zip(rmsnorm_fused(x, sc, r), rmsnorm_plain(x, sc, r)):
-        torch.testing.assert_close(got.float(), want.float(), **NORM_TOL)
+    x = _bf16(rng, (R, D), card)
+    r = _bf16(rng, (R, D), card) if with_residual else None
+    sc = torch.from_numpy(rng.normal(size=(D,)).astype(np.float32) * 0.1).to(card)
+    before = rmsnorm_fused.launches
+    got = rmsnorm_fused(x, sc, r)
+    assert rmsnorm_fused.launches == before + 1
+    for g, want in zip(got, rmsnorm_plain(x, sc, r)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        torch.testing.assert_close(g.float(), want.float(), **NORM_TOL)
+
+
+def test_kernels_replay_in_a_cuda_graph(card):
+    """Flash prefill and RMSNorm captured in a CUDA graph (no per-call host
+    work the capture cannot hold) and replayed give the eager results."""
+    rng = np.random.default_rng(11)
+    q = _bf16(rng, (1, 300, 15, 64), card)
+    k, v = _bf16(rng, (1, 300, 5, 64), card), _bf16(rng, (1, 300, 5, 64), card)
+    x, r = _bf16(rng, (8, 960), card), _bf16(rng, (8, 960), card)
+    sc = torch.from_numpy(rng.normal(size=(960,)).astype(np.float32)).to(card)
+
+    def step():
+        return flash_attention(q, k, v), rmsnorm_fused(x, sc, r)
+
+    eager = step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    q.copy_(_bf16(rng, q.shape, card))       # new inputs, same buffers
+    x.copy_(_bf16(rng, x.shape, card))
+    graph.replay()
+    torch.cuda.synchronize()
+    fresh = step()
+    assert torch.equal(captured[0], fresh[0])
+    for a, b in zip(captured[1], fresh[1]):
+        assert torch.equal(a, b)
+    assert not torch.equal(captured[0], eager[0])
 
 
 def _pool_with_nan(rng, dev, tables, reach, nb, bs, K, Dh):

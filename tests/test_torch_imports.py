@@ -2,7 +2,8 @@
 
 The port (``src/repro_torch/``) and ``chip_smoke.py`` import neither JAX
 nor anything of the JAX package ``repro``: every module is parsed with
-``ast`` and its imports checked.  The entry points default to
+``ast`` and its imports checked.  No file of the port names Triton: every
+kernel is CUDA C++ built by ``kernels/_build.py``.  The entry points default to
 ``device="cuda"`` and raise without a card (reached here by making
 ``torch.cuda.is_available`` report no card)."""
 
@@ -18,6 +19,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob(
+    "*.cu*"))
 
 
 def _imports(path: Path) -> list[str]:
@@ -43,6 +46,12 @@ def test_port_files_exist():
 def test_no_jax_and_no_reference_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", FILES + SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_triton(path):
+    assert "triton" not in path.read_text().lower(), path.relative_to(ROOT)
 
 
 def test_forbidden_names_are_caught():

@@ -1,7 +1,7 @@
 """The port's three kernel modules against the JAX package's.
 
 On the CPU each wrapper of ``repro_torch.kernels`` runs its plain PyTorch
-version (the kernels themselves are CUDA/Triton and run only on the card).
+version (the kernels themselves are CUDA C++ and run only on the card).
 The same inputs, made with numpy from a seed, go through the JAX wrappers
 in Pallas interpret mode (as tests/test_kernels.py runs them) and through
 the f32 oracles.  Tolerances are those of tests/test_kernels.py: attention
@@ -23,8 +23,9 @@ from repro.kernels.paged_attention.ops import paged_decode_attention as jax_page
 from repro.kernels.paged_attention.ref import paged_decode_attention_ref
 from repro.kernels.rmsnorm.ops import rmsnorm_fused as jax_rmsnorm
 from repro.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ops import (
-    flash_attention, flash_attention_plain)
+    _attention_plain, flash_attention, flash_attention_plain, head_width)
 from repro_torch.kernels.paged_attention.ops import (
     gather_kv, paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
@@ -178,6 +179,52 @@ def test_flash_attention_fully_masked_rows_are_uniform():
     vb = v.to(torch.bfloat16).float()
     np.testing.assert_allclose(out[0, 0, 0].numpy(), vb[0, :, 0].mean(0).numpy(),
                                rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("Dh,width", [(16, 64), (20, 64), (32, 64), (64, 64),
+                                      (100, 128), (128, 128), (256, 256)])
+def test_flash_head_width_pads_up_to_an_instance(Dh, width):
+    """The kernel is built for head widths 64, 128 and 256; the wrapper
+    runs any other width on the next one up."""
+    assert head_width(Dh) == width
+
+
+@pytest.mark.parametrize("Dh", [0, 257, 512])
+def test_flash_head_width_refuses_wider_than_256(Dh):
+    with pytest.raises(ValueError, match="head width"):
+        head_width(Dh)
+
+
+@pytest.mark.parametrize("Dh,causal,window", [(16, True, None), (20, True, 9),
+                                              (32, False, None),
+                                              (100, True, None)])
+def test_flash_zero_padded_heads_give_the_same_output(Dh, causal, window):
+    """What the wrapper hands the kernel for a width that is not an
+    instance: q, k and v zero-padded in Dh, with the scale of the real
+    width.  The zero columns add exact zeros to Q.K and to the padded
+    output columns, so the output is the unpadded one."""
+    rng = np.random.default_rng(7)
+    B, S, T, H, K = 2, 19, 23, 4, 2
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+               for sh in ((B, S, H, Dh), (B, T, K, Dh), (B, T, K, Dh)))
+    kw = dict(causal=causal, window=window, q_offset=T - S)
+    pad = head_width(Dh) - Dh
+    got = _attention_plain(*(torch.nn.functional.pad(x, (0, pad))
+                             for x in (q, k, v)),
+                           1.0 / Dh ** 0.5, kw["causal"], kw["window"],
+                           kw["q_offset"])
+    assert not got[..., Dh:].any()
+    torch.testing.assert_close(got[..., :Dh], flash_attention_plain(q, k, v,
+                                                                    **kw),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_build_lists_every_kernel_source():
+    """One CUDA C++ source per TPU kernel (RMSNorm's among them since it
+    left Triton); the build compiles each on its own."""
+    assert _build.sources() == ["decode_attention", "flash_prefill",
+                                "grouped_matmul", "paged_decode",
+                                "paged_verify", "rmsnorm", "ssd_scan"]
 
 
 # ---------------------------------------------------------------------------
