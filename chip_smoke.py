@@ -74,18 +74,29 @@ The kernels phase also checks every kernel at granite's shapes (24 heads,
 8 KV heads, d_model 1536); flash prefill at head widths 128 and 256 (MQA,
 as gemma), at S = 1, 65 and B = 2, and at the smoke widths its wrapper
 pads; RMSNorm at D = 1024, 2048, 4096, R = 1 and with a residual; the
-grouped matmul at its capacity buckets
-(C = 256 and the ragged 136), ragged group sizes and an empty group, and
-the SSD scan at mamba2-370m's admission buckets (S = 1023 with chunk 256,
-and S = 32, 64, 128, 512), a padded S = 100 and grouped B/C (G = 2).
+decode entries at lengths on the edges of the decode body's sequence
+splits (1, W - 1, W, W + 1, the capacity) and verify staircases that cross
+a split, each also bitwise (dense == paged, verify == decode) at smollm's
+and granite's head counts; the grouped matmul at every capacity bucket
+(C = 256, 136, 72, 40, 24) for up/gate and down, ragged group sizes with
+empty groups and NaN tail rows, and D = F = 96; and the SSD scan at
+mamba2-370m's admission buckets (S = 1023 with chunk 256, and S = 32, 64,
+128, 512), a padded S = 100 and grouped B/C (G = 2).
 
-Flash prefill and RMSNorm (and their library calls) are timed twice:
-``ms`` back to back from the host, as the serve path calls them, and
-``device_ms`` from replaying a CUDA graph of 50 captured calls, which
-leaves the host's launch path out; flash also at the S = 512 and 128
-admission buckets.  The flash entry records its instance, nvcc's register
-and spill report and the tensor-core instructions in its SASS (a build
+Every kernel (and its library call, where one computes the same
+function) is timed twice at the main path's shapes: ``ms`` back to back
+from the host, as the serve path calls it, and ``device_ms`` from
+replaying a CUDA graph of 50 captured calls, which leaves the host's
+launch path out; flash also at the S = 512 and 128 admission buckets, the
+decode entries also at profile_serve.py's ~200 positions a row.  The flash
+and grouped-matmul entries record their instance, nvcc's register and
+spill report and the tensor-core instructions in their SASS (a build
 without ``HGMMA`` fails).
+
+``python3 chip_smoke.py --times-of OTHER/src`` builds another checkout's
+kernels and prints the same main-shape times of rows 2 and 4-7 for them,
+with flash prefill's times, registers and SASS as a control (a parent
+commit, timed in the same call as this one), and nothing else.
 
 Lines of JSON report each phase; the line before the last is nvidia-smi's
 name and power limit; the last line is
@@ -224,18 +235,108 @@ def paged_inputs(rng, dev, B, H, K, Dh, bs, mb, lens, scratch_row, S=None):
             torch.from_numpy(lens).to(dev))
 
 
-def check_paged(rng, dev):
+# The main path's decode shapes (smollm-360m, 8 slots, max_len 1024, block
+# 16): lengths 1 and mb*bs, a free slot (row 2) over the scratch block; the
+# verify offsets reach past the table at 1022 and 1023.
+PAGED_MAIN = dict(B=8, H=15, K=5, Dh=64, bs=16, mb=64,
+                  lens=[1, 1024, 37, 500, 17, 16, 333, 900], scratch_row=2)
+VERIFY_MAIN = dict(B=8, S=5, H=15, K=5, Dh=64, bs=16, mb=64,
+                   lens=[1, 1022, 37, 500, 17, 16, 333, 1023], scratch_row=2)
+# profile_serve.py's engine step: 8 live slots of ~200 positions
+PROFILE_LENS = [200, 203, 206, 209, 212, 215, 218, 221]
+E_GRANITE = 40
+
+
+def dense_inputs(rng, dev, B, T, H, K, Dh, lens):
+    """Dense rings with NaN in every position past a row's length."""
+    q = bf16(rng, (B, H, Dh), dev)
+    kc, vc = bf16(rng, (B, T, K, Dh), dev), bf16(rng, (B, T, K, Dh), dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    past = torch.arange(T, device=dev)[None] >= ln[:, None]
+    kc[past] = float("nan")
+    vc[past] = float("nan")
+    return q, kc, vc, ln
+
+
+def gmm_buckets(rng, dev, C, D, F):
+    """granite's capacity buckets (E_GRANITE experts of C rows) and expert
+    weights."""
+    return (bf16(rng, (E_GRANITE, C, D), dev),
+            bf16(rng, (E_GRANITE, D, F), dev, scale=D ** -0.5))
+
+
+def ssd_inputs(rng, dev, b, S, H, P, G, N, dtype):
+    def n(shape, scale=1.0):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                * scale).to(dev)
+    return (n((b, S, H, P)).to(dtype), F.softplus(n((b, S, H))),
+            -torch.exp(n((H,), 0.5)), n((b, S, G, N), 0.3).to(dtype),
+            n((b, S, G, N), 0.3).to(dtype))
+
+
+def main_shape_times(rng, dev):
+    """``ms`` (back-to-back eager calls) and ``device_ms`` (a CUDA graph of
+    50 calls) of the kernels of rows 2 and 4-7 at their main-path shapes
+    (the decode entries also at profile_serve.py's ~200 positions a row),
+    through the public wrappers only: ``--times-of`` runs this on another
+    checkout's package, so that a parent's kernels and these are timed by
+    the same code in one call."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.grouped_matmul.ops import bucket_matmul
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_verify_attention)
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    def both(fn, n=50):
+        return {"ms": time_ms(fn, n=n), "device_ms": graph_ms(fn)}
+    out = {}
+    # flash prefill (row 1, untouched here) at the 1023 bucket: the control
+    # that a parent and this tree build the same flash kernel
+    fq = bf16(rng, (1, 1023, 15, 64), dev)
+    fk, fv = bf16(rng, (1, 1023, 5, 64), dev), bf16(rng, (1, 1023, 5, 64), dev)
+    out["flash_attention"] = both(lambda: flash_attention(fq, fk, fv), n=20)
+    for tag, lens in (("", None), ("_len200", PROFILE_LENS)):
+        c = dict(PAGED_MAIN, lens=lens or PAGED_MAIN["lens"])
+        args = paged_inputs(rng, dev, **c)
+        out["paged_decode_attention" + tag] = both(
+            lambda: paged_decode_attention(*args))
+        c = dict(VERIFY_MAIN, lens=lens or VERIFY_MAIN["lens"])
+        vargs = paged_inputs(rng, dev, **c)
+        out["paged_verify_attention" + tag] = both(
+            lambda: paged_verify_attention(*vargs))
+        dargs = dense_inputs(rng, dev, 8, 1024, 15, 5, 64,
+                             lens or PAGED_MAIN["lens"])
+        out["decode_attention" + tag] = both(lambda: decode_attention(*dargs))
+    for tag, (D, F_) in (("", (1536, 512)), ("_down", (512, 1536))):
+        b, w = gmm_buckets(rng, dev, 256, D, F_)
+        out["grouped_matmul" + tag] = both(lambda: bucket_matmul(b, w), n=20)
+    sargs = ssd_inputs(rng, dev, 1, 1023, 32, 64, 1, 128, torch.bfloat16)
+    out["ssd_scan"] = both(lambda: ssd_scan(*sargs, chunk=256), n=20)
+    return out
+
+
+def decode_split():
+    """The decode body's split width at the main path's capacity (1024
+    positions in blocks of 16), where the edge cases sit."""
+    from repro_torch.kernels.decode_attention.ops import split_plan
+    return split_plan(1024, 16)[0]
+
+
+def check_paged(rng, dev, times):
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_decode_attention_plain)
+    W = decode_split()
     cases = {
-        # smollm-360m decode: 8 slots, 15 heads / 5 kv heads, Dh 64, pool of
-        # 8 * 64 + 1 blocks of 16; lengths 1 and mb*bs, row 2 a free slot
-        "main": dict(B=8, H=15, K=5, Dh=64, bs=16, mb=64,
-                     lens=[1, 1024, 37, 500, 17, 16, 333, 900], scratch_row=2),
+        "main": PAGED_MAIN,
         # granite-moe-3b-a800m decode: 24 heads / 8 kv heads
-        "granite": dict(B=8, H=24, K=8, Dh=64, bs=16, mb=64,
-                        lens=[1, 1024, 37, 500, 17, 16, 333, 900],
-                        scratch_row=2),
+        "granite": dict(PAGED_MAIN, H=24, K=8),
+        # lengths at the edges of the sequence splits
+        "split_edges": dict(PAGED_MAIN, lens=[1, W - 1, W, W + 1, 2 * W + 1,
+                                              1024, 1023, 3 * W]),
+        "granite_split_edges": dict(PAGED_MAIN, H=24, K=8,
+                                    lens=[W + 1, W - 1, 1, W, 1024, 2 * W,
+                                          1023, 5 * W - 1]),
         "smoke": dict(B=3, H=3, K=1, Dh=20, bs=16, mb=4, lens=[1, 64, 19],
                       scratch_row=2),
     }
@@ -246,8 +347,8 @@ def check_paged(rng, dev):
         errs[name] = check_close(f"paged/{name}", got,
                                  paged_decode_attention_plain(*args), ATTN_TOL,
                                  ROW_REL_TOL)
-    args = paged_inputs(rng, dev, **cases["main"])
-    c = cases["main"]
+    args = paged_inputs(rng, dev, **PAGED_MAIN)
+    c = PAGED_MAIN
     live = sum(c["lens"])
     blocks_read = sum(-(-n // c["bs"]) for n in c["lens"])
     nbytes = (live * c["K"] * c["Dh"] * 2 * 2            # K and V rows read
@@ -260,26 +361,30 @@ def check_paged(rng, dev):
         "replaces": "src/repro/kernels/paged_attention/kernel.py:75",
         "shape": "q (8,15,64) bf16, pools (513,16,5,64), tables (8,64), "
                  f"lens {c['lens']}",
-        "max_abs_err": errs["main"], "max_abs_err_smoke": errs["smoke"],
-        "max_abs_err_granite": errs["granite"],
-        "ms": time_ms(lambda: paged_decode_attention(*args)),
+        "split_width": W,
+        "max_abs_err": errs["main"], "max_abs_err_by_case": errs,
+        **times["paged_decode_attention"],
+        "len200": times["paged_decode_attention_len200"],
         "plain_ms": time_ms(lambda: paged_decode_attention_plain(*args)),
         "library_ms": None,
         **bound(nbytes, flops, BF16_FLOPS),
     }
 
 
-def check_verify(rng, dev):
+def check_verify(rng, dev, times):
     from repro_torch.kernels.paged_attention.ops import (
         paged_decode_attention, paged_verify_attention,
         paged_verify_attention_plain)
+    W = decode_split()
     cases = {
-        # the verify forward of smollm-360m at spec_k 4: 8 slots, S = 5
-        # queries, offsets over 1..1023 (rows at 1022 and 1023 reach past
-        # the table, whose last position is 1023), row 2 a free slot
-        "main": dict(B=8, S=5, H=15, K=5, Dh=64, bs=16, mb=64,
-                     lens=[1, 1022, 37, 500, 17, 16, 333, 1023],
-                     scratch_row=2),
+        "main": VERIFY_MAIN,
+        "granite": dict(VERIFY_MAIN, H=24, K=8),
+        # staircases whose frontiers cross a split, and the clamped rows
+        "split_crossing": dict(VERIFY_MAIN, lens=[W - 3, W - 1, 2 * W - 2,
+                                                  1022, 1023, 0, W, 3 * W - 4]),
+        "granite_split_crossing": dict(VERIFY_MAIN, H=24, K=8,
+                                       lens=[W - 5, 1023, W - 1, 2 * W - 3,
+                                             1022, W + 2, 4 * W - 1, 0]),
         "smoke": dict(B=3, S=5, H=3, K=1, Dh=20, bs=16, mb=4,
                       lens=[1, 62, 19], scratch_row=2),
     }
@@ -298,7 +403,7 @@ def check_verify(rng, dev):
             if not torch.equal(got[:, s], one):
                 raise AssertionError(f"verify/{name}: query {s} is not "
                                      "bitwise the paged decode kernel's")
-    c = cases["main"]
+    c = VERIFY_MAIN
     args = paged_inputs(rng, dev, **c)
     T = c["mb"] * c["bs"]
     off = np.asarray(c["lens"])
@@ -314,32 +419,35 @@ def check_verify(rng, dev):
         "replaces": "src/repro/kernels/paged_attention/kernel.py:179",
         "shape": "q (8,5,15,64) bf16, pools (513,16,5,64), tables (8,64), "
                  f"q_off {c['lens']}",
-        "max_abs_err": errs["main"], "max_abs_err_smoke": errs["smoke"],
+        "split_width": W,
+        "max_abs_err": errs["main"], "max_abs_err_by_case": errs,
         "bitwise_vs_paged_decode": True,
-        "ms": time_ms(lambda: paged_verify_attention(*args)),
+        **times["paged_verify_attention"],
+        "len200": times["paged_verify_attention_len200"],
         "plain_ms": time_ms(lambda: paged_verify_attention_plain(*args)),
         "library_ms": None,
         **bound(nbytes, flops, BF16_FLOPS),
     }
 
 
-def check_dense(rng, dev):
+def check_dense(rng, dev, times):
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
     from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+    W = decode_split()
     cases = {   # name: (B, T, H, K, Dh, lens); dense rings of max_len 1024
-        "main": (8, 1024, 15, 5, 64, [1, 1024, 37, 500, 17, 16, 333, 900]),
+        "main": (8, 1024, 15, 5, 64, PAGED_MAIN["lens"]),
+        "granite": (8, 1024, 24, 8, 64, PAGED_MAIN["lens"]),
+        "split_edges": (8, 1024, 15, 5, 64,
+                        [1, W - 1, W, W + 1, 2 * W + 1, 1024, 1023, 3 * W]),
+        "granite_split_edges": (8, 1024, 24, 8, 64,
+                                [W + 1, W - 1, 1, W, 1024, 2 * W, 1023,
+                                 5 * W - 1]),
         "smoke": (3, 64, 3, 1, 20, [1, 64, 19]),
     }
     errs = {}
-    inputs = {}
     for name, (B, T, H, K, Dh, lens) in cases.items():
-        q = bf16(rng, (B, H, Dh), dev)
-        kc, vc = bf16(rng, (B, T, K, Dh), dev), bf16(rng, (B, T, K, Dh), dev)
-        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-        past = torch.arange(T, device=dev)[None] >= ln[:, None]
-        kc[past] = float("nan")                 # rows no position reads
-        vc[past] = float("nan")
+        q, kc, vc, ln = dense_inputs(rng, dev, B, T, H, K, Dh, lens)
         got = decode_attention(q, kc, vc, ln)
         errs[name] = check_close(f"dense/{name}", got,
                                  decode_attention_plain(q, kc, vc, ln),
@@ -357,25 +465,30 @@ def check_dense(rng, dev):
         if not torch.equal(got, paged_decode_attention(q, *pools, tables, ln)):
             raise AssertionError(f"dense/{name}: not bitwise the paged "
                                  "decode kernel on the same rows")
-        inputs[name] = (q, kc, vc, ln)
     B, T, H, K, Dh, lens = cases["main"]
-    q, kc, vc, ln = inputs["main"]
+    q, kc, vc, ln = dense_inputs(rng, dev, B, T, H, K, Dh, lens)
     qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
     mask = (torch.arange(T, device=dev)[None] < ln[:, None])[:, None, None]
     live = sum(lens)
     nbytes = (live * K * Dh * 2 * 2 + 2 * B * H * Dh * 2 + B * 4)
     flops = 4 * live * H * Dh
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
     return {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:73",
         "shape": f"q (8,15,64) bf16, caches (8,1024,5,64), lens {lens}",
-        "max_abs_err": errs["main"], "max_abs_err_smoke": errs["smoke"],
+        "split_width": W,
+        "max_abs_err": errs["main"], "max_abs_err_by_case": errs,
         "bitwise_vs_paged_decode": True,
-        "ms": time_ms(lambda: decode_attention(q, kc, vc, ln)),
+        **times["decode_attention"],
+        "len200": times["decode_attention_len200"],
         "plain_ms": time_ms(lambda: decode_attention_plain(q, kc, vc, ln)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        "library_ms": time_ms(sdpa),
+        "library_device_ms": graph_ms(sdpa),
         **bound(nbytes, flops, BF16_FLOPS),
     }
 
@@ -574,65 +687,84 @@ def check_rmsnorm(rng, dev, ptxas):
     }
 
 
-def check_grouped_matmul(rng, dev):
+def check_grouped_matmul(rng, dev, times, ptxas):
+    from repro_torch.kernels import _build
     from repro_torch.kernels.grouped_matmul.ops import (
         bucket_matmul, grouped_matmul, grouped_matmul_plain)
-    E = 40
-
-    def buckets(C, D, F):
-        return (bf16(rng, (E, C, D), dev),
-                bf16(rng, (E, D, F), dev, scale=D ** -0.5))
-
+    E = E_GRANITE
     errs = {}
     # granite's capacity buckets, one launch per product: up/gate and down
-    # at the 1023-token admission (C = 256), and the 512 bucket's C = 136
-    for name, (C, D, F) in (("up_C256", (256, 1536, 512)),
-                            ("down_C256", (256, 512, 1536)),
-                            ("up_C136", (136, 1536, 512))):
-        b, w = buckets(C, D, F)
-        want = grouped_matmul_plain(b.reshape(E * C, D), w, [C] * E)
-        errs[name] = check_close(f"gmm/{name}", bucket_matmul(b, w),
-                                 want.reshape(E, C, F), GMM_TOL)
+    # at every admission bucket (C = 256 at 1023 tokens, then 136, 72, 40,
+    # 24), none a multiple of the tile height but 256
+    for C in (256, 136, 72, 40, 24):
+        for part, (D, F_) in (("up", (1536, 512)), ("down", (512, 1536))):
+            b, w = gmm_buckets(rng, dev, C, D, F_)
+            want = grouped_matmul_plain(b.reshape(E * C, D), w, [C] * E)
+            errs[f"{part}_C{C}"] = check_close(
+                f"gmm/{part}_C{C}", bucket_matmul(b, w),
+                want.reshape(E, C, F_), GMM_TOL)
     # ragged sizes with empty groups, and tail rows owned by no group
-    # (NaN there: the kernel writes them as 0 without reading them)
-    for name, (Eg, D, F, sizes, tail) in (
+    # (NaN there: the kernel writes them as 0 without reading them); D = F
+    # = 96 leaves TMA's zero fill to the ragged K step and column tile
+    for name, (Eg, D, F_, sizes, tail) in (
             ("empty_group", (3, 96, 96, [0, 64, 32], 32)),
             ("ragged_40", (E, 1536, 512,
                            [0 if g % 13 == 3 else int(s) for g, s in
-                            enumerate(rng.integers(1, 300, size=E))], 100))):
+                            enumerate(rng.integers(1, 300, size=E))], 100)),
+            ("ragged_40_down", (E, 512, 1536,
+                                [0 if g % 7 == 2 else int(s) for g, s in
+                                 enumerate(rng.integers(1, 200, size=E))],
+                                131))):
         n = sum(sizes)
         x = bf16(rng, (n + tail, D), dev)
         x[n:] = float("nan")
-        w = bf16(rng, (Eg, D, F), dev, scale=D ** -0.5)
+        w = bf16(rng, (Eg, D, F_), dev, scale=D ** -0.5)
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
         got = grouped_matmul(x, w, gs)
         if got[n:].any():
             raise AssertionError(f"gmm/{name}: tail rows are not 0")
         errs[name] = check_close(f"gmm/{name}", got,
                                  grouped_matmul_plain(x, w, gs), GMM_TOL)
+    sass = sass_counts(_build._target("grouped_matmul"))
+    if sass is not None and sass["HGMMA"] == 0:
+        raise AssertionError(f"gmm: no wgmma (HGMMA) in the SASS: {sass}")
 
-    def timed(C, D, F):
-        b, w = buckets(C, D, F)
+    def timed(C, D, F_, tag):
+        b, w = gmm_buckets(rng, dev, C, D, F_)
         T = E * C
-        nbytes = T * D * 2 + E * D * F * 2 + T * F * 4   # x, w in; y f32 out
+        nbytes = T * D * 2 + E * D * F_ * 2 + T * F_ * 4   # x, w; y f32 out
+
+        def bmm_f32():
+            return torch.bmm(b, w, out_dtype=torch.float32)
         return {
-            "ms": time_ms(lambda: bucket_matmul(b, w), n=20),
+            **times["grouped_matmul" + tag],
             "plain_ms": time_ms(lambda: grouped_matmul_plain(
                 b.reshape(T, D), w, [C] * E), n=5),
-            "library_ms": time_ms(lambda: torch.bmm(b, w), n=20),
-            **bound(nbytes, 2 * T * D * F, BF16_FLOPS),
+            "library_ms": time_ms(bmm_f32, n=20),
+            "library_device_ms": graph_ms(bmm_f32),
+            "library_bf16_out_ms": time_ms(lambda: torch.bmm(b, w), n=20),
+            "library_bf16_out_device_ms": graph_ms(lambda: torch.bmm(b, w)),
+            **bound(nbytes, 2 * T * D * F_, BF16_FLOPS),
         }
-    down = timed(256, 512, 1536)
+    down = timed(256, 512, 1536, "_down")
     return {
         "name": "grouped_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
         "replaces": "src/repro/kernels/grouped_matmul/kernel.py:34",
+        "instance": "wgmma + TMA (m64n128k16; 128 x 128 tiles of one group; "
+                    "two consumer warpgroups; persistent CTAs, two an SM "
+                    "with a TMA ring of 3 64-deep K steps, or one an SM "
+                    "with 4 where that fills the last round of tiles "
+                    "better)",
+        "ptxas": ptxas.get("grouped_matmul", {}),
+        "sass": sass,
         "shape": "buckets (40,256,1536) bf16 x w (40,1536,512) bf16 -> f32 "
-                 "(up/gate, 1023-token admission); library: torch.bmm, bf16 "
-                 "out",
+                 "(up/gate, 1023-token admission); library: torch.bmm with "
+                 "out_dtype f32 (library_bf16_out: bf16 out)",
         "max_abs_err": errs["up_C256"],
+        "max_abs_err_by_case": errs,
         "max_abs_err_all_cases": max(errs.values()),
-        **timed(256, 1536, 512),
+        **timed(256, 1536, 512, ""),
         "down": {"shape": "(40,256,512) x (40,512,1536)", **down},
     }
 
@@ -652,17 +784,9 @@ def ssd_work(b, S, H, P, G, N, Q, itemsize):
     return nbytes, b * flops
 
 
-def check_ssd_scan(rng, dev):
+def check_ssd_scan(rng, dev, times):
     from repro_torch.kernels.ssd_scan.ops import (
         chunk_for, ssd_scan, ssd_scan_plain)
-
-    def inputs(b, S, H, P, G, N, dtype):
-        def n(shape, scale=1.0):
-            return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
-                                    * scale).to(dev)
-        return (n((b, S, H, P)).to(dtype), F.softplus(n((b, S, H))),
-                -torch.exp(n((H,), 0.5)), n((b, S, G, N), 0.3).to(dtype),
-                n((b, S, G, N), 0.3).to(dtype))
 
     bf = torch.bfloat16
     cases = {   # name: (b, S, H, P, G, N, chunk, dtype)
@@ -682,7 +806,7 @@ def check_ssd_scan(rng, dev):
     }
     errs = {}
     for name, (b, S, H, P, G, N, Q, dtype) in cases.items():
-        args = inputs(b, S, H, P, G, N, dtype)
+        args = ssd_inputs(rng, dev, b, S, H, P, G, N, dtype)
         y, st = ssd_scan(*args, chunk=Q)
         torch.cuda.synchronize()
         if y.dtype != dtype or st.dtype != torch.float32:
@@ -692,7 +816,7 @@ def check_ssd_scan(rng, dev):
                          check_close(f"ssd/{name}/state", st, sw,
                                      SSD_TOL[dtype]))
     b, S, H, P, G, N, Q, dtype = cases["main_S1023"]
-    args = inputs(b, S, H, P, G, N, dtype)
+    args = ssd_inputs(rng, dev, b, S, H, P, G, N, dtype)
     nbytes, flops = ssd_work(b, S, H, P, G, N, chunk_for(S, Q), 2)
     return {
         "name": "ssd_scan", "route": "cuda",
@@ -704,7 +828,7 @@ def check_ssd_scan(rng, dev):
         "max_abs_err": errs["main_S1023"],
         "max_abs_err_all_cases": max(errs.values()),
         "max_abs_err_by_case": errs,
-        "ms": time_ms(lambda: ssd_scan(*args, chunk=Q), n=20),
+        **times["ssd_scan"],
         "plain_ms": time_ms(lambda: ssd_scan_plain(*args, chunk=Q), n=5),
         "library_ms": None,
         **bound(nbytes, flops, F32_FLOPS),
@@ -1049,9 +1173,32 @@ def mamba_model_phase(dev):
 
 
 
-def main():
+def times_of(src):
+    """Build and time another checkout's kernels (``--times-of SRC``, SRC
+    its ``src`` directory) with `main_shape_times`: one JSON line."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.kernels import _build
+    logs = _build.build_all()
+    say({"phase": "times_of", "src": str(src),
+         "flash_ptxas": ptxas_report(logs["flash_prefill"]),
+         "flash_sass": sass_counts(_build._target("flash_prefill")),
+         "times": main_shape_times(np.random.default_rng(0),
+                                   torch.device("cuda"))})
+    return 0
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
+        return 2
+    if len(argv) == 2 and argv[0] == "--times-of":
+        return times_of(argv[1])
+    if argv:
+        print("usage: chip_smoke.py [--times-of SRC]", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
+              "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
@@ -1076,10 +1223,12 @@ def main():
 
     rng = np.random.default_rng(0)
     t0 = time.monotonic()
-    kernels = [check_paged(rng, dev), check_flash(rng, dev, ptxas),
-               check_rmsnorm(rng, dev, ptxas), check_verify(rng, dev),
-               check_dense(rng, dev), check_grouped_matmul(rng, dev),
-               check_ssd_scan(rng, dev)]
+    times = main_shape_times(rng, dev)
+    kernels = [check_paged(rng, dev, times), check_flash(rng, dev, ptxas),
+               check_rmsnorm(rng, dev, ptxas), check_verify(rng, dev, times),
+               check_dense(rng, dev, times),
+               check_grouped_matmul(rng, dev, times, ptxas),
+               check_ssd_scan(rng, dev, times)]
     say({"phase": "kernels", "seconds": time.monotonic() - t0})
     wrappers = [paged_decode_attention, flash_attention, rmsnorm_fused,
                 paged_verify_attention, decode_attention, grouped_matmul,
@@ -1125,4 +1274,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

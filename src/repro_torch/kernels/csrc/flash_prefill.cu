@@ -50,14 +50,15 @@
 // Layouts (all contiguous, 16-byte aligned): q (B, S, H, Dh), k/v (B, T, K,
 // Dh), out like q, all bf16, Dh one of 64, 128, 256.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 
 #include <atomic>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -87,37 +88,7 @@ struct Smem {
   static_assert(kXchFloats * 4 * 128 <= 2 * kStages * kTileBytes, "merge");
 };
 
-// ---- shared memory, barriers, TMA -----------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
+// ---- TMA -------------------------------------------------------------------
 
 // One 64 x 64 bf16 box of a (B, rows, heads, Dh) tensor: columns c0..c0+63 of
 // head `head`, rows r0..r0+63 of batch b (rows past the end read as zero).
@@ -133,26 +104,6 @@ __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
 
 // ---- wgmma ------------------------------------------------------------------
 
-// Shared-memory matrix descriptor, 128-byte swizzle.  K-major tiles (Q, K:
-// 64-element rows of 128 bytes, 8-row groups 1024 bytes apart): LBO unused,
-// SBO 1024; a 16-wide k-slice starts 32 bytes further into the row.
-// MN-major tiles (V read as B = V, k = key): SBO 1024 between 8-key groups,
-// LBO the stride between 64-wide N panels.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 // Keeps the compiler from touching an accumulator across an async wgmma.
 __device__ __forceinline__ void reg_fence(float (&d)[32]) {
 #pragma unroll
@@ -265,8 +216,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(bar_full(s), 1);
       mbar_init(bar_empty(s), 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 
@@ -488,31 +438,6 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---- host side --------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime so that
-// the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    return found == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
-  }();
-  return fn;
-}
 
 // (B, rows, heads, dh) bf16 -> boxes of 64 columns x 64 rows, 128B swizzle.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,

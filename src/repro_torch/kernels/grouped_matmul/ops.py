@@ -6,12 +6,12 @@ Replaces the TPU kernel ``grouped_matmul_kernel``
 oracle ``ref.grouped_matmul_ref``).  Rows sorted by group times the weight
 slab of each group's expert, bf16 products summed in f32, f32 out.
 
-The kernel is ``csrc/grouped_matmul.cu``: tensor-core (``wmma`` bf16)
-64 x 64 output tiles, each block finding its own (group, row tile) from
-the group sizes and masking a ragged group end.  What bounds it on the
-H100 is device-memory bytes (~120-140 flop/byte at the MoE admission
-shapes, below the card's ~295); its header says what the design does
-about it.  Unlike the Pallas kernel it needs no group padded to a tile
+The kernel is ``csrc/grouped_matmul.cu``: ``wgmma`` on operands that TMA
+brings into shared memory, persistent CTAs walking 128 x 128 output tiles,
+each finding a tile's (group, column tile, row tile) itself and masking a
+ragged group end.  What bounds it on the H100 is device-memory bytes
+(~120-140 flop/byte at the MoE admission shapes, below the card's ~295);
+its header says what the design does about it.  Unlike the Pallas kernel it needs no group padded to a tile
 height: ``block_m``/``block_n`` are the reference's Pallas tile sizes,
 kept in the signatures so callers pass the same arguments to either
 package, and they do not change the result.  There is no interpret mode:
@@ -31,6 +31,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+
+_entry = None
 
 
 def pad_group_sizes(group_sizes, block_m: int):
@@ -82,15 +84,16 @@ def _launch(x, w, sizes, n_groups: int, uniform: int):
     _build.check_operands("grouped_matmul", x.device, ops)
     if any(t.data_ptr() % 16 for _, t, _ in ops[:2]):
         raise ValueError("grouped_matmul: x and w must be 16-byte aligned")
+    global _entry
+    if _entry is None:
+        _entry = _build.entry("grouped_matmul", "grouped_matmul_bf16", 4, 6,
+                              scale=False)
     y = torch.empty((T, F), dtype=torch.float32, device=x.device)
-    fn = _build.entry("grouped_matmul", "grouped_matmul_bf16", 4, 6,
-                      scale=False)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 None if sizes is None else sizes.data_ptr(), y.data_ptr(),
-                 T, D, F, E, n_groups, uniform,
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check("grouped_matmul", err, "grouped_matmul")
+    err = _build.call(_entry, x.device, x.data_ptr(), w.data_ptr(),
+                      None if sizes is None else sizes.data_ptr(),
+                      y.data_ptr(), T, D, F, E, n_groups, uniform)
+    if err:
+        _build.check("grouped_matmul", err, "grouped_matmul")
     grouped_matmul.launches += 1
     return y
 

@@ -5,12 +5,13 @@ Replaces the TPU kernels ``paged_decode_attention_kernel`` and
 ``paged_verify_attention_kernel``
 (``src/repro/kernels/paged_attention/kernel.py``; wrappers
 ``repro.kernels.paged_attention.ops.paged_{decode,verify}_attention``).
-The kernels are ``csrc/paged_decode.cu`` and ``csrc/paged_verify.cu``: one
-block per (row, kv-head) walks the row's block table once, reading each
-live K/V row once; the verify block holds the S queries of the row and
-shares the decode kernel's block body, so its query ``s`` is bitwise the
-decode at ``cache_len = min(q_off + s + 1, mb * bs)``.  Both are bound by
-memory on the H100 (see the sources' headers).
+The kernels are ``csrc/paged_decode.cu`` and ``csrc/paged_verify.cu``: a
+CTA per (row, kv-head, split of the row's sequence) walks its split of the
+row's block table, reading each live K/V row once, and the splits merge in
+the same launch; the verify CTA holds the S queries of the row and shares
+the decode kernel's body and split plan (`split_plan`), so its query ``s``
+is bitwise the decode at ``cache_len = min(q_off + s + 1, mb * bs)``.
+Both are bound by memory on the H100 (see the sources' headers).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; there is no other path.
@@ -21,7 +22,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ops import decode_attention_plain
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention_plain, split_buffers, split_plan)
+
+_entries: dict = {}
 
 
 def gather_kv(pool, block_tables):
@@ -74,6 +78,27 @@ def _check_paged(what, q, H, Dh, k_pool, v_pool, block_tables, lens, B):
         raise ValueError(f"{what}: shape mismatch")
 
 
+def _launch(name, symbol, q, k_pool, v_pool, block_tables, lens, ints, R):
+    """One launch of a paged entry: its ``ints`` (B, [S,] H, K, Dh, nb, bs,
+    mb) and the split plan, with the workspace for ``R`` query rows a
+    CTA."""
+    fn = _entries.get(symbol)
+    if fn is None:
+        fn = _entries[symbol] = _build.entry(name, symbol, 8, len(ints) + 2)
+    B, K, Dh, bs, mb = ints[0], ints[-5], ints[-4], ints[-2], ints[-1]
+    W, n_split = split_plan(mb * bs, bs)
+    ws, counters = split_buffers(q.device, B, K, n_split, R, Dh)
+    out = torch.empty_like(q)
+    err = _build.call(fn, q.device, q.data_ptr(), k_pool.data_ptr(),
+                      v_pool.data_ptr(), block_tables.data_ptr(),
+                      lens.data_ptr(), out.data_ptr(),
+                      0 if ws is None else ws.data_ptr(), counters.data_ptr(),
+                      *ints, W, n_split, 1.0 / Dh ** 0.5)
+    if err:
+        _build.check(name, err, symbol)
+    return out
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len):
     """q: (B,H,Dh) one new token per row; pools: (nb,bs,K,Dh) shared block
     pool; block_tables: (B,mb) int32; cache_len: (B,) int32 valid count.
@@ -89,14 +114,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len):
     mb = block_tables.shape[1]
     _check_paged("paged_decode_attention", q, H, Dh, k_pool, v_pool,
                  block_tables, cache_len, B)
-    out = torch.empty_like(q)
-    fn = _build.entry("paged_decode", "paged_decode_attention_bf16", 6, 7)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 block_tables.data_ptr(), cache_len.data_ptr(),
-                 out.data_ptr(), B, H, K, Dh, nb, bs, mb, 1.0 / Dh ** 0.5,
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check("paged_decode", err, "paged_decode_attention")
+    out = _launch("paged_decode", "paged_decode_attention_bf16", q, k_pool,
+                  v_pool, block_tables, cache_len, (B, H, K, Dh, nb, bs, mb),
+                  R=H // K)
     paged_decode_attention.launches += 1
     return out
 
@@ -119,14 +139,9 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, q_off):
     mb = block_tables.shape[1]
     _check_paged("paged_verify_attention", q, H, Dh, k_pool, v_pool,
                  block_tables, q_off, B)
-    out = torch.empty_like(q)
-    fn = _build.entry("paged_verify", "paged_verify_attention_bf16", 6, 8)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 block_tables.data_ptr(), q_off.data_ptr(), out.data_ptr(),
-                 B, S, H, K, Dh, nb, bs, mb, 1.0 / Dh ** 0.5,
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check("paged_verify", err, "paged_verify_attention")
+    out = _launch("paged_verify", "paged_verify_attention_bf16", q, k_pool,
+                  v_pool, block_tables, q_off, (B, S, H, K, Dh, nb, bs, mb),
+                  R=S * (H // K))
     paged_verify_attention.launches += 1
     return out
 

@@ -38,6 +38,7 @@ from repro_torch.kernels import _build
 
 MAX_STATE_DIM = 128        # the kernel's per-thread state registers
 MAX_CHUNK = 1024           # the kernel's shared-memory (Q, 16) x tile
+_entries: dict = {}        # C entry by dtype suffix, typed once
 
 
 def chunk_for(S: int, chunk: int) -> int:
@@ -120,13 +121,15 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128):
         ("B", B, x.dtype), ("C", C, x.dtype)])
     y = torch.empty_like(x)
     state = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
-    fn = _build.entry("ssd_scan", f"ssd_scan_{suffix}", 7, 7, scale=False)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), y.data_ptr(), state.data_ptr(),
-                 b, S, H, P, G, N, Q,
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check("ssd_scan", err, "ssd_scan")
+    fn = _entries.get(suffix)
+    if fn is None:
+        fn = _entries[suffix] = _build.entry("ssd_scan", f"ssd_scan_{suffix}",
+                                             7, 7, scale=False)
+    err = _build.call(fn, x.device, x.data_ptr(), dt.data_ptr(),
+                      A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                      state.data_ptr(), b, S, H, P, G, N, Q)
+    if err:
+        _build.check("ssd_scan", err, "ssd_scan")
     ssd_scan.launches += 1
     return y, state
 

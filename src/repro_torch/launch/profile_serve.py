@@ -12,7 +12,8 @@ then times ``--steps`` engine steps twice: once on the host clock alone (each st
 one device->host copy, which waits for the device), and once under
 ``torch.profiler`` for the device time of every kernel.  Prints one JSON
 object: host ms per step, device-busy ms per step, the device's idle share,
-and the kernels and host-side operators that take the most time.
+the device operations (kernels, copies, fills) per step, and the kernels
+and host-side operators that take the most time.
 """
 
 from __future__ import annotations
@@ -72,6 +73,8 @@ def profile(arch: str = "smollm-360m", steps: int = 20, slots: int = 8,
             eng.step()
     events = prof.events()
     busy = _busy_ms(events) / steps
+    device_ops = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                     for e in events)
     by_kernel: dict[str, float] = {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -93,6 +96,7 @@ def profile(arch: str = "smollm-360m", steps: int = 20, slots: int = 8,
         "host_ms_per_step": host_ms,
         "device_busy_ms_per_step": busy,
         "device_idle_share": max(0.0, 1.0 - busy / host_ms),
+        "device_ops_per_step": device_ops / steps,
         "top_kernels_ms_per_step": [(k, v / steps) for k, v in top_kernels],
         "top_host_ops_self_ms_per_step": [(k, v / steps, c // steps)
                                           for k, v, c in host_ops],

@@ -14,10 +14,12 @@ heads, head dim 64, d_model 960; granite-moe-3b-a800m's experts: 40 of
 attention rtol=5e-2, atol=2e-2; RMSNorm and grouped matmul 5e-2; SSD scan
 1e-3 for f32 inputs, 6e-2 for bf16.  The flash kernel is also held at head
 widths 128 and 256 (the next families) and at the smoke widths the wrapper
-pads, and one raw Q.K^T tile of it against torch; flash and RMSNorm are
-also captured in a CUDA graph and replayed.  The verify and dense decode kernels
-share the paged decode kernel's block body, so they are also held to it
-bitwise.
+pads, and one raw Q.K^T tile of it against torch; the grouped matmul at
+every capacity bucket and with its wgmma in the SASS; every kernel but the
+SSD scan is also captured in one CUDA graph and replayed.  The verify and
+dense decode kernels share the paged decode kernel's body and split plan,
+so they are also held to it bitwise, at lengths on the edges of its
+sequence splits too.
 """
 
 from __future__ import annotations
@@ -154,31 +156,50 @@ def test_rmsnorm_kernel_matches_plain(card, R, D, with_residual):
 
 
 def test_kernels_replay_in_a_cuda_graph(card):
-    """Flash prefill and RMSNorm captured in a CUDA graph (no per-call host
-    work the capture cannot hold) and replayed give the eager results."""
+    """Flash prefill, RMSNorm, the grouped matmul and the three decode
+    entries captured in one CUDA graph (no per-call host work the capture
+    cannot hold; the decode body's split workspace and counters replay
+    with it) and replayed give the eager results on new inputs."""
     rng = np.random.default_rng(11)
     q = _bf16(rng, (1, 300, 15, 64), card)
     k, v = _bf16(rng, (1, 300, 5, 64), card), _bf16(rng, (1, 300, 5, 64), card)
     x, r = _bf16(rng, (8, 960), card), _bf16(rng, (8, 960), card)
     sc = torch.from_numpy(rng.normal(size=(960,)).astype(np.float32)).to(card)
+    bk = _bf16(rng, (40, 72, 1536), card)
+    w = _bf16(rng, (40, 1536, 512), card) * 1536 ** -0.5
+    B, bs, mb, T = 8, 16, 64, 1024
+    nb = B * mb + 1
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb)).reshape(
+        B, mb).astype(np.int32)).to(card)
+    kp, vp = _bf16(rng, (nb, bs, 5, 64), card), _bf16(rng, (nb, bs, 5, 64), card)
+    kc, vc = _bf16(rng, (B, T, 5, 64), card), _bf16(rng, (B, T, 5, 64), card)
+    lens = torch.tensor([1, 1024, 129, 500, 17, 128, 333, 900],
+                        dtype=torch.int32, device=card)
+    qd, qv = _bf16(rng, (B, 15, 64), card), _bf16(rng, (B, 5, 15, 64), card)
 
     def step():
-        return flash_attention(q, k, v), rmsnorm_fused(x, sc, r)
+        return (flash_attention(q, k, v), *rmsnorm_fused(x, sc, r),
+                bucket_matmul(bk, w),
+                paged_decode_attention(qd, kp, vp, tables, lens),
+                paged_verify_attention(qv, kp, vp, tables, lens - 1),
+                decode_attention(qd, kc, vc, lens))
 
     eager = step()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = step()
-    q.copy_(_bf16(rng, q.shape, card))       # new inputs, same buffers
-    x.copy_(_bf16(rng, x.shape, card))
+    for t in (q, x, bk, qd, qv):             # new inputs, same buffers
+        t.copy_(_bf16(rng, t.shape, card))
+    lens.copy_(torch.tensor([1024, 1, 700, 128, 129, 255, 64, 1000],
+                            dtype=torch.int32, device=card))
     graph.replay()
     torch.cuda.synchronize()
     fresh = step()
-    assert torch.equal(captured[0], fresh[0])
-    for a, b in zip(captured[1], fresh[1]):
-        assert torch.equal(a, b)
-    assert not torch.equal(captured[0], eager[0])
+    for i, (a, b) in enumerate(zip(captured, fresh)):
+        assert torch.equal(a, b), i
+    for i, (a, b) in enumerate(zip(captured, eager)):
+        assert not torch.equal(a, b), i
 
 
 def _pool_with_nan(rng, dev, tables, reach, nb, bs, K, Dh):
@@ -256,11 +277,82 @@ def test_decode_attention_kernel_matches_plain_and_paged(card, H, K, Dh):
     assert torch.equal(out, paged_decode_attention(q, *pools, tables, ln))
 
 
-@pytest.mark.parametrize("C,D,F", [
-    (256, 1536, 512),      # up/gate at the 1023-token admission
-    (256, 512, 1536),      # down
-    (136, 1536, 512),      # the 512 bucket: C not a multiple of the tile
+def _split_width():
+    from repro_torch.kernels.decode_attention.ops import split_plan
+    return split_plan(1024, 16)[0]
+
+
+@pytest.mark.parametrize("H,K", [(15, 5), (24, 8)])
+def test_decode_entries_at_split_edges_are_bitwise_paged(card, H, K):
+    """Lengths on the edges of the decode body's sequence splits (1, W - 1,
+    W, W + 1, 2W + 1, the capacity) with NaN past them: the dense entry
+    within tolerance of its plain version and bitwise the paged decode of
+    the same rows, at smollm's and granite's head counts."""
+    rng = np.random.default_rng(12)
+    W = _split_width()
+    B, bs, mb, Dh = 8, 16, 64, 64
+    T, nb = mb * bs, B * mb + 1
+    lens = np.array([1, W - 1, W, W + 1, 2 * W + 1, T, T - 1, 3 * W],
+                    np.int32)
+    kc, vc = _bf16(rng, (B, T, K, Dh), card), _bf16(rng, (B, T, K, Dh), card)
+    ln = torch.from_numpy(lens).to(card)
+    past = torch.arange(T, device=card)[None] >= ln[:, None]
+    kc[past] = float("nan")
+    vc[past] = float("nan")
+    q = _bf16(rng, (B, H, Dh), card)
+    out = decode_attention(q, kc, vc, ln)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), decode_attention_plain(q, kc, vc, ln).float(), **ATTN_TOL)
+    # a second launch merges again (its counters were reset) to the same bits
+    assert torch.equal(out, decode_attention(q, kc, vc, ln))
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb)).reshape(
+        B, mb).astype(np.int32)).to(card)
+    pools = []
+    for c in (kc, vc):
+        pool = torch.full((nb, bs, K, Dh), float("nan"), dtype=torch.bfloat16,
+                          device=card)
+        pool[tables.reshape(-1).long()] = c.reshape(B * mb, bs, K, Dh)
+        pools.append(pool)
+    assert torch.equal(out, paged_decode_attention(q, *pools, tables, ln))
+
+
+@pytest.mark.parametrize("H,K", [(15, 5), (24, 8)])
+def test_verify_staircases_across_splits_are_bitwise_decode(card, H, K):
+    """Verify offsets whose S = 5 frontiers cross a split, and the rows at
+    1022 and 1023 that reach past the table: query s bitwise the paged
+    decode at min(q_off + s + 1, mb*bs), NaN in every unread pool row."""
+    rng = np.random.default_rng(13)
+    W = _split_width()
+    B, S, bs, mb, Dh = 8, 5, 16, 64, 64
+    T, nb = mb * bs, B * mb + 1
+    tables = rng.permutation(np.arange(1, nb)).reshape(B, mb).astype(np.int32)
+    off = np.array([W - 3, W - 1, 2 * W - 2, T - 2, T - 1, 0, W, 3 * W - 4],
+                   np.int32)
+    kp, vp = _pool_with_nan(rng, card, tables, np.minimum(off + S, T), nb,
+                            bs, K, Dh)
+    q = _bf16(rng, (B, S, H, Dh), card)
+    tb, qo = torch.from_numpy(tables).to(card), torch.from_numpy(off).to(card)
+    out = paged_verify_attention(q, kp, vp, tb, qo)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), paged_verify_attention_plain(q, kp, vp, tb, qo).float(),
+        **ATTN_TOL)
+    assert torch.equal(out, paged_verify_attention(q, kp, vp, tb, qo))
+    for s in range(S):
+        one = paged_decode_attention(q[:, s].contiguous(), kp, vp, tb,
+                                     torch.clamp(qo + s + 1, max=T))
+        assert torch.equal(out[:, s], one), s
+
+
+@pytest.mark.parametrize("D,F", [
+    (1536, 512),           # up/gate
+    (512, 1536),           # down
 ])
+@pytest.mark.parametrize("C", [
+    256,                   # the 1023-token admission
+    136, 72, 40, 24,       # the 512 ... 64 buckets: C not a multiple of the
+])                         # tile height, below it from 72 on
 def test_grouped_matmul_kernel_matches_plain(card, C, D, F):
     """granite-moe's capacity buckets (40 experts), one launch."""
     rng = np.random.default_rng(5)
@@ -278,6 +370,8 @@ def test_grouped_matmul_kernel_matches_plain(card, C, D, F):
 @pytest.mark.parametrize("E,D,F,sizes,tail", [
     (3, 96, 96, (0, 64, 32), 32),                  # empty group
     (40, 1536, 512, "ragged", 100),                # granite, ragged sizes
+    (40, 512, 1536, "ragged", 131),                # granite's down
+    (2, 96, 96, (130, 0), 0),                      # a group over 128 rows
 ])
 def test_grouped_matmul_kernel_ragged_groups(card, E, D, F, sizes, tail):
     """Ragged group sizes (empty groups among them) and tail rows owned by
@@ -296,6 +390,24 @@ def test_grouped_matmul_kernel_ragged_groups(card, E, D, F, sizes, tail):
     got = grouped_matmul(x, w, gs)
     assert torch.isfinite(got).all() and not got[n:].any()
     torch.testing.assert_close(got, grouped_matmul_plain(x, w, gs), **GMM_TOL)
+
+
+def test_grouped_matmul_runs_on_wgmma(card):
+    """The grouped-matmul library's SASS holds HGMMA (wgmma), not only the
+    mma.sync (HMMA) fallback."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        pytest.skip("needs cuobjdump from the CUDA toolkit")
+    _build.library("grouped_matmul")
+    sass = subprocess.run([tool, "-sass", str(_build._target("grouped_matmul"))],
+                          capture_output=True, text=True, check=True).stdout
+    assert re.search(r"\bHGMMA\b", sass)
 
 
 def test_router_runs_in_full_f32_when_tf32_is_on(card):

@@ -12,6 +12,8 @@ in tests/test_torch_card.py.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -225,6 +227,67 @@ def test_build_lists_every_kernel_source():
     assert _build.sources() == ["decode_attention", "flash_prefill",
                                 "grouped_matmul", "paged_decode",
                                 "paged_verify", "rmsnorm", "ssd_scan"]
+
+
+# ---------------------------------------------------------------------------
+# the decode body's split plan, and the wrappers' launch path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cap", [16, 64, 1000, 1024, 4096, 4160, 32768])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_split_plan_is_the_same_for_paged_and_dense(cap, bs):
+    """A paged table of block size 8, 16 or 32 and a dense ring of the same
+    capacity split alike (the kernels' bitwise pairs need one W), W a
+    multiple of the body's chunk and of bs, and the splits cover the
+    capacity with no split left empty."""
+    from repro_torch.kernels.decode_attention.ops import CHUNK, split_plan
+    cap = -(-cap // bs) * bs                     # a whole number of blocks
+    W, n = split_plan(cap, bs)
+    assert (W, n) == split_plan(cap)
+    assert W % CHUNK == 0 and W % bs == 0
+    assert n * W >= cap > (n - 1) * W
+
+
+def test_split_plan_keeps_the_split_count_bounded():
+    from repro_torch.kernels.decode_attention.ops import (
+        MAX_SPLITS, SPLIT, split_plan)
+    assert split_plan(1024, 16) == (SPLIT, 1024 // SPLIT)
+    assert split_plan(1, 1) == (SPLIT, 1)
+    for cap in (SPLIT * MAX_SPLITS, SPLIT * MAX_SPLITS + 1, 10 ** 6):
+        assert split_plan(cap)[1] <= MAX_SPLITS
+    with pytest.raises(ValueError):
+        split_plan(0)
+
+
+def test_split_buffers_size_the_workspace_and_keep_the_counters():
+    """One launch's workspace holds (m, l, acc) of every (row, kv head,
+    split, query row); none when one split covers the capacity.  The
+    counters are zeros, kept per device, and grown without freeing the old
+    ones (a captured CUDA graph may hold them)."""
+    from repro_torch.kernels.decode_attention import ops
+    dev = torch.device("cpu")
+    ops._counters.pop(dev, None)
+    ws, c = ops.split_buffers(dev, 8, 5, 8, 15, 64)
+    assert ws.dtype == torch.float32 and ws.numel() == 8 * 5 * 8 * 15 * 66
+    assert c.dtype == torch.int32 and c.numel() >= 40 and not c.any()
+    assert ops.split_buffers(dev, 2, 1, 1, 3, 20)[0] is None
+    assert ops.split_buffers(dev, 8, 5, 8, 3, 64)[1] is c
+    _, big = ops.split_buffers(dev, 64, 40, 2, 3, 64)
+    assert big.numel() >= 64 * 40 and ops._counters[dev][0] is c
+    ops._counters.pop(dev)
+
+
+OPS = sorted((Path(_build.__file__).parent).glob("*/ops.py"))
+
+
+@pytest.mark.parametrize("path", OPS, ids=lambda p: p.parent.name)
+def test_wrappers_take_the_short_launch_path(path):
+    """Every kernel wrapper launches through `_build.call` (the stream's raw
+    handle, a device switch only when the tensor is on another device),
+    never building a stream object or entering torch.cuda.device per call."""
+    src = path.read_text()
+    assert "_build.call(" in src
+    assert ".cuda_stream" not in src and "torch.cuda.device(" not in src
 
 
 # ---------------------------------------------------------------------------
