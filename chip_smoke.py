@@ -81,22 +81,29 @@ and granite's head counts; the grouped matmul at every capacity bucket
 (C = 256, 136, 72, 40, 24) for up/gate and down, ragged group sizes with
 empty groups and NaN tail rows, and D = F = 96; and the SSD scan at
 mamba2-370m's admission buckets (S = 1023 with chunk 256, and S = 32, 64,
-128, 512), a padded S = 100 and grouped B/C (G = 2).
+128, 512), S = 257 (a one-row last chunk), two rows at S = 1023, a padded
+S = 100, grouped B/C (G = 2) and f32 inputs; at each admission bucket
+also with one and with two heads a CTA in its last phase (each checked,
+both timed); and the device kernels one call launches, counted under
+``torch.profiler``.
 
 Every kernel (and its library call, where one computes the same
 function) is timed twice at the main path's shapes: ``ms`` back to back
 from the host, as the serve path calls it, and ``device_ms`` from
 replaying a CUDA graph of 50 captured calls, which leaves the host's
 launch path out; flash also at the S = 512 and 128 admission buckets, the
-decode entries also at profile_serve.py's ~200 positions a row.  The flash
-and grouped-matmul entries record their instance, nvcc's register and
-spill report and the tensor-core instructions in their SASS (a build
-without ``HGMMA`` fails).
+decode entries also at profile_serve.py's ~200 positions a row.  The
+flash, grouped-matmul and SSD-scan entries record their instance, nvcc's
+register and spill report and the tensor-core instructions in their SASS
+(a build without ``HGMMA`` fails; for the SSD scan, without ``HGMMA`` or
+``HMMA``).  One 1023-token admission prefill of full-width mamba2-370m
+(48 SSD-scan launches) is timed too (``mamba_admission``).
 
 ``python3 chip_smoke.py --times-of OTHER/src`` builds another checkout's
-kernels and prints the same main-shape times of rows 2 and 4-7 for them,
-with flash prefill's times, registers and SASS as a control (a parent
-commit, timed in the same call as this one), and nothing else.
+kernels and prints the same main-shape times of rows 2 and 4-7 and of the
+mamba2-370m admission for them, with flash prefill's times, registers and
+SASS as a control (a parent commit, timed in the same call as this one),
+and nothing else.
 
 Lines of JSON report each phase; the line before the last is nvidia-smi's
 name and power limit; the last line is
@@ -278,9 +285,9 @@ def main_shape_times(rng, dev):
     """``ms`` (back-to-back eager calls) and ``device_ms`` (a CUDA graph of
     50 calls) of the kernels of rows 2 and 4-7 at their main-path shapes
     (the decode entries also at profile_serve.py's ~200 positions a row),
-    through the public wrappers only: ``--times-of`` runs this on another
-    checkout's package, so that a parent's kernels and these are timed by
-    the same code in one call."""
+    and one mamba2-370m admission, through the public entry points only:
+    ``--times-of`` runs this on another checkout's package, so that a
+    parent's kernels and these are timed by the same code in one call."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.grouped_matmul.ops import bucket_matmul
@@ -313,7 +320,36 @@ def main_shape_times(rng, dev):
         out["grouped_matmul" + tag] = both(lambda: bucket_matmul(b, w), n=20)
     sargs = ssd_inputs(rng, dev, 1, 1023, 32, 64, 1, 128, torch.bfloat16)
     out["ssd_scan"] = both(lambda: ssd_scan(*sargs, chunk=256), n=20)
+    out["mamba_admission"] = mamba_admission_ms(dev)
     return out
+
+
+def mamba_admission_ms(dev, reps=5):
+    """One 1023-token admission prefill of full-width mamba2-370m (the
+    bundle's ``prefill``, 48 layers, the SSD-scan and RMSNorm kernels;
+    random weights from seed 0): CUDA events around each eager call, after
+    a warm-up; and one call's device-busy time under ``torch.profiler``
+    (the union of its kernels' spans).  The SSD scan runs 48 times in
+    each."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.profile_serve import _busy_ms
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(get_config(SSM_ARCH), ssm_impl="pallas",
+                              norm_impl="pallas")
+    bundle = build_model(cfg)
+    params = bundle.init(0, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(1, 1023)).astype(np.int32)).to(dev)
+
+    def admit():
+        return bundle.prefill(params, {"tokens": tokens})
+    ms = time_ms(admit, n=reps, warm=2)
+    busy = _busy_ms(device_events(admit))
+    del params
+    torch.cuda.empty_cache()
+    return {"ms": ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / ms), "tokens": 1023,
+            "layers": cfg.num_layers}
 
 
 def decode_split():
@@ -770,23 +806,29 @@ def check_grouped_matmul(rng, dev, times, ptxas):
 
 
 def ssd_work(b, S, H, P, G, N, Q, itemsize):
-    """Bytes (each input read once, each output written once) and f32
-    operations of the chunked SSD scan: per chunk of q steps, C.B^T over
-    the causal q(q+1)/2 pairs once per group, and per head its product with
-    x dt, the carry-in C.state and the state update (an FMA counts 2)."""
+    """Bytes (each input read once, each output written once; the kernel's
+    workspace is not counted), the function's operations (per chunk of q
+    steps: C.B^T over the causal q(q+1)/2 pairs once per group, and per
+    head its product with x dt, the carry-in C.state and the state update;
+    an FMA counts 2), and the tensor-core operations the bf16 instance's
+    precision needs (C.B^T one pass, every other product two: its f32
+    operand split into bf16 hi + lo)."""
     nbytes = (2 * b * S * H * P * itemsize + b * S * H * 4 + H * 4
               + 2 * b * S * G * N * itemsize + b * H * N * P * 4)
-    flops = 0
+    cb = per_head = 0
     for t0 in range(0, S, Q):
         q = min(Q, S - t0)
         pairs = q * (q + 1) // 2
-        flops += 2 * pairs * N * G + H * (2 * pairs * P + 4 * q * N * P)
-    return nbytes, b * flops
+        cb += 2 * pairs * N * G
+        per_head += H * (2 * pairs * P + 4 * q * N * P)
+    return nbytes, b * (cb + per_head), b * (cb + 2 * per_head)
 
 
-def check_ssd_scan(rng, dev, times):
+def check_ssd_scan(rng, dev, times, ptxas):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ops import (
-        chunk_for, ssd_scan, ssd_scan_plain)
+        KERNEL_CHUNK, chunk_for, ssd_scan, ssd_scan_plain)
 
     bf = torch.bfloat16
     cases = {   # name: (b, S, H, P, G, N, chunk, dtype)
@@ -798,6 +840,8 @@ def check_ssd_scan(rng, dev, times):
         "S128": (1, 128, 32, 64, 1, 128, 256, bf),
         "S64": (1, 64, 32, 64, 1, 128, 256, bf),
         "S32": (1, 32, 32, 64, 1, 128, 256, bf),
+        "S257_one_row_last_chunk": (1, 257, 32, 64, 1, 128, 256, bf),
+        "b2_S1023": (2, 1023, 32, 64, 1, 128, 256, bf),
         "padded_S100": (1, 100, 32, 64, 1, 128, 32, bf),
         "G2_S1023": (1, 1023, 32, 64, 2, 128, 256, bf),
         "G2_ref": (1, 192, 8, 32, 2, 64, 64, bf),
@@ -815,13 +859,30 @@ def check_ssd_scan(rng, dev, times):
         errs[name] = max(check_close(f"ssd/{name}/y", y, yw, SSD_TOL[dtype]),
                          check_close(f"ssd/{name}/state", st, sw,
                                      SSD_TOL[dtype]))
+    sass = sass_counts(_build._target("ssd_scan"))
+    if sass is not None and sass["HGMMA"] + sass["HMMA"] == 0:
+        raise AssertionError(f"ssd: no tensor-core instruction (HGMMA, HMMA) "
+                             f"in the SASS: {sass}")
     b, S, H, P, G, N, Q, dtype = cases["main_S1023"]
     args = ssd_inputs(rng, dev, b, S, H, P, G, N, dtype)
-    nbytes, flops = ssd_work(b, S, H, P, G, N, chunk_for(S, Q), 2)
+    # the work of the chunking the kernel runs (at most KERNEL_CHUNK); the
+    # f32-FMA bound of the earlier scalar kernel, on the model's chunk
+    nbytes, flops, tc_flops = ssd_work(b, S, H, P, G, N,
+                                       min(chunk_for(S, Q), KERNEL_CHUNK), 2)
+    _, model_flops, _ = ssd_work(b, S, H, P, G, N, chunk_for(S, Q), 2)
+    f32 = bound(nbytes, model_flops, F32_FLOPS)
     return {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",
+        "instance": "C.B^T and M.x on wgmma m64n64k16 (HGMMA), the chunk "
+                    "states and the carry-in on mma.sync m16n8k16 (HMMA), "
+                    "bf16 -> f32, f32 operands split into bf16 hi + lo; a "
+                    "device launch for each phase: chunk states, state "
+                    "passing, y per (1 or 2 heads, chunk, 64-row q tile)",
+        **device_kernels(lambda: ssd_scan(*args, chunk=Q)),
+        "ptxas": ptxas.get("ssd_scan", {}),
+        "sass": sass,
         "shape": "x (1,1023,32,64) bf16, dt (1,1023,32) f32, B/C "
                  "(1,1023,1,128) bf16, chunk 256 -> y bf16, state "
                  "(1,32,128,64) f32",
@@ -829,10 +890,69 @@ def check_ssd_scan(rng, dev, times):
         "max_abs_err_all_cases": max(errs.values()),
         "max_abs_err_by_case": errs,
         **times["ssd_scan"],
+        # the design's choice of its own chunk (ops.KERNEL_CHUNK) against
+        # running it on the model's chunk of 256
+        "device_ms_on_model_chunk": graph_ms(
+            lambda: ops._launch(*args, Q, Q=chunk_for(S, Q))),
+        "heads_per_cta": ssd_heads_per_cta(rng, dev),
         "plain_ms": time_ms(lambda: ssd_scan_plain(*args, chunk=Q), n=5),
         "library_ms": None,
-        **bound(nbytes, flops, F32_FLOPS),
+        # the bound on the tensor cores at the passes the precision needs;
+        # the f32-FMA bound of the earlier scalar kernel beside it
+        **bound(nbytes, tc_flops, BF16_FLOPS),
+        "function_flops": flops,
+        "model_chunk_flops": model_flops,
+        "bound_f32_ms": f32["bound_ms"], "bound_f32_by": f32["bound_by"],
     }
+
+
+def device_events(fn):
+    """The device events (kernels, copies) of one call of ``fn`` under
+    ``torch.profiler``, traced after a warm-up step: a profile without one
+    missed the first kernels of the call on the H100."""
+    cuda = torch.autograd.DeviceType.CUDA
+    got = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: got.extend(
+                e for e in p.events() if e.device_type == cuda)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return got
+
+
+def device_kernels(fn):
+    """The device kernels that one call of ``fn`` launches, by name."""
+    names = [e.name.replace("(anonymous namespace)::", "").split("(")[0]
+             .removeprefix("void ") for e in device_events(fn)]
+    return {"device_launches_per_call": len(names), "device_kernels": names}
+
+
+def ssd_heads_per_cta(rng, dev):
+    """The SSD scan's last phase with one and with two heads of a group a
+    CTA (two share each C.B^T tile), at mamba2-370m's admission buckets:
+    each against the plain version, whether the two agree bitwise (the
+    same operations in the same order), and ``device_ms`` of each."""
+    from repro_torch.kernels.ssd_scan import ops
+    out = {}
+    for S in (1023, 512, 128, 64, 32):
+        args = ssd_inputs(rng, dev, 1, S, 32, 64, 1, 128, torch.bfloat16)
+        want = ops.ssd_scan_plain(*args, chunk=256)
+        got = {}
+        for h in (1, 2):
+            got[h] = ops._launch(*args, 256, heads=h)
+            for part, g, w in zip(("y", "state"), got[h], want):
+                check_close(f"ssd/heads{h}_S{S}/{part}", g, w,
+                            SSD_TOL[torch.bfloat16])
+        out[f"S{S}"] = {
+            "bitwise_equal": all(map(torch.equal, got[1], got[2])),
+            **{f"device_ms_{h}": graph_ms(
+                lambda h=h: ops._launch(*args, 256, heads=h))
+               for h in (1, 2)}}
+    return out
 
 
 def bound(nbytes, flops, peak_flops):
@@ -1182,6 +1302,7 @@ def times_of(src):
     say({"phase": "times_of", "src": str(src),
          "flash_ptxas": ptxas_report(logs["flash_prefill"]),
          "flash_sass": sass_counts(_build._target("flash_prefill")),
+         "ssd_sass": sass_counts(_build._target("ssd_scan")),
          "times": main_shape_times(np.random.default_rng(0),
                                    torch.device("cuda"))})
     return 0
@@ -1224,11 +1345,14 @@ def main(argv):
     rng = np.random.default_rng(0)
     t0 = time.monotonic()
     times = main_shape_times(rng, dev)
+    say({"phase": "mamba_admission", "arch": SSM_ARCH,
+         **times["mamba_admission"],
+         "ssd_scan_device_ms_x48": 48 * times["ssd_scan"]["device_ms"]})
     kernels = [check_paged(rng, dev, times), check_flash(rng, dev, ptxas),
                check_rmsnorm(rng, dev, ptxas), check_verify(rng, dev, times),
                check_dense(rng, dev, times),
                check_grouped_matmul(rng, dev, times, ptxas),
-               check_ssd_scan(rng, dev, times)]
+               check_ssd_scan(rng, dev, times, ptxas)]
     say({"phase": "kernels", "seconds": time.monotonic() - t0})
     wrappers = [paged_decode_attention, flash_attention, rmsnorm_fused,
                 paged_verify_attention, decode_attention, grouped_matmul,

@@ -14,31 +14,40 @@ Per (batch, head), over chunks of Q steps in order, all in f32:
 returned once, after the last chunk.  B and C of group ``h // (H/G)``
 serve head ``h``.
 
-The kernel is ``csrc/ssd_scan.cu``: one block per (batch, head, 16-column
-tile of P), the chunk loop inside it with the (N, 16) f32 state in shared
-memory, the (Q, Q) decay matrix never held whole (64 x 64 tiles, the
-causal tiles only, masked before the exponent).  What bounds it on the
-H100 is f32 arithmetic (the chunked scan needs ~1.6 GFLOP on ~10 MB at
-the 1023-token admission of mamba2-370m); its header says what the design
-does about it.  It reads the model layout as it is and masks the ragged
-last chunk itself, which computes what padding with ``dt = 0`` does (an
-exact no-op on the carried state).  There is no interpret mode: a CPU
-tensor runs the plain version.
+The kernel is ``csrc/ssd_scan.cu``, three launches with every product on
+the tensor cores (bf16 -> f32): each chunk's own end state into a
+workspace (``mma.sync``); the state entering each chunk (and the final
+state) by passing those states along; then per (one or two heads, chunk,
+64-row q tile) the carry-in (``mma.sync``), the causal intra-chunk term
+(C.B^T and its product with x on ``wgmma``) and y, with C.B^T computed
+once for both heads of a pair.  f32 accuracy comes from splitting each f32
+operand into bf16 hi + lo (the f32 instance also splits x, B and C).  Its
+header says what bounds it on the H100 and what the design does about it.
+It reads the model layout as it is and masks the ragged last chunk itself,
+which computes what padding with ``dt = 0`` does (an exact no-op on the
+carried state).  There is no interpret mode: a CPU tensor runs the plain
+version.
 
-`ssd_scan` launches the kernel for CUDA tensors (every launch counts in
-``ssd_scan.launches``) and runs `ssd_scan_plain` for CPU tensors; there is
-no other path.
+`ssd_scan` launches the kernel for CUDA tensors (every call counts once in
+``ssd_scan.launches``, for its three device launches) and runs
+`ssd_scan_plain` for CPU tensors; there is no other path.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
 
-MAX_STATE_DIM = 128        # the kernel's per-thread state registers
-MAX_CHUNK = 1024           # the kernel's shared-memory (Q, 16) x tile
-_entries: dict = {}        # C entry by dtype suffix, typed once
+MAX_STATE_DIM = 128        # the kernel's (64, 128) shared B and C tiles
+# The kernel's own chunk length, at most: the scan's result does not depend
+# on how the sequence is chunked (padding rows are exact no-ops), and
+# shorter chunks shorten each output CTA's causal walk for a longer state
+# passing (PERF.md, row 7 of the kernel table, times both).
+KERNEL_CHUNK = 128
+_entries: dict = {}        # C entries by name, typed once
 
 
 def chunk_for(S: int, chunk: int) -> int:
@@ -107,11 +116,19 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for {x.device}")
+    return _launch(x, dt, A, B, C, chunk)
+
+
+def _launch(x, dt, A, B, C, chunk, *, Q=None, heads=0):
+    """One launch of the kernel on CUDA tensors, on its own chunks of Q
+    steps (by default ``min(chunk_for(S, chunk), KERNEL_CHUNK)``), with
+    ``heads`` (1 or 2) heads a CTA in its last phase, or 0 to leave that
+    choice to the kernel.  `ssd_scan` takes the defaults; chip_smoke.py
+    times the other choices through here."""
     b, S, H, P, G, N = _shapes(x, dt, A, B, C)
-    Q = chunk_for(S, chunk)
-    if N > MAX_STATE_DIM or Q > MAX_CHUNK:
-        raise ValueError(f"ssd_scan: state_dim {N} > {MAX_STATE_DIM} or "
-                         f"chunk {Q} > {MAX_CHUNK}")
+    Q = min(chunk_for(S, chunk), KERNEL_CHUNK) if Q is None else Q
+    if N > MAX_STATE_DIM:
+        raise ValueError(f"ssd_scan: state_dim {N} > {MAX_STATE_DIM}")
     suffix = {torch.bfloat16: "bf16", torch.float32: "f32"}.get(x.dtype)
     if suffix is None:
         raise ValueError(f"ssd_scan: x must be bf16 or f32, got {x.dtype}")
@@ -119,15 +136,24 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128):
     _build.check_operands("ssd_scan", x.device, [
         ("x", x, x.dtype), ("dt", dt, torch.float32), ("A", A, torch.float32),
         ("B", B, x.dtype), ("C", C, x.dtype)])
-    y = torch.empty_like(x)
-    state = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
     fn = _entries.get(suffix)
     if fn is None:
         fn = _entries[suffix] = _build.entry("ssd_scan", f"ssd_scan_{suffix}",
-                                             7, 7, scale=False)
+                                             8, 8, scale=False)
+    size = _entries.get("ws")
+    if size is None:     # the workspace's layout lives in the kernel alone
+        size = _build.library("ssd_scan").ssd_scan_workspace_floats
+        size.argtypes = [ctypes.c_int] * 6
+        size.restype = ctypes.c_longlong
+        _entries["ws"] = size
+    y = torch.empty_like(x)
+    state = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
+    ws = torch.empty(size(b, S, H, P, N, Q), dtype=torch.float32,
+                     device=x.device)
     err = _build.call(fn, x.device, x.data_ptr(), dt.data_ptr(),
                       A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-                      state.data_ptr(), b, S, H, P, G, N, Q)
+                      state.data_ptr(), ws.data_ptr(), b, S, H, P, G, N, Q,
+                      heads)
     if err:
         _build.check("ssd_scan", err, "ssd_scan")
     ssd_scan.launches += 1

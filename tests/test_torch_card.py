@@ -15,8 +15,9 @@ attention rtol=5e-2, atol=2e-2; RMSNorm and grouped matmul 5e-2; SSD scan
 1e-3 for f32 inputs, 6e-2 for bf16.  The flash kernel is also held at head
 widths 128 and 256 (the next families) and at the smoke widths the wrapper
 pads, and one raw Q.K^T tile of it against torch; the grouped matmul at
-every capacity bucket and with its wgmma in the SASS; every kernel but the
-SSD scan is also captured in one CUDA graph and replayed.  The verify and
+every capacity bucket and with its wgmma in the SASS; the SSD scan with
+tensor-core instructions in its SASS; every kernel is also captured in one
+CUDA graph and replayed.  The verify and
 dense decode kernels share the paged decode kernel's body and split plan,
 so they are also held to it bitwise, at lengths on the edges of its
 sequence splits too.
@@ -156,10 +157,11 @@ def test_rmsnorm_kernel_matches_plain(card, R, D, with_residual):
 
 
 def test_kernels_replay_in_a_cuda_graph(card):
-    """Flash prefill, RMSNorm, the grouped matmul and the three decode
-    entries captured in one CUDA graph (no per-call host work the capture
-    cannot hold; the decode body's split workspace and counters replay
-    with it) and replayed give the eager results on new inputs."""
+    """Flash prefill, RMSNorm, the grouped matmul, the three decode entries
+    and the SSD scan captured in one CUDA graph (no per-call host work the
+    capture cannot hold; the decode body's split workspace and counters
+    and the scan's chunk-state workspace replay with it) and replayed give
+    the eager results on new inputs."""
     rng = np.random.default_rng(11)
     q = _bf16(rng, (1, 300, 15, 64), card)
     k, v = _bf16(rng, (1, 300, 5, 64), card), _bf16(rng, (1, 300, 5, 64), card)
@@ -176,20 +178,22 @@ def test_kernels_replay_in_a_cuda_graph(card):
     lens = torch.tensor([1, 1024, 129, 500, 17, 128, 333, 900],
                         dtype=torch.int32, device=card)
     qd, qv = _bf16(rng, (B, 15, 64), card), _bf16(rng, (B, 5, 15, 64), card)
+    scan = _ssd_inputs(rng, card, 1, 300, 32, 64, 1, 128, torch.bfloat16)
 
     def step():
         return (flash_attention(q, k, v), *rmsnorm_fused(x, sc, r),
                 bucket_matmul(bk, w),
                 paged_decode_attention(qd, kp, vp, tables, lens),
                 paged_verify_attention(qv, kp, vp, tables, lens - 1),
-                decode_attention(qd, kc, vc, lens))
+                decode_attention(qd, kc, vc, lens),
+                *ssd_scan(*scan, chunk=256))
 
     eager = step()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         captured = step()
-    for t in (q, x, bk, qd, qv):             # new inputs, same buffers
+    for t in (q, x, bk, qd, qv, scan[0]):    # new inputs, same buffers
         t.copy_(_bf16(rng, t.shape, card))
     lens.copy_(torch.tensor([1024, 1, 700, 128, 129, 255, 64, 1000],
                             dtype=torch.int32, device=card))
@@ -446,11 +450,16 @@ def _ssd_inputs(rng, dev, b, S, H, P, G, N, dtype):
 
 @pytest.mark.parametrize("b,S,H,P,G,N,chunk,dtype", [
     (1, 1023, 32, 64, 1, 128, 256, torch.bfloat16),  # the 1023 admission
+    (2, 1023, 32, 64, 1, 128, 256, torch.bfloat16),  # two rows
+    (1, 1023, 32, 64, 2, 128, 256, torch.bfloat16),  # two groups, full width
+    (1, 257, 32, 64, 1, 128, 256, torch.bfloat16),   # a one-row last chunk
     (1, 512, 32, 64, 1, 128, 256, torch.bfloat16),   # the 512 bucket
     (1, 128, 32, 64, 1, 128, 256, torch.bfloat16),   # chunk 128 (S = 128)
     (1, 64, 32, 64, 1, 128, 256, torch.bfloat16),    # chunk 64
     (1, 32, 32, 64, 1, 128, 256, torch.bfloat16),    # chunk 32
     (1, 100, 4, 32, 1, 64, 32, torch.bfloat16),      # padded: 4 chunks of 32
+    (1, 300, 4, 96, 2, 40, 256, torch.bfloat16),     # two P panels, N = 40
+    (1, 300, 4, 96, 2, 40, 256, torch.float32),
     (1, 192, 8, 32, 2, 64, 64, torch.bfloat16),      # grouped B/C
     (2, 256, 4, 64, 1, 128, 64, torch.float32),      # the reference sweep
     (1, 192, 8, 32, 2, 64, 64, torch.float32),
@@ -471,6 +480,40 @@ def test_ssd_scan_kernel_matches_plain(card, b, S, H, P, G, N, chunk, dtype):
     tol = 1e-3 if dtype == torch.float32 else 6e-2
     torch.testing.assert_close(y.float(), yw.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(st, sw, rtol=tol, atol=tol)
+
+
+def test_ssd_scan_runs_on_tensor_cores(card):
+    """The SSD-scan library's SASS holds tensor-core products (HMMA from
+    mma.sync, or HGMMA), not only f32 FMAs."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        pytest.skip("needs cuobjdump from the CUDA toolkit")
+    _build.library("ssd_scan")
+    sass = subprocess.run([tool, "-sass", str(_build._target("ssd_scan"))],
+                          capture_output=True, text=True, check=True).stdout
+    assert re.search(r"\bHG?MMA\b", sass)
+
+
+@pytest.mark.parametrize("S", [1023, 512, 64])
+def test_ssd_scan_heads_per_cta_agree(card, S):
+    """The scan's last phase with one or two heads of a group a CTA (two
+    share each C.B^T tile), whichever the kernel would choose at this
+    size: the same operations in the same order, so the same bits, within
+    the bf16 tolerance of the plain version."""
+    from repro_torch.kernels.ssd_scan import ops
+    rng = np.random.default_rng(12)
+    args = _ssd_inputs(rng, card, 1, S, 32, 64, 1, 128, torch.bfloat16)
+    (y1, st1), (y2, st2) = (ops._launch(*args, 256, heads=h) for h in (1, 2))
+    assert torch.equal(y1, y2) and torch.equal(st1, st2)
+    yw, sw = ssd_scan_plain(*args, chunk=256)
+    torch.testing.assert_close(y1.float(), yw.float(), rtol=6e-2, atol=6e-2)
+    torch.testing.assert_close(st1, sw, rtol=6e-2, atol=6e-2)
 
 
 def test_ssd_scan_kernel_writes_y_in_x_dtype(card):

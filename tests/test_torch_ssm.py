@@ -53,7 +53,8 @@ from repro.serving.engine import make_engine_step as jax_make_step
 from repro.serving.engine import spec_ineligible_reason as jax_spec_reason
 from repro_torch.bridge import F32_LEAVES, params_from_numpy, params_to_numpy
 from repro_torch.configs.base import get_config, get_smoke_config
-from repro_torch.kernels.ssd_scan.ops import chunk_for, ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan.ops import (
+    KERNEL_CHUNK, chunk_for, ssd_scan, ssd_scan_plain)
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.serve import _on_kernels, make_trace
 from repro_torch.models import ssm
@@ -159,6 +160,96 @@ def test_ssd_scan_refuses_bad_shapes_and_devices():
         ssd_scan(x, dt, A, B.expand(1, 8, 3, 4), C.expand(1, 8, 3, 4))
     with pytest.raises(ValueError, match="no kernel"):
         ssd_scan(*(t.to("meta") for t in mine))
+
+
+def _split_bf16(v):
+    """v ~ hi + lo, both bf16 values (held as f32), as the kernel splits an
+    f32 operand."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _passes(eq, a, b, split_a, split_b):
+    """The product ``einsum(eq, a, b)`` as the kernel's tensor-core passes
+    compute it: a split operand is hi + lo, an exact one (bf16 already) is
+    used as it is; hi.hi, then hi.lo and lo.hi where there is a lo, each
+    summed in f32 (the lo.lo term is dropped)."""
+    ah, al = _split_bf16(a) if split_a else (a, None)
+    bh, bl = _split_bf16(b) if split_b else (b, None)
+    out = torch.einsum(eq, ah, bh)
+    if bl is not None:
+        out = out + torch.einsum(eq, ah, bl)
+    if al is not None:
+        out = out + torch.einsum(eq, al, bh)
+    return out
+
+
+def _ssd_by_kernel_decomposition(x, dt, A, B, C, chunk):
+    """The SSD scan as csrc/ssd_scan.cu decomposes it, in plain PyTorch:
+    on chunks of at most KERNEL_CHUNK steps, each chunk's own end state,
+    the state entering each chunk passed along from them, the carry-in and
+    the causal intra-chunk term, every f32 operand of a product split into
+    bf16 hi + lo (x, B and C too for f32 inputs; they are exact for bf16
+    inputs)."""
+    sp = x.dtype == torch.float32
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = min(chunk_for(S, chunk), KERNEL_CHUNK)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xc = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(
+        b, nc, Q, H, P)
+    dtc = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad)).reshape(
+        b, nc, Q, H)
+    Bc, Cc = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+              .reshape(b, nc, Q, G, N).repeat_interleave(H // G, dim=3)
+              for t in (B, C))                                 # (b,nc,Q,H,N)
+    cum = torch.cumsum(dtc * A.float(), dim=2)                 # (b,nc,Q,H)
+    tot = cum[:, :, -1]                                        # (b,nc,H)
+    # launch 1: each chunk's own end state
+    w = dtc * torch.exp(tot[:, :, None] - cum)
+    s_loc = _passes("bcjhn,bcjhp->bchnp", Bc, xc * w[..., None], sp, True)
+    # launch 2: the state entering each chunk
+    s_in = torch.zeros_like(s_loc)
+    for c in range(1, nc):
+        s_in[:, c] = (torch.exp(tot[:, c - 1])[..., None, None]
+                      * s_in[:, c - 1] + s_loc[:, c - 1])
+    # launch 3: carry-in and intra-chunk term
+    carry = (_passes("bcqhn,bchnp->bcqhp", Cc, s_in, sp, True)
+             * torch.exp(cum)[..., None])
+    cb = _passes("bcqhn,bcjhn->bchqj", Cc, Bc, sp, sp)
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).permute(
+        0, 1, 4, 2, 3)
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()
+    m = (cb * torch.exp(seg.masked_fill(~causal, float("-inf")))
+         * dtc.permute(0, 1, 3, 2)[:, :, :, None, :])          # (b,nc,H,q,j)
+    intra = _passes("bchqj,bcjhp->bcqhp", m, xc, True, sp)
+    y = (intra + carry).reshape(b, nc * Q, H, P)[:, :S]
+    final = torch.exp(tot[:, -1])[..., None, None] * s_in[:, -1] + s_loc[:, -1]
+    return y.to(x.dtype), final
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,S,H,P,G,N,chunk", [
+    (2, 256, 4, 64, 1, 128, 64),
+    (1, 192, 8, 32, 2, 64, 64),          # grouped B/C
+    (2, 128, 2, 64, 1, 128, 128),        # single chunk
+    (1, 100, 4, 32, 1, 64, 32),          # padding
+    (1, 1023, 2, 64, 1, 128, 256),       # the 1023 admission's chunking
+    (1, 300, 4, 32, 2, 64, 128),         # grouped and padded
+])
+def test_kernel_decomposition_holds_the_scan_tolerances(b, S, H, P, G, N,
+                                                        chunk, dtype):
+    """The kernel's decomposition and hi + lo splits (two passes per f32
+    operand, three with f32 x, B and C) against the JAX package's
+    sequential oracle, at the tolerances of tests/test_kernels.py: the
+    numerics of csrc/ssd_scan.cu, shown without a card."""
+    mine, ref = _scan_inputs(b, S, H, P, G, N, dtype)
+    y, st = _ssd_by_kernel_decomposition(*mine, chunk)
+    oy, os_ = ssd_scan_ref(*ref)
+    tol = 1e-3 if dtype == "f32" else 6e-2
+    np.testing.assert_allclose(_f(y), _f(oy), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_f(st), _f(os_), rtol=tol, atol=tol)
 
 
 # ---------------------------------------------------------------------------
