@@ -28,6 +28,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               with 65.  Every request finishes with that count
               (``expected_tokens``), one device->host copy per step, no
               leaked block, and every kernel of the path was launched.
+              The decode step is the engine's captured CUDA graph (a
+              replay a step; the launch counts add what each replay
+              launches), as in every spec="off" run below.
+   serve_eager — the same trace on the eager step: every stream bitwise
+              equal to serve's, and the same launches once the graph's
+              warm-up steps are taken off serve's; both runs' tokens/s,
+              TTFT and ITL side by side (``graph_vs_eager``).
 4. spec     — the same trace with ``spec="draft", spec_k=4``, twice: the
               target drafting for itself, and a cold 2-layer draft from
               seed 1 (acceptance near 0: every step rejects).  The same
@@ -38,6 +45,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. dense    — the same trace with ``kv="dense"``: the same gates, the
               dense decode kernel launched, every stream equal to the
               serve phase's (the dense kernel is the paged one's body).
+   chunked_serve — the same trace with ``prefill="chunked"``, 128-token
+              chunks (prefix sharing off): the gates of phase 3, exactly
+              the chunks the trace's buckets need, no flash launch (the
+              chunk attends in plain PyTorch, as the reference does), and
+              the last request, admitted while others decode, bitwise
+              equal to its run in an idle chunked engine; TTFT and ITL
+              beside serve's (``chunked_vs_oneshot``).
+   chunked_logits — full smollm-360m, ``prefill_chunk`` chained over
+              128-token chunks into a fresh state against the one-shot
+              prefill, last-position logits at buckets 64, 512 and 1023,
+              within LOGIT_TOL.
 6. model    — the same model teacher-forced for 8 paged decode steps with
               the kernels and with the plain path; logits compared.  Then
               one verify forward of [pending, 4 forced tokens] against the
@@ -47,7 +65,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               runs the MoE FFN through the grouped-matmul kernel (3
               launches a layer), decode the dense-gated MoE.  The gates of
               phase 3, and the grouped-matmul, flash, paged decode and
-              RMSNorm kernels each launched.
+              RMSNorm kernels each launched.  Then ``chunked_moe``: 4
+              requests of at most 120 tokens in 32-token chunks, the
+              gates of chunked_serve (the chunk path runs the dense-gated
+              MoE, so no grouped-matmul launch).
 8. moe_model — granite teacher-forced as in phase 6 (kernels, moe "gmm",
               against the plain path, moe "einsum"); logits compared, and
               how often the router's top-k expert sets of the two runs
@@ -59,7 +80,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the SSD-scan kernel (48 launches an admission), decode the
               O(1) recurrent update.  The gates of phase 3, the SSD-scan
               and RMSNorm kernels launched, the scan 48 times per
-              admission.
+              admission.  Then ``chunked_mamba`` as chunked_moe (each
+              chunk token through 48 ``ssm_decode``s; no scan launch).
 10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
               admission (the kernel path's own activations), its output
               with the SSD-scan kernel against the same mixer on the
@@ -164,6 +186,16 @@ MAMBA_GATED_LAYERS = 12
 
 SERVE = dict(n_requests=16, slots=8, max_len=1024, seed=0,
              prompt_len=(24, 900), max_new_tokens=64)
+# chunked admission: serve's trace in 128-token chunks; granite's and
+# mamba2's short traces in 32-token chunks (mamba2's chunk runs every
+# token through 48 `ssm_decode`s).  Prefix sharing is off in these runs:
+# a prefix hit starts a job mid-prompt, so the chunk count would no longer
+# follow from the trace's buckets alone, and the isolation check compares
+# with an idle engine, which has nothing to hit.
+CHUNK = 128
+SHORT = dict(n_requests=4, slots=8, max_len=1024, seed=0,
+             prompt_len=(16, 120), max_new_tokens=32)
+SHORT_CHUNK = 32
 DENSE_ARCH = "smollm-360m"
 MOE_ARCH = "granite-moe-3b-a800m"
 SSM_ARCH = "mamba2-370m"
@@ -966,36 +998,43 @@ def bound(nbytes, flops, peak_flops):
 # phases 3-4: serve and model check
 # --------------------------------------------------------------------------
 
-def serve_run(phase, wrappers, arch=DENSE_ARCH, **kw):
-    """One ``serve_direct`` run of the trace on ``arch`` with every launch
-    count set to 0 just before it and read just after; the gates every run
-    must pass."""
+def serve_trace(arch, load=SERVE):
     from repro_torch.configs.base import get_config
-    from repro_torch.launch.serve import expected_tokens, make_trace, serve_direct
+    from repro_torch.launch.serve import make_trace
+    return make_trace(get_config(arch).vocab_size, load["n_requests"],
+                      max_len=load["max_len"], seed=load["seed"],
+                      prompt_len=load["prompt_len"],
+                      max_new_tokens=load["max_new_tokens"])
+
+
+def serve_run(phase, wrappers, arch=DENSE_ARCH, load=SERVE, **kw):
+    """One ``serve_direct`` run of the trace ``load`` on ``arch`` with
+    every launch count set to 0 just before it and read just after; the
+    gates every run must pass."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import expected_tokens, serve_direct
     cfg = get_config(arch)
     for w in wrappers:
         w.launches = 0
-    stats = serve_direct(cfg, device="cuda", **SERVE, **kw)
+    stats = serve_direct(cfg, device="cuda", **load, **kw)
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
-    trace = make_trace(cfg.vocab_size, SERVE["n_requests"],
-                       max_len=SERVE["max_len"], seed=SERVE["seed"],
-                       prompt_len=SERVE["prompt_len"],
-                       max_new_tokens=SERVE["max_new_tokens"])
-    want = {e["rid"]: expected_tokens(e, SERVE["max_len"]) for e in trace}
+    trace = serve_trace(arch, load)
+    want = {e["rid"]: expected_tokens(e, load["max_len"]) for e in trace}
     out = {k: stats[k] for k in (
         "completed", "decode_steps", "tokens_decoded", "d2h_transfers",
         "wall_s", "tok_per_s", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
         "itl_p50_s", "itl_p99_s", "slot_utilization", "kv",
         "kv_pool_bytes", "block_leaks", "spec", "spec_k",
         "spec_fallback_reason", "acceptance_rate", "tokens_per_step",
-        "draft_overhead_s")}
+        "draft_overhead_s", "step_graph", "graph_warm_launches", "prefill",
+        "prefill_chunks")}
     out["launches"] = launches
     out["prompt_lens"] = [len(e["prompt"]) for e in trace]
     out["tokens_per_request"] = [stats["tokens_per_request"][e["rid"]]
                                  for e in trace]
     say({"phase": phase, "arch": cfg.name, **out})
-    assert stats["completed"] == SERVE["n_requests"], stats["completed"]
+    assert stats["completed"] == load["n_requests"], stats["completed"]
     assert stats["tokens_per_request"] == want, (stats["tokens_per_request"], want)
     assert stats["d2h_transfers"] == stats["decode_steps"] > 0
     assert stats["block_leaks"] == 0
@@ -1003,12 +1042,134 @@ def serve_run(phase, wrappers, arch=DENSE_ARCH, **kw):
 
 
 def serve_phase(wrappers):
-    """The paged, spec="off" serve path of the dense model: the flash,
-    paged decode and RMSNorm kernels are launched."""
+    """The paged, spec="off" serve path of the dense model, its decode step
+    a replayed CUDA graph: the flash, paged decode and RMSNorm kernels are
+    launched."""
     stats, launches = serve_run("serve", wrappers)
+    assert stats["step_graph"], "serve ran the eager step"
     for w in ("paged_decode_attention", "flash_attention", "rmsnorm_fused"):
         assert launches[w] > 0, launches
-    return stats["streams"], launches
+    return stats, launches
+
+
+def serve_eager_phase(wrappers, graphed, graphed_launches):
+    """serve's trace on the eager step: every stream bitwise equal to the
+    graphed run's, and the same launches once the graph's warm-up steps
+    (run before its capture) are taken off the graphed run's count."""
+    stats, launches = serve_run("serve_eager", wrappers, step_graph=False)
+    assert not stats["step_graph"]
+    differ = [rid for rid, t in graphed["streams"].items()
+              if stats["streams"][rid] != t]
+    assert not differ, f"eager streams differ from the graph's: {differ}"
+    warm = graphed["graph_warm_launches"]
+    replayed = {w: n - warm.get(w, 0) for w, n in graphed_launches.items()}
+    assert replayed == launches, (replayed, launches)
+    keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
+            "ttft_p99_s", "wall_s", "decode_steps")
+    say({"phase": "graph_vs_eager", "arch": DENSE_ARCH,
+         "streams_equal": len(graphed["streams"]) - len(differ),
+         "of": len(graphed["streams"]), "launches_equal": True,
+         "graph": {k: graphed[k] for k in keys},
+         "eager": {k: stats[k] for k in keys}})
+    return launches
+
+
+def idle_stream(arch, entry, **kw):
+    """The tokens of one trace request admitted into an idle engine built
+    as ``serve_direct`` builds it (seed 0, ``SERVE``'s slots and max_len)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.engine import Request
+    eng = build_engine(get_config(arch), SERVE["slots"], SERVE["max_len"],
+                       seed=SERVE["seed"], device="cuda", **kw)
+    eng.submit(Request(rid=entry["rid"],
+                       prompt=np.asarray(entry["prompt"], np.int32),
+                       max_new_tokens=int(entry["max_new_tokens"])))
+    eng.run()
+    return eng.done[entry["rid"]].tokens
+
+
+def chunked_run(phase, wrappers, arch, load, chunk, launched, unlaunched):
+    """A chunked-admission serve run, graphed decode, prefix sharing off:
+    the gates of every run, exactly the chunks the trace's buckets need,
+    the kernels in ``launched`` launched and those in ``unlaunched`` (the
+    one-shot admission's) not, and the last request, admitted while the others decode, bitwise equal
+    to its run in an idle chunked engine."""
+    from repro_torch.serving.engine import admit_length
+    kw = dict(prefill="chunked", prefill_chunk=chunk, prefix_sharing=False)
+    stats, launches = serve_run(phase, wrappers, arch=arch, load=load, **kw)
+    assert stats["step_graph"] and stats["prefill"] == "chunked"
+    trace = serve_trace(arch, load)
+    want = sum(-(-admit_length(len(e["prompt"]), load["max_len"]) // chunk)
+               for e in trace)
+    assert stats["prefill_chunks"] == want, (stats["prefill_chunks"], want)
+    for w in launched:
+        assert launches[w] > 0, launches
+    for w in unlaunched:
+        assert launches[w] == 0, launches
+    last = trace[-1]
+    alone = idle_stream(arch, last, **kw)
+    assert alone == stats["streams"][last["rid"]], (alone, last["rid"])
+    say({"phase": f"{phase}_isolation", "arch": arch, "rid": last["rid"],
+         "prompt_len": len(last["prompt"]), "tokens": len(alone),
+         "bitwise_equal_idle_engine": True,
+         "prefill_chunks": stats["prefill_chunks"], "expected": want})
+    return stats, launches
+
+
+def chunked_serve_phase(wrappers, oneshot):
+    """serve's trace admitted in 128-token chunks; TTFT and ITL beside the
+    one-shot (graphed) run's."""
+    stats, launches = chunked_run(
+        "chunked_serve", wrappers, DENSE_ARCH, SERVE, CHUNK,
+        ("paged_decode_attention", "rmsnorm_fused"), ("flash_attention",))
+    keys = ("tok_per_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
+            "itl_p99_s", "wall_s", "decode_steps")
+    say({"phase": "chunked_vs_oneshot", "arch": DENSE_ARCH, "chunk": CHUNK,
+         "chunked": {k: stats[k] for k in keys},
+         "oneshot": {k: oneshot[k] for k in keys}})
+    return launches
+
+
+def chunked_logits_phase(dev):
+    """Full smollm-360m on the kernels: ``prefill_chunk`` chained over
+    128-token chunks into a fresh paged state against the one-shot
+    ``prefill``, last-position logits, prompts at buckets 64, 512, 1023."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import build_model, init_decode_state
+    from repro_torch.serving.engine import admit_length
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), attn_impl="pallas",
+                              norm_impl="pallas")
+    bundle = build_model(cfg)
+    params = bundle.init(0, device=dev)
+    max_len = 1024
+    rng = np.random.default_rng(2)
+    chunked, oneshot, buckets = [], [], []
+    for n in (50, 300, 700):
+        plen = admit_length(n, max_len)
+        padded = np.zeros((1, plen), np.int32)
+        padded[0, -n:] = rng.integers(0, cfg.vocab_size, size=n)
+        toks = torch.from_numpy(padded).to(dev)
+        logits, _ = bundle.prefill(params, {"tokens": toks})
+        oneshot.append(logits[:, -1])
+        state = init_decode_state(cfg, 1, max_len, device=dev)
+        row = torch.arange(1, max_len // 16 + 1, dtype=torch.int32,
+                           device=dev)
+        off = 0
+        while off < plen:
+            C = min(CHUNK - off % CHUNK, plen - off)
+            logits, _ = bundle.prefill_chunk(params, state,
+                                             toks[:, off:off + C], row, 0, off)
+            off += C
+        chunked.append(logits)
+        buckets.append(plen)
+    got, want = torch.cat(chunked).float(), torch.cat(oneshot).float()
+    err = check_close("chunked_logits", got, want, LOGIT_TOL)
+    say({"phase": "chunked_logits", "arch": cfg.name, "buckets": buckets,
+         "chunk": CHUNK, "max_abs_err": err, "tol": LOGIT_TOL,
+         "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                   .float().mean()),
+         "max_abs_logit": float(want.abs().max())})
 
 
 def mamba_serve_phase(wrappers):
@@ -1018,6 +1179,7 @@ def mamba_serve_phase(wrappers):
     from repro_torch.configs.base import get_config
     stats, launches = serve_run("mamba_serve", wrappers, arch=SSM_ARCH)
     assert stats["kv"] == "dense" and stats["spec"] == "off", stats["kv"]
+    assert stats["step_graph"], "mamba_serve ran the eager step"
     layers = get_config(SSM_ARCH).num_layers
     assert launches["ssd_scan"] == layers * SERVE["n_requests"], launches
     assert launches["rmsnorm_fused"] > 0, launches
@@ -1029,7 +1191,8 @@ def mamba_serve_phase(wrappers):
 def moe_serve_phase(wrappers):
     """The paged serve path of the MoE model: its admissions run the
     grouped-matmul kernel beside the attention and RMSNorm kernels."""
-    _, launches = serve_run("moe_serve", wrappers, arch=MOE_ARCH)
+    stats, launches = serve_run("moe_serve", wrappers, arch=MOE_ARCH)
+    assert stats["step_graph"], "moe_serve ran the eager step"
     for w in ("grouped_matmul", "flash_attention", "paged_decode_attention",
               "rmsnorm_fused"):
         assert launches[w] > 0, launches
@@ -1046,6 +1209,7 @@ def spec_phase(wrappers, off_streams):
         stats, launches = serve_run(phase, wrappers, spec="draft", spec_k=4,
                                     **kw)
         assert stats["spec"] == "draft", stats["spec_fallback_reason"]
+        assert not stats["step_graph"], "the spec pair runs eagerly"
         for w in ("paged_verify_attention", "paged_decode_attention",
                   "flash_attention", "rmsnorm_fused"):
             assert launches[w] > 0, (phase, launches)
@@ -1064,7 +1228,7 @@ def spec_phase(wrappers, off_streams):
 def dense_phase(wrappers, paged_streams):
     """The dense-KV ablation: token streams equal to the paged serve's."""
     stats, launches = serve_run("dense", wrappers, kv="dense")
-    assert stats["kv"] == "dense"
+    assert stats["kv"] == "dense" and stats["step_graph"]
     assert launches["decode_attention"] > 0, launches
     assert launches["paged_decode_attention"] == 0, launches
     differ = [rid for rid, t in paged_streams.items()
@@ -1358,15 +1522,30 @@ def main(argv):
                 paged_verify_attention, decode_attention, grouped_matmul,
                 ssd_scan]
     t0 = time.monotonic()
-    streams, runs = serve_phase(wrappers)
-    runs = {"serve": runs, **spec_phase(wrappers, streams),
+    serve, runs = serve_phase(wrappers)
+    streams = serve["streams"]
+    runs = {"serve": runs,
+            "serve_eager": serve_eager_phase(wrappers, serve, runs),
+            **spec_phase(wrappers, streams),
             "dense": dense_phase(wrappers, streams)}
     say({"phase": "serve_all", "seconds": time.monotonic() - t0})
     t0 = time.monotonic()
+    runs["chunked_serve"] = chunked_serve_phase(wrappers, serve)
+    chunked_logits_phase(dev)
+    say({"phase": "chunked_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
     runs["moe_serve"] = moe_serve_phase(wrappers)
+    _, runs["chunked_moe"] = chunked_run(
+        "chunked_moe", wrappers, MOE_ARCH, SHORT, SHORT_CHUNK,
+        ("paged_decode_attention", "rmsnorm_fused"),
+        ("flash_attention", "grouped_matmul"))
     say({"phase": "moe_serve_all", "seconds": time.monotonic() - t0})
     t0 = time.monotonic()
     runs["mamba_serve"] = mamba_serve_phase(wrappers)
+    _, runs["chunked_mamba"] = chunked_run(
+        "chunked_mamba", wrappers, SSM_ARCH, SHORT, SHORT_CHUNK,
+        ("rmsnorm_fused",), ("ssd_scan", "flash_attention", "decode_attention",
+         "paged_decode_attention"))
     say({"phase": "mamba_serve_all", "seconds": time.monotonic() - t0})
     # a kernel's launches: the runs of the path that carries it
     paths = {"paged_verify_attention": ("spec_self", "spec_cold"),

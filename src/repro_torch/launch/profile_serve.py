@@ -1,14 +1,17 @@
 """Where a decode step's time goes: host clock, device busy time, kernels.
 
     python -m repro_torch.launch.profile_serve [--arch smollm-360m] \
-        [--steps 20] [--spec draft] [--kv dense]
+        [--steps 20] [--spec draft] [--kv dense] [--eager] \
+        [--prefill chunked --prefill-chunk 128]
 
 Builds the engine ``serve_direct`` serves from (``launch.serve.build_engine``:
 ``--arch`` at full width, smollm-360m by default, granite-moe-3b-a800m or
 mamba2-370m (on the dense layout, its only one), random weights from seed
 0, 8 slots, max_len 1024, block 16, the hand-written kernels; paged or
-dense KV, speculation off or self-draft), fills every slot with a request,
-then times ``--steps`` engine steps twice: once on the host clock alone (each step ends in the engine's
+dense KV, speculation off or self-draft; the decode step as its captured
+CUDA graph, or eager with ``--eager``; one-shot or chunked admission),
+fills every slot with a request (and, chunked, waits for every admission
+to land), then times ``--steps`` engine steps twice: once on the host clock alone (each step ends in the engine's
 one device->host copy, which waits for the device), and once under
 ``torch.profiler`` for the device time of every kernel.  Prints one JSON
 object: host ms per step, device-busy ms per step, the device's idle share,
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.launch.serve import build_engine
-from repro_torch.serving.engine import Request
+from repro_torch.serving.engine import Request, admit_length
 
 
 def _busy_ms(events) -> float:
@@ -49,19 +52,29 @@ def _busy_ms(events) -> float:
 
 def profile(arch: str = "smollm-360m", steps: int = 20, slots: int = 8,
             max_len: int = 1024, prompt: int = 200, kv: str | None = None,
-            spec: str = "off", device="cuda") -> dict:
+            spec: str = "off", eager: bool = False, prefill: str = "oneshot",
+            prefill_chunk: int = 32, device="cuda") -> dict:
     cfg = get_config(arch)
-    eng = build_engine(cfg, slots, max_len, kv=kv, spec=spec, device=device)
+    eng = build_engine(cfg, slots, max_len, kv=kv, spec=spec,
+                       prefill=prefill, prefill_chunk=prefill_chunk,
+                       step_graph=False if eager else None, device=device)
     dev = eng.device
     rng = np.random.default_rng(0)
+    # ticks until every slot decodes: one per chunk of every admission
+    admit_ticks = (slots * -(-admit_length(prompt, max_len)
+                             // eng.prefill_chunk)
+                   if eng.prefill_mode == "chunked" else 0)
     # every slot stays live through both timed passes, at up to k+1 tokens
     # a step with speculation
-    budget = (2 * steps + 8) * (eng.spec_k + 1 if eng.spec == "draft" else 1)
+    budget = (2 * steps + 8 + admit_ticks) * (
+        eng.spec_k + 1 if eng.spec == "draft" else 1)
     for rid in range(slots):
         eng.submit(Request(rid, rng.integers(0, cfg.vocab_size, size=prompt)
                            .astype(np.int32), max_new_tokens=budget))
-    for _ in range(3):                      # admissions + warm-up steps
+    ticks = 0
+    while ticks < 3 or eng.queue or eng._jobs:   # admissions + warm-up
         eng.step()
+        ticks += 1
     t0 = time.monotonic()
     for _ in range(steps):
         eng.step()
@@ -90,6 +103,8 @@ def profile(arch: str = "smollm-360m", steps: int = 20, slots: int = 8,
         "arch": cfg.name,
         "kv": eng.kv,
         "spec": eng.spec,
+        "step_graph": eng._graph is not None,
+        "prefill": eng.prefill_mode,
         "slots_live": sum(m.active for m in eng.slot_meta),
         "steps": steps,
         "tokens_per_step": eng.tokens_emitted / eng.steps,
@@ -109,9 +124,16 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--kv", choices=("paged", "dense"), default=None)
     ap.add_argument("--spec", choices=("off", "draft"), default="off")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager decode step, not its CUDA graph")
+    ap.add_argument("--prefill", choices=("oneshot", "chunked"),
+                    default="oneshot")
+    ap.add_argument("--prefill-chunk", type=int, default=32)
     args = ap.parse_args(argv)
     print(json.dumps(profile(args.arch, args.steps, kv=args.kv,
-                             spec=args.spec)))
+                             spec=args.spec, eager=args.eager,
+                             prefill=args.prefill,
+                             prefill_chunk=args.prefill_chunk)))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Serve entry point of the port: a request trace answered by one engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
-        --requests 16 --slots 8 --max-len 1024 [--spec draft] [--kv dense]
+        --requests 16 --slots 8 --max-len 1024 [--spec draft] [--kv dense] \
+        [--prefill chunked --prefill-chunk 128] [--eager]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         [--smoke --device cpu]
 
@@ -14,6 +15,9 @@ without a card it raises unless the caller asks for "cpu"): a paged or
 dense KV cache, with or without draft-and-verify speculation.  An
 attention-free arch serves on the dense layout (its per-row SSM state has
 nothing to page) with speculation off, as the reference's engine chooses.
+Admission is one-shot or chunked (``prefill="chunked"``); on the card a
+``spec="off"`` engine replays its decode step as a captured CUDA graph
+(``step_graph=False``, ``--eager``: the eager step).
 Serving through the pilot system is a later slice.
 """
 
@@ -80,12 +84,16 @@ def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
                  num_blocks: int | None = None, block_size: int = 16,
                  kv: str | None = None, spec: str = "off", spec_k: int = 4,
                  draft_cfg=None, draft_seed: int = 0,
+                 prefill: str = "oneshot", prefill_chunk: int = 32,
+                 step_graph: bool | None = None, prefix_sharing: bool = True,
                  device="cuda") -> ServeEngine:
     """The serve entry point's engine: ``cfg`` on the hand-written kernels,
     weights from ``seed``, a paged pool of ``num_blocks`` blocks (or a
     dense cache with ``kv="dense"``).  ``spec="draft"`` proposes
     ``spec_k`` tokens a step from ``draft_cfg`` with weights from
-    ``draft_seed`` (``draft_cfg=None``: the target drafts for itself)."""
+    ``draft_seed`` (``draft_cfg=None``: the target drafts for itself).
+    ``prefill``, ``prefill_chunk``, ``step_graph`` and ``prefix_sharing``
+    go to the engine."""
     dev = resolve_device(device)
     cfg = _on_kernels(cfg)
     bundle = build_model(cfg)
@@ -98,6 +106,8 @@ def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
                        block_size=block_size, num_blocks=num_blocks,
                        bundle=bundle, spec=spec, spec_k=spec_k,
                        draft_cfg=draft_cfg, draft_params=draft_params,
+                       prefill=prefill, prefill_chunk=prefill_chunk,
+                       step_graph=step_graph, prefix_sharing=prefix_sharing,
                        device=dev)
 
 
@@ -107,7 +117,9 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
                  prompt_len: tuple[int, int] | None = None,
                  max_new_tokens: int | None = None, kv: str | None = None,
                  spec: str = "off", spec_k: int = 4, draft_cfg=None,
-                 draft_seed: int = 0, device="cuda") -> dict:
+                 draft_seed: int = 0, prefill: str = "oneshot",
+                 prefill_chunk: int = 32, step_graph: bool | None = None,
+                 prefix_sharing: bool = True, device="cuda") -> dict:
     """Build the model from ``seed`` and an engine over it
     (`build_engine`), answer a ``make_trace`` trace, and return the
     engine's stats plus ``streams`` ({rid: tokens}), ``tokens_per_request``
@@ -115,7 +127,9 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
     eng = build_engine(cfg, slots, max_len, seed=seed, num_blocks=num_blocks,
                        block_size=block_size, kv=kv, spec=spec,
                        spec_k=spec_k, draft_cfg=draft_cfg,
-                       draft_seed=draft_seed, device=device)
+                       draft_seed=draft_seed, prefill=prefill,
+                       prefill_chunk=prefill_chunk, step_graph=step_graph,
+                       prefix_sharing=prefix_sharing, device=device)
     trace = make_trace(cfg.vocab_size, n_requests, max_len=max_len,
                        seed=seed, prompt_len=prompt_len,
                        max_new_tokens=max_new_tokens)
@@ -144,12 +158,24 @@ def main(argv=None):
                     help="draft-and-verify speculative decoding (self-draft)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft tokens proposed per speculative step")
+    ap.add_argument("--prefill", choices=("oneshot", "chunked"),
+                    default="oneshot",
+                    help="admission: the whole prompt at once, or in chunks "
+                         "interleaved with decode")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="tokens per chunk of a chunked admission (a "
+                         "multiple of the block size, 16, when paged)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode step eagerly, not as a CUDA graph")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     stats = serve_direct(cfg, args.requests, args.slots, args.max_len,
                          seed=args.seed, kv=args.kv, spec=args.spec,
-                         spec_k=args.spec_k, device=args.device)
+                         spec_k=args.spec_k, prefill=args.prefill,
+                         prefill_chunk=args.prefill_chunk,
+                         step_graph=False if args.eager else None,
+                         device=args.device)
     del stats["streams"]
     print(json.dumps(stats))
 

@@ -6,12 +6,15 @@ Port of the decoder-LM part of ``repro.models.api``:
 * ``prefill(params, batch)``     -> (last logits (B,1,V), dense cache)
 * ``decode(params, state)``      -> (logits (B,1,V), new state)
 * ``verify(params, tokens, state)`` -> (logits (B,S,V), new state)
+* ``prefill_chunk(params, state, tokens, table_row, slot, q_offset)``
+  -> (last logits (1,V), state): one chunk of a chunked admission into
+  row ``slot`` of a paged or dense decode state
 
 ``decode`` runs on a paged state (``init_decode_state(..., kv="paged")``,
 with ``block_tables``) or a dense one (``kv="dense"``); ``verify`` on a
-paged state.  Both update the caches in place; the JAX reference returns
-new arrays and its engine donates the old ones, which is the same memory
-behaviour.
+paged state; ``prefill_chunk`` on either.  All three update the caches in
+place; the JAX reference returns new arrays and its engine donates the old
+ones, which is the same memory behaviour.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ class ModelBundle:
     prefill: Callable[[Any, Any], Any]
     decode: Callable[[Any, Any], Any]
     verify: Callable[[Any, Any, Any], Any]
+    prefill_chunk: Callable[..., Any]
 
 
 def default_num_blocks(batch: int, max_len: int, block_size: int) -> int:
@@ -117,4 +121,10 @@ def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
                                      compute=compute)
         return logits, {**state, "cache": cache}
 
-    return ModelBundle(cfg, init, prefill, decode, verify)
+    def prefill_chunk(params, state, tokens, table_row, slot, q_offset):
+        logits, _ = tf.lm_prefill_chunk(params, cfg, tokens, state["cache"],
+                                        table_row, slot, q_offset,
+                                        compute=compute)
+        return logits, state
+
+    return ModelBundle(cfg, init, prefill, decode, verify, prefill_chunk)

@@ -9,14 +9,20 @@ selects the attend step:
   (`repro_torch.kernels.paged_attention`) and dense decode
   (`repro_torch.kernels.decode_attention`).  For CPU tensors their
   wrappers run the kernels' plain versions.
+* ``"causal_blocked"`` — `causal_blocked_attention` for prefill, the
+  plain path otherwise.
 * anything else — the plain PyTorch version of the reference's pure-JAX
   path: `chunked_attention` for prefill, `decode_attend` over the dense
   cache or the gathered pool for decode, one `decode_attend` per query for
   verify.
 
+Chunked admission (`attention_prefill_chunk`) writes a chunk
+into one row's blocks or ring row and attends it with `_chunk_attend`,
+plain PyTorch as in the reference, which has no kernel for it.
+
 Masks use ``NEG_INF = -1e30`` (a fully masked row is uniform, not NaN);
-Q.K and P.V take bf16 operands and sum in f32.  MLA, sliding-window rings
-and chunked prefill are later slices.
+Q.K and P.V take bf16 operands and sum in f32.  MLA and sliding-window
+rings are later slices.
 """
 
 from __future__ import annotations
@@ -84,6 +90,40 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     pure-JAX prefill path, its `lax.scan` as a loop).
 
     q: (B,S,H,Dh); k,v: (B,T,K,Dh).  Returns (B,S,H,Dh) in q's dtype."""
+    return _chunked_attention_abs(q, k, v, q_offset=q_offset, kv_offset=0,
+                                  window=window, chunk=chunk, causal=causal)
+
+
+def causal_blocked_attention(q, k, v, *, window=None, chunk=1024,
+                             block_q=2048):
+    """Triangular block iteration (the reference's ``attn_impl=
+    "causal_blocked"``): each block of ``block_q`` queries attends only to
+    its causal (and windowed) KV prefix, which skips about half the work
+    of `chunked_attention`.  Self-attention only (S == T); an S that is not
+    a multiple of ``block_q`` takes `chunked_attention`."""
+    S, T = q.shape[1], k.shape[1]
+    if S != T:
+        raise ValueError("causal_blocked_attention is for self-attention")
+    block_q = min(block_q, S)
+    if S % block_q:
+        return chunked_attention(q, k, v, causal=True, window=window,
+                                 chunk=chunk)
+    outs = []
+    for i in range(S // block_q):
+        q_lo, q_hi = i * block_q, (i + 1) * block_q
+        kv_lo = 0
+        if window is not None:
+            kv_lo = max(0, (q_lo - window + 1) // chunk * chunk)
+        outs.append(_chunked_attention_abs(
+            q[:, q_lo:q_hi], k[:, kv_lo:q_hi], v[:, kv_lo:q_hi],
+            q_offset=q_lo, kv_offset=kv_lo, window=window, chunk=chunk))
+    return torch.cat(outs, dim=1)
+
+
+def _chunked_attention_abs(q, k, v, *, q_offset, kv_offset, window, chunk,
+                           causal=True):
+    """`chunked_attention` with keys at absolute positions ``kv_offset +
+    0..T-1`` (the blocked iteration's KV slices)."""
     B, S, H, Dh = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -104,10 +144,10 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
         if pad:                             # the reference pads T to chunks
             kb = torch.nn.functional.pad(kb, (0, 0, 0, 0, 0, pad))
             vb = torch.nn.functional.pad(vb, (0, 0, 0, 0, 0, pad))
-        t_pos = lo + torch.arange(chunk, device=dev)
+        t_pos = kv_offset + lo + torch.arange(chunk, device=dev)
         s = torch.einsum("bskgd,btkd->bkgst", qg, kb) * scale
         valid = _mask_chunk(q_pos, t_pos, causal, window)
-        valid &= t_pos[None, :] < T
+        valid &= t_pos[None, :] < kv_offset + T
         s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -122,12 +162,13 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 
 def attend(q, k, v, cfg, *, causal=True, window=None, q_offset=0):
     """Dispatch on cfg.attn_impl (self-attention, prefill)."""
+    if cfg.attn_impl == "causal_blocked" and causal:
+        return causal_blocked_attention(q, k, v, window=window,
+                                        chunk=cfg.attn_chunk)
     if cfg.attn_impl == "pallas":
         from repro_torch.kernels.flash_attention.ops import flash_attention
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window, q_offset=q_offset)
-    if cfg.attn_impl == "causal_blocked":
-        raise NotImplementedError("attn_impl='causal_blocked' is a later slice")
     return chunked_attention(q, k, v, causal=causal, window=window,
                              q_offset=q_offset, chunk=cfg.attn_chunk)
 
@@ -360,6 +401,107 @@ def attention_verify(x, p, cfg, cache, pos, *, block_tables, ctx=None,
         out = torch.cat([decode_attend(q[:, s:s + 1], kg, vg,
                                        torch.clamp(ctx["pos"] + s + 1, max=T))
                          for s in range(S)], dim=1)
+    return _out_project(out, p["wo"], compute), cache
+
+
+# ==========================================================================
+# Chunked prefill
+# ==========================================================================
+#
+# An admission prefill split into chunks, so that running slots never wait
+# on a whole prompt: each chunk writes its K/V into the admitted row's
+# blocks (paged) or ring row (dense), then attends against everything
+# cached so far with a causal mask on absolute positions.  One batch row at
+# a time; the other rows' state is not touched.
+
+def _paged_write_chunk(pool, new, table_row, positions):
+    """Write a chunk's rows of ONE batch row IN PLACE: pool (nb, bs, ...),
+    new (C, ...), table_row (mb,), positions (C,) absolute; position ``p``
+    lands at ``pool[table_row[(p // bs) % mb], p % bs]``."""
+    bs = pool.shape[1]
+    mb = table_row.shape[0]
+    positions = positions.long()
+    blk = table_row.long()[(positions // bs) % mb]
+    pool.index_put_((blk, positions % bs), new.to(pool.dtype))
+    return pool
+
+
+def _chunk_attend(q, k, v, q_pos, t_pos=None, window=None):
+    """Causal attention of a prefill chunk against gathered cache K/V.
+
+    q: (1,C,H,Dh); k,v: (1,T,K,Dh); q_pos: (C,) absolute query positions;
+    t_pos: (T,) absolute key positions (default 0..T-1; negative ones are
+    invalid: ring slots before position 0).  bf16 operands, f32 sums and
+    softmax, masked scores at -1e30, as `decode_attend`."""
+    B, C, H, Dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    if t_pos is None:
+        t_pos = torch.arange(T, device=q.device)
+    qg = q.reshape(B, C, K, G, Dh).to(torch.bfloat16).float()
+    s = torch.einsum("bckgd,btkd->bkgct", qg,
+                     k.to(torch.bfloat16).float()) * (1.0 / Dh ** 0.5)
+    valid = (t_pos[None, :] <= q_pos[:, None]) & (t_pos[None, :] >= 0)
+    if window is not None:
+        valid &= t_pos[None, :] > (q_pos[:, None] - window)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgct,btkd->bckgd", p.to(torch.bfloat16).float(),
+                       v.to(torch.bfloat16).float())
+    return out.reshape(B, C, H, Dh).to(q.dtype)
+
+
+def _ring_write_chunk_row(row, chunk, q_offset: int):
+    """A ring row (W, ...) after writing a chunk (C, ...) at absolute
+    positions ``q_offset..q_offset+C-1``: each ring slot keeps the LATEST
+    position <= q_offset+C-1 that maps to it (the gather form of the
+    rolling write, right for any ratio of C to W).  Returns a new row."""
+    W, C = row.shape[0], chunk.shape[0]
+    r = torch.arange(W, device=row.device)
+    last = q_offset + C - 1
+    p = last - torch.remainder(last - r, W)      # latest pos = r (mod W)
+    take = p >= q_offset
+    src = chunk[torch.clamp(p - q_offset, 0, C - 1)]
+    return torch.where(take.reshape((W,) + (1,) * (row.dim() - 1)),
+                       src.to(row.dtype), row)
+
+
+def attention_prefill_chunk(x, p, cfg, cache, table_row, slot: int,
+                            q_offset: int, *, window=None, compute=COMPUTE):
+    """One prefill chunk of ONE batch row.  x: (1,C,D); cache: the layer's
+    engine cache, paged pools {"kp","vp"} (nb,bs,K,Dh) or dense rings
+    {"k","v"} (B,T,K,Dh), written IN PLACE; table_row: (mb,) int32 block
+    ids of the admitted row (passed explicitly: the engine installs the row
+    into the shared block table only when the last chunk lands, so free-slot
+    writes keep hitting the scratch block meanwhile); slot: the batch row;
+    q_offset: absolute position of x[:,0].  Returns (out (1,C,D), cache)."""
+    _check_gqa(cfg)
+    C = x.shape[1]
+    positions = q_offset + torch.arange(C, device=x.device)
+    cos, sin = rope_table(positions[None], cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(_project(x, p["wq"], compute), cos, sin)
+    k = apply_rope(_project(x, p["wk"], compute), cos, sin)
+    v = _project(x, p["wv"], compute)
+    if "kp" in cache:                        # paged pools
+        _paged_write_chunk(cache["kp"], k[0], table_row, positions)
+        _paged_write_chunk(cache["vp"], v[0], table_row, positions)
+        kg = _paged_gather(cache["kp"], table_row[None])      # (1,T,K,Dh)
+        vg = _paged_gather(cache["vp"], table_row[None])
+        out = _chunk_attend(q, kg, vg, positions)
+    else:                                    # dense ring row, T == W
+        k_row, v_row = cache["k"][slot], cache["v"][slot]
+        W = k_row.shape[0]
+        # the last W cached positions in order, read BEFORE the chunk
+        # writes over them (ring slot of position p is p mod W)
+        p_prev = q_offset - W + torch.arange(W, device=x.device)
+        slots_prev = torch.remainder(p_prev, W)
+        k_all = torch.cat([k_row[slots_prev][None], k], dim=1)
+        v_all = torch.cat([v_row[slots_prev][None], v], dim=1)
+        out = _chunk_attend(q, k_all, v_all, positions,
+                            t_pos=torch.cat([p_prev, positions]),
+                            window=window)
+        k_row.copy_(_ring_write_chunk_row(k_row, k[0], q_offset))
+        v_row.copy_(_ring_write_chunk_row(v_row, v[0], q_offset))
     return _out_project(out, p["wo"], compute), cache
 
 

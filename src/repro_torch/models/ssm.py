@@ -1,7 +1,6 @@
 """Mamba-2 SSD mixer (state-space duality): init, prefill, O(1) decode.
 
-Port of ``repro.models.ssm`` without ``ssm_prefill_chunk_row``, which comes
-with chunked prefill.  The recurrence
+Port of ``repro.models.ssm``.  The recurrence
 
     h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t ;  y_t = C_t h_t + D x_t
 
@@ -12,7 +11,9 @@ kernel (``ssm_impl="pallas"``: ``kernels.ssd_scan.ops.ssd_scan``, whose
 as the reference's kernel path rounds it).  Decode keeps per-row state
 ``{"conv": (B, W-1, conv_dim) bf16, "ssd": (B, H, N, P) f32}`` and writes
 it IN PLACE, as the attention layers write their caches; the reference
-returns new arrays and its engine donates the old ones.
+returns new arrays and its engine donates the old ones.  Chunked admission
+(``ssm_prefill_chunk_row``) runs a chunk's tokens one at a time through
+``ssm_decode`` from one row's cached state, as the reference scans them.
 
 Rounding points follow the reference: the depthwise causal conv is a chain
 of bf16 multiplies and adds in a fixed order, the decode conv one bf16
@@ -242,3 +243,15 @@ def ssm_decode(x, p, cfg, cache, compute=COMPUTE):
     cache["conv"].copy_(hist[:, 1:])
     cache["ssd"].copy_(state)
     return out, cache
+
+
+def ssm_prefill_chunk_row(x, p, cfg, cache, slot: int, compute=COMPUTE):
+    """Chunked-prefill step for ONE batch row of an SSM layer: the chunk's
+    tokens through `ssm_decode` one at a time, starting from row ``slot``'s
+    cached state (zeroed by the engine before a request's first chunk),
+    which they advance IN PLACE.  x: (1,C,D); cache: the layer's full-batch
+    {conv, ssd}.  Returns (out (1,C,D), cache)."""
+    row = {k: v[slot:slot + 1] for k, v in cache.items()}     # views
+    outs = [ssm_decode(x[:, t:t + 1], p, cfg, row, compute=compute)[0]
+            for t in range(x.shape[1])]
+    return torch.cat(outs, dim=1), cache

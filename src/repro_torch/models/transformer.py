@@ -13,7 +13,9 @@ dispatch (``moe.apply_moe``) in prefill and the dense-gated MoE
 SSM slot (attention-free archs such as mamba2-370m) runs the SSD mixer
 (``ssm.ssm_forward_with_cache`` in prefill, ``ssm.ssm_decode`` in decode)
 over per-row ``{"conv", "ssd"}`` state, and a slot with ``ffn == "none"``
-has no FFN.
+has no FFN.  ``lm_prefill_chunk`` runs one chunk of a chunked admission
+into one row of the engine's cache (paged pools, dense rings or SSM rows),
+with the dense-gated MoE as in the reference's chunk path.
 """
 
 from __future__ import annotations
@@ -341,3 +343,34 @@ def lm_verify(params: LMParams, cfg, tokens, cache, pos, *, block_tables,
             x = _ffn(x + h, p, cfg, slot, compute)
     x = apply_norm(x, params.final_norm, cfg)
     return lm_logits(x, head_matrix(params, cfg), cfg.logit_softcap), cache
+
+
+def lm_prefill_chunk(params: LMParams, cfg, tokens, cache, table_row,
+                     slot: int, q_offset: int, *, compute=COMPUTE):
+    """One CHUNK of an admission prefill into ONE batch row of the engine's
+    decode cache.  tokens: (1,C) int; table_row: (mb,) int32 the admitted
+    row's block ids (a dummy for a dense cache); slot: the batch row;
+    q_offset: absolute position of tokens[:,0].  Only row ``slot``'s state
+    (its blocks, ring row or SSM row) is written, in place; the other rows
+    keep decoding bitwise as before between chunks.  Returns
+    (last-position logits (1,V) f32, cache)."""
+    slots = layer_slots(cfg)
+    x = embed_lookup(tokens, params.embed, compute)
+    for g in range(params.n_groups):
+        gp = params.group(g)
+        for i, slot_s in enumerate(slots):
+            p = gp[i]
+            h = apply_norm(x, p["mixer_norm"], cfg)
+            layer_cache = {k: v[g] for k, v in cache[i].items()}
+            if slot_s["mixer"] == "attn":
+                h, _ = attn.attention_prefill_chunk(
+                    h, p["mixer"], cfg, layer_cache, table_row, slot,
+                    q_offset, window=cfg.sliding_window, compute=compute)
+            else:
+                h, _ = ssm.ssm_prefill_chunk_row(h, p["mixer"], cfg,
+                                                 layer_cache, slot,
+                                                 compute=compute)
+            x = _ffn(x + h, p, cfg, slot_s, compute)
+    x = apply_norm(x, params.final_norm, cfg)
+    logits = lm_logits(x[:, -1:], head_matrix(params, cfg), cfg.logit_softcap)
+    return logits[:, 0], cache

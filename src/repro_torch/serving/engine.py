@@ -1,8 +1,8 @@
 """Batched serving engine: continuous batching over a paged (or dense) KV
 cache, with optional draft-and-verify speculative decoding.
 
-Port of ``repro.serving.engine`` for the unified-role, one-shot-prefill,
-single-device path.  With ``kv="paged"`` (the default) the engine owns one
+Port of ``repro.serving.engine`` for the unified-role, single-device
+path.  With ``kv="paged"`` (the default) the engine owns one
 block pool per attention slot — ``(n_groups, num_blocks, block_size,
 heads, dh)`` — plus a per-slot block table ``(slots, max_len //
 block_size)`` mapping logical position ``p`` of slot ``s`` to
@@ -33,16 +33,30 @@ writes whole.
   block ids, then one ``spec_k + 1``-query verify forward of the target;
   greedy acceptance commits exactly the tokens of ``spec="off"``.  A
   rejected suffix is rolled back by not advancing the frontier.
+* **chunked prefill** (``prefill="chunked"``) — admission claims the slot
+  and its blocks, then ``_prefill_tick`` runs at most one
+  ``prefill_chunk``-token chunk a tick (`ModelBundle.prefill_chunk`, into
+  the admitted row only) before the tick's decode step, so running slots
+  keep their pace while a long prompt arrives.  Chunk boundaries sit at
+  absolute multiples of the chunk, which keeps the chunk shapes a small
+  static set (`prefill_chunk_shapes`).  The decode step advances every
+  row's per-row state (dense rings, SSM rows), so a mid-admission row's
+  state is saved before it and written back after (`_guard_rows`).
 * **one transfer per step** — the step is device-resident and returns one
   packed int32 tensor (``(2, slots)`` tokens and done flags, or ``(k+3,
   slots)`` accepted lengths, done flags and verified tokens); its one
   ``.cpu()`` copy is the only device->host transfer of a step
   (``d2h_transfers == steps``).  Table maintenance is host->device only.
 
-The JAX engine jits the step and donates the decode state; here the step
-runs eagerly and updates the caches in place (``index_put_``), which is
-the same memory behaviour.  CUDA graphs of the step are a later change.
-Chunked prefill, tensor parallelism and the disaggregated roles are later
+The JAX engine jits the step and donates the decode state.  Here the step
+writes everything in place: the caches (``index_put_``) and the engine's
+own ``token``, ``pos``, ``active`` and ``budget`` (``copy_``), which the
+engine never rebinds.  On a CUDA device a ``spec="off"`` engine captures
+the step once as a CUDA graph (`repro_torch.serving.graph.StepGraph`)
+while every slot is free and replays it every tick; ``step_graph=False``
+keeps the eager step (the comparison), and the CPU always runs eagerly.
+The draft chain, verify, the admission prefill and the chunk function
+stay eager.  Tensor parallelism and the disaggregated roles are later
 slices: asking for them raises ``NotImplementedError``.
 """
 
@@ -58,6 +72,7 @@ import torch
 from repro_torch.models.api import (
     build_model, default_num_blocks, init_decode_state, resolve_device)
 from repro_torch.serving.blockpool import BlockAllocator, PrefixCache
+from repro_torch.serving.graph import StepGraph
 
 
 @dataclasses.dataclass
@@ -75,7 +90,21 @@ class Request:
 @dataclasses.dataclass
 class SlotState:
     rid: int = -1                      # -1 == free
-    active: bool = False               # decoding
+    active: bool = False               # decoding (False mid-admission)
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    """A chunked admission in flight: the slot is claimed, the blocks are
+    mapped, ``off`` is the next chunk's absolute start position."""
+    si: int
+    req: Request
+    padded: np.ndarray                 # (plen,) int32 left-padded prompt
+    plen: int
+    off: int                           # == prefix-hit tokens at creation
+    row: list                          # physical block ids (prefix + fresh)
+    keys: list                         # full-block chain-hash keys
+    nhit: int = 0                      # prefix-hit blocks (draft install)
 
 
 def admit_length(prompt_len: int, max_len: int) -> int:
@@ -105,18 +134,39 @@ def admit_buckets(max_len: int) -> list[int]:
     return out
 
 
+def prefill_chunk_shapes(max_len: int, block_size: int,
+                         chunk: int) -> list[int]:
+    """Every chunk length chunked admission can produce: chunk boundaries
+    sit at absolute multiples of ``chunk`` and a prefix hit can start a job
+    at any block boundary, so the set is {min(chunk - off % chunk, plen -
+    off)} over every bucket and block-aligned offset.  Small and static:
+    warmable ahead of the first request."""
+    shapes = set()
+    for plen in admit_buckets(max_len):
+        for off in range(0, plen, block_size):
+            shapes.add(min(chunk - off % chunk, plen - off))
+    return sorted(shapes)
+
+
 def make_engine_step(bundle, max_len: int):
     """The engine's decode step: decode + argmax + per-slot budget debit +
-    done mask, all on the device, returning one packed (2, slots) int32
-    tensor.  Nothing in it reads a value back to the host."""
+    done mask, all on the device.  It writes the new ``token`` and ``pos``
+    into ``state`` and the new ``active`` and ``budget`` into the tensors
+    it was given, IN PLACE (the caches are written in place by the decode
+    itself), and returns one packed (2, slots) int32 tensor.  Nothing in it
+    reads a value back to the host, so it can be captured as a graph."""
 
     def step(params, state, active, budget):
         _, new_state = bundle.decode(params, state)          # argmax inside
         tok = new_state["token"][:, 0]
-        budget = budget - active.to(torch.int32)
-        done = active & ((budget <= 0) | (new_state["pos"] >= max_len))
+        new_budget = budget - active.to(torch.int32)
+        done = active & ((new_budget <= 0) | (new_state["pos"] >= max_len))
         packed = torch.stack([tok, done.to(torch.int32)])    # (2, slots)
-        return packed, new_state, active & ~done, budget
+        state["token"].copy_(new_state["token"])
+        state["pos"].copy_(new_state["pos"])
+        active.copy_(active & ~done)
+        budget.copy_(new_budget)
+        return packed
 
     return step
 
@@ -153,17 +203,18 @@ def make_verify_step(bundle, max_len: int, k: int):
     """The verify half of a speculative step: ONE batched (k+1)-position
     target forward over [pending token, k drafts], then greedy acceptance
     (truncate at the first draft/target mismatch), budget debit and done
-    mask, all on the device.  The packed return is one (k+3, slots) int32
-    tensor: row 0 the accepted length ``a`` (0 for free slots), row 1 the
-    done flags, rows 2..k+2 the k+1 target-verified tokens (the host
-    appends the first ``a``).  A rejected suffix needs no device work to
+    mask, all on the device, written in place as `make_engine_step` writes
+    them.  The packed return is one (k+3, slots) int32 tensor: row 0 the
+    accepted length ``a`` (0 for free slots), row 1 the done flags, rows
+    2..k+2 the k+1 target-verified tokens (the host appends the first
+    ``a``).  A rejected suffix needs no device work to
     roll back: the frontier does not advance over it, the next step's
     writes land at the committed frontier and overwrite it, and each
     query's causal mask hides anything past its own position."""
 
     def step(params, state, active, budget, drafts):
         tokens = torch.cat([state["token"], drafts], dim=1)
-        logits, new_state = bundle.verify(params, tokens, state)
+        logits, _ = bundle.verify(params, tokens, state)
         preds = torch.argmax(logits, dim=-1).to(torch.int32)   # (B, k+1)
         # t_{s+1} is valid iff its input d_s matched the target's own pick
         # t_s at every position up to s: cumprod of the match mask
@@ -175,15 +226,18 @@ def make_verify_step(bundle, max_len: int, k: int):
         # for free slots
         a = torch.minimum(a, torch.minimum(budget, max_len - state["pos"]))
         a = torch.clamp(a, min=0) * active.to(torch.int32)
-        budget = budget - a
+        new_budget = budget - a
         pos = state["pos"] + a
-        done = active & ((budget <= 0) | (pos >= max_len))
+        done = active & ((new_budget <= 0) | (pos >= max_len))
         token = torch.gather(preds, 1, torch.clamp(a - 1, min=0)[:, None]
                              .long())
         token = torch.where(active[:, None], token, state["token"])
         packed = torch.cat([a[None], done.to(torch.int32)[None], preds.T])
-        return (packed, {**new_state, "token": token, "pos": pos},
-                active & ~done, budget)
+        state["token"].copy_(token)
+        state["pos"].copy_(pos)
+        active.copy_(active & ~done)
+        budget.copy_(new_budget)
+        return packed
 
     return step
 
@@ -206,6 +260,9 @@ def spec_ineligible_reason(cfg, kv: str) -> str | None:
     return None
 
 
+_PAGED_KEYS = ("kp", "vp")
+
+
 def _later(what: str, value, slice_name: str):
     raise NotImplementedError(
         f"{what}={value!r} is not in this slice of the port; it comes with "
@@ -225,19 +282,27 @@ class ServeEngine:
       by one target forward.  An arch or layout that cannot roll back a
       rejected suffix serves with ``spec="off"`` and records why in
       ``spec_fallback_reason``.
+    * ``prefill`` — "oneshot" (the whole bucket at admission) or "chunked"
+      (``prefill_chunk``-token chunks, at most one a tick, interleaved with
+      decode; a multiple of ``block_size`` on the paged layout).
+    * ``step_graph`` — None: the decode step is a captured CUDA graph on a
+      CUDA device with ``spec="off"``, eager otherwise; False: always
+      eager; True: the graph, raising where there can be none (the CPU,
+      ``spec="draft"``).
 
-    This slice serves ``prefill="oneshot"``, ``role="unified"`` and
-    ``mesh=None``."""
+    This slice serves ``role="unified"`` and ``mesh=None``."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  kv: str | None = None, block_size: int = 16,
                  num_blocks: int | None = None, prefill: str = "oneshot",
-                 prefix_sharing: bool = True, bundle=None, spec: str = "off",
-                 spec_k: int = 4, draft_cfg=None, draft_params=None,
-                 draft_bundle=None, mesh=None, role: str = "unified",
-                 device="cuda"):
-        if prefill != "oneshot":
-            _later("prefill", prefill, "chunked-prefill slice")
+                 prefill_chunk: int = 32, prefix_sharing: bool = True,
+                 bundle=None, spec: str = "off", spec_k: int = 4,
+                 draft_cfg=None, draft_params=None, draft_bundle=None,
+                 mesh=None, role: str = "unified", device="cuda",
+                 step_graph: bool | None = None):
+        if prefill not in ("oneshot", "chunked"):
+            raise ValueError(
+                f"prefill must be 'oneshot' or 'chunked', got {prefill!r}")
         if role != "unified":
             _later("role", role, "disaggregated prefill/decode slice")
         if mesh is not None:
@@ -264,6 +329,13 @@ class ServeEngine:
         self.role = role
         self.block_size = block_size
         self.bundle = bundle or build_model(cfg)
+        self.prefill_mode = prefill
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk <= 0 or (kv == "paged"
+                                       and self.prefill_chunk % block_size):
+            raise ValueError(
+                f"prefill_chunk must be a positive multiple of block_size "
+                f"{block_size} on the paged layout, got {prefill_chunk}")
         if kv == "paged":
             nb = num_blocks or default_num_blocks(slots, max_len, block_size)
             self._num_blocks = nb
@@ -287,6 +359,7 @@ class ServeEngine:
                                   device=self.device)
         self.slot_meta = [SlotState() for _ in range(slots)]
         self.queue: deque[Request] = deque()
+        self._jobs: deque[_PrefillJob] = deque()
         self.done: dict[int, Request] = {}
         self._live: dict[int, Request] = {}
         self._host_pos = [0] * slots
@@ -295,6 +368,7 @@ class ServeEngine:
         self.steps = 0
         self.idle_slot_steps = 0
         self.d2h_transfers = 0         # must equal `steps` (one per step)
+        self.prefill_chunks = 0
         self.blocked_admissions = 0
         self.prompt_tokens_total = 0
         self.prefix_hit_tokens = 0
@@ -308,6 +382,7 @@ class ServeEngine:
         self._draft_events = None      # CUDA events around this step's chain
         self._step_fn = make_engine_step(self.bundle, max_len)
         self._prefill = self.bundle.prefill
+        self._chunk_fn = self.bundle.prefill_chunk
 
         # ---- speculative decoding: draft-and-verify multi-token steps ----
         self.spec = "off"
@@ -360,6 +435,33 @@ class ServeEngine:
                                                self.spec_k)
             self._draft_prefill = self.draft_bundle.prefill
 
+        # ---- the decode step as one captured CUDA graph ----
+        if step_graph is None:
+            step_graph = self.device.type == "cuda" and self.spec == "off"
+        if step_graph and self.device.type != "cuda":
+            raise ValueError("step_graph=True needs a CUDA device; the CPU "
+                             "runs the eager step")
+        if step_graph and self.spec != "off":
+            raise ValueError("step_graph=True needs spec='off': the draft "
+                             "chain and verify run eagerly")
+        self._graph = self._capture_step() if step_graph else None
+
+    def _capture_step(self) -> StepGraph:
+        """Capture the decode step while every slot is free.  The warm-up
+        runs write only what a free slot's step always writes (the scratch
+        block, free rows), then ``token``, ``pos``, ``active`` and
+        ``budget`` are zeroed again.  The closure holds the engine's
+        tensors, not the engine."""
+        step, params, state = self._step_fn, self.params, self.state
+        active, budget = self.active, self.budget
+
+        def reset():
+            for t in (state["token"], state["pos"], active, budget):
+                t.zero_()
+
+        return StepGraph(lambda: step(params, state, active, budget),
+                         self.device, reset)
+
     # ------------------------------------------------------------------
 
     @property
@@ -402,9 +504,10 @@ class ServeEngine:
             self.queue.popleft()
 
     def _admit_into(self, si: int, req: Request) -> bool:
-        """Admit one request into batch row `si` with a one-shot prefill;
-        the other slots' decode state stays untouched.  Returns False when
-        the pool cannot hold the request yet."""
+        """Begin admission of one request into batch row `si` (a one-shot
+        prefill, or a chunked job); the other slots' decode state stays
+        untouched.  Returns False when the pool cannot hold the request
+        yet."""
         plen = admit_length(len(req.prompt), self.max_len)
         bs = self.block_size
         padded = np.zeros((plen,), np.int32)
@@ -434,6 +537,15 @@ class ServeEngine:
             nhit = len(hit)
             self.prefix_hit_tokens += nhit * bs
         self.prompt_tokens_total += plen
+        self.slot_meta[si].rid = req.rid
+        self._live[req.rid] = req
+
+        if self.prefill_mode == "chunked":
+            self._zero_ssm_rows(si)
+            self._jobs.append(_PrefillJob(
+                si=si, req=req, padded=padded, plen=plen, off=nhit * bs,
+                row=row, keys=keys, nhit=nhit))
+            return True
 
         tokens = torch.as_tensor(padded[None], device=self.device)
         logits, cache = self._prefill(self.params, {"tokens": tokens})
@@ -481,6 +593,77 @@ class ServeEngine:
         _install_draft_paged(self._draft_cache, dcache, row, nhit,
                              self.block_size)
 
+    def _zero_ssm_rows(self, si: int):
+        """Chunked prefill scans SSM layers from the row's cached state, so
+        a new request starts that row from zeros, in place (paged and ring
+        attention rows need no reset: stale entries are masked or
+        overwritten)."""
+        for leaf in self.state["cache"]:
+            if "conv" in leaf:
+                for v in leaf.values():
+                    v[:, si] = 0
+
+    # ------------------------------------------------------------------
+    # chunked prefill: at most ONE chunk per engine tick
+    # ------------------------------------------------------------------
+
+    def _prefill_tick(self):
+        if not self._jobs:
+            return
+        job = self._jobs[0]
+        # chunk boundaries at absolute multiples of the chunk keep the set
+        # of chunk shapes closed under prefix-hit offsets
+        C = min(self.prefill_chunk - job.off % self.prefill_chunk,
+                job.plen - job.off)
+        toks = torch.as_tensor(job.padded[None, job.off:job.off + C],
+                               device=self.device)
+        # a dense cache has no blocks: the table row is a 1-wide dummy no
+        # cache leaf indexes
+        row_arr = np.zeros((max(self.max_blocks_per_slot, 1),), np.int32)
+        row_arr[:len(job.row)] = job.row
+        row_t = torch.as_tensor(row_arr, device=self.device)
+        logits, _ = self._chunk_fn(self.params, self.state, toks, row_t,
+                                   job.si, job.off)
+        self.prefill_chunks += 1
+        job.off += C
+        if job.off < job.plen:
+            return
+        # the last chunk landed: install the block-table row and flip the
+        # slot to decoding
+        nxt = int(torch.argmax(logits[0]))                    # admission-time
+        if self.kv == "paged":
+            self.state["block_tables"][job.si] = row_t
+        self.state["token"][job.si, 0] = nxt
+        self.state["pos"][job.si] = job.plen
+        # the draft's prompt KV lands in one shot on the last chunk's tick
+        self._install_draft(torch.as_tensor(job.padded[None],
+                                            device=self.device),
+                            job.row, job.nhit)
+        bs = self.block_size
+        self._publish_prefix(job.keys, job.row, 0,
+                             min(job.plen // bs, (job.plen - 1) // bs))
+        self._finish_admission(job.si, job.req, job.plen, nxt)
+        self._jobs.popleft()
+
+    def _guard_rows(self):
+        """Snapshot the PER-ROW cache leaves (dense rings, SSM rows) of
+        every mid-admission slot.  The scratch block only shields paged
+        pools from a free slot's writes; the batched decode step advances
+        per-row state unconditionally, which would corrupt a half-prefilled
+        request between chunks.  Written back right after the step
+        (`_restore_rows`)."""
+        idx = torch.as_tensor(sorted({job.si for job in self._jobs}),
+                              device=self.device)
+        snap = [(v, v[:, idx]) for leaf in self.state["cache"]
+                for k, v in leaf.items() if k not in _PAGED_KEYS]
+        return (idx, snap) if snap else None
+
+    @staticmethod
+    def _restore_rows(guard):
+        idx, snap = guard
+        for dst, rows in snap:
+            dst[:, idx] = rows
+
     def _evict_slot(self, si: int):
         # Frontier truncation doubles as the speculative rollback: a cancel
         # or eviction can land MID-VERIFY, with draft/verify KV written up
@@ -513,6 +696,14 @@ class ServeEngine:
             if r.rid == rid:
                 del self.queue[i]
                 return r
+        # a mid-admission job holds a slot and blocks before it decodes:
+        # check it before slot_meta so the job dies with them
+        for j, job in enumerate(self._jobs):
+            if job.req.rid == rid:
+                del self._jobs[j]
+                self._live.pop(rid, None)
+                self._evict_slot(job.si)
+                return job.req
         for si, m in enumerate(self.slot_meta):
             if m.rid == rid:
                 req = self._live.pop(rid, None)
@@ -522,25 +713,34 @@ class ServeEngine:
         return None
 
     def drain_requests(self) -> list[Request]:
-        """Evict every queued or decoding request and return them."""
+        """Evict every queued, mid-admission or decoding request and return
+        them."""
         rids = dict.fromkeys([r.rid for r in self.queue]
+                             + [j.req.rid for j in self._jobs]
                              + [m.rid for m in self.slot_meta if m.rid != -1])
         return [r for r in (self.cancel(rid) for rid in rids) if r is not None]
 
     def step(self) -> int:
-        """One engine iteration: admit into free slots, then one batched
-        decode step (or one draft-and-verify step).  Returns the number of
-        tokens committed to live requests."""
+        """One engine iteration: admit into free slots, advance at most one
+        prefill chunk, then one batched decode step (the graph's replay,
+        the eager step, or one draft-and-verify step).  Returns the number
+        of tokens committed to live requests."""
         t_tick = time.monotonic()
         self._admit()
+        self._prefill_tick()
         actives = [si for si, m in enumerate(self.slot_meta) if m.active]
         if not actives:
             return 0
+        guard = self._guard_rows() if self._jobs else None
         if self.spec == "draft":
             packed = self._spec_step()
+        elif self._graph is not None:
+            packed = self._graph.replay()
         else:
-            packed, self.state, self.active, self.budget = self._step_fn(
-                self.params, self.state, self.active, self.budget)
+            packed = self._step_fn(self.params, self.state, self.active,
+                                   self.budget)
+        if guard is not None:
+            self._restore_rows(guard)
         self.steps += 1
         self.idle_slot_steps += self.slots - len(actives)
         out = packed.cpu().numpy()      # THE one device->host copy of a step
@@ -599,21 +799,33 @@ class ServeEngine:
             self._draft_events[1].record()
         else:
             self.draft_time_s += time.monotonic() - t0
-        packed, self.state, self.active, self.budget = self._verify_fn(
-            self.params, self.state, self.active, self.budget, drafts)
-        return packed
+        return self._verify_fn(self.params, self.state, self.active,
+                               self.budget, drafts)
 
     def warm_admission(self):
         """Run one prefill per admit-length bucket ahead of the first
-        request, so first-use costs (kernel compiles, library handles) do
-        not land on a live request."""
-        assert not self._live, "warm on an idle engine"
+        request, and (chunked mode) one chunk per chunk shape, so first-use
+        costs (kernel compiles, library handles) do not land on a live
+        request.  The chunks target an all-scratch table row in slot 0
+        (paged: their writes land in the scratch block); SSM rows they
+        advance are zeroed after."""
+        if self._live or self._jobs:
+            raise RuntimeError("warm_admission needs an idle engine")
         for pb in admit_buckets(self.max_len):
             batch = {"tokens": torch.zeros((1, pb), dtype=torch.int32,
                                            device=self.device)}
             self._prefill(self.params, batch)
             if self.spec == "draft":
                 self._draft_prefill(self.draft_params, batch)
+        if self.prefill_mode == "chunked":
+            row = torch.zeros((max(self.max_blocks_per_slot, 1),),
+                              dtype=torch.int32, device=self.device)
+            for C in prefill_chunk_shapes(self.max_len, self.block_size,
+                                          self.prefill_chunk):
+                self._chunk_fn(self.params, self.state,
+                               torch.zeros((1, C), dtype=torch.int32,
+                                           device=self.device), row, 0, 0)
+            self._zero_ssm_rows(0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -676,7 +888,7 @@ class ServeEngine:
     def run(self, *, max_steps: int = 10_000) -> dict:
         t0 = time.monotonic()
         decoded = ticks = 0
-        while ((self.queue or self._live)
+        while ((self.queue or self._live or self._jobs)
                and self.steps < max_steps and ticks < max_steps):
             decoded += self.step()
             ticks += 1
@@ -690,7 +902,7 @@ class ServeEngine:
                          key=lambda ie: int(ie[1].get("at_step", 0)))
         t0 = time.monotonic()
         decoded, tick, i = 0, 0, 0
-        while i < len(pending) or self.queue or self._live:
+        while i < len(pending) or self.queue or self._live or self._jobs:
             while i < len(pending) and int(pending[i][1].get("at_step", 0)) <= tick:
                 idx, e = pending[i]
                 i += 1
@@ -739,6 +951,12 @@ class ServeEngine:
             "prefix_hit_rate": (self.prefix_hit_tokens
                                 / self.prompt_tokens_total
                                 if self.prompt_tokens_total else 0.0),
+            "prefill": self.prefill_mode,
+            "prefill_chunks": self.prefill_chunks,
+            "step_graph": self._graph is not None,
+            # launches of the warm-up steps run before the graph's capture
+            "graph_warm_launches": (dict(self._graph.warm_launches)
+                                    if self._graph is not None else {}),
             "blocked_admissions": self.blocked_admissions,
             "spec": self.spec,
             "spec_k": self.spec_k if self.spec != "off" else 0,

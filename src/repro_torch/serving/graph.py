@@ -1,0 +1,78 @@
+"""The engine's decode step as one captured CUDA graph.
+
+The JAX engine compiles its decode step once (``jax.jit`` with the decode
+state donated); this is the port's counterpart.  The eager step makes
+about a thousand kernel launches from Python (``PERF.md``), and the card
+waits on the host between them; a replayed graph launches them all in one
+call.
+
+A graph replays fixed addresses, so the step it captures must read and
+write only tensors that live as long as the graph: the engine's caches,
+``token``, ``pos``, ``block_tables``, ``active`` and ``budget``, all
+written in place by the step (``engine.make_engine_step``) and by the
+host between steps (admission, eviction, block-table rows).  Its one
+output, the packed ``(2, slots)`` tensor, is a static tensor the host
+copies once per step.
+
+The kernel wrappers count their launches in Python (``<wrapper>.launches``)
+and a replay runs no Python, so `StepGraph` records each wrapper's count
+during the capture (which launches nothing on the device) and adds it on
+every replay: the counts keep meaning launches the device ran.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
+from repro_torch.kernels.paged_attention.ops import (
+    paged_decode_attention, paged_verify_attention)
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+WRAPPERS = (paged_decode_attention, paged_verify_attention, decode_attention,
+            flash_attention, rmsnorm_fused, grouped_matmul, ssd_scan)
+
+
+class StepGraph:
+    """``fn()`` captured once on CUDA ``device`` and replayed.
+
+    ``torch.cuda.graph`` wants the function run a few times on a side
+    stream before the capture (libraries set up their handles and
+    workspaces there); ``reset()`` then puts back whatever those runs
+    changed that the caller cares about.  A capture that fails raises: the
+    caller gets no graph and no eager stand-in."""
+
+    def __init__(self, fn, device, reset, *, warmup: int = 3):
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
+        before = [w.launches for w in WRAPPERS]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        reset()
+        # the warm-up runs were launched on the device and stay counted
+        self.warm_launches = {w.__name__: w.launches - n
+                              for w, n in zip(WRAPPERS, before)}
+        before = [w.launches for w in WRAPPERS]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = fn()
+        # the capture recorded these launches; the device ran none of them
+        self.launches = {}
+        for w, n in zip(WRAPPERS, before):
+            if w.launches != n:
+                self.launches[w] = w.launches - n
+                w.launches = n
+
+    def replay(self):
+        """Run the captured step once; returns its static output."""
+        self.graph.replay()
+        for w, n in self.launches.items():
+            w.launches += n
+        return self.out

@@ -17,7 +17,10 @@ widths 128 and 256 (the next families) and at the smoke widths the wrapper
 pads, and one raw Q.K^T tile of it against torch; the grouped matmul at
 every capacity bucket and with its wgmma in the SASS; the SSD scan with
 tensor-core instructions in its SASS; every kernel is also captured in one
-CUDA graph and replayed.  The verify and
+CUDA graph and replayed.  The serve engine's decode step, captured as a
+CUDA graph, is held bitwise to the eager step at smoke widths (paged,
+dense, mamba2), its replays to their launch counts, and a chunked
+admission beside a decoding slot to its idle-engine run.  The verify and
 dense decode kernels share the paged decode kernel's body and split plan,
 so they are also held to it bitwise, at lengths on the edges of its
 sequence splits too.
@@ -525,3 +528,92 @@ def test_ssd_scan_kernel_writes_y_in_x_dtype(card):
     y, st = ssd_scan(*args, chunk=32)
     assert y.dtype == torch.bfloat16 and y.shape == (2, 40, 4, 16)
     assert st.dtype == torch.float32 and st.shape == (2, 4, 16, 16)
+
+
+# ---------------------------------------------------------------------------
+# the engine's decode step as a captured CUDA graph, and chunked admission
+# ---------------------------------------------------------------------------
+
+def _smoke_engine(arch, kv, **kw):
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.serve import build_engine
+    return build_engine(get_smoke_config(arch), 2, 64, kv=kv, device="cuda",
+                        **kw)
+
+
+def _drive(eng, ticks=20):
+    """Requests arriving and finishing between steps: an admission at ticks
+    0, 3 and 9 (the last into the slot that request 0's eviction freed),
+    then the engine runs dry.  Returns {rid: tokens}."""
+    from repro_torch.serving.engine import Request
+    rng = np.random.default_rng(0)
+    plan = {0: (0, 9, 6), 3: (1, 30, 12), 9: (2, 5, 8)}
+    for t in range(ticks):
+        if t in plan:
+            rid, plen, budget = plan[t]
+            eng.submit(Request(rid, rng.integers(0, 512, size=plen)
+                               .astype(np.int32), max_new_tokens=budget))
+        eng.step()
+    eng.run()
+    return {rid: r.tokens for rid, r in sorted(eng.done.items())}
+
+
+@pytest.mark.parametrize("arch,kv", [("smollm-360m", "paged"),
+                                     ("smollm-360m", "dense"),
+                                     ("mamba2-370m", "dense")])
+def test_graphed_step_equals_eager_step(card, arch, kv):
+    """Twenty ticks of the replayed graph, with admissions and an eviction
+    between replays, give the eager step's streams bitwise, with one
+    device->host copy a step."""
+    graphed = _smoke_engine(arch, kv)
+    eager = _smoke_engine(arch, kv, step_graph=False)
+    assert graphed._graph is not None and eager._graph is None
+    got, want = _drive(graphed), _drive(eager)
+    assert got == want and sorted(got) == [0, 1, 2]
+    assert graphed.d2h_transfers == graphed.steps == eager.steps
+
+
+def test_graph_replay_counts_its_launches(card):
+    """Each replay adds the launches its capture recorded: one paged decode
+    a layer and 2 * layers + 1 RMSNorms a step, and nothing for the
+    capture itself."""
+    from repro_torch.serving.engine import Request
+    eng = _smoke_engine("smollm-360m", "paged")
+    layers = eng.cfg.num_layers
+    per_step = {w.__name__: n for w, n in eng._graph.launches.items()}
+    assert per_step == {"paged_decode_attention": layers,
+                        "rmsnorm_fused": 2 * layers + 1}
+    assert eng._graph.warm_launches["paged_decode_attention"] == 3 * layers
+    eng.submit(Request(0, np.arange(1, 12, dtype=np.int32),
+                       max_new_tokens=8))
+    eng.step()                                  # admission and a replay
+    ws = list(eng._graph.launches)
+    before = [w.launches for w in ws]
+    for _ in range(3):
+        eng.step()
+    assert [w.launches - n for w, n in zip(ws, before)] == \
+        [3 * eng._graph.launches[w] for w in ws]
+
+
+@pytest.mark.parametrize("arch,kv", [("smollm-360m", "paged"),
+                                     ("mamba2-370m", "dense")])
+def test_chunked_admission_on_card_matches_idle_engine(card, arch, kv):
+    """A request admitted chunk by chunk while another slot decodes
+    (graphed) gives its idle-engine tokens bitwise."""
+    from repro_torch.serving.engine import Request
+
+    def req(rid, plen, budget):
+        prompt = np.random.default_rng(rid).integers(0, 512, size=plen)
+        return Request(rid, prompt.astype(np.int32), max_new_tokens=budget)
+    kw = dict(prefill="chunked", prefill_chunk=16)
+    solo = _smoke_engine(arch, kv, **kw)
+    solo.submit(req(1, 30, 3))
+    solo.run()
+    eng = _smoke_engine(arch, kv, **kw)
+    for r in (req(0, 20, 12), req(1, 30, 3), req(2, 7, 4)):
+        eng.submit(r)
+    stats = eng.run()
+    assert stats["completed"] == 3 and stats["prefill_chunks"] == 5
+    assert stats["step_graph"] and stats["d2h_transfers"] == stats["decode_steps"]
+    assert eng.done[1].tokens == solo.done[1].tokens
+    assert eng.block_leaks() == 0

@@ -254,8 +254,38 @@ def test_serve_direct_answers_a_trace():
     assert stats["block_leaks"] == 0
 
 
-@pytest.mark.parametrize("kw", [dict(prefill="chunked"), dict(role="prefill"),
-                                dict(mesh=object())])
+@pytest.mark.parametrize("kv", ["paged", "dense"])
+def test_step_writes_its_state_in_place(model, kv):
+    """A decode step leaves ``state["token"]``, ``state["pos"]``,
+    ``active`` and ``budget`` the same tensor objects, written in place:
+    the addresses a captured CUDA graph of the step replays."""
+    eng = _engine(model, kv=kv)
+    eng.submit(_req(0, 7, 4))
+    eng.submit(_req(1, 13, 9))
+    held = (eng.state, eng.state["token"], eng.state["pos"], eng.active,
+            eng.budget, eng.state.get("block_tables"))
+    pos0 = eng.state["pos"].clone()
+    for _ in range(6):
+        eng.step()
+    now = (eng.state, eng.state["token"], eng.state["pos"], eng.active,
+           eng.budget, eng.state.get("block_tables"))
+    assert all(a is b for a, b in zip(held, now))
+    assert not torch.equal(eng.state["pos"], pos0)
+    assert eng.active.tolist() == [False, True]     # request 0 finished
+    assert eng.budget.tolist() == [0, 9 - 6]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(spec="draft")])
+def test_step_graph_true_without_a_card_raises(model, kw):
+    """A CUDA graph of the step needs a CUDA device (and spec="off"):
+    ``step_graph=True`` on the CPU raises, and nothing runs eagerly in its
+    place."""
+    with pytest.raises(ValueError, match="step_graph=True"):
+        _engine(model, step_graph=True, **kw)
+    assert _engine(model, **kw)._graph is None      # the CPU default
+
+
+@pytest.mark.parametrize("kw", [dict(role="prefill"), dict(mesh=object())])
 def test_later_slices_raise(model, kw):
     with pytest.raises(NotImplementedError, match="later|slice"):
         _engine(model, **kw)
