@@ -82,6 +82,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and RMSNorm kernels launched, the scan 48 times per
               admission.  Then ``chunked_mamba`` as chunked_moe (each
               chunk token through 48 ``ssm_decode``s; no scan launch).
+   pilot_serve — the pilot system on the card (``serve_via_pilots``):
+              ``ClusterSim()`` on "cuda", one slice, one pilot
+              (max_payloads 3) that late-binds two full-width serve images
+              in turn, smollm-360m then mamba2-370m, each of shape
+              ``custom:1024x8`` with the kernel flags, answering serve's
+              and mamba_serve's trace; task 1 hints task 2's image, so the
+              pilot prefetches (builds and warms) it while smollm serves.
+              Gates: both payloads exit 0; every request finishes with its
+              expected tokens, one device->host copy per step, no leaked
+              block; each payload's streams bitwise equal to its direct
+              phase's (serve, mamba_serve); the second bind a cache hit
+              and one prefetch; flash, paged decode and RMSNorm launched by
+              payload 1's engine and the SSD scan 48 times per admission by
+              payload 2's (each engine counts its own launches, made under
+              the device lock; the prefetch's warm-up is counted apart);
+              ``torch.cuda.memory_allocated()`` back within 64 MiB of its
+              value before the first bind once the pilot has drained
+              (cuBLAS workspaces released on both sides).  Reported: each
+              payload's bind seconds, whether it was cached, tokens/s, TTFT
+              p50, ITL p99 and max, and for each image a bare
+              ``PayloadExecutor``'s pull of it unprefetched, its warm-up
+              and a warm rebind.
 10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
               admission (the kernel path's own activations), its output
               with the SSD-scan kernel against the same mixer on the
@@ -135,6 +157,7 @@ name and power limit; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -199,6 +222,9 @@ SHORT_CHUNK = 32
 DENSE_ARCH = "smollm-360m"
 MOE_ARCH = "granite-moe-3b-a800m"
 SSM_ARCH = "mamba2-370m"
+# the pilot's cleanup (§3.6 of the paper) on the card: memory back within
+# this of its value before the first bind
+PILOT_MEMORY_SLACK = 64 << 20
 
 
 def say(obj):
@@ -1175,7 +1201,8 @@ def chunked_logits_phase(dev):
 def mamba_serve_phase(wrappers):
     """The serve path of the Mamba-2 model, on the dense layout: every
     admission runs the SSD-scan kernel once per layer, every step the
-    RMSNorm kernel; no attention kernel runs."""
+    RMSNorm kernel; no attention kernel runs.  Returns its stats and
+    launches."""
     from repro_torch.configs.base import get_config
     stats, launches = serve_run("mamba_serve", wrappers, arch=SSM_ARCH)
     assert stats["kv"] == "dense" and stats["spec"] == "off", stats["kv"]
@@ -1185,6 +1212,128 @@ def mamba_serve_phase(wrappers):
     assert launches["rmsnorm_fused"] > 0, launches
     for w in ("flash_attention", "paged_decode_attention", "decode_attention"):
         assert launches[w] == 0, launches
+    return stats, launches
+
+
+def allocated_bytes():
+    """``torch.cuda.memory_allocated()`` once garbage is collected and
+    cuBLAS's per-(handle, stream) workspaces are released: the tensors
+    that are still alive.  A thread's first GEMM on a stream allocates a
+    workspace that outlives the thread; it is no payload's state."""
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def pilot_serve_phase(wrappers, direct):
+    """Two full-width serve images late-bound in turn by one pilot on the
+    card (`serve_via_pilots`), each against its direct run's streams
+    (``direct``: {arch: {rid: tokens}}); then a bare executor's pull and
+    rebind.  Returns each payload engine's launches by arch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.arena import SharedArena
+    from repro_torch.core.images import ExecutableRegistry, PayloadImage
+    from repro_torch.core.latebind import PayloadExecutor, PodPatchCapability
+    from repro_torch.core.proctable import ProcessTable
+    from repro_torch.launch.serve import (
+        KERNEL_FLAGS, expected_tokens, serve_via_pilots)
+    archs = [DENSE_ARCH, SSM_ARCH]
+    traces = [serve_trace(a) for a in archs]
+    shape = f"custom:{SERVE['max_len']}x{SERVE['slots']}"
+    mem_before = allocated_bytes()
+    raw_before = torch.cuda.memory_allocated()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.monotonic()
+    out = serve_via_pilots(archs, slots=SERVE["slots"],
+                           max_len=SERVE["max_len"], n_steps=100_000,
+                           device="cuda", traces=traces)
+    wall = time.monotonic() - t0
+    sim, pilot = out["sim"], out["pilot"]
+    # the prefetch is done once its event is set (a cached image's is)
+    img2 = PayloadImage(SSM_ARCH, shape, "serve", smoke=False,
+                        flags=KERNEL_FLAGS)
+    assert sim.registry.prefetch(img2, "cuda").wait(300.0)
+    torch.cuda.synchronize()
+    total = {w.__name__: w.launches for w in wrappers}
+    raw_after = torch.cuda.memory_allocated()
+    mem_after = allocated_bytes()
+    launches, report = {}, []
+    for arch, trace, p in zip(archs, traces, out["payloads"]):
+        assert p["exitcode"] == 0, (arch, p["exitcode"], p["error"])
+        sv, eng = p["serve"], p["engine"]
+        n = {w.__name__: eng["launches"].get(w.__name__, 0)
+             for w in wrappers}
+        launches[arch] = n
+        got = {int(rid): t for rid, t in p["tokens"].items()}
+        want = {e["rid"]: expected_tokens(e, SERVE["max_len"])
+                for e in trace}
+        assert sv["completed"] == len(trace), (arch, sv["completed"])
+        assert {rid: len(t) for rid, t in got.items()} == want, arch
+        assert sv["d2h_transfers"] == sv["decode_steps"] > 0, arch
+        assert eng["block_leaks"] == 0, (arch, eng["block_leaks"])
+        assert eng["step_graph"], f"{arch}: the payload ran the eager step"
+        differ = [rid for rid, t in direct[arch].items() if got[rid] != t]
+        assert not differ, f"{arch}: streams differ from direct: {differ}"
+        report.append({
+            "arch": arch, "exitcode": p["exitcode"],
+            "bind_seconds": p["bind_seconds"],
+            "bind_cached": p["bind_cached"], "tok_per_s": sv["tok_per_s"],
+            "ttft_p50_s": sv["ttft_p50_s"], "itl_p99_s": eng["itl_p99_s"],
+            "itl_max_s": eng["itl_max_s"],
+            "decode_steps": sv["decode_steps"],
+            "streams_equal_direct": len(direct[arch]), "launches": n})
+    warm = {w: total[w] - sum(n[w] for n in launches.values())
+            for w in total}
+    p1, p2 = launches[DENSE_ARCH], launches[SSM_ARCH]
+    for w in ("flash_attention", "paged_decode_attention", "rmsnorm_fused"):
+        assert p1[w] > 0, p1
+    layers = get_config(SSM_ARCH).num_layers
+    assert p2["ssd_scan"] == layers * SERVE["n_requests"], p2
+    assert p2["flash_attention"] == p2["paged_decode_attention"] == 0, p2
+    assert pilot.history[1]["bind_cached"] is True, pilot.history[1]
+    assert out["registry"]["prefetches"] == 1, out["registry"]
+    assert pilot.history[0].get("prefetch_started") is True
+    assert min(warm.values()) >= 0, warm
+    assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
+        mem_before, mem_after)
+
+    # a bare executor, for each image: the pull no prefetch staged, its
+    # warm-up (what a prefetch runs under the device lock), and a warm
+    # rebind (a cache hit)
+    ex = PayloadExecutor("pod-bare", SharedArena(), ProcessTable(),
+                         ExecutableRegistry(), device="cuda")
+    cap = PodPatchCapability("pod-bare")
+    bare = {}
+    for arch in archs:
+        img = PayloadImage(arch, shape, "serve", smoke=False,
+                           flags=KERNEL_FLAGS)
+        exe = ex.patch_image(cap, img)
+        cold = (ex.last_bind_seconds, ex.last_bind_cached)
+        t1 = time.monotonic()
+        exe.warm()
+        warm_s = time.monotonic() - t1
+        ex.patch_image(cap, img)
+        assert not cold[1] and ex.last_bind_cached, (arch, cold)
+        bare[arch] = {"cold_pull_s": cold[0], "warm_s": warm_s,
+                      "rebind_s": ex.last_bind_seconds}
+    ex.close()
+    ex.arena.destroy()
+    say({"phase": "pilot_serve", "wall_s": wall, "payloads": report,
+         "history": [{k: h.get(k) for k in ("task_id", "exitcode",
+                                            "bind_seconds", "bind_cached",
+                                            "prefetch_started")}
+                     for h in pilot.history],
+         "registry": out["registry"], "repo": out["repo"],
+         "prefetch_warm_launches": warm,
+         "memory_allocated": {"before": mem_before, "after": mem_after,
+                              "raw_before": raw_before,
+                              "raw_after": raw_after,
+                              "slack": PILOT_MEMORY_SLACK},
+         "bare_executor": bare})
     return launches
 
 
@@ -1541,12 +1690,18 @@ def main(argv):
         ("flash_attention", "grouped_matmul"))
     say({"phase": "moe_serve_all", "seconds": time.monotonic() - t0})
     t0 = time.monotonic()
-    runs["mamba_serve"] = mamba_serve_phase(wrappers)
+    mamba, runs["mamba_serve"] = mamba_serve_phase(wrappers)
     _, runs["chunked_mamba"] = chunked_run(
         "chunked_mamba", wrappers, SSM_ARCH, SHORT, SHORT_CHUNK,
         ("rmsnorm_fused",), ("ssd_scan", "flash_attention", "decode_attention",
          "paged_decode_attention"))
     say({"phase": "mamba_serve_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    pilot = pilot_serve_phase(wrappers, {DENSE_ARCH: streams,
+                                         SSM_ARCH: mamba["streams"]})
+    runs["pilot_smollm"] = pilot[DENSE_ARCH]
+    runs["pilot_mamba2"] = pilot[SSM_ARCH]
+    say({"phase": "pilot_serve_all", "seconds": time.monotonic() - t0})
     # a kernel's launches: the runs of the path that carries it
     paths = {"paged_verify_attention": ("spec_self", "spec_cold"),
              "decode_attention": ("dense",),

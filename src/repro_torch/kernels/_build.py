@@ -9,10 +9,10 @@ seconds, not minutes):
 
 The output lands in ``build/kernels/`` at the root of the checkout, keyed
 by a hash of the source and the flags, so an edited kernel is rebuilt and
-an unchanged one is loaded as it is.  ``build_all()`` starts one ``nvcc``
-per source at once and waits for all of them; ``library(name)`` builds on
-first use.  Each C entry returns ``cudaGetLastError()``; `check` raises
-when it is not 0.
+an unchanged one is loaded as it is.  ``build(names)`` (``build_all()``:
+every source) starts one ``nvcc`` per source at once and waits for all of
+them; ``library(name)`` builds on first use.  Each C entry returns
+``cudaGetLastError()``; `check` raises when it is not 0.
 """
 
 from __future__ import annotations
@@ -84,13 +84,18 @@ def _finish(name: str, job) -> str:
     return log
 
 
-def build_all() -> dict[str, str]:
-    """Compile every source that is not built yet, one nvcc per source, all
-    started together.  Returns each source's ptxas report (empty when the
-    library was already built)."""
+def build(names) -> dict[str, str]:
+    """Compile each named source that is not built yet, one nvcc per
+    source, all started together.  Returns each source's ptxas report
+    (empty when the library was already built)."""
     with _lock:
-        jobs = {name: _start(name) for name in sources()}
+        jobs = {name: _start(name) for name in names}
         return {name: _finish(name, job) for name, job in jobs.items()}
+
+
+def build_all() -> dict[str, str]:
+    """`build` every source."""
+    return build(sources())
 
 
 def library(name: str) -> ctypes.CDLL:

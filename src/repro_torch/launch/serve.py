@@ -5,6 +5,8 @@
         [--prefill chunked --prefill-chunk 128] [--eager]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --via-pilots \\
+        --archs smollm-360m,mamba2-370m [--smoke --device cpu]
 
 Port of ``make_trace`` and ``serve_direct`` from ``repro.launch.serve``.
 The serve entry point builds the main path with the hand-written kernels
@@ -18,7 +20,13 @@ nothing to page) with speculation off, as the reference's engine chooses.
 Admission is one-shot or chunked (``prefill="chunked"``); on the card a
 ``spec="off"`` engine replays its decode step as a captured CUDA graph
 (``step_graph=False``, ``--eager``: the eager step).
-Serving through the pilot system is a later slice.
+
+``--via-pilots`` (`serve_via_pilots`, port of the reference's) submits
+each arch of ``--archs`` as a ``serve`` payload image and lets ONE pilot,
+holding one slice of ``device``, late-bind them in turn: each engine run,
+trace and all, is a payload; task i carries a prefetch hint for task
+i+1's image, so the next image's pull and warm-up overlap the current
+server's run.
 """
 
 from __future__ import annotations
@@ -30,6 +38,9 @@ import json
 import numpy as np
 
 from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.core.cluster import ClusterSim
+from repro_torch.core.images import PayloadImage
+from repro_torch.core.pilot import PilotConfig
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.serving.engine import ServeEngine, admit_length
 
@@ -75,9 +86,12 @@ def expected_tokens(entry: dict, max_len: int) -> int:
     return 1 + min(int(entry["max_new_tokens"]), max_len - plen)
 
 
+KERNEL_FLAGS = (("attn_impl", "pallas"), ("norm_impl", "pallas"),
+                ("moe_impl", "gmm"), ("ssm_impl", "pallas"))
+
+
 def _on_kernels(cfg):
-    return dataclasses.replace(cfg, attn_impl="pallas", norm_impl="pallas",
-                               moe_impl="gmm", ssm_impl="pallas")
+    return dataclasses.replace(cfg, **dict(KERNEL_FLAGS))
 
 
 def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
@@ -142,6 +156,61 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
     return stats
 
 
+def serve_via_pilots(archs: list[str], n_requests: int = 8,
+                     n_steps: int = 400, slots: int = 8, max_len: int = 1024,
+                     *, smoke: bool = False, device="cuda",
+                     traces: list[list[dict]] | None = None,
+                     idle_grace: float = 2.0) -> dict:
+    """Several inference servers (different models!) multiplexed over ONE
+    pilot — container late-binding for serving.  Each arch is a ``serve``
+    image of shape ``custom:<max_len>x<slots>`` on the hand-written kernels
+    (its ``flags``: `KERNEL_FLAGS`), full width unless ``smoke``; its
+    payload answers ``traces[i]`` (default: a ``make_trace`` trace from
+    seed i) on weights from seed 0.  Task i hints task i+1's image so the
+    pilot prefetches the next pull during the current run.
+
+    Returns ``drained``, the repo's and the registry's stats, one record
+    per payload (``arch``, ``exitcode``, ``bind_seconds``, ``bind_cached``,
+    the serve telemetry ``serve``, ``engine`` and ``tokens``) and the
+    ``sim`` and ``pilot`` objects."""
+    sim = ClusterSim(device=device)
+    images = [PayloadImage(arch=a, shape=f"custom:{max_len}x{slots}",
+                           mode="serve", smoke=smoke, flags=KERNEL_FLAGS)
+              for a in archs]
+    tids = []
+    for i, img in enumerate(images):
+        if traces is not None:
+            trace = traces[i]
+        else:
+            trace = make_trace(img.config().vocab_size, n_requests,
+                               max_len=max_len, seed=i)
+        hint = images[i + 1] if i + 1 < len(images) else None
+        tids.append(sim.repo.submit(
+            img, n_steps=n_steps, prefetch_hint=hint,
+            payload_spec={"trace": trace, "max_len": max_len,
+                          "slots": slots}))
+    (s,) = sim.provision(1)
+    pilot = sim.spawn_pilot(s, PilotConfig(max_payloads=len(archs) + 1,
+                                           idle_grace=idle_grace))
+    ok = sim.run_until_drained(timeout=600.0)
+    sim.join_all(timeout=30.0)
+    payloads = []
+    for i, (tid, arch) in enumerate(zip(tids, archs)):
+        r = sim.repo.result(tid)
+        h = pilot.history[i] if i < len(pilot.history) else {}
+        tel = r.telemetry if r is not None else {}
+        payloads.append({
+            "arch": arch, "exitcode": r.exitcode if r else None,
+            "bind_seconds": h.get("bind_seconds"),
+            "bind_cached": h.get("bind_cached"),
+            "error": tel.get("error", h.get("error")),
+            "serve": tel.get("serve", {}), "engine": tel.get("engine", {}),
+            "tokens": tel.get("tokens", {})})
+    return {"drained": ok, "repo": sim.repo.stats(),
+            "registry": dict(sim.registry.stats), "payloads": payloads,
+            "sim": sim, "pilot": pilot}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="smollm-360m",
@@ -168,7 +237,21 @@ def main(argv=None):
     ap.add_argument("--eager", action="store_true",
                     help="run the decode step eagerly, not as a CUDA graph")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--via-pilots", action="store_true",
+                    help="serve each arch of --archs as a payload that one "
+                         "pilot late-binds in turn")
+    ap.add_argument("--archs", default="smollm-360m,mamba2-370m",
+                    help="comma-separated archs for --via-pilots")
     args = ap.parse_args(argv)
+    if args.via_pilots:
+        out = serve_via_pilots(args.archs.split(","), args.requests,
+                               slots=args.slots, max_len=args.max_len,
+                               smoke=args.smoke, device=args.device)
+        for p in out["payloads"]:
+            p["tokens"] = sum(len(t) for t in p["tokens"].values())
+        print(json.dumps({k: out[k] for k in ("drained", "repo", "registry",
+                                              "payloads")}))
+        return 0 if all(p["exitcode"] == 0 for p in out["payloads"]) else 1
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     stats = serve_direct(cfg, args.requests, args.slots, args.max_len,
                          seed=args.seed, kv=args.kv, spec=args.spec,
@@ -181,4 +264,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -56,13 +56,22 @@ the step once as a CUDA graph (`repro_torch.serving.graph.StepGraph`)
 while every slot is free and replays it every tick; ``step_graph=False``
 keeps the eager step (the comparison), and the CPU always runs eagerly.
 The draft chain, verify, the admission prefill and the chunk function
-stay eager.  Tensor parallelism and the disaggregated roles are later
-slices: asking for them raises ``NotImplementedError``.
+stay eager.  As the reference's does, the engine takes its step, prefill,
+chunk, draft, verify and draft-prefill functions from the caller
+(``step_fn`` ... ``draft_prefill_fn``; None builds its own), so the
+engines of one serve image share them; the graph captures whichever step
+it was given.  Construction, each step, the admission warm-up and a cancel
+hold `repro_torch.serving.graph.DEVICE_LOCK` (the device work of a
+prefetch on another thread waits for them, and they for it), and the
+engine counts the kernel launches it made under it (``launches`` in its
+stats).  Tensor parallelism and the disaggregated roles are later slices:
+asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
 
@@ -72,7 +81,7 @@ import torch
 from repro_torch.models.api import (
     build_model, default_num_blocks, init_decode_state, resolve_device)
 from repro_torch.serving.blockpool import BlockAllocator, PrefixCache
-from repro_torch.serving.graph import StepGraph
+from repro_torch.serving.graph import DEVICE_LOCK, StepGraph, launch_counts
 
 
 @dataclasses.dataclass
@@ -263,6 +272,24 @@ def spec_ineligible_reason(cfg, kv: str) -> str | None:
 _PAGED_KEYS = ("kp", "vp")
 
 
+def _on_device(method):
+    """Run an engine method under `DEVICE_LOCK` and add the kernel launches
+    it made to the engine's own count, ``launches`` (a graph's warm-up
+    steps at construction are launches; its capture is none)."""
+    @functools.wraps(method)
+    def run(self, *args, **kw):
+        with DEVICE_LOCK:
+            before = launch_counts()
+            try:
+                return method(self, *args, **kw)
+            finally:                 # (__init__ runs before launches exists)
+                mine = self.__dict__.setdefault("launches", {})
+                for name, n in launch_counts().items():
+                    if n != before[name]:
+                        mine[name] = mine.get(name, 0) + n - before[name]
+    return run
+
+
 def _later(what: str, value, slice_name: str):
     raise NotImplementedError(
         f"{what}={value!r} is not in this slice of the port; it comes with "
@@ -289,24 +316,35 @@ class ServeEngine:
       CUDA device with ``spec="off"``, eager otherwise; False: always
       eager; True: the graph, raising where there can be none (the CPU,
       ``spec="draft"``).
+    * ``step_fn``, ``prefill_fn``, ``chunk_fn``, ``draft_fn``,
+      ``verify_fn``, ``draft_prefill_fn`` — the functions a serve image's
+      factory shares among its engines (`make_engine_step`,
+      ``bundle.prefill``, ``bundle.prefill_chunk``, `make_draft_step`,
+      `make_verify_step`, the draft bundle's prefill); None builds the
+      engine's own.
 
     This slice serves ``role="unified"`` and ``mesh=None``."""
 
+    @_on_device
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  kv: str | None = None, block_size: int = 16,
                  num_blocks: int | None = None, prefill: str = "oneshot",
                  prefill_chunk: int = 32, prefix_sharing: bool = True,
-                 bundle=None, spec: str = "off", spec_k: int = 4,
-                 draft_cfg=None, draft_params=None, draft_bundle=None,
-                 mesh=None, role: str = "unified", device="cuda",
+                 bundle=None, step_fn=None, prefill_fn=None, chunk_fn=None,
+                 spec: str = "off", spec_k: int = 4, draft_cfg=None,
+                 draft_params=None, draft_bundle=None, draft_fn=None,
+                 verify_fn=None, draft_prefill_fn=None, mesh=None,
+                 role: str = "unified", device="cuda",
                  step_graph: bool | None = None):
         if prefill not in ("oneshot", "chunked"):
             raise ValueError(
                 f"prefill must be 'oneshot' or 'chunked', got {prefill!r}")
         if role != "unified":
-            _later("role", role, "disaggregated prefill/decode slice")
+            _later("role", role, "disaggregated prefill/decode slice "
+                   "(ROADMAP.md Queue 1 item 7)")
         if mesh is not None:
-            _later("mesh", mesh, "tensor-parallel serving slice")
+            _later("mesh", mesh, "tensor-parallel serving slice "
+                   "(ROADMAP.md Queue 1 item 8)")
         if spec not in ("off", "draft"):
             raise ValueError(f"spec must be 'off' or 'draft', got {spec!r}")
         self.device = resolve_device(device)
@@ -380,9 +418,9 @@ class ServeEngine:
         self.spec_accepted = 0         # of those, committed to requests
         self.draft_time_s = 0.0        # time inside the draft chain
         self._draft_events = None      # CUDA events around this step's chain
-        self._step_fn = make_engine_step(self.bundle, max_len)
-        self._prefill = self.bundle.prefill
-        self._chunk_fn = self.bundle.prefill_chunk
+        self._step_fn = step_fn or make_engine_step(self.bundle, max_len)
+        self._prefill = prefill_fn or self.bundle.prefill
+        self._chunk_fn = chunk_fn or self.bundle.prefill_chunk
 
         # ---- speculative decoding: draft-and-verify multi-token steps ----
         self.spec = "off"
@@ -429,11 +467,12 @@ class ServeEngine:
                 self.draft_cfg, slots, max_len, kv="paged",
                 num_blocks=self._num_blocks, block_size=block_size,
                 device=self.device)["cache"]
-            self._draft_fn = make_draft_step(self.draft_bundle, self.spec_k,
-                                             max_len)
-            self._verify_fn = make_verify_step(self.bundle, max_len,
-                                               self.spec_k)
-            self._draft_prefill = self.draft_bundle.prefill
+            self._draft_fn = draft_fn or make_draft_step(
+                self.draft_bundle, self.spec_k, max_len)
+            self._verify_fn = verify_fn or make_verify_step(
+                self.bundle, max_len, self.spec_k)
+            self._draft_prefill = (draft_prefill_fn
+                                   or self.draft_bundle.prefill)
 
         # ---- the decode step as one captured CUDA graph ----
         if step_graph is None:
@@ -688,6 +727,7 @@ class ServeEngine:
     # per-request drain/export
     # ------------------------------------------------------------------
 
+    @_on_device
     def cancel(self, rid: int) -> Request | None:
         """Remove request ``rid`` from the queue or its decode slot and
         return it (tokens so far intact); evicting a slot returns every
@@ -724,8 +764,13 @@ class ServeEngine:
         """One engine iteration: admit into free slots, advance at most one
         prefill chunk, then one batched decode step (the graph's replay,
         the eager step, or one draft-and-verify step).  Returns the number
-        of tokens committed to live requests."""
-        t_tick = time.monotonic()
+        of tokens committed to live requests.  The tick's time (ITL) starts
+        before the device lock is taken: a wait for another thread's device
+        work (a prefetch's warm-up) is part of the gap between tokens."""
+        return self._step(time.monotonic())
+
+    @_on_device
+    def _step(self, t_tick: float) -> int:
         self._admit()
         self._prefill_tick()
         actives = [si for si, m in enumerate(self.slot_meta) if m.active]
@@ -802,6 +847,7 @@ class ServeEngine:
         return self._verify_fn(self.params, self.state, self.active,
                                self.budget, drafts)
 
+    @_on_device
     def warm_admission(self):
         """Run one prefill per admit-length bucket ahead of the first
         request, and (chunked mode) one chunk per chunk shape, so first-use
@@ -894,10 +940,13 @@ class ServeEngine:
             ticks += 1
         return self._stats(decoded, time.monotonic() - t0)
 
-    def run_trace(self, trace, *, max_ticks: int = 100_000) -> dict:
+    def run_trace(self, trace, *, max_ticks: int = 100_000,
+                  on_tick=None) -> dict:
         """Drive the engine from a request trace with staggered arrivals:
         ``{"rid", "prompt": [ints], "max_new_tokens", "at_step"}`` dicts;
-        a request becomes visible at tick ``at_step``."""
+        a request becomes visible at tick ``at_step``.  ``on_tick(tick,
+        step_seconds)`` (optional) runs after every tick — the wrapper's
+        heartbeat and stop hook; returning False ends the run."""
         pending = sorted(enumerate(trace),
                          key=lambda ie: int(ie[1].get("at_step", 0)))
         t0 = time.monotonic()
@@ -910,13 +959,18 @@ class ServeEngine:
                     rid=int(e.get("rid", idx)),
                     prompt=np.asarray(e["prompt"], np.int32),
                     max_new_tokens=int(e.get("max_new_tokens", 16))))
+            t_step = time.monotonic()
             decoded += self.step()
             tick += 1
+            if on_tick is not None and on_tick(
+                    tick, time.monotonic() - t_step) is False:
+                break
             if tick >= max_ticks:
                 break
         return self._stats(decoded, time.monotonic() - t0)
 
     def _stats(self, decoded: int, wall: float) -> dict:
+        pool_bytes = self.kv_pool_bytes()
         denom = self.steps * self.slots
         util = (denom - self.idle_slot_steps) / denom if self.steps else 0.0
         ttfts = [r.first_token_s for r in self.done.values()
@@ -943,6 +997,7 @@ class ServeEngine:
             "tpot_p99_s": pct(tpots, 99),
             "itl_p50_s": pct(self._tick_times, 50),
             "itl_p99_s": pct(self._tick_times, 99),
+            "itl_max_s": max(self._tick_times, default=None),
             "kv": self.kv,
             "kv_memory_utilization": (self._kv_util_sum / self.steps
                                       if self.steps else 0.0),
@@ -965,8 +1020,15 @@ class ServeEngine:
                                 if self.spec_drafted else 0.0),
             "tokens_per_step": decoded / self.steps if self.steps else 0.0,
             "draft_overhead_s": self.draft_time_s,
+            # the reference's single-device, unified values
+            "mesh_shape": None,
+            "mesh_devices": 1,
             "slots": self.slots,
-            "kv_pool_bytes": self.kv_pool_bytes(),
+            "kv_pool_bytes": pool_bytes,
+            "kv_pool_bytes_per_device": pool_bytes,
+            "prefills_exported": 0,
+            "handoffs_imported": 0,
+            "launches": dict(self.launches),
             "device": str(self.device),
         }
 

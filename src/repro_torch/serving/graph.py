@@ -18,12 +18,25 @@ The kernel wrappers count their launches in Python (``<wrapper>.launches``)
 and a replay runs no Python, so `StepGraph` records each wrapper's count
 during the capture (which launches nothing on the device) and adds it on
 every replay: the counts keep meaning launches the device ran.
+
+A pilot prefetches the next payload's image on a background thread while
+the current payload serves (``core/images.py``), so device work can come
+from two threads of one process.  ``torch.cuda.graph`` captures in its
+"global" error mode: an unsafe CUDA call from any other thread during a
+capture (an allocator ``cudaMalloc``, a synchronous copy) invalidates it,
+and the launch-count bookkeeping above would lose another thread's
+launches.  ``DEVICE_LOCK`` is the one process-wide lock over device work:
+`StepGraph` holds it over its warm-up, capture and bookkeeping; the engine
+over its construction, each step, its warm-up and a cancel; an image's
+build and warm-up over theirs.  Launches made while it is held belong to
+its holder, which is how an engine counts its own (`launch_counts`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.locks import make_rlock
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
@@ -34,6 +47,13 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 WRAPPERS = (paged_decode_attention, paged_verify_attention, decode_attention,
             flash_attention, rmsnorm_fused, grouped_matmul, ssd_scan)
+
+DEVICE_LOCK = make_rlock("serving.device")
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count, by wrapper name."""
+    return {w.__name__: w.launches for w in WRAPPERS}
 
 
 class StepGraph:
@@ -48,6 +68,10 @@ class StepGraph:
     def __init__(self, fn, device, reset, *, warmup: int = 3):
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
+        with DEVICE_LOCK:
+            self._capture(fn, device, reset, warmup)
+
+    def _capture(self, fn, device, reset, warmup):
         before = [w.launches for w in WRAPPERS]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))

@@ -20,10 +20,11 @@ tensor-core instructions in its SASS; every kernel is also captured in one
 CUDA graph and replayed.  The serve engine's decode step, captured as a
 CUDA graph, is held bitwise to the eager step at smoke widths (paged,
 dense, mamba2), its replays to their launch counts, and a chunked
-admission beside a decoding slot to its idle-engine run.  The verify and
-dense decode kernels share the paged decode kernel's body and split plan,
-so they are also held to it bitwise, at lengths on the edges of its
-sequence splits too.
+admission beside a decoding slot to its idle-engine run; one pilot binds
+two smoke serve images in turn, each bitwise its direct engine.  The
+verify and dense decode kernels share the paged decode kernel's body and
+split plan, so they are also held to it bitwise, at lengths on the edges
+of its sequence splits too.
 """
 
 from __future__ import annotations
@@ -617,3 +618,34 @@ def test_chunked_admission_on_card_matches_idle_engine(card, arch, kv):
     assert stats["step_graph"] and stats["d2h_transfers"] == stats["decode_steps"]
     assert eng.done[1].tokens == solo.done[1].tokens
     assert eng.block_leaks() == 0
+
+
+# ---------------------------------------------------------------------------
+# the pilot system on the card
+# ---------------------------------------------------------------------------
+
+def test_pilot_binds_serve_images_on_the_card(card):
+    """One pilot late-binds two smoke serve images in turn on the card, the
+    second prefetched while the first serves: both payloads replay their
+    captured step and give the direct engine's streams bitwise, and each
+    engine counts only its own kernel launches."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.serve import (
+        make_trace, serve_direct, serve_via_pilots)
+    archs = ["smollm-360m", "mamba2-370m"]
+    traces = [make_trace(512, 6, max_len=64, seed=0) for _ in archs]
+    out = serve_via_pilots(archs, slots=2, max_len=64, smoke=True,
+                           device="cuda", traces=traces, idle_grace=0.5)
+    assert out["drained"] and out["registry"]["prefetches"] == 1
+    assert out["pilot"].history[1]["bind_cached"] is True
+    for arch, p in zip(archs, out["payloads"]):
+        assert p["exitcode"] == 0, p["error"]
+        assert p["engine"]["step_graph"] and p["engine"]["block_leaks"] == 0
+        direct = serve_direct(get_smoke_config(arch), 6, 2, 64,
+                              device="cuda")
+        assert {int(r): t for r, t in p["tokens"].items()} == \
+            direct["streams"], arch
+    smollm, mamba = (p["engine"]["launches"] for p in out["payloads"])
+    assert smollm["flash_attention"] == 6 * 2      # 6 admissions x 2 layers
+    assert "ssd_scan" not in smollm and "flash_attention" not in mamba
+    assert mamba["ssd_scan"] == 6 * get_smoke_config(archs[1]).num_layers
