@@ -104,6 +104,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
               p50, ITL p99 and max, and for each image a bare
               ``PayloadExecutor``'s pull of it unprefetched, its warm-up
               and a warm rebind.
+   train    — ``train_direct`` (launch/train.py) on full-width
+              smollm-360m (random f32 weights from seed 0), batch 8, seq
+              512, 30 steps on the synthetic data, ``OptimConfig`` as
+              train_direct builds it: every loss finite, the mean of the
+              last 5 below the mean of the first 5, and no kernel launched
+              (the train path is the plain one, as the reference's).
+              Reported: ms per step (median after step 3), tokens/s,
+              ``max_memory_allocated`` and the model-FLOP share of 989
+              TFLOP/s (6·N·tokens plus the attention term, its formula
+              printed).
+   train_parity — one train step of full-width smollm-360m cut to 2
+              layers, batch 2, seq 128, from the same seeded f32 weights
+              on the card and on the CPU (the port's plain path, which
+              tests/test_torch_train.py holds to JAX): loss, grad norm,
+              every gradient leaf and every updated parameter within
+              ``TRAIN_PARITY_TOL``.
+   train_mamba — 5 steps of full-width mamba2-370m, batch 4, seq 512, the
+              plain SSD scan under autograd: finite losses, no kernel
+              launched; ms per step and peak memory reported.
+   pilot_train — ``train_via_pilots`` on the card: full-width
+              smollm-360m, a ``custom:512x8`` train image, 40 steps,
+              checkpoints every 10 steps into a directory under
+              ``build/``; once step 10's checkpoint is on disk the node
+              fails, and a replacement pilot resumes the task after the
+              lease expires.  Gates: exit 0, ``resumed_from`` the last
+              checkpoint the killed payload wrote, the resumed run's steps
+              ``40 - resumed_from``, a finite last loss within
+              ``RESUME_LOSS_TOL`` of an uninterrupted run of the same image
+              (whether it is bitwise is reported: the embedding's backward
+              accumulates with atomics on the card), no kernel launched,
+              and ``memory_allocated`` back within ``PILOT_MEMORY_SLACK``
+              of its value before the bind.
 10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
               admission (the kernel path's own activations), its output
               with the SSD-scan kernel against the same mixer on the
@@ -225,6 +257,27 @@ SSM_ARCH = "mamba2-370m"
 # the pilot's cleanup (§3.6 of the paper) on the card: memory back within
 # this of its value before the first bind
 PILOT_MEMORY_SLACK = 64 << 20
+# training: full-width smollm-360m (train, pilot_train) and mamba2-370m
+TRAIN = dict(batch=8, seq=512, steps=30)
+TRAIN_MAMBA = dict(batch=4, seq=512, steps=5)
+PILOT_TRAIN = dict(batch=8, seq=512, steps=40, ckpt_every=10)
+# One train step, card against CPU from the same f32 state: the loss and
+# grad norm as tests/test_torch_train.py holds the CPU to JAX (bf16
+# products summed in other orders); each gradient leaf's relative error
+# norm; each updated parameter (1) within f32 rounding of the CPU's AdamW
+# applied to the card's own gradients (``param_rtol``, ``param_atol``), and
+# (2) within 2·lr (+ ``param_atol``) of the CPU's step: AdamW's first step
+# moves an element by lr·(m̂/(√v̂+ε) + wd·p) with |m̂/(√v̂+ε)| <= 1, and
+# where a gradient's sign differs between the two devices (tiny entries,
+# such as the tied embedding's rows of tokens absent from the batch) it
+# moves the other way.
+TRAIN_PARITY_TOL = dict(loss_abs=2e-3, grad_norm_rtol=2e-2, grad_rel=5e-2,
+                        param_rtol=1e-5, param_atol=1e-6)
+# The resumed run's last loss against an uninterrupted run's: the card's
+# runs are not bitwise reproducible (atomic accumulation in the embedding
+# and MoE backward), and the difference grows over 40 steps; a resume that
+# lost or swapped the optimizer state moves the loss far more.
+RESUME_LOSS_TOL = 2e-2
 
 
 def say(obj):
@@ -1337,6 +1390,219 @@ def pilot_serve_phase(wrappers, direct):
     return launches
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def _launches(wrappers):
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def _zero(wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def train_flops(cfg, n_params, batch, seq):
+    """Model FLOPs of one train step (PaLM's count: 6 per parameter per
+    token for the products forward and backward, plus 12·L·H·Dh·S per token
+    for the attention scores and values; remat's recompute not counted)."""
+    tokens = batch * seq
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.head_dim * seq * tokens
+    return 6 * n_params * tokens + attn
+
+
+def train_phase(wrappers):
+    """``train_direct`` at full width on the card; returns its launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import train_direct
+    cfg = get_config(DENSE_ARCH)
+    _zero(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = train_direct(cfg, TRAIN["steps"], TRAIN["batch"], TRAIN["seq"],
+                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launches(wrappers)
+    losses = out["losses"]
+    step_s = float(np.median(out["step_seconds"][3:]))
+    flops = train_flops(cfg, out["n_params"], TRAIN["batch"], TRAIN["seq"])
+    say({"phase": "train", "arch": cfg.name, **TRAIN, "wall_s": wall,
+         "ms_per_step": step_s * 1e3,
+         "step_ms": [t * 1e3 for t in out["step_seconds"]],
+         "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / step_s,
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "n_params": out["n_params"], "model_flops_per_step": flops,
+         "flops_formula": "6*N*tokens + 12*L*H*Dh*S*tokens",
+         "mfu_of_989_tflops": flops / step_s / BF16_FLOPS,
+         "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+         "launches": launches})
+    assert np.isfinite(losses).all(), losses
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+    assert not any(launches.values()), launches
+    return launches
+
+
+def train_parity_phase():
+    """One train step of full-width smollm-360m cut to 2 layers on the card
+    and on the CPU from the same f32 state, held to ``TRAIN_PARITY_TOL``."""
+    from repro_torch import tree
+    from repro_torch.bridge import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim.adamw import OptimConfig, adamw_update
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2)
+    steps = TRAIN["steps"]
+    oc = OptimConfig(total_steps=steps, warmup_steps=max(steps // 20, 5))
+    cpu = init_train_state(cfg, 0, "cpu")
+    start = train_state_to_numpy(cpu)
+    gpu = train_state_from_numpy(start, cfg, "cuda")
+    batch = SyntheticLM(SyntheticConfig(cfg.vocab_size, 128, 2)).batch_at(0)
+    step = make_train_step(cfg, oc)
+    t0 = time.monotonic()
+    _, mg = step(gpu, to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    _, mc = step(cpu, to_device(batch, "cpu"))
+    t2 = time.monotonic()
+    lr = float(mc["lr"])
+    tol = TRAIN_PARITY_TOL
+    # the CPU's AdamW on the card's gradients, from the start state
+    redo = train_state_from_numpy(start, cfg, "cpu")
+    card_grads = [p.grad.float().cpu()
+                  for p in tree.leaves(gpu["params"].live())]
+    live = redo["params"].live()
+    adamw_update(live, tree.unflatten(live, card_grads), redo["opt"], oc)
+    grad_rel, param_err, adamw_err, flipped, n = [], 0.0, 0.0, 0, 0
+    for pg, pc, pr, p0, g in zip(tree.leaves(gpu["params"].live()),
+                                 tree.leaves(cpu["params"].live()),
+                                 tree.leaves(live),
+                                 tree.leaves(start["params"]), card_grads):
+        c = pc.grad
+        assert torch.isfinite(g).all()
+        grad_rel.append(float((g - c).norm() / c.norm().clamp_min(1e-30)))
+        new_g, new_c, new_r = pg.detach().cpu(), pc.detach(), pr.detach()
+        param_err = max(param_err, float((new_g - new_c).abs().max()))
+        bad = (new_g - new_r).abs() > (tol["param_atol"]
+                                       + tol["param_rtol"] * new_r.abs())
+        assert not bool(bad.any()), "card AdamW differs from the CPU's"
+        adamw_err = max(adamw_err, float((new_g - new_r).abs().max()))
+        p0 = torch.from_numpy(p0)
+        flipped += int(((new_g - p0).sign() != (new_c - p0).sign()).sum())
+        n += p0.numel()
+    say({"phase": "train_parity", "arch": cfg.name, "layers": 2, "batch": 2,
+         "seq": 128, "loss": [float(mg["loss"]), float(mc["loss"])],
+         "grad_norm": [float(mg["grad_norm"]), float(mc["grad_norm"])],
+         "lr": lr, "max_grad_rel": max(grad_rel),
+         "max_param_abs_err": param_err,
+         "param_bound": 2 * lr + tol["param_atol"],
+         "max_abs_err_vs_cpu_adamw_of_card_grads": adamw_err,
+         "update_sign_differs_share": flipped / n,
+         "card_step_s": t1 - t0, "cpu_step_s": t2 - t1, "tol": tol})
+    assert abs(float(mg["loss"]) - float(mc["loss"])) < tol["loss_abs"]
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
+        < tol["grad_norm_rtol"] * float(mc["grad_norm"])
+    assert max(grad_rel) < tol["grad_rel"], grad_rel
+    assert param_err <= 2 * lr + tol["param_atol"], (param_err, lr)
+
+
+def train_mamba_phase(wrappers):
+    """A few full-width mamba2-370m steps on the plain SSD scan."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.train import train_direct
+    cfg = get_config(SSM_ARCH)
+    _zero(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    out = train_direct(cfg, TRAIN_MAMBA["steps"], TRAIN_MAMBA["batch"],
+                       TRAIN_MAMBA["seq"], device="cuda")
+    launches = _launches(wrappers)
+    step_s = float(np.median(out["step_seconds"][1:]))
+    say({"phase": "train_mamba", "arch": cfg.name, **TRAIN_MAMBA,
+         "ms_per_step": step_s * 1e3,
+         "step_ms": [t * 1e3 for t in out["step_seconds"]],
+         "tokens_per_s": TRAIN_MAMBA["batch"] * TRAIN_MAMBA["seq"] / step_s,
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "n_params": out["n_params"], "losses": out["losses"],
+         "launches": launches})
+    assert np.isfinite(out["losses"]).all(), out["losses"]
+    assert not any(launches.values()), launches
+    return launches
+
+
+def pilot_train_phase(wrappers):
+    """A full-width train payload through pilots: checkpoint, node failure
+    after the first checkpoint, resume by a replacement pilot; then the
+    same image uninterrupted.  Returns the launches of both runs."""
+    import tempfile
+    from repro_torch.core.images import PayloadImage
+    from repro_torch.data.synthetic import to_device
+    from repro_torch.launch.train import train_via_pilots
+    n = PILOT_TRAIN["steps"]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="pilot_train_ck_", dir=build)
+    mem_before = allocated_bytes()
+    _zero(wrappers)
+    t0 = time.monotonic()
+    try:
+        out = train_via_pilots(
+            DENSE_ARCH, False, n, ckpt=ckpt, seq=PILOT_TRAIN["seq"],
+            batch=PILOT_TRAIN["batch"], device="cuda",
+            ckpt_every=PILOT_TRAIN["ckpt_every"],
+            fail_after_ckpt=PILOT_TRAIN["ckpt_every"])
+        wall = time.monotonic() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt).rglob("*")
+                         if f.is_file())
+        disk_free = shutil.disk_usage(ckpt).free
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    res, fail = out["result"], out["failure"]
+    assert res is not None, out["repo"]
+    tel = res.telemetry
+    assert res.exitcode == 0, (res.exitcode, tel.get("error"))
+    assert res.pilot_id != fail["pilot"], (res.pilot_id, fail)
+    assert fail["ckpt_step"] >= PILOT_TRAIN["ckpt_every"], fail
+    assert tel["resumed_from"] == fail["ckpt_step"], (tel, fail)
+    assert tel["steps"] == n - tel["resumed_from"], tel
+    assert np.isfinite(tel["last_loss"]), tel
+    # the same image, uninterrupted (the registry's cached pull)
+    img = PayloadImage(DENSE_ARCH, f"custom:{PILOT_TRAIN['seq']}x"
+                       f"{PILOT_TRAIN['batch']}", "train", smoke=False)
+    exe = out["sim"].registry.pull(img, "cuda")
+    assert exe.cached
+    state, data = exe.make_inputs(0)
+    t1 = time.monotonic()
+    for i in range(n):
+        state, m = exe.fn(state, to_device(data.batch_at(i), exe.device))
+        whole = float(m["loss"])
+    whole_s = time.monotonic() - t1
+    launches = _launches(wrappers)
+    del state, m, exe
+    out.clear()
+    mem_after = allocated_bytes()
+    say({"phase": "pilot_train", "arch": DENSE_ARCH, **PILOT_TRAIN,
+         "wall_s": wall, "failure": fail, "exitcode": res.exitcode,
+         "pilot": res.pilot_id, "resumed_from": tel["resumed_from"],
+         "steps_after_resume": tel["steps"],
+         "first_loss_after_resume": tel["first_loss"],
+         "last_loss": tel["last_loss"], "uninterrupted_last_loss": whole,
+         "bitwise_equal": tel["last_loss"] == whole,
+         "abs_diff": abs(tel["last_loss"] - whole), "tol": RESUME_LOSS_TOL,
+         "step_ms_last16": [t * 1e3 for t in tel["step_times"]],
+         "uninterrupted_s": whole_s, "ckpt_bytes_at_end": ckpt_bytes,
+         "disk_free": disk_free, "launches": launches,
+         "memory_allocated": {"before": mem_before, "after": mem_after,
+                              "slack": PILOT_MEMORY_SLACK}})
+    assert abs(tel["last_loss"] - whole) <= RESUME_LOSS_TOL, (
+        tel["last_loss"], whole)
+    assert not any(launches.values()), launches
+    assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
+        mem_before, mem_after)
+    return launches
+
+
 def moe_serve_phase(wrappers):
     """The paged serve path of the MoE model: its admissions run the
     grouped-matmul kernel beside the attention and RMSNorm kernels."""
@@ -1702,6 +1968,12 @@ def main(argv):
     runs["pilot_smollm"] = pilot[DENSE_ARCH]
     runs["pilot_mamba2"] = pilot[SSM_ARCH]
     say({"phase": "pilot_serve_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    runs["train"] = train_phase(wrappers)
+    train_parity_phase()
+    runs["train_mamba"] = train_mamba_phase(wrappers)
+    runs["pilot_train"] = pilot_train_phase(wrappers)
+    say({"phase": "train_all", "seconds": time.monotonic() - t0})
     # a kernel's launches: the runs of the path that carries it
     paths = {"paged_verify_attention": ("spec_self", "spec_cold"),
              "decode_attention": ("dense",),

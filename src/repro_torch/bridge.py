@@ -12,6 +12,12 @@ both operands to f32), and the SSM mixer's ``A_log``, ``dt_bias``,
 ``D_skip`` and ``norm_scale``, which the reference reads in f32
 (``models/ssm.py``); every other leaf is stored in bf16, which rounds
 exactly as the reference's ``.astype(bf16)`` at use does.
+
+A train state maps too: the reference's ``{"params", "opt": {"m", "v",
+"step"}}`` (`repro.launch.steps.init_train_state`) becomes the port's
+(`repro_torch.launch.steps.init_train_state`) with every leaf in f32 (the
+master weights and moments; ``matrix_dtype=torch.float32``), the
+parameters requiring grad and ``step`` an int32 scalar, and back.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_mod
 from repro_torch.models.transformer import LMParams
 
 
@@ -51,12 +58,37 @@ def params_from_numpy(tree: dict, cfg, device="cuda",
     return LMParams(out)
 
 
+def _host_f32(t) -> np.ndarray:
+    """A float32 numpy copy (never a view of a CPU tensor's storage, which
+    an in-place optimizer step would change under the caller)."""
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
 def params_to_numpy(params: LMParams) -> dict:
     """:class:`LMParams` -> the reference's pytree layout, float32 numpy."""
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [walk(v) for v in t]
-        return t.detach().float().cpu().numpy()
-    return walk(params.tree())
+    return tree_mod.map_leaves(_host_f32, params.tree())
+
+
+def train_state_from_numpy(state: dict, cfg, device="cuda") -> dict:
+    """The reference's train state (numpy leaves) -> the port's: f32
+    parameters requiring grad, f32 moments, an int32 ``step``."""
+    dev = torch.device(device)
+    params = params_from_numpy(state["params"], cfg, device=dev,
+                               matrix_dtype=torch.float32)
+    params.requires_grad_(True)
+    opt = state["opt"]
+    return {"params": params,
+            "opt": {"m": _convert(opt["m"], (), dev, torch.float32),
+                    "v": _convert(opt["v"], (), dev, torch.float32),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=dev)}}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The port's train state -> the reference's layout: float32 numpy
+    parameters and moments, an int32 numpy scalar ``step``."""
+    opt = state["opt"]
+    return {"params": params_to_numpy(state["params"]),
+            "opt": {"m": tree_mod.map_leaves(_host_f32, opt["m"]),
+                    "v": tree_mod.map_leaves(_host_f32, opt["v"]),
+                    "step": np.asarray(int(opt["step"]), np.int32)}}

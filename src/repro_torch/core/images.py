@@ -9,6 +9,11 @@ the node's local image cache — a warm ``bind()`` skips the pull exactly as
 a cached image does.  The reference keys its cache on the slice's mesh;
 here the key holds the slice's device.
 
+A train image binds the train step (`repro_torch.launch.steps`) with its
+state and data builders; it runs the plain paths, so an image whose flags
+select a hand-written kernel fails its pull: the kernels are forward only,
+and the JAX package defines no VJP for any of them.
+
 The PLACEHOLDER image is the paper's arbitrary default container image: a
 trivial executable every slice can always run, installed at pod creation so
 the Kubernetes-side object is valid before any payload exists (§3.3).
@@ -34,9 +39,11 @@ import torch
 from repro_torch.analysis.locks import make_lock
 from repro_torch.configs.base import (
     ArchConfig, SHAPES, ShapeSpec, get_config, get_smoke_config)
+from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
 from repro_torch.launch.steps import (
-    make_prefill_step, make_serve_step, make_train_step)
+    init_train_state, make_prefill_step, make_serve_step, make_train_step)
 from repro_torch.models.api import build_model, resolve_device
+from repro_torch.optim.adamw import OptimConfig
 from repro_torch.serving.graph import DEVICE_LOCK
 
 
@@ -246,11 +253,12 @@ class ExecutableRegistry:
                 fn(make_inputs(0))       # warm
             return Executable(image, fn, make_inputs, time.monotonic() - t0,
                               device=dev)
-        if image.mode == "train":
-            make_train_step(image.config())      # raises: Queue 1 item 4
-
         cfg = image.config()
         shape = image.shape_spec()
+        if image.mode == "train":
+            fn, make_inputs, warm = _train_factory(cfg, shape, dev)
+            return Executable(image, fn, make_inputs, time.monotonic() - t0,
+                              warm=warm, device=dev)
         bundle = build_model(cfg)
         draft_cfg = None
         if image.mode == "serve" and image.draft:
@@ -291,6 +299,38 @@ class ExecutableRegistry:
 
         return Executable(image, fn, make_inputs, time.monotonic() - t0,
                           warm=warm, device=dev)
+
+
+def _train_factory(cfg, shape, dev):
+    """A train image: the train step (``OptimConfig(total_steps=1000)``,
+    as the reference's image), ``make_inputs(seed)`` -> (train state from
+    ``seed``, the synthetic data of the image's shape) and a warm-up of one
+    step on batch 0 with a throwaway state.  It loads no kernel: the step
+    runs the plain paths, and flags that select a kernel raise here.
+
+    Returns ``(fn, make_inputs, warm)``."""
+    kernels = _kernel_sources(cfg)
+    if kernels:
+        raise NotImplementedError(
+            f"{cfg.name}: a train image differentiates the plain paths, and "
+            f"its flags select the {', '.join(kernels)} kernel(s), which are "
+            "forward only: the JAX package defines no VJP for them")
+    fn = make_train_step(cfg, OptimConfig(total_steps=1000))
+
+    def make_inputs(seed):
+        state = init_train_state(cfg, seed, dev)
+        data = SyntheticLM(SyntheticConfig(cfg.vocab_size, shape.seq_len,
+                                           shape.global_batch))
+        return state, data
+
+    def warm():
+        with DEVICE_LOCK:
+            state, data = make_inputs(0)
+            fn(state, to_device(data.batch_at(0), dev))
+            sync(dev)
+            del state                    # freed before the lock is let go
+
+    return fn, make_inputs, warm
 
 
 def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev):

@@ -21,20 +21,25 @@ meanwhile: the wrapper holds `repro_torch.serving.graph.DEVICE_LOCK` over
 each device call it makes (a serve engine holds it itself), one step at a
 time, so the two interleave and neither sees the other's device work.
 The seed stays an int: the image's ``make_inputs`` seeds a
-``torch.Generator`` on that device.  The fleet serve loop (``dispatch``)
-is ROADMAP.md Queue 1 item 5 and the train loop item 4.
+``torch.Generator`` on that device.  A train payload resumes from its
+checkpoint directory and saves into it (`_train_loop`).  The fleet serve
+loop (``dispatch``) is ROADMAP.md Queue 1 item 5.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import torch
 
+from repro_torch.ckpt import checkpoint as ck
 from repro_torch.core.arena import SharedArena
 from repro_torch.core.images import sync
 from repro_torch.core.proctable import PAYLOAD_UID, ProcessTable
+from repro_torch.data.synthetic import to_device
+from repro_torch.launch.steps import load_train_state, state_tree
 from repro_torch.serving.graph import DEVICE_LOCK
 
 
@@ -67,8 +72,8 @@ def run_wrapper(arena: SharedArena, proctable: ProcessTable, exe, spec: dict):
                 exe.fn(exe.make_inputs(seed))
             telemetry["steps"] = 1
         elif exe.image.mode == "train":
-            raise NotImplementedError(
-                "the train payload is ROADMAP.md Queue 1 item 4")
+            exitcode = _train_loop(exe, seed, n_steps, entry, proctable,
+                                   telemetry, spec)
         elif exe.image.mode == "prefill":
             with DEVICE_LOCK:
                 params, batch = exe.make_inputs(seed)
@@ -165,6 +170,59 @@ def _serve_loop(exe, seed, n_steps, entry, proctable, telemetry, spec) -> int:
     telemetry["engine"] = {k: stats[k] for k in _ENGINE_STAT_KEYS}
     idle = not (eng.queue or eng._live or eng._jobs)
     telemetry["engine"]["block_leaks"] = eng.block_leaks() if idle else None
+    return 0
+
+
+def _train_loop(exe, seed, n_steps, entry, proctable, telemetry,
+                spec) -> int:
+    """Train payload with checkpoint-based resume (fault tolerance): it
+    restores ``ckpt_dir``'s latest step (``resumed_from``), runs steps
+    ``latest..n_steps-1`` on the image's synthetic batches, heartbeats per
+    step, saves every ``ckpt_every`` steps and at the end, and reports
+    ``first_loss`` and ``last_loss``.  A stop from the pilot exits 143, a
+    loss that is not finite 3.  Every device call holds the device lock;
+    a save copies to the host under it and writes to disk outside it."""
+    with DEVICE_LOCK:
+        state, data = exe.make_inputs(seed)
+    start_step = 0
+    ckpt_dir = spec.get("ckpt_dir")
+    ckpt_every = int(spec.get("ckpt_every", 0))
+    if ckpt_dir:
+        latest = ck.latest_step(ckpt_dir)
+        if latest is not None:
+            with DEVICE_LOCK:
+                load_train_state(state, ck.restore(ckpt_dir, latest,
+                                                   state_tree(state)))
+            start_step = latest
+            telemetry["resumed_from"] = latest
+
+    def save(step):
+        with DEVICE_LOCK:
+            snap = ck.snapshot(state_tree(state))
+        ck.save(ckpt_dir, step, snap)
+
+    losses = []
+    for i in range(start_step, n_steps):
+        if entry.stop.is_set():
+            return 143                                  # SIGTERM-by-pilot
+        t0 = time.monotonic()
+        batch = data.batch_at(i)
+        with DEVICE_LOCK:
+            state, metrics = exe.fn(state, to_device(batch, exe.device))
+            loss = float(metrics["loss"])
+        dt = time.monotonic() - t0
+        proctable.heartbeat(entry.pid, dt)
+        telemetry["steps"] = i + 1 - start_step
+        telemetry["step_times"].append(dt)
+        losses.append(loss)
+        if not math.isfinite(loss):
+            return 3
+        if ckpt_dir and ckpt_every and (i + 1) % ckpt_every == 0:
+            save(i + 1)
+    telemetry["first_loss"] = losses[0] if losses else None
+    telemetry["last_loss"] = losses[-1] if losses else None
+    if ckpt_dir and losses:
+        save(n_steps)
     return 0
 
 

@@ -13,6 +13,12 @@ an unchanged one is loaded as it is.  ``build(names)`` (``build_all()``:
 every source) starts one ``nvcc`` per source at once and waits for all of
 them; ``library(name)`` builds on first use.  Each C entry returns
 ``cudaGetLastError()``; `check` raises when it is not 0.
+
+The kernels are forward only, as the JAX package's are (it defines no VJP
+for any of them), and a launch through ctypes leaves no autograd graph:
+every public wrapper calls `refuse_grad` first, so a forward that would
+train through a kernel raises instead of returning an output with no
+gradient path.
 """
 
 from __future__ import annotations
@@ -138,6 +144,20 @@ def call(fn, device, *args):
         return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     with torch.cuda.device(idx):
         return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+
+
+def refuse_grad(what: str, *tensors):
+    """Raise before a kernel wrapper dispatches when autograd would need its
+    gradient: grad mode on and any tensor input requiring grad.  Host flags
+    only (no sync, no launch), on every device: the plain version a CPU
+    tensor runs is differentiable, but the card's kernel is not, and the
+    two must refuse alike."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the kernel is forward only and the JAX package defines "
+            "no VJP for it; train on the plain path (the config's *_impl "
+            "left at its default) or run the kernel under torch.no_grad()")
 
 
 def check_operands(what: str, device, operands):

@@ -98,6 +98,7 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     """q: (B,H,Dh) one new token per row; caches: (B,T,K,Dh); cache_len:
     (B,) int32 valid count.  Returns (B,H,Dh).  CUDA tensors launch the
     kernel; CPU tensors run the plain version."""
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len)
     if q.device.type != "cuda":

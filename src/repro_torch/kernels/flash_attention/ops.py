@@ -83,6 +83,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     absolute position ``q_offset + i``; ``window`` (None or > 0) keeps keys
     ``t > pos - window``.  CUDA tensors launch the kernel; CPU tensors run
     the plain version."""
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)

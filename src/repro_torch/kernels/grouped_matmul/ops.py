@@ -104,6 +104,7 @@ def grouped_matmul(x, w, group_sizes, *, block_m=128, block_n=128):
     Returns (T,F) f32; rows past the groups are 0.  CUDA tensors launch
     the kernel (bf16 x and w, int32 sizes); CPU tensors run the plain
     version."""
+    _build.refuse_grad("grouped_matmul", x, w)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, group_sizes)
     if x.device.type != "cuda":
@@ -116,6 +117,7 @@ def bucket_matmul(buckets, w, *, block_m=128, block_n=128):
     """Capacity-bucket layout (models/moe.py): buckets (G,C,D), G a
     multiple of E, bucket g for expert g % E -> (G,C,F) f32.  CUDA tensors
     launch the kernel; CPU tensors run the plain version."""
+    _build.refuse_grad("bucket_matmul", buckets, w)
     G, C, D = buckets.shape
     x = buckets.reshape(G * C, D)
     if buckets.device.type == "cpu":

@@ -104,6 +104,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len):
     pool; block_tables: (B,mb) int32; cache_len: (B,) int32 valid count.
     Returns (B,H,Dh).  CUDA tensors launch the kernel; CPU tensors run the
     plain version."""
+    _build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             cache_len)
@@ -129,6 +130,7 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, q_off):
     absolute position ``q_off[b] + s``; pools: (nb,bs,K,Dh); block_tables:
     (B,mb) int32; q_off: (B,) int32.  Returns (B,S,H,Dh).  CUDA tensors
     launch the kernel; CPU tensors run the plain version."""
+    _build.refuse_grad("paged_verify_attention", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return paged_verify_attention_plain(q, k_pool, v_pool, block_tables,
                                             q_off)

@@ -48,6 +48,7 @@ def rmsnorm_fused(x, scale, residual=None, *, eps=1e-5):
     x's shape.  Returns (normed, residual_out), both shaped like x.  CUDA
     tensors launch the kernel; CPU tensors run the plain version."""
     global _entry
+    _build.refuse_grad("rmsnorm_fused", x, scale, residual)
     dev = x.device
     if dev.type != "cuda":
         if dev.type == "cpu":

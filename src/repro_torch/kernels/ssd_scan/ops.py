@@ -112,6 +112,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk=128):
     (b,S,G,N) in x's dtype.  Returns (y (b,S,H,P) in x's dtype, final
     state (b,H,N,P) f32).  CUDA tensors launch the kernel; CPU tensors run
     the plain version."""
+    _build.refuse_grad("ssd_scan", x, dt, A, B, C)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":

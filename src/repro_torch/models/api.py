@@ -2,7 +2,10 @@
 
 Port of the decoder-LM part of ``repro.models.api``:
 
-* ``init(seed, device="cuda")``   -> :class:`LMParams`
+* ``init(seed, device="cuda", dtype=bf16)`` -> :class:`LMParams`
+  (frozen; ``dtype`` is that of the matrices: bf16 to serve, f32 for a
+  train state's master weights)
+* ``loss(params, batch)``        -> (scalar, {"ce", "aux"})   [train]
 * ``prefill(params, batch)``     -> (last logits (B,1,V), dense cache)
 * ``decode(params, state)``      -> (logits (B,1,V), new state)
 * ``verify(params, tokens, state)`` -> (logits (B,S,V), new state)
@@ -47,6 +50,7 @@ def resolve_device(device) -> torch.device:
 class ModelBundle:
     cfg: ArchConfig
     init: Callable[..., Any]
+    loss: Callable[[Any, Any], Any]
     prefill: Callable[[Any, Any], Any]
     decode: Callable[[Any, Any], Any]
     verify: Callable[[Any, Any, Any], Any]
@@ -93,11 +97,15 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
 def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
     tf._check_slice(cfg)
 
-    def init(seed: int = 0, *, device="cuda"):
+    def init(seed: int = 0, *, device="cuda", dtype=compute):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        return tf.init_lm_params(cfg, gen, dev)
+        return tf.init_lm_params(cfg, gen, dev, dtype)
+
+    def loss(params, batch):
+        return tf.lm_loss(params, cfg, batch["tokens"], batch["targets"],
+                          extra_embeds=batch.get("frontend"), compute=compute)
 
     def prefill(params, batch):
         tokens = batch["tokens"]
@@ -127,4 +135,5 @@ def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
                                         compute=compute)
         return logits, state
 
-    return ModelBundle(cfg, init, prefill, decode, verify, prefill_chunk)
+    return ModelBundle(cfg, init, loss, prefill, decode, verify,
+                       prefill_chunk)

@@ -193,6 +193,31 @@ def decode_attend(q, k_cache, v_cache, cache_len):
 
 
 # ==========================================================================
+# Full layer forward (train): projection + rope + attend + out-projection
+# ==========================================================================
+
+def attention_forward(x, p, cfg, *, rope_cos, rope_sin, causal=True,
+                      window=None, kv=None, compute=COMPUTE):
+    """Self-attention over a full sequence, the train path's layer.
+    x: (B,S,D); rope tables (S, Dh/2) match S.  Cross-attention (``kv``)
+    and MLA are ROADMAP.md Queue 1 item 6 (the encoder-decoder and MLA
+    archs)."""
+    if kv is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: cross-attention and MLA come with their archs, "
+            "ROADMAP.md Queue 1 item 6")
+    _check_gqa(cfg)
+    q = _project(x, p["wq"], compute)
+    k = _project(x, p["wk"], compute)
+    v = _project(x, p["wv"], compute)
+    if rope_cos is not None:
+        q = apply_rope(q, rope_cos, rope_sin)
+        k = apply_rope(k, rope_cos, rope_sin)
+    out = attend(q, k, v, cfg, causal=causal, window=window)
+    return _out_project(out, p["wo"], compute)
+
+
+# ==========================================================================
 # Prefill
 # ==========================================================================
 

@@ -1,4 +1,4 @@
-"""Shared building blocks: init, norms, RoPE, MLP, embedding and head.
+"""Shared building blocks: init, norms, RoPE, MLP, embedding, head and loss.
 
 Port of ``repro.models.layers``.  Parameters are stored in the dtype they
 are used in (matrices bf16, norm scales f32); reductions that need
@@ -14,6 +14,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 COMPUTE = torch.bfloat16
 
@@ -122,7 +123,7 @@ def apply_mlp(x, p, cfg, compute=COMPUTE):
 
 
 # --------------------------------------------------------------------------
-# Embedding / head
+# Embedding / head / loss
 # --------------------------------------------------------------------------
 
 def embed_lookup(tokens, table, compute=COMPUTE):
@@ -136,3 +137,53 @@ def lm_logits(x, head, softcap: float | None = None):
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+def softmax_cross_entropy(logits, targets, mask=None):
+    """logits (B,S,V) f32, targets (B,S) int -> scalar mean loss (over the
+    positions where ``mask`` is 1, when given)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def softmax_cross_entropy_fused(h, head, targets, *, softcap=None, mask=None,
+                                chunk: int = 1024):
+    """Mean CE of ``logits = h @ head`` without materializing (B,S,V).
+
+    The reference scans the sequence in ``chunk``-token slices under
+    ``jax.checkpoint``; here each slice's (B,c,V) logits are made inside
+    ``torch.utils.checkpoint`` and recomputed in backward, so peak memory
+    holds one chunk's logits instead of the whole sequence's.  The
+    sequence is zero-padded to whole chunks with mask 0, as in the
+    reference.  ``S <= chunk`` takes the plain path.
+
+    h: (B,S,D) compute dtype; head: (D,V); targets: (B,S) int."""
+    B, S, D = h.shape
+    if S <= chunk:
+        return softmax_cross_entropy(lm_logits(h, head, softcap), targets,
+                                     mask)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    pad = (-S) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def body(hb, tb, mb):
+        logits = lm_logits(hb, head, softcap)            # (B,c,V) temporary
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tb.long()[..., None])[..., 0]
+        return torch.sum((logz - gold) * mb)
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, S + pad, chunk):
+        sl = slice(lo, lo + chunk)
+        tot = tot + checkpoint(body, h[:, sl], targets[:, sl], mask[:, sl],
+                               use_reentrant=False)
+    return tot / torch.clamp(torch.sum(mask), min=1.0)

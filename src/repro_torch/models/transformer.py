@@ -1,5 +1,5 @@
 """Decoder-only LM (GQA attention with a dense or MoE FFN, or Mamba-2 SSM
-mixers): parameters, caches, prefill, decode.
+mixers): parameters, the train loss, caches, prefill, decode.
 
 Port of the attention and SSM parts of ``repro.models.transformer``.  Layers are
 organised into groups of ``period`` layers exactly as in the reference,
@@ -16,21 +16,31 @@ over per-row ``{"conv", "ssd"}`` state, and a slot with ``ffn == "none"``
 has no FFN.  ``lm_prefill_chunk`` runs one chunk of a chunked admission
 into one row of the engine's cache (paged pools, dense rings or SSM rows),
 with the dense-gated MoE as in the reference's chunk path.
+
+The train path (``lm_backbone``, ``lm_loss``) runs under autograd on the
+live parameters: each group's slices are taken afresh from the
+``nn.Parameter``s on every forward (`LMParams.live_groups`), never from
+the cached views of ``.data`` that the serve paths read (`LMParams.group`),
+which no gradient reaches.  Each group is checkpointed as the
+reference's ``_remat`` wraps its scan body.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import ssm
 from repro_torch.models.layers import (
     COMPUTE, apply_mlp, apply_norm, embed_init, embed_lookup, init_mlp,
-    init_norm, lm_logits, rope_table,
+    init_norm, lm_logits, rope_table, softmax_cross_entropy_fused,
 )
 
 
@@ -104,10 +114,16 @@ class LMParams(nn.Module):
     """The decoder's parameters, laid out as the reference's pytree:
     ``embed`` (V,D), ``final_norm["scale"]`` (D,), optional ``head`` (D,V),
     and ``layers[slot]`` whose leaves are stacked ``(n_groups, ...)``.
-    Matrices are bf16 (the reference casts them to bf16 at use); norm
-    scales (``1 + scale`` is taken in f32), MoE routers (f32 logits) and
-    the SSM mixer's ``A_log``, ``dt_bias``, ``D_skip`` and ``norm_scale``
-    stay f32."""
+    For serving, matrices are bf16 (the reference casts them to bf16 at
+    use); norm scales (``1 + scale`` is taken in f32), MoE routers (f32
+    logits) and the SSM mixer's ``A_log``, ``dt_bias``, ``D_skip`` and
+    ``norm_scale`` stay f32.  A train state holds every leaf in f32 (the
+    master weights; the layers cast at use) and turns ``requires_grad``
+    on; every parameter is made frozen.
+
+    The serve paths read `group` (views of ``.data``, built once, which
+    a captured CUDA graph replays); the train path reads `live_groups`,
+    through which autograd reaches the parameters."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -130,6 +146,38 @@ class LMParams(nn.Module):
         if self.head is not None:
             out["head"] = self.head.data
         return out
+
+    def live(self) -> dict:
+        """The parameters as a nested dict of the live ``nn.Parameter``s,
+        in the reference's pytree layout (its leaf order: `repro_torch.tree`)."""
+        def walk(m):
+            if isinstance(m, nn.Parameter):
+                return m
+            return {k: walk(v) for k, v in m.items()}
+        out = {"embed": self.embed,
+               "layers": [walk(s) for s in self.layers],
+               "final_norm": walk(self.final_norm)}
+        if self.head is not None:
+            out["head"] = self.head
+        return out
+
+    def live_groups(self) -> list[list[dict]]:
+        """Every group's per-slot slices of the live parameters, taken
+        afresh on every call so that autograd reaches the parameters: one
+        ``unbind`` per stacked parameter, whose backward stacks the
+        groups' gradients once (slicing each group apart would add a
+        zero-filled gradient of the whole stack per group)."""
+        def split(m):
+            if isinstance(m, nn.Parameter):
+                return m.unbind(0)
+            return {k: split(v) for k, v in m.items()}
+
+        def take(t, g):
+            if isinstance(t, dict):
+                return {k: take(v, g) for k, v in t.items()}
+            return t[g]
+        slots = [split(s) for s in self.layers]
+        return [[take(s, g) for s in slots] for g in range(self.n_groups)]
 
     def group(self, g: int) -> list[dict]:
         """Group ``g``'s per-slot parameter views (built once)."""
@@ -190,6 +238,93 @@ def init_lm_params(cfg, gen: torch.Generator, device="cpu",
 
 def head_matrix(params: LMParams, cfg):
     return params.embed.T if cfg.tie_embeddings else params.head
+
+
+# --------------------------------------------------------------------------
+# Forward (train)
+# --------------------------------------------------------------------------
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of products without batch dims (a projection's ``mm``),
+    recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``cfg.remat`` on a group's forward: "full" recomputes it in backward
+    (``torch.utils.checkpoint``), "dots" keeps its matmul outputs and
+    recomputes the rest (selective checkpoint), "none" keeps everything."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _apply_slot(x, p, cfg, slot, rope, compute):
+    """One layer of the train forward: (x, the MoE aux loss or 0)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = apply_norm(x, p["mixer_norm"], cfg)
+    if slot["mixer"] == "attn":
+        h = attn.attention_forward(
+            h, p["mixer"], cfg, rope_cos=rope[0], rope_sin=rope[1],
+            causal=True, window=cfg.sliding_window, compute=compute)
+    else:
+        h = ssm.ssm_forward(h, p["mixer"], cfg, compute=compute)
+    x = x + h
+    if slot["ffn"] != "none":
+        h = apply_norm(x, p["ffn_norm"], cfg)
+        if slot["ffn"] == "dense":
+            h = apply_mlp(h, p["ffn"], cfg, compute)
+        else:
+            h, aux = moe.apply_moe(h, p["ffn"], cfg, compute)
+        x = x + h
+    return x, aux
+
+
+def lm_backbone(params: LMParams, cfg, x, *, compute=COMPUTE):
+    """Run the layer stack over embeddings x: (B,S,D) -> (hidden, aux
+    loss), each group under `_remat`."""
+    slots = layer_slots(cfg)
+    rope = ((None, None) if _attn_slot(slots) is None else
+            rope_table(torch.arange(x.shape[1], device=x.device),
+                       cfg.head_dim, cfg.rope_theta))
+
+    def group_body(x, gp):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, slot in enumerate(slots):
+            x, a = _apply_slot(x, gp[i], cfg, slot, rope, compute)
+            aux = aux + a
+        return x, aux
+
+    body = _remat(group_body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for gp in params.live_groups():
+        x, a = body(x, gp)
+        aux = aux + a
+    return apply_norm(x, params.final_norm, cfg), aux
+
+
+def lm_loss(params: LMParams, cfg, tokens, targets, *, extra_embeds=None,
+            loss_mask=None, compute=COMPUTE):
+    """Next-token CE loss plus the MoE aux loss: (loss, {"ce", "aux"}).
+    ``extra_embeds`` (the VLM and audio frontends' stub embeddings) come
+    with those archs, ROADMAP.md Queue 1 item 6."""
+    if extra_embeds is not None:
+        raise NotImplementedError(
+            "extra_embeds (VLM/audio frontends) come with their archs, "
+            "ROADMAP.md Queue 1 item 6")
+    x = embed_lookup(tokens, params.embed, compute)
+    h, aux = lm_backbone(params, cfg, x, compute=compute)
+    ce = softmax_cross_entropy_fused(
+        h, head_matrix(params, cfg), targets, softcap=cfg.logit_softcap,
+        mask=loss_mask, chunk=cfg.loss_chunk)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------

@@ -22,6 +22,10 @@ CUDA graph, is held bitwise to the eager step at smoke widths (paged,
 dense, mamba2), its replays to their launch counts, and a chunked
 admission beside a decoding slot to its idle-engine run; one pilot binds
 two smoke serve images in turn, each bitwise its direct engine.  The
+train step on the card is held to the same step on the CPU (loss, norm,
+every gradient leaf) with no kernel launched, every kernel wrapper refuses
+a CUDA input that requires grad, and a pilot's train payload resumes from
+its checkpoint after a node failure.  The
 verify and dense decode kernels share the paged decode kernel's body and
 split plan, so they are also held to it bitwise, at lengths on the edges
 of its sequence splits too.
@@ -649,3 +653,74 @@ def test_pilot_binds_serve_images_on_the_card(card):
     assert smollm["flash_attention"] == 6 * 2      # 6 admissions x 2 layers
     assert "ssd_scan" not in smollm and "flash_attention" not in mamba
     assert mamba["ssd_scan"] == 6 * get_smoke_config(archs[1]).num_layers
+
+
+# ---------------------------------------------------------------------------
+# the training payload on the card
+# ---------------------------------------------------------------------------
+
+_WRAPPERS = (flash_attention, paged_decode_attention, paged_verify_attention,
+             decode_attention, rmsnorm_fused, grouped_matmul, ssd_scan)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m",
+                                  "mamba2-370m"])
+def test_train_step_on_the_card_matches_the_cpu(card, arch):
+    """One train step of the smoke config on the card and on the CPU from
+    the same f32 state: loss within 2e-3, grad norm within 2 %, every
+    gradient leaf within 5e-2 relative (bf16 products in other orders, as
+    tests/test_torch_train.py holds the CPU to JAX), and no kernel launched
+    (the train path is the plain one)."""
+    from repro_torch import tree
+    from repro_torch.bridge import train_state_from_numpy, train_state_to_numpy
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    cfg = get_smoke_config(arch)
+    cpu = init_train_state(cfg, 0, "cpu")
+    gpu = train_state_from_numpy(train_state_to_numpy(cpu), cfg, card)
+    batch = SyntheticLM(SyntheticConfig(cfg.vocab_size, 64, 2)).batch_at(0)
+    step = make_train_step(cfg)
+    for w in _WRAPPERS:
+        w.launches = 0
+    _, mg = step(gpu, to_device(batch, card))
+    _, mc = step(cpu, to_device(batch, "cpu"))
+    assert all(w.launches == 0 for w in _WRAPPERS)
+    assert abs(float(mg["loss"]) - float(mc["loss"])) < 2e-3
+    np.testing.assert_allclose(float(mg["grad_norm"]), float(mc["grad_norm"]),
+                               rtol=2e-2)
+    for pg, pc in zip(tree.leaves(gpu["params"].live()),
+                      tree.leaves(cpu["params"].live())):
+        g, c = pg.grad.float().cpu(), pc.grad
+        assert torch.isfinite(g).all()
+        assert float((g - c).norm() / c.norm().clamp_min(1e-30)) < 5e-2
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(card):
+    q = torch.zeros((1, 16, 4, 64), device=card, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.zeros((1, 16, 2, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        flash_attention(q, kv, kv)
+    x = torch.zeros((4, 64), device=card, dtype=torch.bfloat16)
+    scale = torch.zeros(64, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        rmsnorm_fused(x, scale)
+    with torch.no_grad():
+        flash_attention(q, kv, kv)
+        rmsnorm_fused(x, scale)
+
+
+def test_pilot_train_payload_resumes_on_the_card(card, tmp_path):
+    """A smoke train payload on the card checkpoints, loses its node once
+    step 2 is on disk, and a replacement pilot resumes it from the last
+    checkpoint the killed payload wrote."""
+    from repro_torch.launch.train import train_via_pilots
+    out = train_via_pilots("smollm-360m", True, 6, ckpt=str(tmp_path / "ck"),
+                           device="cuda", ckpt_every=2, fail_after_ckpt=2)
+    res, fail = out["result"], out["failure"]
+    assert res is not None and res.exitcode == 0
+    assert res.pilot_id != fail["pilot"]
+    assert res.telemetry["resumed_from"] == fail["ckpt_step"] >= 2
+    assert res.telemetry["steps"] == 6 - fail["ckpt_step"]
+    assert np.isfinite(res.telemetry["last_loss"])

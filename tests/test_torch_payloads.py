@@ -233,9 +233,30 @@ def test_serve_telemetry_has_the_reference_keys(tmp_path):
 # what the port does not have yet raises, naming its ROADMAP.md item
 # ---------------------------------------------------------------------------
 
-def test_train_image_raises_naming_item_4():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ExecutableRegistry().pull(PayloadImage(ARCH, "smoke", "train"), CPU)
+def test_train_image_raises_naming_item_4(tmp_path):
+    """The train image (ROADMAP.md Queue 1 item 4) pulls and runs one step
+    through both packages' wrappers from the same state (the reference image's, bridged
+    into the port's Executable): the same loss, within the loss tolerance
+    of tests/test_torch_train.py; on the kernel flags it refuses its pull,
+    naming the missing VJP."""
+    from repro_torch.bridge import train_state_from_numpy
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    jexe = JaxRegistry().pull(JaxImage(ARCH, "smoke", "train"))
+    pexe = ExecutableRegistry().pull(PayloadImage(ARCH, "smoke", "train"),
+                                     CPU)
+    cfg = get_smoke_config(ARCH)
+    jstate, jdata = jexe.make_inputs(jax.random.key(0))
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
+                                   device=CPU)
+    pexe.make_inputs = lambda seed: (state, SyntheticLM(SyntheticConfig(
+        cfg.vocab_size, jdata.cfg.seq_len, jdata.cfg.global_batch)))
+    (jc, jt), (pc, pt) = _run_both(tmp_path, jexe, pexe, {"n_steps": 1})
+    assert jc == pc == 0 and jt["steps"] == pt["steps"] == 1
+    assert abs(pt["first_loss"] - jt["first_loss"]) < 2e-3
+    assert int(state["opt"]["step"]) == 1
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        ExecutableRegistry().pull(PayloadImage(ARCH, "smoke", "train",
+                                               flags=FLAGS), CPU)
 
 
 @pytest.mark.parametrize("image_kw, spec_kw, item", [
