@@ -104,6 +104,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
               p50, ITL p99 and max, and for each image a bare
               ``PayloadExecutor``'s pull of it unprefetched, its warm-up
               and a warm rebind.
+   fleet_serve — fleet serve on the card (``serve_fleet``): 3 pilots,
+              each late-binding the ``custom:1024x8`` smollm-360m image
+              with the kernel flags, lease serve's 16 requests from one
+              ``FleetDispatcher`` pool at a lease TTL of 3 s (one card:
+              3 engines taking turns at the device lock).  Gates: every
+              request completed once, nothing replayed or duplicated, no
+              lease lost by a live server (in every fleet run),
+              each stream bitwise serve's; on every server one
+              device->host copy a step, the captured step, no leaked
+              block; flash, paged decode and RMSNorm launched; memory
+              back within ``PILOT_MEMORY_SLACK``.  Reported: wall,
+              goodput, TTFT p50/p99, the servers that completed work,
+              each server's tokens/s, ITL p99 and max against the TTL.
+   fleet_requeue — the same run with the pilot holding the most leases
+              killed once 4 requests have settled: exactly one failed
+              pilot, at least one replay, each stream bitwise
+              fleet_serve's and serve's, the survivors' gates as above.
+   fleet_spec — 2 self-drafting pilots (``draft="self"``, eager spec
+              pair), one killed as in fleet_requeue: each stream bitwise
+              serve's (spec-off), the verify kernel launched, mean
+              acceptance above 0.5; acceptance and tokens per step
+              reported.
+   fleet_autoscale — ``serve_fleet_schedule`` under the
+              ``FleetAutoscaler`` (scale-to-zero allowed, at most 3
+              pilots, from 1) on ``make_bursty_schedule`` over 24
+              requests of serve's shape, 2 bursts of 2 s, 4 s apart:
+              drained, every request completed once with its expected
+              tokens (serve's 16 bitwise serve's), no flap, scaled to
+              zero, memory back within the slack; the decisions,
+              pilot-seconds, TTFT p50/p99 and replays reported.
+   fleet_join — a pilot joins a 1-server fleet as the autoscaler joins
+              one (prefetch, scale_up, submit_servers) once the first of
+              64 requests of serve's shape has completed, so the joiner's
+              weights, engine, capture and warm-ups take the device lock
+              while the live server serves.  Gates: the live server held
+              leases at the join and renewed them after the joiner
+              announced, with requests still open; 2 pilots, both served;
+              no replay, no lost lease; streams as expected (serve's 16
+              bitwise); memory back within the slack.  Reported: the
+              join's length and the live server's longest gap between
+              renewals across it, against the TTL.
    train    — ``train_direct`` (launch/train.py) on full-width
               smollm-360m (random f32 weights from seed 0), batch 8, seq
               512, 30 steps on the synthetic data, ``OptimConfig`` as
@@ -257,6 +298,26 @@ SSM_ARCH = "mamba2-370m"
 # the pilot's cleanup (§3.6 of the paper) on the card: memory back within
 # this of its value before the first bind
 PILOT_MEMORY_SLACK = 64 << 20
+# fleet serve: serve's trace over 3 pilots of 8 slots each, leasing from
+# one pool.  A server renews its leases once a tick, and its first tick
+# waits for the other servers' first ticks at the device lock (8
+# admissions each): for the second of 2 self-drafting servers that gap
+# reached 0.9-1.1 s, and it lost leases it was serving in every run at
+# the reference's 0.5 s TTL and in some at 1 s (launch/profile_fleet.py,
+# PERF.md §6).  The TTL is 3 s, and no run may lose a lease; a dead
+# server's requests come back after it.  fleet_requeue kills the pilot
+# holding the most leases once 4 requests have settled; fleet_autoscale
+# serves a 24-request trace of serve's shape in 2 bursts of 2 s, 4 s
+# apart, under the autoscaler, from 1 pilot, at most 3
+FLEET_PILOTS = 3
+FLEET_TTL = 3.0
+FLEET_FAIL_AT = 4
+AUTOSCALE = dict(n_requests=24, bursts=2, burst_s=2.0, gap_s=4.0,
+                 initial_pilots=1, max_pilots=3)
+# fleet_join: a pilot joins beside a serving one once the first of 64
+# requests of serve's shape (serve's 16 first) has completed; alone, the
+# server takes several joins' worth of time over them
+JOIN_REQUESTS = 64
 # training: full-width smollm-360m (train, pilot_train) and mamba2-370m
 TRAIN = dict(batch=8, seq=512, steps=30)
 TRAIN_MAMBA = dict(batch=4, seq=512, steps=5)
@@ -1391,6 +1452,279 @@ def pilot_serve_phase(wrappers, direct):
 
 
 # --------------------------------------------------------------------------
+# fleet serve
+# --------------------------------------------------------------------------
+
+def fleet_servers(out):
+    """Each server that ended gracefully (a killed one reports nothing):
+    exit 0, one device->host copy a step, the captured step (or the eager
+    spec pair), no leaked block.  Returns their report rows."""
+    rows = []
+    for s in out["servers"]:
+        sv, eng = s["serve"], s["engine"]
+        if not sv.get("fleet"):
+            continue
+        assert s["exitcode"] == 0, (s["exitcode"], s["error"])
+        assert sv["d2h_transfers"] == sv["decode_steps"], sv
+        assert sv["fleet"]["leaked_blocks"] == 0 == eng["block_leaks"], sv
+        assert eng["step_graph"] == (sv["spec"] == "off"), eng
+        rows.append({"server": sv["fleet"]["server_id"],
+                     "fetched": sv["fleet"]["fetched"],
+                     "completed_here": sv["fleet"]["completed_here"],
+                     "decode_steps": sv["decode_steps"],
+                     "tok_per_s": sv["tok_per_s"],
+                     "itl_p50_s": eng["itl_p50_s"],
+                     "itl_p99_s": eng["itl_p99_s"],
+                     "itl_max_s": eng["itl_max_s"],
+                     "acceptance_rate": sv["acceptance_rate"],
+                     "prefix_hit_rate": sv["prefix_hit_rate"],
+                     "launches": eng["launches"]})
+    assert rows, out["servers"]
+    return rows
+
+
+def fleet_run(phase, wrappers, direct, n_pilots, **kw):
+    """One ``serve_fleet`` run of serve's trace on full-width smollm-360m,
+    8 slots a server, the kernel flags, with every launch count set to 0
+    just before it and read just after: the gates every fleet run passes
+    (drained, each rid completed once, tokens bitwise the direct serve
+    phase's ``direct``, every kernel of the path launched, the graceful
+    servers' gates, memory back within ``PILOT_MEMORY_SLACK``).  Returns
+    the run and its launches."""
+    from repro_torch.launch.serve import serve_fleet
+    mem_before = allocated_bytes()
+    _zero(wrappers)
+    out = serve_fleet(DENSE_ARCH, SERVE["n_requests"], n_pilots,
+                      slots=SERVE["slots"], max_len=SERVE["max_len"],
+                      lease_ttl=FLEET_TTL,
+                      trace=serve_trace(DENSE_ARCH, SERVE), device="cuda",
+                      **kw)
+    torch.cuda.synchronize()
+    launches = _launches(wrappers)
+    mem_after = allocated_bytes()
+    rows = fleet_servers(out)
+    keys = ("drained", "wall_s", "goodput_tok_per_s", "ttft_p50_s",
+            "ttft_p99_s", "completed", "failed", "replays", "duplicates",
+            "lost_leases", "distinct_servers", "failed_pilots",
+            "pilot_seconds", "spec_servers", "acceptance_rate",
+            "tokens_per_step", "leaked_blocks")
+    say({"phase": phase, "arch": DENSE_ARCH, "pilots": n_pilots,
+         "lease_ttl": FLEET_TTL, **{k: out[k] for k in keys},
+         "servers": rows,
+         "itl_max_s_of_ttl": max(r["itl_max_s"] or 0 for r in rows)
+         / FLEET_TTL,
+         "launches": launches,
+         "memory_allocated": {"before": mem_before, "after": mem_after,
+                              "slack": PILOT_MEMORY_SLACK}})
+    n = SERVE["n_requests"]
+    assert out["drained"] and out["completed"] == n, out["completed"]
+    assert sorted(out["results"]) == list(range(n)), sorted(out["results"])
+    assert out["lost_leases"] == 0, f"{phase}: a live server lost leases"
+    differ = [rid for rid, t in direct.items() if out["results"][rid] != t]
+    assert not differ, f"{phase}: streams differ from serve's: {differ}"
+    for w in ("flash_attention", "paged_decode_attention", "rmsnorm_fused"):
+        assert launches[w] > 0, (phase, launches)
+    assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
+        phase, mem_before, mem_after)
+    return out, launches
+
+
+def fleet_serve_phase(wrappers, direct):
+    """3 pilots on the card lease serve's 16 requests from one pool, no
+    failure: nothing replayed, nothing duplicated, each stream bitwise
+    the direct run's, every server on its captured step."""
+    out, launches = fleet_run("fleet_serve", wrappers, direct, FLEET_PILOTS)
+    assert out["replays"] == 0 and out["duplicates"] == 0, out["replays"]
+    assert len(out["servers"]) == FLEET_PILOTS, out["servers"]
+    return out, launches
+
+
+def fleet_requeue_phase(wrappers, direct, plain):
+    """fleet_serve with the pilot holding the most leases killed once 4
+    requests have settled: its requests come back to the pool and replay
+    on the survivors, bitwise fleet_serve's and the direct run's."""
+    out, launches = fleet_run("fleet_requeue", wrappers, direct,
+                              FLEET_PILOTS, fail_at=FLEET_FAIL_AT)
+    assert len(out["failed_pilots"]) == 1, out["failed_pilots"]
+    assert out["replays"] >= 1, out["replays"]
+    assert out["results"] == plain["results"]
+    return launches
+
+
+def fleet_spec_phase(wrappers, direct):
+    """2 self-drafting pilots, one killed: the survivor replays the dead
+    server's requests; every stream is the direct (spec-off) run's, the
+    verify kernel is launched and self-draft acceptance is above 0.5."""
+    out, launches = fleet_run("fleet_spec", wrappers, direct, 2,
+                              draft="self", fail_at=FLEET_FAIL_AT)
+    assert len(out["failed_pilots"]) == 1, out["failed_pilots"]
+    assert out["replays"] >= 1, out["replays"]
+    assert out["spec_servers"] >= 1, out["servers"]
+    assert out["acceptance_rate"] > 0.5, out["acceptance_rate"]
+    assert launches["paged_verify_attention"] > 0, launches
+    return launches
+
+
+def fleet_autoscale_phase(wrappers, direct):
+    """``serve_fleet_schedule`` under the autoscaler (scale-to-zero
+    allowed, at most 3 pilots, from 1) on a bursty schedule of 24
+    requests of serve's shape: drained, every request completed once with
+    its expected tokens (the first 16, serve's own, bitwise the direct
+    run's), no flap, scaled to zero, memory back within the slack."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.autoscaler import AutoscalePolicy
+    from repro_torch.launch.serve import (
+        expected_tokens, make_bursty_schedule, make_trace,
+        serve_fleet_schedule)
+    a = AUTOSCALE
+    trace = make_trace(get_config(DENSE_ARCH).vocab_size, a["n_requests"],
+                       max_len=SERVE["max_len"], seed=SERVE["seed"],
+                       prompt_len=SERVE["prompt_len"],
+                       max_new_tokens=SERVE["max_new_tokens"])
+    schedule = make_bursty_schedule(trace, bursts=a["bursts"],
+                                    burst_s=a["burst_s"], gap_s=a["gap_s"])
+    policy = AutoscalePolicy(min_pilots=0, max_pilots=a["max_pilots"],
+                             slots_per_pilot=SERVE["slots"])
+    mem_before = allocated_bytes()
+    _zero(wrappers)
+    out = serve_fleet_schedule(DENSE_ARCH, schedule, slots=SERVE["slots"],
+                               max_len=SERVE["max_len"], policy=policy,
+                               initial_pilots=a["initial_pilots"],
+                               lease_ttl=FLEET_TTL, device="cuda")
+    torch.cuda.synchronize()
+    launches = _launches(wrappers)
+    mem_after = allocated_bytes()
+    t0 = out["t_start"]
+    say({"phase": "fleet_autoscale", "arch": DENSE_ARCH, **a,
+         "lease_ttl": FLEET_TTL,
+         "arrivals_s": [round(t, 3) for t, _ in schedule],
+         "policy": dataclasses.asdict(policy),
+         **{k: out[k] for k in ("drained", "wall_s", "scaled_to_zero",
+                                "scale_to_zero_s", "ttft_p50_s",
+                                "ttft_p99_s", "pilot_seconds", "completed",
+                                "failed", "replays", "duplicates",
+                                "lost_leases", "distinct_servers",
+                                "autoscale")},
+         "decisions": [{**d, "t": d["t"] - t0} for d in out["decisions"]],
+         "launches": launches,
+         "memory_allocated": {"before": mem_before, "after": mem_after,
+                              "slack": PILOT_MEMORY_SLACK}})
+    n = a["n_requests"]
+    assert out["drained"] and out["completed"] == n, out["completed"]
+    assert out["failed"] == 0 and out["duplicates"] == 0, out
+    assert out["lost_leases"] == 0, "a live server lost leases"
+    assert sorted(out["results"]) == list(range(n))
+    assert {rid: len(t) for rid, t in out["results"].items()} == \
+        {e["rid"]: expected_tokens(e, SERVE["max_len"]) for e in trace}
+    differ = [rid for rid, t in direct.items() if out["results"][rid] != t]
+    assert not differ, f"fleet_autoscale: streams differ: {differ}"
+    assert out["autoscale"]["flaps"] == 0, out["autoscale"]
+    assert out["scaled_to_zero"], out["autoscale"]
+    for w in ("flash_attention", "paged_decode_attention", "rmsnorm_fused"):
+        assert launches[w] > 0, launches
+    assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
+        mem_before, mem_after)
+    return launches
+
+
+def fleet_join_phase(wrappers, direct):
+    """A pilot joins a fleet whose one server is serving: the join the
+    autoscaler makes (prefetch, ``scale_up``, ``submit_servers``), mid-way
+    through a 64-request trace of serve's shape.  The joiner's weights,
+    engine, graph capture and warm-ups hold the device lock while the live
+    server ticks between them.  Gates: the live server held leases when
+    the join began and renewed them after the joiner announced, with work
+    still queued; 2 pilots live, both served; nothing replayed, no lease
+    lost; each stream as expected (serve's 16 bitwise serve's); the
+    graceful servers' gates; memory back within the slack.  Reported: the
+    join's length, the live server's renewals in it and its longest gap
+    between renewals across it, against the TTL."""
+    from repro_torch.core.cluster import ClusterSim
+    from repro_torch.core.pilot import PilotConfig
+    from repro_torch.launch.profile_fleet import _LeaseGaps
+    from repro_torch.launch.serve import (
+        _fleet_image, _server_rows, expected_tokens)
+    from repro_torch.serving.dispatch import FleetDispatcher
+    load = dict(SERVE, n_requests=JOIN_REQUESTS)
+    n = load["n_requests"]
+    trace = serve_trace(DENSE_ARCH, load)
+    img = _fleet_image(DENSE_ARCH, SERVE["max_len"], SERVE["slots"], False)
+    spec = {"slots": SERVE["slots"], "max_len": SERVE["max_len"]}
+    mem_before = allocated_bytes()
+    _zero(wrappers)
+    with _LeaseGaps() as gaps:
+        sim = ClusterSim(device="cuda")
+        pool = FleetDispatcher(lease_ttl=FLEET_TTL)
+        fleet = sim.spawn_fleet(1, PilotConfig(max_payloads=2,
+                                               idle_grace=0.3))
+        try:
+            tids = fleet.submit_servers(img, pool.name, n=1, spec=spec)
+            assert pool.wait_servers(1, timeout=300.0), "no live server"
+            (live,) = pool.servers
+            t0 = time.monotonic()
+            pool.submit_trace(trace)
+            pool.seal()
+            assert pool.wait_completed(1, timeout=300.0)
+            held = len(pool.lease_holders().get(live, ()))
+            t_up = time.monotonic()
+            sim.registry.prefetch(img, fleet.mesh)
+            fleet.scale_up(1)
+            tids += fleet.submit_servers(img, pool.name, n=1, spec=spec)
+            pilots = fleet.size()
+            assert pool.wait_servers(2, timeout=120.0), "no joiner"
+            (joiner,) = pool.servers - {live}
+            open_at_join = n - pool.stats()["completed"]
+            ok = pool.wait_all(timeout=600.0)
+            wall = time.monotonic() - t0
+        finally:
+            pool.close()
+            fleet.drain_all()
+            fleet.join_all(30.0)
+            fleet.reap()
+    torch.cuda.synchronize()
+    launches = _launches(wrappers)
+    mem_after = allocated_bytes()
+    t_ann = gaps.announced[joiner]
+    renews = gaps.renew_times.get(live, [])
+    across = [b - a for a, b in zip(renews, renews[1:])
+              if b > t_up and a < t_ann]
+    stats = pool.stats()
+    out = {"servers": _server_rows(sim, tids), "results": pool.results()}
+    rows = fleet_servers(out)
+    say({"phase": "fleet_join", "arch": DENSE_ARCH, "requests": n,
+         "lease_ttl": FLEET_TTL, "drained": ok, "wall_s": wall,
+         "pilots_live": pilots, "live_leases_at_join": held,
+         "join_s": t_ann - t_up, "open_at_join": open_at_join,
+         "live_renewals_in_join": sum(t_up <= t <= t_ann for t in renews),
+         "live_renew_gap_max_s": max(across, default=None),
+         "live_lease_gaps": gaps.by_server.get(live),
+         **{k: stats[k] for k in ("completed", "failed", "replays",
+                                  "duplicates", "lost_leases",
+                                  "distinct_servers")},
+         "servers": rows, "launches": launches,
+         "memory_allocated": {"before": mem_before, "after": mem_after,
+                              "slack": PILOT_MEMORY_SLACK}})
+    assert ok and stats["completed"] == n, stats
+    assert sorted(out["results"]) == list(range(n))
+    assert stats["replays"] == 0 == stats["duplicates"], stats
+    assert stats["lost_leases"] == 0, "the live server lost leases"
+    assert pilots == 2 and stats["distinct_servers"] == 2, stats
+    # the join overlapped serving: the live server held leases when it
+    # began and renewed them after the joiner announced, with work queued
+    assert held > 0 and open_at_join > 0, (held, open_at_join)
+    assert renews and renews[-1] > t_ann, "no renewal after the join"
+    assert {rid: len(t) for rid, t in out["results"].items()} == \
+        {e["rid"]: expected_tokens(e, SERVE["max_len"]) for e in trace}
+    differ = [rid for rid, t in direct.items() if out["results"][rid] != t]
+    assert not differ, f"fleet_join: streams differ from serve's: {differ}"
+    for w in ("flash_attention", "paged_decode_attention", "rmsnorm_fused"):
+        assert launches[w] > 0, launches
+    assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
+        mem_before, mem_after)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # training
 # --------------------------------------------------------------------------
 
@@ -1968,6 +2302,13 @@ def main(argv):
     runs["pilot_smollm"] = pilot[DENSE_ARCH]
     runs["pilot_mamba2"] = pilot[SSM_ARCH]
     say({"phase": "pilot_serve_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    fleet, runs["fleet_serve"] = fleet_serve_phase(wrappers, streams)
+    runs["fleet_requeue"] = fleet_requeue_phase(wrappers, streams, fleet)
+    runs["fleet_spec"] = fleet_spec_phase(wrappers, streams)
+    runs["fleet_autoscale"] = fleet_autoscale_phase(wrappers, streams)
+    runs["fleet_join"] = fleet_join_phase(wrappers, streams)
+    say({"phase": "fleet_all", "seconds": time.monotonic() - t0})
     t0 = time.monotonic()
     runs["train"] = train_phase(wrappers)
     train_parity_phase()

@@ -22,8 +22,11 @@ each device call it makes (a serve engine holds it itself), one step at a
 time, so the two interleave and neither sees the other's device work.
 The seed stays an int: the image's ``make_inputs`` seeds a
 ``torch.Generator`` on that device.  A train payload resumes from its
-checkpoint directory and saves into it (`_train_loop`).  The fleet serve
-loop (``dispatch``) is ROADMAP.md Queue 1 item 5.
+checkpoint directory and saves into it (`_train_loop`).  A serve payload
+whose startup spec names a fleet pool (``dispatch``) leases its requests
+from that pool (`_fleet_serve_loop`); the fleet's servers are engines of
+one process, each on its pilot's thread, and on one card they take turns
+at the device lock.
 """
 
 from __future__ import annotations
@@ -32,14 +35,18 @@ import dataclasses
 import math
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.ckpt import checkpoint as ck
+from repro_torch.core import chaos
 from repro_torch.core.arena import SharedArena
 from repro_torch.core.images import sync
 from repro_torch.core.proctable import PAYLOAD_UID, ProcessTable
 from repro_torch.data.synthetic import to_device
 from repro_torch.launch.steps import load_train_state, state_tree
+from repro_torch.serving import dispatch as fleet_dispatch
+from repro_torch.serving.engine import Request
 from repro_torch.serving.graph import DEVICE_LOCK
 
 
@@ -118,11 +125,19 @@ def run_wrapper(arena: SharedArena, proctable: ProcessTable, exe, spec: dict):
 
 def _serve_loop(exe, seed, n_steps, entry, proctable, telemetry, spec) -> int:
     """Serve payload: a continuous-batching inference server late-bound onto
-    the slice, driven by the request ``trace`` in the startup spec: JSON
-    dicts ``{"rid", "prompt": [ints], "max_new_tokens", "at_step"}``; a
-    request is admitted once the engine has ticked ``at_step`` times
-    (staggered arrivals).  A spec that names a fleet pool (``dispatch``)
-    raises: fleet serve is ROADMAP.md Queue 1 item 5.
+    the slice.
+
+    Two request sources, selected by the startup spec:
+
+    * ``trace`` — the single-engine path: JSON dicts ``{"rid", "prompt":
+      [ints], "max_new_tokens", "at_step"}``; a request is admitted once the
+      engine has ticked ``at_step`` times (staggered arrivals).
+    * ``dispatch`` — the FLEET path: the spec names a
+      :class:`~repro_torch.serving.dispatch.FleetDispatcher` pool and the
+      server leases requests out of it instead of owning a static trace;
+      per-request progress piggybacks on lease renewal every tick, so a
+      server that dies simply stops renewing and its in-flight requests
+      requeue onto survivors (see ``_fleet_serve_loop``).
 
     ``n_steps`` bounds the tick count — the lease/budget contract serve
     shares with train.  The engine's decode loop is device-resident (one
@@ -134,10 +149,6 @@ def _serve_loop(exe, seed, n_steps, entry, proctable, telemetry, spec) -> int:
     lock, so a prefetch's warm-up on another thread is not among them) and,
     when the trace ran out, the engine's leaked KV blocks.
     """
-    if spec.get("dispatch"):
-        raise NotImplementedError(
-            "fleet serve (a startup spec naming 'dispatch') is ROADMAP.md "
-            "Queue 1 item 5")
     with DEVICE_LOCK:
         params = exe.make_inputs(seed)
     kv_kw = {k: spec[k] for k in ("kv", "prefill", "prefill_chunk",
@@ -147,6 +158,15 @@ def _serve_loop(exe, seed, n_steps, entry, proctable, telemetry, spec) -> int:
              if spec.get(k) is not None}
     eng = exe.fn(params, slots=spec.get("slots"),
                  max_len=spec.get("max_len"), **kv_kw)
+    if spec.get("dispatch"):
+        try:
+            return _fleet_serve_loop(eng, spec, n_steps, entry, proctable,
+                                     telemetry)
+        finally:
+            # a fleet's servers come and go while others capture their
+            # step graphs: this one's graph and pools go under the lock
+            with DEVICE_LOCK:
+                del eng
 
     def on_tick(tick, dt):
         if entry.stop.is_set():
@@ -170,6 +190,201 @@ def _serve_loop(exe, seed, n_steps, entry, proctable, telemetry, spec) -> int:
     telemetry["engine"] = {k: stats[k] for k in _ENGINE_STAT_KEYS}
     idle = not (eng.queue or eng._live or eng._jobs)
     telemetry["engine"]["block_leaks"] = eng.block_leaks() if idle else None
+    return 0
+
+
+def _fleet_serve_loop(eng, spec, n_steps, entry, proctable, telemetry) -> int:
+    """Fleet serve: lease requests from the pool named in the startup spec
+    instead of replaying a static trace.
+
+    Per tick: top up free slots from the pool (the fetch parks on the pool
+    condition when the engine is idle, so a requeued request wakes the
+    server immediately), one engine step, report completions (first
+    completion wins at the pool), then renew every in-flight lease with its
+    progress.  A renewal the pool refuses means the lease expired and moved
+    elsewhere — the slot is cancelled rather than racing a replay it cannot
+    win.
+
+    Death semantics: when the stop event fires (node loss / SIGTERM) the
+    loop returns WITHOUT releasing anything — a dead server cannot clean up,
+    and the pool's lease-expiry reaper requeueing its in-flight requests is
+    exactly the failure path this payload exists to exercise.  A graceful
+    end (tick budget, pool closed, or the pilot's DRAIN event — the
+    autoscaler's scale-down path) hands unfinished requests straight back
+    instead: survivors requeue them immediately, no lease-TTL wait.
+
+    Each tick also reports the engine's KV-pressure sample to the pool
+    (``report_telemetry``), which the autoscaler reads via
+    ``pool_pressure`` — kv_memory_utilization / blocked_admissions are
+    scale-up signals a queue-depth-only policy would miss.
+
+    Every device call is the engine's own and holds the device lock (its
+    step, warm-ups and cancels), so on one card a server renews its leases
+    only between its turns at the lock: a tick's wait for another server's
+    device work (a joiner's graph capture and warm-ups) is part of its
+    gap between renewals.  Unlike the reference's loop, a tick with no
+    request in the engine is not metered as a step (the pilot's straggler
+    monitor compares step times).  Besides the reference's telemetry,
+    ``engine``
+    holds the port's own stats of the run (`_ENGINE_STAT_KEYS`, zeroed by
+    `ServeEngine.warm_install`, so they describe live traffic) and the
+    engine's leaked KV blocks."""
+    pool = fleet_dispatch.get_pool(spec["dispatch"])
+    if pool is None:
+        raise RuntimeError(f"fleet pool {spec['dispatch']!r} is not "
+                           f"registered in this process")
+    server_id = ((spec.get("env") or {}).get("pilot")
+                 or f"server-{spec.get('task_id', id(eng))}")
+    labels = spec.get("server_labels") or {}
+    # stage every admission bucket AND the whole admit/decode/evict install
+    # path before taking the first lease: a first-use cost mid-serve stalls
+    # renewals past the lease TTL and thrashes requests between servers
+    eng.warm_admission()
+    eng.warm_install()
+    # labels carry the server's pool role ({"pool": "prefill"|"decode"}) so
+    # pool_pressure() can report per-label telemetry instead of blending
+    # prefill TTFT with decode TPOT across a mixed fleet
+    pool.announce(server_id, labels=labels)
+    inflight: dict[int, Request] = {}
+    fetched = completed_here = released = 0
+    decoded = tick = 0
+    t_start = time.monotonic()
+    while tick < n_steps:
+        if entry.stop.is_set():
+            return 143                   # died mid-serve: leases just expire
+        if pool.closed.is_set():
+            break
+        if entry.drain.is_set():
+            break        # scale-down: wind down NOW — leased work is
+                         # released below, not left to wait out its TTL
+        # chaos drills (no-op dict probe when no controller is installed):
+        # a STALLED payload freezes — no fetch, no step, no completions —
+        # but its lease renewals keep flowing with frozen progress, which
+        # is exactly the gray failure only the progress watchdog can see
+        site = chaos.site(server_id)
+        stalled = site is not None and site.stalled()
+        cut = site is not None and site.partitioned()
+        if stalled:
+            if inflight:
+                pool.renew(server_id, {rid: len(r.tokens)
+                                       for rid, r in inflight.items()})
+            time.sleep(0.005)
+            tick += 1
+            continue
+        # _live already counts mid-admission (_jobs) requests, so this is
+        # every admitted-or-queued request exactly once
+        want = eng.slots - (len(eng._live) + len(eng.queue))
+        if want > 0 and not cut and not pool.finished():
+            idle = not any(m.active for m in eng.slot_meta) and not eng._jobs
+            for e in pool.fetch(server_id, max_n=want,
+                                timeout=0.05 if idle else 0.0,
+                                labels=labels, cancel=entry.stop.is_set):
+                if (site is not None and e.get("poison")
+                        and site.poison_lethal()):
+                    # poison request: detonates on fetch, killing this
+                    # pilot — the lease is never released; it expires and
+                    # the pool's blast-radius accounting takes over
+                    site.trip_poison(int(e["rid"]))
+                    return 143
+                req = Request(
+                    rid=int(e["rid"]),
+                    prompt=np.asarray(e["prompt"], np.int32),
+                    max_new_tokens=int(e.get("max_new_tokens", 16)),
+                    submitted=float(e.get("submitted_s", time.monotonic())),
+                    handoff=e.get("handoff"))
+                if req.rid in inflight:
+                    # the pool re-leased a rid this server still holds
+                    # locally: its lease expired mid-partition and looped
+                    # back before this tick's renew could reveal the loss.
+                    # Purge the stale copy — pairing the fresh Request
+                    # with the old engine result would commit truncated
+                    # tokens (and two live slots under one rid is worse)
+                    eng.cancel(req.rid)
+                    inflight.pop(req.rid, None)
+                eng.done.pop(req.rid, None)    # stale result of a lost lease
+                try:
+                    eng.submit(req)
+                except ValueError:
+                    pool.reject(server_id, req.rid)   # can NEVER fit here
+                    continue
+                inflight[req.rid] = req
+                fetched += 1
+        busy = bool(eng._live or eng.queue or eng._jobs)
+        t0 = time.monotonic()
+        decoded += eng.step()
+        dt = time.monotonic() - t0
+        if site is not None:
+            slow = site.slow_factor()
+            if slow > 1.0:               # straggler: inflate the step time
+                time.sleep(dt * (slow - 1.0))
+                dt = dt * slow
+        tick += 1
+        if busy:
+            # an idle poll is no step: metered, its ~0.1 ms would sit in the
+            # monitor's straggler EWMA and the fleet median beside the
+            # serving ticks, and a server whose traffic resumes after a
+            # quiet spell was killed as a straggler of its own idle ticks
+            proctable.heartbeat(entry.pid, dt)
+            telemetry["step_times"].append(dt)
+        telemetry["steps"] = tick
+        if cut:
+            # control-plane partition: the payload keeps computing but
+            # renewals, completions and telemetry cannot reach the pool.
+            # Leases expire and the work replays elsewhere; completions
+            # parked in eng.done are reported after the partition heals
+            # (first completion wins keeps it exactly once either way).
+            if pool.finished() and not inflight:
+                break
+            continue
+        for rid in [r for r in inflight if r in eng.done]:
+            req = inflight.pop(rid)
+            # a unified engine completes with handoff=None; a prefill-role
+            # engine's export (the disaggregated slice) would ride here
+            if pool.complete(server_id, rid, req.tokens,
+                             first_token_s=req.first_token_s,
+                             handoff=req.handoff):
+                completed_here += 1
+        if inflight:
+            lost = pool.renew(server_id, {rid: len(r.tokens)
+                                          for rid, r in inflight.items()})
+            for rid in lost:
+                eng.cancel(rid)          # re-leased elsewhere: free the slot
+                inflight.pop(rid, None)
+        # the heartbeat consumer sees cache pressure AND per-request
+        # progress — renewals piggyback on the same tick; the same sample
+        # goes to the pool, where the autoscaler reads it as a demand signal
+        live_sample = {
+            **eng.kv_pressure(),
+            "blocked_admissions": eng.blocked_admissions,
+            "free_slots": eng.slots - (len(eng._live) + len(eng.queue)),
+        }
+        if not (site is not None and site.drop_heartbeat()):
+            pool.report_telemetry(server_id, live_sample)
+        telemetry["serve_live"] = {
+            **live_sample,
+            "inflight": {str(rid): len(r.tokens)
+                         for rid, r in inflight.items()}}
+        if pool.finished() and not inflight:
+            break
+    if inflight:                         # graceful end with work leased:
+        drained = eng.drain_requests()   # give it back, don't sit on it
+        pool.release(server_id, [r.rid for r in drained])
+        released = len(drained)
+        inflight.clear()
+    pool.retire(server_id)               # gone capacity must not look live
+    stats = eng._stats(decoded, time.monotonic() - t_start)
+    leaked = eng.block_leaks()
+    telemetry["serve"] = {k: stats[k] for k in _SERVE_STAT_KEYS}
+    telemetry["serve"]["fleet"] = {
+        "server_id": server_id, "pool": pool.name, "fetched": fetched,
+        "completed_here": completed_here, "released": released,
+        "drained": entry.drain.is_set(),
+        # leak audit on the now-idle engine: every cancel/hedge-loser/
+        # revocation path must have returned its KV blocks to the pool
+        "leaked_blocks": leaked}
+    telemetry["tokens"] = {str(r.rid): r.tokens for r in eng.done.values()}
+    telemetry["engine"] = {k: stats[k] for k in _ENGINE_STAT_KEYS}
+    telemetry["engine"]["block_leaks"] = leaked
     return 0
 
 

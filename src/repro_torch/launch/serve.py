@@ -27,6 +27,24 @@ holding one slice of ``device``, late-bind them in turn: each engine run,
 trace and all, is a payload; task i carries a prefetch hint for task
 i+1's image, so the next image's pull and warm-up overlap the current
 server's run.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --pilots 3 \
+        [--fail-at 4] [--draft self] [--chaos] [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --autoscale \
+        [--pilots 3] [--smoke --device cpu]
+
+``--pilots N`` (`serve_fleet`) is fleet serve: N pilots each late-bind the
+same serve image and lease requests from one
+:class:`~repro_torch.serving.dispatch.FleetDispatcher` pool; ``--fail-at
+K`` kills the pilot holding the most leases once K requests have settled,
+and its in-flight requests requeue onto the survivors.  ``--autoscale``
+(`serve_fleet_schedule`) drives a fleet through a bursty wall-clock
+schedule under the demand-driven
+:class:`~repro_torch.core.autoscaler.FleetAutoscaler`, which grows it and
+shrinks it to zero in the gaps.  Every slice of a ``ClusterSim`` holds
+every card of the host, so on one card the fleet is N engines on that
+card, each on its pilot's thread, taking turns at
+`repro_torch.serving.graph.DEVICE_LOCK`.
 """
 
 from __future__ import annotations
@@ -34,6 +52,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import time
 
 import numpy as np
 
@@ -42,6 +61,7 @@ from repro_torch.core.cluster import ClusterSim
 from repro_torch.core.images import PayloadImage
 from repro_torch.core.pilot import PilotConfig
 from repro_torch.models.api import build_model, resolve_device
+from repro_torch.serving.dispatch import FleetDispatcher
 from repro_torch.serving.engine import ServeEngine, admit_length
 
 
@@ -211,6 +231,303 @@ def serve_via_pilots(archs: list[str], n_requests: int = 8,
             "sim": sim, "pilot": pilot}
 
 
+def _fleet_image(arch, max_len, slots, smoke, draft=None) -> PayloadImage:
+    """The serve image every server of a fleet binds: ``arch`` of shape
+    ``custom:<max_len>x<slots>`` on the hand-written kernels, full width
+    unless ``smoke``; ``draft`` names a draft arch's image (None and
+    "self" share the plain one)."""
+    return PayloadImage(arch=arch, shape=f"custom:{max_len}x{slots}",
+                        mode="serve", smoke=smoke, flags=KERNEL_FLAGS,
+                        draft=None if draft in (None, "self") else draft)
+
+
+def _server_rows(sim, tids) -> list[dict]:
+    """Each server payload's exit code and serve telemetry (the port's
+    ``engine`` stats included), for the servers that reported one."""
+    rows = []
+    for tid in tids:
+        r = sim.repo.result(tid)
+        if r is None:
+            continue
+        tel = r.telemetry
+        rows.append({"task_id": tid, "exitcode": r.exitcode,
+                     "error": tel.get("error"),
+                     "serve": tel.get("serve", {}),
+                     "engine": tel.get("engine", {})})
+    return rows
+
+
+def serve_fleet(arch: str, n_requests: int, n_pilots: int, *,
+                slots: int = 8, max_len: int = 1024,
+                fail_at: int | None = None, fail_count: int = 1,
+                lease_ttl: float = 0.5, registry=None, seed: int = 0,
+                draft: str | None = None, spec_k: int = 4, robustness=None,
+                chaos_plan=None, poison: int = 0, mesh_shape=None,
+                trace: list[dict] | None = None, smoke: bool = False,
+                device="cuda") -> dict:
+    """Fleet serve: N pilots on ``device`` lease requests from one pool.
+    Each binds the `_fleet_image` of ``arch`` (weights from seed 0) and
+    serves ``slots`` requests at a time; ``trace`` defaults to a
+    ``make_trace`` trace from ``seed``.
+
+    ``fail_at`` hard-kills ``fail_count`` lease-holding pilots (one at
+    ``fail_at`` settled requests, the next one ``fail_at`` later, ...) —
+    the requeue-on-pilot-failure path.  ``draft`` turns on speculative
+    decoding on every server: a draft arch name, or ``"self"`` for the
+    self-draft ablation (the image's fixed draft seed keeps requeued
+    requests replaying bitwise on survivors).
+
+    Chaos drills: ``robustness`` (a
+    :class:`~repro_torch.serving.dispatch.RobustnessPolicy`) turns on the
+    dispatcher's gray-failure hardening; ``chaos_plan`` (a
+    :class:`~repro_torch.core.chaos.FaultPlan`) runs a
+    :class:`~repro_torch.core.chaos.ChaosController` against the fleet for
+    the duration of the trace; ``poison`` appends that many poison request
+    entries (lethal while the plan arms them — each kills the pilot that
+    fetches it until the pool quarantines it).  ``mesh_shape`` raises:
+    tensor-parallel serving is a later slice.
+
+    Returns pool + timing stats and, the port's own, ``servers``: each
+    server payload's exit code and serve telemetry; the caller owns no
+    threads when this returns (fleet drained, pool closed).
+    """
+    from repro_torch.core.chaos import ChaosController
+
+    if mesh_shape is not None:
+        raise NotImplementedError(
+            f"mesh_shape={mesh_shape!r}: tensor-parallel serving is "
+            f"ROADMAP.md Queue 1 item 8")
+    img = _fleet_image(arch, max_len, slots, smoke, draft)
+    sim = ClusterSim(registry=registry, device=device)
+    pool = FleetDispatcher(lease_ttl=lease_ttl, policy=robustness)
+    if trace is None:
+        trace = make_trace(img.config().vocab_size, n_requests,
+                           max_len=max_len, seed=seed)
+    else:
+        trace = list(trace)
+    poison_rids = list(range(n_requests, n_requests + poison))
+    for rid in poison_rids:
+        trace.append({"rid": rid, "prompt": [1, 2, 3, 4],
+                      "max_new_tokens": 4, "poison": True})
+    fleet = sim.spawn_fleet(n_pilots, PilotConfig(max_payloads=2,
+                                                  idle_grace=0.3))
+    server_spec = {"slots": slots, "max_len": max_len}
+    if draft is not None:
+        server_spec.update({"spec": "draft", "spec_k": spec_k})
+    tids = fleet.submit_servers(img, pool.name, n=n_pilots,
+                                spec=server_spec)
+    # submit traffic only once the fleet is up and WARM, so TTFT measures
+    # serving (queue wait + requeue delay), not server cold start
+    if not pool.wait_servers(n_pilots, timeout=300.0):
+        pool.close()
+        fleet.drain_all()
+        fleet.join_all(30.0)
+        raise RuntimeError(
+            f"only {len(pool.servers)}/{n_pilots} servers came up within "
+            f"300s — refusing to serve traffic into a half-started fleet: "
+            f"{_server_rows(sim, tids)}")
+    ctl = (ChaosController(sim, fleet, pool=pool, plan=chaos_plan)
+           if chaos_plan is not None else None)
+    t0 = time.monotonic()
+    if ctl is not None:
+        ctl.start()            # t=0 for the plan's fault offsets
+    pool.submit_trace(trace)
+    pool.seal()                # the trace is the whole workload
+    failed_pilots: list[str] = []
+    try:
+        for k in range(fail_count if fail_at else 0):
+            if not pool.wait_completed(fail_at * (k + 1), timeout=300.0):
+                break
+            victim = _pick_victim(fleet, pool, exclude=failed_pilots)
+            if victim is None:
+                break
+            failed_pilots.append(victim.pilot_id)
+            sim.fail_node(victim.slice.slice_id)
+        ok = pool.wait_all(timeout=600.0)
+    finally:
+        if ctl is not None:
+            ctl.stop()
+        pool.close()
+        fleet.drain_all()
+        fleet.join_all(30.0)
+    wall = time.monotonic() - t0
+    fleet.reap()
+    stats = pool.stats()
+    recs = pool.records()
+    ttfts = [r.first_token_s for r in recs.values()
+             if r.first_token_s is not None]
+    goodput = sum(len(r.tokens) for r in recs.values()
+                  if r.tokens is not None) / wall if wall else 0.0
+    # same percentile definition as ServeEngine._stats, so fleet and
+    # single-engine ttft_p*_s rows are directly comparable
+    pct = lambda v, q: float(np.percentile(v, q)) if v else None  # noqa: E731
+    servers = _server_rows(sim, tids)
+    # speculative effectiveness, averaged over the servers that ran with
+    # spec on (their serve telemetry survives in the repo's task results)
+    spec_rows = [r["serve"] for r in servers
+                 if r["serve"].get("spec") == "draft"]
+    mean = lambda k: (sum(s[k] for s in spec_rows) / len(spec_rows)  # noqa: E731
+                      if spec_rows else 0.0)
+    # block-pool leak audit: every server that exited gracefully reports
+    # its engine's residual allocation (killed servers can't — their KV
+    # state died with the simulated node)
+    leaked = sum(r["serve"]["fleet"].get("leaked_blocks", 0)
+                 for r in servers if r["serve"].get("fleet"))
+    return {
+        "drained": ok,
+        "wall_s": wall,
+        "goodput_tok_per_s": goodput,
+        "ttft_p50_s": pct(ttfts, 50),
+        "ttft_p99_s": pct(ttfts, 99),
+        "failed_pilots": failed_pilots,
+        "pilot_seconds": fleet.pilot_seconds(),
+        "results": pool.results(),
+        "spec_servers": len(spec_rows),
+        "acceptance_rate": mean("acceptance_rate"),
+        "tokens_per_step": mean("tokens_per_step"),
+        "leaked_blocks": leaked,
+        "poison_rids": poison_rids,
+        "quarantined_rids": sorted(r.rid for r in recs.values()
+                                   if r.quarantined),
+        "fail_reasons": {r.rid: r.fail_reason for r in recs.values()
+                         if r.failed},
+        "chaos": ctl.stats() if ctl is not None else None,
+        "servers": servers,
+        **stats,
+    }
+
+
+def make_bursty_schedule(trace: list[dict], *, bursts: int, burst_s: float,
+                         gap_s: float, seed: int = 0) -> list[tuple[float, dict]]:
+    """Square-wave arrival schedule with Poisson arrivals inside each high
+    phase: the trace is split evenly across ``bursts`` bursts; within a
+    burst, inter-arrival gaps are exponential (rate = burst size /
+    burst_s, clipped to the burst window), and between bursts the pool
+    goes quiet for ``gap_s`` — the demand shape an autoscaler must track
+    without flapping."""
+    rng = np.random.default_rng(seed)
+    per = (len(trace) + bursts - 1) // bursts
+    out: list[tuple[float, dict]] = []
+    for b in range(bursts):
+        chunk = trace[b * per:(b + 1) * per]
+        if not chunk:
+            break
+        t = b * (burst_s + gap_s)
+        rate = len(chunk) / burst_s
+        offs = np.minimum(np.cumsum(rng.exponential(1.0 / rate,
+                                                    size=len(chunk))),
+                          burst_s)
+        for off, e in zip(offs, chunk):
+            out.append((t + float(off), e))
+    return out
+
+
+def serve_fleet_schedule(arch: str, schedule: list[tuple[float, dict]], *,
+                         slots: int = 8, max_len: int = 1024,
+                         policy=None, n_pilots: int | None = None,
+                         initial_pilots: int = 1, lease_ttl: float = 0.5,
+                         idle_grace: float = 0.5, registry=None,
+                         settle_to_zero: bool = True, smoke: bool = False,
+                         device="cuda") -> dict:
+    """Drive a serving fleet on ``device`` through a WALL-CLOCK arrival
+    schedule (``[(t_offset_s, entry), ...]``, sorted by offset); every
+    server binds the `_fleet_image` of ``arch``.
+
+    ``policy`` (an :class:`~repro_torch.core.autoscaler.AutoscalePolicy`)
+    runs the fleet under the demand-driven autoscaler starting from
+    ``initial_pilots``; ``policy=None`` runs a STATIC fleet of
+    ``n_pilots`` — the peak-sized baseline the autoscaler is judged
+    against.  Returns pool stats + pool-level TTFT percentiles +
+    ``pilot_seconds`` (fleet-lifetime slice holding, the cost metric) and,
+    when autoscaled, the decision ledger / flap count / scale-to-zero
+    outcome."""
+    from repro_torch.core.autoscaler import FleetAutoscaler
+
+    sim = ClusterSim(registry=registry, device=device)
+    pool = FleetDispatcher(lease_ttl=lease_ttl)
+    img = _fleet_image(arch, max_len, slots, smoke)
+    spec = {"slots": slots, "max_len": max_len}
+    n_start = n_pilots if policy is None else max(policy.min_pilots,
+                                                 initial_pilots)
+    if policy is None and n_pilots is None:
+        raise ValueError("static mode needs n_pilots")
+    fleet = sim.spawn_fleet(n_start, PilotConfig(max_payloads=4,
+                                                 idle_grace=idle_grace))
+    scaler = None
+    out: dict = {}
+    try:
+        if n_start:
+            fleet.submit_servers(img, pool.name, n=n_start, spec=spec)
+            if not pool.wait_servers(n_start, timeout=300.0):
+                raise RuntimeError(
+                    f"only {len(pool.servers)}/{n_start} servers warm "
+                    f"within 300s")
+        if policy is not None:
+            scaler = FleetAutoscaler(fleet, img, pool=pool, policy=policy,
+                                     spec=spec)
+            scaler.start()
+        t0 = time.monotonic()
+        for dt, entry in schedule:
+            lag = dt - (time.monotonic() - t0)
+            if lag > 0:
+                time.sleep(lag)
+            pool.submit(entry)
+        pool.seal()
+        ok = pool.wait_all(timeout=600.0)
+        wall = time.monotonic() - t0
+        out["drained"] = ok
+        out["wall_s"] = wall
+        if scaler is not None and policy.min_pilots == 0 and settle_to_zero:
+            # the empty-trace epilogue: demand is 0, so the loop must shed
+            # every pilot (victims exit via drain/idle_grace) — the
+            # scale-to-zero half of the (g)->(h) lifecycle
+            budget = (policy.down_cooldown
+                      + policy.down_stable_ticks * policy.interval + 30.0)
+            deadline = time.monotonic() + budget
+            while fleet.size() > 0 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            out["scaled_to_zero"] = fleet.size() == 0
+            out["scale_to_zero_s"] = time.monotonic() - t0 - wall
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        pool.close()
+        fleet.drain_all()
+        fleet.join_all(30.0)
+        fleet.reap()
+    recs = pool.records()
+    ttfts = [r.first_token_s for r in recs.values()
+             if r.first_token_s is not None]
+    pct = lambda v, q: float(np.percentile(v, q)) if v else None  # noqa: E731
+    out.update({
+        "ttft_p50_s": pct(ttfts, 50),
+        "ttft_p99_s": pct(ttfts, 99),
+        "pilot_seconds": fleet.pilot_seconds(),
+        "results": pool.results(),
+        **pool.stats(),
+    })
+    if scaler is not None:
+        out["autoscale"] = scaler.stats()
+        out["decisions"] = [dataclasses.asdict(d) for d in scaler.decisions]
+        out["t_start"] = t0
+    return out
+
+
+def _pick_victim(fleet, pool, *, exclude=()):
+    """The live pilot holding the most request leases (never a survivor of
+    a previous kill round that holds none — killing an idle pilot exercises
+    nothing)."""
+    holders = pool.lease_holders()
+    best, best_n = None, -1
+    for p in fleet.live():
+        if p.pilot_id in exclude:
+            continue
+        n = len(holders.get(p.pilot_id, []))
+        if n > best_n:
+            best, best_n = p, n
+    return best if best_n > 0 else None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="smollm-360m",
@@ -242,7 +559,35 @@ def main(argv=None):
                          "pilot late-binds in turn")
     ap.add_argument("--archs", default="smollm-360m,mamba2-370m",
                     help="comma-separated archs for --via-pilots")
+    ap.add_argument("--draft", default=None,
+                    help="fleet serve: speculative decoding on every "
+                         "server, a draft arch or 'self' for the self-draft "
+                         "ablation")
+    ap.add_argument("--pilots", type=int, default=None,
+                    help="fleet serve: N pilots lease requests from one "
+                         "shared pool")
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="fleet serve: hard-kill a lease-holding pilot "
+                         "after K completed requests")
+    ap.add_argument("--chaos", action="store_true",
+                    help="fleet serve: run the canned chaos drill (crash + "
+                         "stall + slow + flaky heartbeat + one poison "
+                         "request) with gray-failure hardening on")
+    ap.add_argument("--hedge", type=float, default=None,
+                    help="fleet serve: enable hedged re-dispatch with this "
+                         "straggler budget factor (x pool p95 service time)")
+    ap.add_argument("--quarantine-after", type=int, default=None,
+                    help="fleet serve: quarantine a request once this many "
+                         "distinct pilots died holding it (0 disables)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="fleet serve on a bursty square-wave trace with "
+                         "the demand-driven autoscaler (--pilots caps the "
+                         "fleet; starts at 1, scales to zero in the gaps)")
     args = ap.parse_args(argv)
+    if args.autoscale:
+        return _autoscale_main(args)
+    if args.pilots:
+        return _fleet_main(args)
     if args.via_pilots:
         out = serve_via_pilots(args.archs.split(","), args.requests,
                                slots=args.slots, max_len=args.max_len,
@@ -261,6 +606,62 @@ def main(argv=None):
                          device=args.device)
     del stats["streams"]
     print(json.dumps(stats))
+
+
+def _fleet_main(args) -> int:
+    """``--pilots N``: `serve_fleet`, with the chaos drill's policy and
+    plan when asked; prints the pool's stats (not the streams)."""
+    robustness, chaos_plan, poison = None, None, 0
+    if args.chaos or args.hedge is not None \
+            or args.quarantine_after is not None:
+        from repro_torch.serving.dispatch import RobustnessPolicy
+        robustness = RobustnessPolicy()
+        if args.hedge is not None:
+            robustness.hedge_factor = args.hedge
+        if args.quarantine_after is not None:
+            robustness.quarantine_after = args.quarantine_after
+    if args.chaos:
+        from repro_torch.core.chaos import FaultPlan, FaultSpec
+        chaos_plan = FaultPlan(faults=[
+            FaultSpec(kind="crash", at_s=0.5),
+            FaultSpec(kind="stall", at_s=1.0, duration_s=2.0),
+            FaultSpec(kind="slow", at_s=1.5, duration_s=2.0, factor=5.0),
+            FaultSpec(kind="flaky_heartbeat", at_s=1.5, duration_s=2.0),
+        ], poison=True)
+        poison = 1
+    out = serve_fleet(args.arch, args.requests, args.pilots,
+                      slots=args.slots, max_len=args.max_len,
+                      fail_at=args.fail_at, seed=args.seed,
+                      draft=args.draft, spec_k=args.spec_k,
+                      robustness=robustness, chaos_plan=chaos_plan,
+                      poison=poison, smoke=args.smoke, device=args.device)
+    out.pop("results")
+    if args.draft:
+        print(f"[spec] servers={out['spec_servers']} "
+              f"acceptance_rate={out['acceptance_rate']:.3f} "
+              f"tokens_per_step={out['tokens_per_step']:.2f}")
+    print(json.dumps(out, default=str))
+    return 0 if out["drained"] else 1
+
+
+def _autoscale_main(args) -> int:
+    """``--autoscale``: `serve_fleet_schedule` on a 3-burst square wave
+    (1 s bursts, 5 s gaps) under the autoscaler, at most ``--pilots``
+    (default 4) pilots, from one up and down to zero."""
+    from repro_torch.core.autoscaler import AutoscalePolicy
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    trace = make_trace(cfg.vocab_size, args.requests, max_len=args.max_len,
+                       seed=args.seed)
+    schedule = make_bursty_schedule(trace, bursts=3, burst_s=1.0, gap_s=5.0)
+    out = serve_fleet_schedule(
+        args.arch, schedule, slots=args.slots, max_len=args.max_len,
+        policy=AutoscalePolicy(min_pilots=0, max_pilots=args.pilots or 4,
+                               slots_per_pilot=args.slots),
+        smoke=args.smoke, device=args.device)
+    out.pop("results")
+    out.pop("t_start", None)
+    print(json.dumps(out, default=str))
+    return 0 if out["drained"] else 1
 
 
 if __name__ == "__main__":

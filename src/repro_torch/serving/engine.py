@@ -94,6 +94,9 @@ class Request:
     tokens: list = dataclasses.field(default_factory=list)
     first_token_s: float | None = None
     done_s: float | None = None
+    # a KV handoff to resume from (role="decode", the disaggregated slice:
+    # ROADMAP.md Queue 1 item 7); a unified engine rejects one in `submit`
+    handoff: object | None = None
 
 
 @dataclasses.dataclass
@@ -516,6 +519,10 @@ class ServeEngine:
         if req.rid == -1:
             raise ValueError("request id -1 is reserved (the engine's "
                              "free-slot sentinel)")
+        if req.handoff is not None:
+            raise ValueError(
+                f"role={self.role!r} engine cannot import a KV handoff "
+                "(only role='decode' resumes from one)")
         plen = admit_length(len(req.prompt), self.max_len)
         end_max = min(plen + req.max_new_tokens, self.max_len)
         need = -(-end_max // self.block_size)
@@ -874,6 +881,62 @@ class ServeEngine:
             self._zero_ssm_rows(0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def warm_install(self):
+        """Run one real admission, decode step and eviction per admit
+        bucket over dummy requests (rid -2, -3, ...), then flush the
+        prefix cache's dummy blocks and `reset_metrics`.  `warm_admission`
+        runs each bucket's prefill; this runs what surrounds it (the block
+        scatter, the table writes, the decode step and the packed step's
+        unpack), so their first-use costs land before a fleet server takes
+        leases: one tick held past the lease TTL makes the pool requeue
+        what the server just fetched."""
+        assert not self._live and not self.queue and not self._jobs, \
+            "warm on an idle engine"
+        for i, pb in enumerate(admit_buckets(self.max_len)):
+            try:
+                # rid -1 is the free-slot sentinel: dummies start at -2
+                self.submit(Request(
+                    rid=-2 - i,
+                    prompt=(np.arange(pb) % self.cfg.vocab_size).astype(
+                        np.int32),
+                    max_new_tokens=1))
+            except ValueError:
+                continue                   # bucket exceeds this pool's reach
+        self.run()
+        if self.prefix is not None:
+            # real prompts never match the dummies' blocks: drop them
+            self.prefix.evict_unreferenced(self.allocator.capacity_blocks)
+        self.reset_metrics()               # also drops the dummy results
+
+    def reset_metrics(self):
+        """Zero the counters and results between phases (after a warm-up
+        run) without touching the step functions, the graph or slot state.
+        Besides the reference's counters it zeroes the port's own: the tick
+        samples behind ``itl_*`` and the engine's ``launches`` (the graph's
+        warm-up launches stay in ``graph_warm_launches``), so a fleet
+        server's stats describe its live traffic only."""
+        assert not self._live and not self.queue and not self._jobs, \
+            "engine still has work"
+        self.steps = 0
+        self.idle_slot_steps = 0
+        self.d2h_transfers = 0
+        self.prefill_chunks = 0
+        self.blocked_admissions = 0
+        self.prompt_tokens_total = 0
+        self.prefix_hit_tokens = 0
+        self._kv_util_sum = 0.0
+        self.kv_peak_live_tokens = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.tokens_emitted = 0
+        self.draft_time_s = 0.0
+        self._tick_times = []
+        self.launches.clear()
+        if self.prefix is not None:
+            self.prefix.lookups = 0
+            self.prefix.hits = 0
+        self.done.clear()
 
     def block_leaks(self) -> int:
         """KV block leak audit for an IDLE engine: drops the prefix cache's

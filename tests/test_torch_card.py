@@ -21,14 +21,15 @@ CUDA graph and replayed.  The serve engine's decode step, captured as a
 CUDA graph, is held bitwise to the eager step at smoke widths (paged,
 dense, mamba2), its replays to their launch counts, and a chunked
 admission beside a decoding slot to its idle-engine run; one pilot binds
-two smoke serve images in turn, each bitwise its direct engine.  The
-train step on the card is held to the same step on the CPU (loss, norm,
-every gradient leaf) with no kernel launched, every kernel wrapper refuses
-a CUDA input that requires grad, and a pilot's train payload resumes from
-its checkpoint after a node failure.  The
-verify and dense decode kernels share the paged decode kernel's body and
-split plan, so they are also held to it bitwise, at lengths on the edges
-of its sequence splits too.
+two smoke serve images in turn, each bitwise its direct engine; three
+pilots serve one pool's requests, one killed, bitwise the direct engine.
+The train step on the card is held to the same step on the CPU (loss,
+norm, every gradient leaf) with no kernel launched, every kernel wrapper
+refuses a CUDA input that requires grad, and a pilot's train payload
+resumes from its checkpoint after a node failure.  The verify and dense
+decode kernels share the paged decode kernel's body and split plan, so
+they are also held to it bitwise, at lengths on the edges of its
+sequence splits too.
 """
 
 from __future__ import annotations
@@ -653,6 +654,29 @@ def test_pilot_binds_serve_images_on_the_card(card):
     assert smollm["flash_attention"] == 6 * 2      # 6 admissions x 2 layers
     assert "ssd_scan" not in smollm and "flash_attention" not in mamba
     assert mamba["ssd_scan"] == 6 * get_smoke_config(archs[1]).num_layers
+
+
+def test_fleet_requeues_a_dead_servers_requests_on_the_card(card):
+    """Three pilots lease one pool's requests on the card, each server a
+    smoke engine replaying its captured step; the pilot holding the most
+    leases is killed after 2 settled requests.  Every request completes
+    once, its tokens bitwise ``serve_direct``'s on the card, and every
+    surviving server returns each KV block."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.serve import serve_direct, serve_fleet
+    out = serve_fleet("smollm-360m", 10, 3, slots=2, max_len=64, fail_at=2,
+                      smoke=True, device="cuda")
+    assert out["drained"] and out["completed"] == 10
+    assert len(out["failed_pilots"]) == 1 and out["replays"] >= 1
+    assert sorted(out["results"]) == list(range(10))
+    direct = serve_direct(get_smoke_config("smollm-360m"), 10, 2, 64,
+                          device="cuda")
+    assert out["results"] == direct["streams"]
+    done = [s for s in out["servers"] if s["serve"].get("fleet")]
+    assert done
+    for s in done:
+        assert s["exitcode"] == 0 and s["engine"]["step_graph"], s["error"]
+        assert s["serve"]["fleet"]["leaked_blocks"] == 0
 
 
 # ---------------------------------------------------------------------------

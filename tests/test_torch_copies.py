@@ -30,6 +30,8 @@ COPIES = {
     "core/taskrepo.py": ({}, None),
     "core/monitor.py": ({}, None),
     "core/chaos.py": ({}, None),
+    "core/autoscaler.py": ({}, None),
+    "serving/dispatch.py": ({}, None),
     "runtime/elastic.py": ({}, None),
     # MeshSpec alone: a docstring of its own; the reference's imports of
     # jax and typing.Sequence, MeshSpec.build and everything after
