@@ -177,6 +177,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
               accumulates with atomics on the card), no kernel launched,
               and ``memory_allocated`` back within ``PILOT_MEMORY_SLACK``
               of its value before the bind.
+   gemma_serve, starcoder_serve — serve's trace on full-width gemma-2b
+              (MQA at head width 256, GeGLU, tied) and starcoder2-3b
+              (LayerNorm, plain-gelu MLP), random weights from seed 0,
+              paged, graphed: the gates of phase 3, flash and paged decode
+              launched, RMSNorm launched on gemma and not on starcoder2
+              (its LayerNorm takes no kernel).
+   swa_serve — mixtral-8x7b at full width and 8 of its 32 layers (the
+              whole model does not fit one 80 GB card), window 4096, on
+              its dense rolling rings of 4096 slots a row: 8 slots,
+              max_len 8192, 8 requests of 64 new tokens with prompts of
+              ``SWA_PROMPTS`` tokens (two admitted at the 8191 bucket,
+              whose prefill write rolls the ring; three at 4096, whose
+              decode crosses the window).  The gates of phase 3, no
+              speculation and no paging, flash (with the window) once a
+              layer per admission, the grouped matmul, dense decode and
+              RMSNorm launched, paged decode not; then the same trace on
+              the eager step (``swa_serve_eager``): streams bitwise the
+              graph's, launches equal once its warm-up is taken off.
+   chunked_swa — 2 mixtral requests (5000 and 3000 tokens) admitted in
+              512-token chunks on the rolling rings: the gates, the exact
+              chunk count, no flash or grouped-matmul launch; then their
+              chained chunk logits against the one-shot prefill within
+              LOGIT_TOL (at an MoE capacity that drops nothing; against
+              the config's own capacity reported).
+   pilot_gemma — the paper's pair (examples/late_binding_serve.py): one
+              pilot binds full-width smollm-360m, then gemma-2b,
+              prefetched, with pilot_serve's gates (streams bitwise serve's
+              and gemma_serve's).
 10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
               admission (the kernel path's own activations), its output
               with the SSD-scan kernel against the same mixer on the
@@ -186,6 +214,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               "chunked", norm "jnp"): the first 12 layers gated by
               LOGIT_TOL, all 48 reported beside the plain path's own move
               when only the RMSNorm kernel is swapped in.
+11. arch_models — teacher-forced logits as in phase 6, kernels against
+              the plain path within LOGIT_TOL: full-width gemma-2b and
+              starcoder2-3b at full depth, paged; mixtral-8x7b at 8 layers
+              on its rings, prompts of 4090 and 6000 tokens (its rolling
+              prefill, then decodes past the window), moe "gmm" against
+              "einsum", with the routers' top-k agreement.
 
 The kernels phase also checks every kernel at granite's shapes (24 heads,
 8 KV heads, d_model 1536); flash prefill at head widths 128 and 256 (MQA,
@@ -214,7 +248,14 @@ flash, grouped-matmul and SSD-scan entries record their instance, nvcc's
 register and spill report and the tensor-core instructions in their SASS
 (a build without ``HGMMA`` fails; for the SSD scan, without ``HGMMA`` or
 ``HMMA``).  One 1023-token admission prefill of full-width mamba2-370m
-(48 SSD-scan launches) is timed too (``mamba_admission``).
+(48 SSD-scan launches) is timed too (``mamba_admission``).  At the new
+archs' shapes (``arch_kernel_shapes``, each kernel entry's
+``arch_shapes``): flash at gemma-2b's and starcoder2-3b's 1023-token and
+mixtral-8x7b's 8191-token admission (window 4096), with the Dh = 256
+instance's ptxas report; paged decode at gemma's G = 8, Dh = 256 and
+starcoder2's G = 12; dense decode over mixtral's 4096-slot rings; the
+grouped matmul at mixtral's experts (C = 2560); RMSNorm at D = 2048 and
+4096: each against its plain version and timed as above.
 
 ``python3 chip_smoke.py --times-of OTHER/src`` builds another checkout's
 kernels and prints the same main-shape times of rows 2 and 4-7 and of the
@@ -295,6 +336,46 @@ SHORT_CHUNK = 32
 DENSE_ARCH = "smollm-360m"
 MOE_ARCH = "granite-moe-3b-a800m"
 SSM_ARCH = "mamba2-370m"
+GEMMA_ARCH = "gemma-2b"
+CODE_ARCH = "starcoder2-3b"
+SWA_ARCH = "mixtral-8x7b"
+# mixtral-8x7b at full width and 8 of its 32 layers: ~11.9 B parameters,
+# ~24 GB in bf16 (all 32 layers, ~94 GB, do not fit one 80 GB card)
+SWA_LAYERS = 8
+# swa_serve: 8 slots, max_len 8192, 8 requests of 64 new tokens.  Prompts
+# of 5000 and 7000 tokens are admitted at the 8191 bucket (max_len - 1),
+# so their prefill write rolls the 4096-slot ring (and they decode one
+# step); 4060, 4090 and 3000 at the 4096 bucket, so their decode crosses
+# the window from position 4096 on; 1500, 600 and 200 decode in rings not
+# yet full.  chunked_swa: 5000 and 3000 in 512-token chunks (the first
+# rolls the ring during its chunks, the second's decode crosses it).
+SWA = dict(n_requests=8, slots=8, max_len=8192, seed=0, prompt_len=None,
+           max_new_tokens=64)
+SWA_PROMPTS = (5000, 4060, 200, 7000, 3000, 1500, 4090, 600)
+SWA_CHUNK = 512
+SWA_CHUNKED_PROMPTS = (5000, 3000)
+# the new archs' kernel shapes (arch_kernel_shapes): flash at each one's
+# longest admission (S, H, K, Dh, window); paged decode at gemma's G = 8,
+# Dh = 256 and starcoder2's G = 12 ((H, K, Dh), PAGED_MAIN's rows); dense
+# decode over mixtral's rings (B, T, H, K, Dh, lengths); mixtral's experts
+# at the 8191 bucket's capacity (E, C, {name: (D, F)}); RMSNorm (R, D)
+ARCH_FLASH = {"gemma_S1023 (1,1023,8/1,256)": (1023, 8, 1, 256, None),
+              "starcoder2_S1023 (1,1023,24/2,128)": (1023, 24, 2, 128, None),
+              "mixtral_S8191_w4096 (1,8191,32/8,128)":
+                  (8191, 32, 8, 128, 4096)}
+ARCH_PAGED = {"gemma (8,8,256), pools (513,16,1,256)": (8, 1, 256),
+              "starcoder2 (8,24,128), pools (513,16,2,128)": (24, 2, 128)}
+ARCH_DENSE = ("mixtral q (8,32,128), rings (8,4096,8,128)",
+              (8, 4096, 32, 8, 128, [4096, 1, 4095, 2048, 4096, 129, 4000,
+                                     64]))
+ARCH_GMM = (8, 2560, {"mixtral_up (8,2560,4096)x(8,4096,14336)":
+                      (4096, 14336),
+                      "mixtral_down (8,2560,14336)x(8,14336,4096)":
+                      (14336, 4096)})
+ARCH_NORM = {"gemma_decode (8,2048)": (8, 2048),
+             "gemma_prefill (1023,2048)": (1023, 2048),
+             "mixtral_decode (8,4096)": (8, 4096),
+             "mixtral_prefill (8191,4096)": (8191, 4096)}
 # the pilot's cleanup (§3.6 of the paper) on the card: memory back within
 # this of its value before the first bind
 PILOT_MEMORY_SLACK = 64 << 20
@@ -1147,19 +1228,20 @@ def serve_trace(arch, load=SERVE):
                       max_new_tokens=load["max_new_tokens"])
 
 
-def serve_run(phase, wrappers, arch=DENSE_ARCH, load=SERVE, **kw):
-    """One ``serve_direct`` run of the trace ``load`` on ``arch`` with
-    every launch count set to 0 just before it and read just after; the
-    gates every run must pass."""
+def serve_run(phase, wrappers, arch=DENSE_ARCH, load=SERVE, cfg=None,
+              trace=None, **kw):
+    """One ``serve_direct`` run of the trace ``load`` on ``arch`` (or of
+    ``trace`` on ``cfg``) with every launch count set to 0 just before it
+    and read just after; the gates every run must pass."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import expected_tokens, serve_direct
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
+    trace = trace or serve_trace(arch, load)
     for w in wrappers:
         w.launches = 0
-    stats = serve_direct(cfg, device="cuda", **load, **kw)
+    stats = serve_direct(cfg, device="cuda", trace=trace, **load, **kw)
     torch.cuda.synchronize()
     launches = {w.__name__: w.launches for w in wrappers}
-    trace = serve_trace(arch, load)
     want = {e["rid"]: expected_tokens(e, load["max_len"]) for e in trace}
     out = {k: stats[k] for k in (
         "completed", "decode_steps", "tokens_decoded", "d2h_transfers",
@@ -1342,19 +1424,19 @@ def allocated_bytes():
     return torch.cuda.memory_allocated()
 
 
-def pilot_serve_phase(wrappers, direct):
-    """Two full-width serve images late-bound in turn by one pilot on the
-    card (`serve_via_pilots`), each against its direct run's streams
-    (``direct``: {arch: {rid: tokens}}); then a bare executor's pull and
-    rebind.  Returns each payload engine's launches by arch."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.core.arena import SharedArena
-    from repro_torch.core.images import ExecutableRegistry, PayloadImage
-    from repro_torch.core.latebind import PayloadExecutor, PodPatchCapability
-    from repro_torch.core.proctable import ProcessTable
+def pilot_run(wrappers, archs, direct):
+    """Two full-width serve images, ``archs``, late-bound in turn by one
+    pilot on the card (`serve_via_pilots`; the second prefetched while the
+    first serves), each answering serve's trace: the gates of every pilot
+    run (both exit 0, full token counts, one device->host copy a step, no
+    leaked block, the captured step, streams bitwise their direct run's
+    ``direct`` {arch: {rid: tokens}}, the second bind a prefetched cache
+    hit, memory back within ``PILOT_MEMORY_SLACK``).  Returns the run,
+    its wall seconds, each payload engine's launches by arch, the report
+    rows, the prefetch warm-up's launches and the memory readings."""
+    from repro_torch.core.images import PayloadImage
     from repro_torch.launch.serve import (
         KERNEL_FLAGS, expected_tokens, serve_via_pilots)
-    archs = [DENSE_ARCH, SSM_ARCH]
     traces = [serve_trace(a) for a in archs]
     shape = f"custom:{SERVE['max_len']}x{SERVE['slots']}"
     mem_before = allocated_bytes()
@@ -1368,7 +1450,7 @@ def pilot_serve_phase(wrappers, direct):
     wall = time.monotonic() - t0
     sim, pilot = out["sim"], out["pilot"]
     # the prefetch is done once its event is set (a cached image's is)
-    img2 = PayloadImage(SSM_ARCH, shape, "serve", smoke=False,
+    img2 = PayloadImage(archs[1], shape, "serve", smoke=False,
                         flags=KERNEL_FLAGS)
     assert sim.registry.prefetch(img2, "cuda").wait(300.0)
     torch.cuda.synchronize()
@@ -1402,18 +1484,51 @@ def pilot_serve_phase(wrappers, direct):
             "streams_equal_direct": len(direct[arch]), "launches": n})
     warm = {w: total[w] - sum(n[w] for n in launches.values())
             for w in total}
-    p1, p2 = launches[DENSE_ARCH], launches[SSM_ARCH]
     for w in ("flash_attention", "paged_decode_attention", "rmsnorm_fused"):
-        assert p1[w] > 0, p1
-    layers = get_config(SSM_ARCH).num_layers
-    assert p2["ssd_scan"] == layers * SERVE["n_requests"], p2
-    assert p2["flash_attention"] == p2["paged_decode_attention"] == 0, p2
+        assert launches[archs[0]][w] > 0, launches[archs[0]]
     assert pilot.history[1]["bind_cached"] is True, pilot.history[1]
     assert out["registry"]["prefetches"] == 1, out["registry"]
     assert pilot.history[0].get("prefetch_started") is True
     assert min(warm.values()) >= 0, warm
     assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
         mem_before, mem_after)
+    memory = {"before": mem_before, "after": mem_after,
+              "raw_before": raw_before, "raw_after": raw_after,
+              "slack": PILOT_MEMORY_SLACK}
+    return out, wall, launches, report, warm, memory
+
+
+def pilot_report(phase, out, wall, report, warm, memory, **extra):
+    pilot = out["pilot"]
+    say({"phase": phase, "wall_s": wall, "payloads": report,
+         "history": [{k: h.get(k) for k in ("task_id", "exitcode",
+                                            "bind_seconds", "bind_cached",
+                                            "prefetch_started")}
+                     for h in pilot.history],
+         "registry": out["registry"], "repo": out["repo"],
+         "prefetch_warm_launches": warm, "memory_allocated": memory,
+         **extra})
+
+
+def pilot_serve_phase(wrappers, direct):
+    """smollm-360m, then mamba2-370m, late-bound in turn by one pilot on
+    the card (`pilot_run`): the SSD scan 48 times per admission on the
+    second; then a bare executor's pull and rebind of each image.  Returns
+    each payload engine's launches by arch."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.arena import SharedArena
+    from repro_torch.core.images import ExecutableRegistry, PayloadImage
+    from repro_torch.core.latebind import PayloadExecutor, PodPatchCapability
+    from repro_torch.core.proctable import ProcessTable
+    from repro_torch.launch.serve import KERNEL_FLAGS
+    archs = [DENSE_ARCH, SSM_ARCH]
+    shape = f"custom:{SERVE['max_len']}x{SERVE['slots']}"
+    out, wall, launches, report, warm, memory = pilot_run(wrappers, archs,
+                                                          direct)
+    p2 = launches[SSM_ARCH]
+    layers = get_config(SSM_ARCH).num_layers
+    assert p2["ssd_scan"] == layers * SERVE["n_requests"], p2
+    assert p2["flash_attention"] == p2["paged_decode_attention"] == 0, p2
 
     # a bare executor, for each image: the pull no prefetch staged, its
     # warm-up (what a prefetch runs under the device lock), and a warm
@@ -1436,18 +1551,8 @@ def pilot_serve_phase(wrappers, direct):
                       "rebind_s": ex.last_bind_seconds}
     ex.close()
     ex.arena.destroy()
-    say({"phase": "pilot_serve", "wall_s": wall, "payloads": report,
-         "history": [{k: h.get(k) for k in ("task_id", "exitcode",
-                                            "bind_seconds", "bind_cached",
-                                            "prefetch_started")}
-                     for h in pilot.history],
-         "registry": out["registry"], "repo": out["repo"],
-         "prefetch_warm_launches": warm,
-         "memory_allocated": {"before": mem_before, "after": mem_after,
-                              "raw_before": raw_before,
-                              "raw_after": raw_after,
-                              "slack": PILOT_MEMORY_SLACK},
-         "bare_executor": bare})
+    pilot_report("pilot_serve", out, wall, report, warm, memory,
+                 bare_executor=bare)
     return launches
 
 
@@ -1986,17 +2091,19 @@ def dense_phase(wrappers, paged_streams):
     return launches
 
 
-def prefilled_state(bundle, params, cfg, prompts, dev, kv="paged"):
-    """A ``kv`` decode state of len(prompts) slots, max_len 1024, each slot
-    prefilled with its prompt (paged: 64 blocks per slot).  Returns the
+def prefilled_state(bundle, params, cfg, prompts, dev, kv="paged",
+                    max_len=1024):
+    """A ``kv`` decode state of len(prompts) slots, each slot prefilled
+    with its prompt (paged: max_len / 16 blocks per slot).  Returns the
     state and each prefill's last logits."""
     from repro_torch.models.api import init_decode_state
     from repro_torch.serving.engine import (
         _install_slot, _install_slot_paged, admit_length)
-    state = init_decode_state(cfg, len(prompts), 1024, kv=kv, device=dev)
+    state = init_decode_state(cfg, len(prompts), max_len, kv=kv, device=dev)
+    mb = max_len // 16
     logits_all = []
     for slot, prompt in enumerate(prompts):
-        plen = admit_length(len(prompt), 1024)
+        plen = admit_length(len(prompt), max_len)
         padded = np.zeros((plen,), np.int32)
         padded[-len(prompt):] = prompt
         logits, cache = bundle.prefill(
@@ -2005,19 +2112,20 @@ def prefilled_state(bundle, params, cfg, prompts, dev, kv="paged"):
         if kv == "dense":
             _install_slot(state, cache, slot, plen, 0)
             continue
-        row = list(range(1 + slot * 64, 1 + (slot + 1) * 64))
+        row = list(range(1 + slot * mb, 1 + (slot + 1) * mb))
         _install_slot_paged(state, cache, slot, plen, 0, row, 0, 16)
     return state, logits_all
 
 
-def teacher_forced(arch, kern, plain, dev, kv="paged", layers=None):
+def teacher_forced(arch, kern, plain, dev, kv="paged", layers=None,
+                   prompt_lens=(300, 700), max_len=1024):
     """``arch`` (its first ``layers`` layers, all by default) teacher-forced
     with the kernels (``kern``) and with the plain path (``plain``) from
-    the same weights: prefill of prompts of 300 and 700 tokens (buckets 512
-    and 1023), then 8 decode steps of forced tokens on a ``kv`` state.
-    Returns each run's logits, the weights, the rng, and each run's router
-    top-k expert sets (sorted, one tensor per MoE call; empty for a dense
-    arch)."""
+    the same weights: prefill of prompts of ``prompt_lens`` tokens (by
+    default 300 and 700: buckets 512 and 1023), then 8 decode steps of
+    forced tokens on a ``kv`` state of ``max_len``.  Returns each run's
+    logits, the weights, the rng, and each run's router top-k expert sets
+    (sorted, one tensor per MoE call; empty for a dense arch)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import moe
     from repro_torch.models.api import build_model
@@ -2029,8 +2137,9 @@ def teacher_forced(arch, kern, plain, dev, kv="paged", layers=None):
     params = build_model(kern).init(0, device=dev)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, base.vocab_size, size=n).astype(np.int32)
-               for n in (300, 700)]
-    forced = rng.integers(0, base.vocab_size, size=(8, 2)).astype(np.int32)
+               for n in prompt_lens]
+    forced = rng.integers(0, base.vocab_size,
+                          size=(8, len(prompts))).astype(np.int32)
     top_k = moe.top_k
     runs, routes = {}, {}
     for name, cfg in (("kernels", kern), ("plain", plain)):
@@ -2044,7 +2153,7 @@ def teacher_forced(arch, kern, plain, dev, kv="paged", layers=None):
         try:
             bundle = build_model(cfg)
             state, logits_all = prefilled_state(bundle, params, cfg, prompts,
-                                                dev, kv)
+                                                dev, kv, max_len)
             for t in range(8):
                 state["token"] = torch.from_numpy(forced[t][:, None]).to(dev)
                 logits, state = bundle.decode(params, state)
@@ -2206,6 +2315,364 @@ def mamba_model_phase(dev):
 
 
 
+# --------------------------------------------------------------------------
+# gemma-2b, starcoder2-3b and mixtral-8x7b (sliding-window attention)
+# --------------------------------------------------------------------------
+
+def swa_config():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(SWA_ARCH), num_layers=SWA_LAYERS)
+
+
+def swa_trace(vocab, prompt_lens):
+    """Requests of ``prompt_lens`` random tokens (seed 0), 64 new tokens
+    each, request i visible at tick i."""
+    rng = np.random.default_rng(SWA["seed"])
+    return [{"rid": i, "prompt": rng.integers(0, vocab, size=n).tolist(),
+             "max_new_tokens": SWA["max_new_tokens"], "at_step": i}
+            for i, n in enumerate(prompt_lens)]
+
+
+def no_drops(cfg):
+    """``cfg`` with an MoE capacity of every token (capacity factor E/k):
+    the one-shot prefill's capacity dispatch drops no assignment, as the
+    chunk path's dense-gated MoE never does (the reference's two paths;
+    with drops they compute different functions)."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def dense_arch_serve_phase(wrappers, phase, arch):
+    """serve's trace on full-width ``arch`` (gemma-2b, starcoder2-3b):
+    paged, graphed; flash and paged decode launched, RMSNorm launched
+    where the arch has it (starcoder2's LayerNorm launches none)."""
+    from repro_torch.configs.base import get_config
+    stats, launches = serve_run(phase, wrappers, arch=arch)
+    assert stats["kv"] == "paged" and stats["step_graph"], phase
+    for w in ("flash_attention", "paged_decode_attention"):
+        assert launches[w] > 0, (phase, launches)
+    norms = launches["rmsnorm_fused"]
+    assert (norms > 0) == (get_config(arch).norm == "rmsnorm"), launches
+    for w in ("decode_attention", "grouped_matmul", "ssd_scan",
+              "paged_verify_attention"):
+        assert launches[w] == 0, (phase, launches)
+    return stats, launches
+
+
+def swa_serve_phase(wrappers):
+    """mixtral-8x7b (8 layers, full width) on its 4096-slot rolling rings:
+    the trace of ``SWA_PROMPTS`` graphed (``swa_serve``) and eager
+    (``swa_serve_eager``).  Gates: those of every run, the dense layout
+    and no speculation, flash once a layer per admission, the grouped
+    matmul, dense decode and RMSNorm launched, paged decode not; the two
+    runs' streams bitwise equal and their launches equal once the graph's
+    warm-up steps are taken off.  Returns both runs' launches."""
+    cfg = swa_config()
+    trace = swa_trace(cfg.vocab_size, SWA_PROMPTS)
+    runs = {}
+    for phase, kw in (("swa_serve", {}),
+                      ("swa_serve_eager", dict(step_graph=False))):
+        stats, launches = serve_run(phase, wrappers, load=SWA, cfg=cfg,
+                                    trace=trace, **kw)
+        assert stats["kv"] == "dense" and stats["spec"] == "off", stats["kv"]
+        assert stats["step_graph"] == (phase == "swa_serve"), phase
+        assert launches["flash_attention"] == cfg.num_layers * len(trace)
+        for w in ("grouped_matmul", "decode_attention", "rmsnorm_fused"):
+            assert launches[w] > 0, (phase, launches)
+        assert launches["paged_decode_attention"] == 0, launches
+        runs[phase] = (stats, launches)
+    (graphed, g_launches), (eager, e_launches) = runs.values()
+    differ = [rid for rid, t in graphed["streams"].items()
+              if eager["streams"][rid] != t]
+    assert not differ, f"swa: eager streams differ from the graph's: {differ}"
+    warm = graphed["graph_warm_launches"]
+    replayed = {w: n - warm.get(w, 0) for w, n in g_launches.items()}
+    assert replayed == e_launches, (replayed, e_launches)
+    keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
+            "ttft_p99_s", "wall_s", "decode_steps")
+    say({"phase": "swa_graph_vs_eager", "arch": cfg.name,
+         "layers": cfg.num_layers, "reduced": "8 of 32 layers",
+         "streams_equal": len(graphed["streams"]),
+         "of": len(graphed["streams"]), "launches_equal": True,
+         "graph": {k: graphed[k] for k in keys},
+         "eager": {k: eager[k] for k in keys}})
+    return g_launches, e_launches
+
+
+def chunked_swa_phase(wrappers, dev):
+    """``SWA_CHUNKED_PROMPTS`` on mixtral (8 layers) admitted in 512-token
+    chunks on the rolling rings: the gates of every run, exactly the chunks
+    the buckets need, no flash or grouped-matmul launch (the chunk attends
+    in plain PyTorch and runs the dense-gated MoE, as the reference's),
+    dense decode launched.  Then the same prompts' chained chunk logits
+    into a fresh state against the one-shot prefill's, within LOGIT_TOL, at
+    an MoE capacity that drops nothing; against the config's own capacity
+    (which drops over-full experts' assignments) reported.  Returns the
+    run's launches."""
+    from repro_torch.launch.serve import _on_kernels
+    from repro_torch.models.api import build_model, init_decode_state
+    from repro_torch.serving.engine import admit_length
+    cfg = swa_config()
+    trace = swa_trace(cfg.vocab_size, SWA_CHUNKED_PROMPTS)
+    load = dict(SWA, n_requests=len(trace))
+    stats, launches = serve_run("chunked_swa", wrappers, load=load, cfg=cfg,
+                                trace=trace, prefill="chunked",
+                                prefill_chunk=SWA_CHUNK)
+    assert stats["step_graph"] and stats["prefill"] == "chunked"
+    buckets = [admit_length(n, SWA["max_len"]) for n in SWA_CHUNKED_PROMPTS]
+    want = sum(-(-b // SWA_CHUNK) for b in buckets)
+    assert stats["prefill_chunks"] == want, (stats["prefill_chunks"], want)
+    for w in ("flash_attention", "grouped_matmul", "paged_decode_attention"):
+        assert launches[w] == 0, launches
+    assert launches["decode_attention"] > 0, launches
+
+    kern = _on_kernels(cfg)
+    bundle, full = build_model(kern), build_model(no_drops(kern))
+    params = bundle.init(0, device=dev)
+    chained, oneshot, dropping = [], [], []
+    for e, plen in zip(trace, buckets):
+        padded = np.zeros((1, plen), np.int32)
+        padded[0, -len(e["prompt"]):] = e["prompt"]
+        toks = torch.from_numpy(padded).to(dev)
+        oneshot.append(full.prefill(params, {"tokens": toks})[0][:, -1])
+        dropping.append(bundle.prefill(params, {"tokens": toks})[0][:, -1])
+        state = init_decode_state(kern, 1, SWA["max_len"], kv="dense",
+                                  device=dev)
+        row = torch.zeros((1,), dtype=torch.int32, device=dev)
+        off = 0
+        while off < plen:
+            C = min(SWA_CHUNK - off % SWA_CHUNK, plen - off)
+            logits, _ = bundle.prefill_chunk(params, state,
+                                             toks[:, off:off + C], row, 0, off)
+            off += C
+        chained.append(logits)
+        del state
+    got, want_l = torch.cat(chained).float(), torch.cat(oneshot).float()
+    drop = torch.cat(dropping).float()
+    err = check_close("chunked_swa/logits", got, want_l, LOGIT_TOL)
+    say({"phase": "chunked_swa_logits", "arch": kern.name,
+         "layers": kern.num_layers, "buckets": buckets, "chunk": SWA_CHUNK,
+         "window": kern.sliding_window, "max_abs_err": err, "tol": LOGIT_TOL,
+         "argmax_agreement": float((got.argmax(-1) == want_l.argmax(-1))
+                                   .float().mean()),
+         "max_abs_logit": float(want_l.abs().max()),
+         "capacity_factor": no_drops(kern).moe.capacity_factor,
+         "vs_own_capacity": {
+             "capacity_factor": kern.moe.capacity_factor,
+             "max_abs_err": float((got - drop).abs().max()),
+             "argmax_agreement": float((got.argmax(-1) == drop.argmax(-1))
+                                       .float().mean())}})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pilot_gemma_phase(wrappers, direct):
+    """The paper's pair (examples/late_binding_serve.py): one pilot binds
+    full-width smollm-360m, then gemma-2b, prefetched (`pilot_run`'s
+    gates); gemma's engine launched flash, paged decode and RMSNorm.
+    Returns each payload engine's launches by arch."""
+    out, wall, launches, report, warm, memory = pilot_run(
+        wrappers, [DENSE_ARCH, GEMMA_ARCH], direct)
+    p2 = launches[GEMMA_ARCH]
+    for w in ("flash_attention", "paged_decode_attention", "rmsnorm_fused"):
+        assert p2[w] > 0, p2
+    assert p2["decode_attention"] == p2["grouped_matmul"] == 0, p2
+    pilot_report("pilot_gemma", out, wall, report, warm, memory)
+    return launches
+
+
+def arch_models_phase(dev):
+    """Teacher-forced logits of the kernel path against the plain path
+    (LOGIT_TOL), as ``model``: full-width gemma-2b and starcoder2-3b at
+    full depth, paged; mixtral-8x7b at full width and 8 layers on its
+    dense rings, prompts of 4090 and 6000 tokens at max_len 16384 (buckets
+    4096 and 8192: the second's prefill rolls the ring, and every decode
+    step is past the window), the kernels (moe "gmm") against the plain
+    path (moe "einsum"), with the routers' top-k agreement."""
+    on = dict(attn_impl="pallas", norm_impl="pallas")
+    off = dict(attn_impl="chunked", norm_impl="jnp")
+    for arch in (GEMMA_ARCH, CODE_ARCH):
+        runs, params, _, _ = teacher_forced(arch, on, off, dev)
+        del params
+        compare_logits("arch_models", arch, runs)
+        torch.cuda.empty_cache()
+    runs, params, _, routes = teacher_forced(
+        SWA_ARCH, dict(on, moe_impl="gmm"), dict(off, moe_impl="einsum"),
+        dev, kv="dense", layers=SWA_LAYERS, prompt_lens=(4090, 6000),
+        max_len=16384)
+    del params
+    same = total = 0
+    for a, b in zip(routes["kernels"], routes["plain"]):
+        eq = (a == b).all(dim=-1)
+        same += int(eq.sum())
+        total += eq.numel()
+    compare_logits("arch_models", SWA_ARCH, runs, layers=SWA_LAYERS,
+                   reduced="8 of 32 layers", window_crossing=True,
+                   topk_set_agreement=same / total, routed_rows=total)
+    torch.cuda.empty_cache()
+
+
+def _attn_case(rng, dev, B, S, H, K, Dh):
+    return (bf16(rng, (B, S, H, Dh), dev), bf16(rng, (B, S, K, Dh), dev),
+            bf16(rng, (B, S, K, Dh), dev))
+
+
+def _flash_plain_by_head(q, k, v, **kw):
+    """`flash_attention_plain`, one KV head (and its query heads) at a
+    time: the same function in a fraction of the memory at S = 8191."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    K = k.shape[2]
+    G = q.shape[2] // K
+    return torch.cat([flash_attention_plain(
+        q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1], **kw)
+        for h in range(K)], dim=2)
+
+
+def arch_kernel_shapes(rng, dev, ptxas):
+    """Each kernel on the new archs' main paths at their shapes: held to
+    its plain version (the kernel phase's tolerances) and timed as the
+    kernels line times it (``ms``, ``device_ms``, plain, one library call
+    where one computes the same function, the bound).  Returns {kernel
+    name: {shape name: entry}}."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.grouped_matmul.ops import (
+        bucket_matmul, grouped_matmul_plain)
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
+    out = {"flash_attention": {}, "paged_decode_attention": {},
+           "decode_attention": {}, "grouped_matmul": {}, "rmsnorm_fused": {}}
+
+    # flash prefill at each arch's longest admission
+    flash = out["flash_attention"]
+    for name, (S, H, K, Dh, window) in ARCH_FLASH.items():
+        q, k, v = _attn_case(rng, dev, 1, S, H, K, Dh)
+        kw = dict(window=window)
+        err = check_close(f"flash/{name}", flash_attention(q, k, v, **kw),
+                          _flash_plain_by_head(q, k, v, **kw), ATTN_TOL,
+                          ROW_REL_TOL)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window is not None:
+            i = torch.arange(S, device=dev)
+            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+
+        def sdpa(qt=qt, kt=kt, vt=vt, mask=mask):
+            if mask is None:
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        pairs = sum(min(i + 1, window or S) for i in range(S))
+        nbytes = 2 * (2 * S * H * Dh + 2 * S * K * Dh)
+        flash[name] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: flash_attention(q, k, v, **kw), n=10),
+            "device_ms": graph_ms(lambda: flash_attention(q, k, v, **kw),
+                                  n=10),
+            "plain_ms": time_ms(lambda: _flash_plain_by_head(q, k, v, **kw),
+                                n=2, warm=1),
+            "library_ms": time_ms(sdpa, n=10),
+            "library_device_ms": graph_ms(sdpa, n=10),
+            **bound(nbytes, 4 * Dh * H * pairs, BF16_FLOPS)}
+        del q, k, v, qt, kt, vt, mask
+    flash["ptxas_Dh256"] = {k: v for k, v in ptxas.get("flash_prefill",
+                                                       {}).items()
+                            if "256" in k}
+
+    # paged decode at gemma's (G = 8, Dh 256) and starcoder2's (G = 12)
+    for name, (H, K, Dh) in ARCH_PAGED.items():
+        c = dict(PAGED_MAIN, H=H, K=K, Dh=Dh)
+        args = paged_inputs(rng, dev, **c)
+        err = check_close(f"paged/{name}", paged_decode_attention(*args),
+                          paged_decode_attention_plain(*args), ATTN_TOL,
+                          ROW_REL_TOL)
+        live = sum(c["lens"])
+        nbytes = (live * K * Dh * 2 * 2 + 2 * c["B"] * H * Dh * 2
+                  + sum(-(-n // c["bs"]) for n in c["lens"]) * 4
+                  + c["B"] * 4)
+        out["paged_decode_attention"][name] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: paged_decode_attention(*args)),
+            "device_ms": graph_ms(lambda: paged_decode_attention(*args)),
+            "plain_ms": time_ms(lambda: paged_decode_attention_plain(*args)),
+            "library_ms": None,
+            **bound(nbytes, 4 * live * H * Dh, BF16_FLOPS)}
+
+    # dense decode over mixtral's 4096-slot rings
+    name, (B, T, H, K, Dh, lens) = ARCH_DENSE
+    q, kc, vc, ln = dense_inputs(rng, dev, B, T, H, K, Dh, lens)
+    err = check_close("dense/mixtral", decode_attention(q, kc, vc, ln),
+                      decode_attention_plain(q, kc, vc, ln), ATTN_TOL,
+                      ROW_REL_TOL)
+    qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = (torch.arange(T, device=dev)[None] < ln[:, None])[:, None, None]
+
+    def sdpa_ring():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    live = sum(lens)
+    out["decode_attention"][name] = {
+        "lens": lens, "max_abs_err": err,
+        "ms": time_ms(lambda: decode_attention(q, kc, vc, ln)),
+        "device_ms": graph_ms(lambda: decode_attention(q, kc, vc, ln)),
+        "plain_ms": time_ms(lambda: decode_attention_plain(q, kc, vc, ln)),
+        "library_ms": time_ms(sdpa_ring),
+        "library_device_ms": graph_ms(sdpa_ring),
+        **bound(live * K * Dh * 2 * 2 + 2 * B * H * Dh * 2 + B * 4,
+                4 * live * H * Dh, BF16_FLOPS)}
+    del q, kc, vc, qt, kt, vt
+
+    # mixtral's experts at its 8191-token admission's capacity (C = 2560)
+    E, C, products = ARCH_GMM
+    for name, (D, F_) in products.items():
+        b = bf16(rng, (E, C, D), dev)
+        w = bf16(rng, (E, D, F_), dev, scale=D ** -0.5)
+        err = check_close(f"gmm/{name}", bucket_matmul(b, w),
+                          grouped_matmul_plain(b.reshape(E * C, D), w,
+                                               [C] * E).reshape(E, C, F_),
+                          GMM_TOL)
+
+        def bmm_f32(b=b, w=w):
+            return torch.bmm(b, w, out_dtype=torch.float32)
+        out["grouped_matmul"][name] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: bucket_matmul(b, w), n=10),
+            "device_ms": graph_ms(lambda: bucket_matmul(b, w), n=10),
+            "plain_ms": time_ms(lambda: grouped_matmul_plain(
+                b.reshape(E * C, D), w, [C] * E), n=2, warm=1),
+            "library_ms": time_ms(bmm_f32, n=10),
+            "library_device_ms": graph_ms(bmm_f32, n=10),
+            **bound(E * C * D * 2 + E * D * F_ * 2 + E * C * F_ * 4,
+                    2 * E * C * D * F_, BF16_FLOPS)}
+        del b, w
+
+    # RMSNorm at gemma's (2048) and mixtral's (4096) widths, decode rows
+    for name, (R, D) in ARCH_NORM.items():
+        x = bf16(rng, (R, D), dev)
+        sc = (torch.from_numpy(rng.normal(size=(D,)).astype(np.float32))
+              .to(dev) * 0.1)
+        wt = (1.0 + sc).to(torch.bfloat16)
+        err = check_close(f"rmsnorm/{name}", rmsnorm_fused(x, sc)[0],
+                          rmsnorm_plain(x, sc)[0], NORM_TOL)
+        out["rmsnorm_fused"][name] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: rmsnorm_fused(x, sc)),
+            "device_ms": graph_ms(lambda: rmsnorm_fused(x, sc)),
+            "plain_ms": time_ms(lambda: rmsnorm_plain(x, sc)),
+            "library_ms": time_ms(lambda: F.rms_norm(x, (D,), wt, 1e-5)),
+            "library_device_ms": graph_ms(
+                lambda: F.rms_norm(x, (D,), wt, 1e-5)),
+            **bound(R * D * 2 + D * 4 + 2 * R * D * 2, 5 * R * D,
+                    F32_FLOPS)}
+    torch.cuda.empty_cache()
+    return out
+
+
 def times_of(src):
     """Build and time another checkout's kernels (``--times-of SRC``, SRC
     its ``src`` directory) with `main_shape_times`: one JSON line."""
@@ -2267,6 +2734,12 @@ def main(argv):
                check_grouped_matmul(rng, dev, times, ptxas),
                check_ssd_scan(rng, dev, times, ptxas)]
     say({"phase": "kernels", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    shapes = arch_kernel_shapes(rng, dev, ptxas)
+    for k in kernels:
+        if k["name"] in shapes:
+            k["arch_shapes"] = shapes[k["name"]]
+    say({"phase": "arch_kernel_shapes", "seconds": time.monotonic() - t0})
     wrappers = [paged_decode_attention, flash_attention, rmsnorm_fused,
                 paged_verify_attention, decode_attention, grouped_matmul,
                 ssd_scan]
@@ -2309,6 +2782,29 @@ def main(argv):
     runs["fleet_autoscale"] = fleet_autoscale_phase(wrappers, streams)
     runs["fleet_join"] = fleet_join_phase(wrappers, streams)
     say({"phase": "fleet_all", "seconds": time.monotonic() - t0})
+    arch_seconds = {}
+    t0 = time.monotonic()
+    gemma, runs["gemma_serve"] = dense_arch_serve_phase(
+        wrappers, "gemma_serve", GEMMA_ARCH)
+    arch_seconds["gemma_serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    _, runs["starcoder_serve"] = dense_arch_serve_phase(
+        wrappers, "starcoder_serve", CODE_ARCH)
+    arch_seconds["starcoder_serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    runs["swa_serve"], runs["swa_serve_eager"] = swa_serve_phase(wrappers)
+    arch_seconds["swa_serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    runs["chunked_swa"] = chunked_swa_phase(wrappers, dev)
+    arch_seconds["chunked_swa"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    pilot = pilot_gemma_phase(wrappers, {DENSE_ARCH: streams,
+                                         GEMMA_ARCH: gemma["streams"]})
+    runs["pilot_gemma_smollm"] = pilot[DENSE_ARCH]
+    runs["pilot_gemma"] = pilot[GEMMA_ARCH]
+    arch_seconds["pilot_gemma"] = time.monotonic() - t0
+    say({"phase": "arch_serve_all", "seconds": arch_seconds,
+         "total_seconds": sum(arch_seconds.values())})
     t0 = time.monotonic()
     runs["train"] = train_phase(wrappers)
     train_parity_phase()
@@ -2333,6 +2829,9 @@ def main(argv):
     t0 = time.monotonic()
     mamba_model_phase(dev)
     say({"phase": "mamba_model_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    arch_models_phase(dev)
+    say({"phase": "arch_models_all", "seconds": time.monotonic() - t0})
     say({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

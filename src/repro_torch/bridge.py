@@ -5,8 +5,9 @@ come in as a nested dict of numpy arrays — ``embed``, ``layers`` (one dict
 per slot, leaves stacked ``(n_groups, ...)``), ``final_norm`` and an
 optional ``head`` — and map leaf to leaf onto :class:`LMParams`.  bf16
 arrays (numpy's ``ml_dtypes`` bfloat16, which torch cannot take) go
-through float32, which is exact.  Norm scales stay float32 because the
-reference takes ``1 + scale`` in f32, and so do MoE routers, whose f32
+through float32, which is exact.  Norm scales (and LayerNorm biases) stay
+float32 because the reference keeps them in f32 and applies them in f32
+(``1 + scale`` for RMSNorm), and so do MoE routers, whose f32
 logits decide which experts a token reaches (``moe.router_probs`` casts
 both operands to f32), and the SSM mixer's ``A_log``, ``dt_bias``,
 ``D_skip`` and ``norm_scale``, which the reference reads in f32
@@ -29,7 +30,8 @@ from repro_torch import tree as tree_mod
 from repro_torch.models.transformer import LMParams
 
 
-F32_LEAVES = ("scale", "router", "A_log", "dt_bias", "D_skip", "norm_scale")
+F32_LEAVES = ("scale", "bias", "router", "A_log", "dt_bias", "D_skip",
+              "norm_scale")
 
 
 def _keeps_f32(path: tuple) -> bool:

@@ -323,6 +323,9 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
+    from repro_torch.configs import gemma_2b  # noqa: F401
     from repro_torch.configs import granite_moe_3b_a800m  # noqa: F401
     from repro_torch.configs import mamba2_370m  # noqa: F401
+    from repro_torch.configs import mixtral_8x7b  # noqa: F401
     from repro_torch.configs import smollm_360m  # noqa: F401
+    from repro_torch.configs import starcoder2_3b  # noqa: F401

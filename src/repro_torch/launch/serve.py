@@ -15,8 +15,9 @@ an MoE arch such as granite-moe-3b-a800m, ``ssm_impl="pallas"`` for a
 Mamba-2 arch such as mamba2-370m) on ``device`` ("cuda" by default;
 without a card it raises unless the caller asks for "cpu"): a paged or
 dense KV cache, with or without draft-and-verify speculation.  An
-attention-free arch serves on the dense layout (its per-row SSM state has
-nothing to page) with speculation off, as the reference's engine chooses.
+attention-free arch, and a sliding-window one such as mixtral-8x7b (its
+rolling rings), serve on the dense layout with speculation off, as the
+reference's engine chooses.
 Admission is one-shot or chunked (``prefill="chunked"``); on the card a
 ``spec="off"`` engine replays its decode step as a captured CUDA graph
 (``step_graph=False``, ``--eager``: the eager step).
@@ -56,7 +57,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import get_config, get_smoke_config, list_archs
 from repro_torch.core.cluster import ClusterSim
 from repro_torch.core.images import PayloadImage
 from repro_torch.core.pilot import PilotConfig
@@ -153,20 +154,22 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
                  spec: str = "off", spec_k: int = 4, draft_cfg=None,
                  draft_seed: int = 0, prefill: str = "oneshot",
                  prefill_chunk: int = 32, step_graph: bool | None = None,
-                 prefix_sharing: bool = True, device="cuda") -> dict:
+                 prefix_sharing: bool = True, device="cuda",
+                 trace: list[dict] | None = None) -> dict:
     """Build the model from ``seed`` and an engine over it
-    (`build_engine`), answer a ``make_trace`` trace, and return the
-    engine's stats plus ``streams`` ({rid: tokens}), ``tokens_per_request``
-    ({rid: count}) and ``block_leaks``."""
+    (`build_engine`), answer ``trace`` (default: a ``make_trace`` trace of
+    ``n_requests``), and return the engine's stats plus ``streams`` ({rid:
+    tokens}), ``tokens_per_request`` ({rid: count}) and ``block_leaks``."""
     eng = build_engine(cfg, slots, max_len, seed=seed, num_blocks=num_blocks,
                        block_size=block_size, kv=kv, spec=spec,
                        spec_k=spec_k, draft_cfg=draft_cfg,
                        draft_seed=draft_seed, prefill=prefill,
                        prefill_chunk=prefill_chunk, step_graph=step_graph,
                        prefix_sharing=prefix_sharing, device=device)
-    trace = make_trace(cfg.vocab_size, n_requests, max_len=max_len,
-                       seed=seed, prompt_len=prompt_len,
-                       max_new_tokens=max_new_tokens)
+    if trace is None:
+        trace = make_trace(cfg.vocab_size, n_requests, max_len=max_len,
+                           seed=seed, prompt_len=prompt_len,
+                           max_new_tokens=max_new_tokens)
     stats = eng.run_trace(trace)
     stats["streams"] = {rid: list(r.tokens)
                         for rid, r in sorted(eng.done.items())}
@@ -531,7 +534,7 @@ def _pick_victim(fleet, pool, *, exclude=()):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="smollm-360m",
-                    help="smollm-360m, granite-moe-3b-a800m or mamba2-370m")
+                    help="one of " + ", ".join(list_archs()))
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config")
     ap.add_argument("--requests", type=int, default=16)

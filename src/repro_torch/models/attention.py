@@ -20,9 +20,15 @@ Chunked admission (`attention_prefill_chunk`) writes a chunk
 into one row's blocks or ring row and attends it with `_chunk_attend`,
 plain PyTorch as in the reference, which has no kernel for it.
 
+Sliding-window attention (mixtral) keeps a dense rolling ring of
+``min(max_len, window)`` positions per row in every layout: position ``p``
+of a row lives at ring slot ``p mod T``, a prefill longer than the ring
+keeps each slot's latest occupant, and decode attends the whole ring
+(which holds only the window) with no window mask.  The prefill and chunk
+paths mask keys at or before ``pos - window``.
+
 Masks use ``NEG_INF = -1e30`` (a fully masked row is uniform, not NaN);
-Q.K and P.V take bf16 operands and sum in f32.  MLA and sliding-window
-rings are later slices.
+Q.K and P.V take bf16 operands and sum in f32.  MLA is a later slice.
 """
 
 from __future__ import annotations
@@ -36,10 +42,11 @@ NEG_INF = -1e30
 
 
 def _check_gqa(cfg):
-    if cfg.mla is not None or cfg.sliding_window is not None:
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MLA and sliding-window attention are later slices "
-            "of the port; this one carries plain GQA")
+            f"{cfg.name}: MLA is a later slice of the port (ROADMAP.md "
+            "Queue 1 item 6, MLA); this one carries GQA, with or without a "
+            "sliding window")
 
 
 # ==========================================================================
@@ -173,10 +180,13 @@ def attend(q, k, v, cfg, *, causal=True, window=None, q_offset=0):
                              q_offset=q_offset, chunk=cfg.attn_chunk)
 
 
-def decode_attend(q, k_cache, v_cache, cache_len):
+def decode_attend(q, k_cache, v_cache, cache_len, *, window=None):
     """Single-token attention against a KV cache (the reference's pure-JAX
     decode path).  q: (B,1,H,Dh); caches: (B,T,K,Dh); cache_len: (B,) valid
-    entries per row.  f32 softmax; the normalised p is cast to bf16."""
+    entries per row.  f32 softmax; the normalised p is cast to bf16.
+    ``window`` is taken and not applied, as in the reference: a rolling
+    ring holds only the last ``window`` positions, so every valid slot is
+    inside the window."""
     B, _, H, Dh = q.shape
     T, K = k_cache.shape[1], k_cache.shape[2]
     G = H // K
@@ -222,27 +232,34 @@ def attention_forward(x, p, cfg, *, rope_cos, rope_sin, causal=True,
 # ==========================================================================
 
 def _ring_write_full(k, v, cache):
-    """Write a full prefill's k/v (B,S,K,Dh) into a cache (B,T,K,Dh) with
-    T >= S (no sliding window in this slice): rows past S are zero."""
+    """Write a full prefill's k/v (B,S,K,Dh) into a (possibly rolling)
+    cache (B,T,K,Dh), so that position p sits at slot ``p mod T``: with
+    S <= T rows past S are zero; with S > T (a sliding-window ring) each
+    slot keeps its latest occupant, ``pos = S-1 - ((S-1-slot) mod T)``."""
     S = k.shape[1]
     T = cache["k"].shape[1]
-    if S > T:
-        raise NotImplementedError("rolling (SWA) caches are a later slice")
-    pad = (0, 0, 0, 0, 0, T - S)
-    return {"k": torch.nn.functional.pad(k, pad).to(cache["k"].dtype),
-            "v": torch.nn.functional.pad(v, pad).to(cache["v"].dtype)}
+    if S <= T:
+        pad = (0, 0, 0, 0, 0, T - S)
+        return {"k": torch.nn.functional.pad(k, pad).to(cache["k"].dtype),
+                "v": torch.nn.functional.pad(v, pad).to(cache["v"].dtype)}
+    pos = (S - 1) - torch.remainder(
+        (S - 1) - torch.arange(T, device=k.device), T)
+    return {"k": k[:, pos].to(cache["k"].dtype),
+            "v": v[:, pos].to(cache["v"].dtype)}
 
 
-def attention_prefill(x, p, cfg, rope, cache, *, compute=COMPUTE):
-    """Full-sequence causal self-attention that also fills the decode
-    cache.  Returns (out (B,S,D), new_cache)."""
+def attention_prefill(x, p, cfg, rope, cache, *, window=None,
+                      compute=COMPUTE):
+    """Full-sequence causal self-attention (keys within ``window`` of each
+    query when it is set) that also fills the decode cache.  Returns (out
+    (B,S,D), new_cache)."""
     _check_gqa(cfg)
     q = _project(x, p["wq"], compute)
     k = _project(x, p["wk"], compute)
     v = _project(x, p["wv"], compute)
     q = apply_rope(q, rope[0], rope[1])
     k = apply_rope(k, rope[0], rope[1])
-    out = attend(q, k, v, cfg, causal=True)
+    out = attend(q, k, v, cfg, causal=True, window=window)
     return _out_project(out, p["wo"], compute), _ring_write_full(k, v, cache)
 
 
@@ -317,12 +334,14 @@ def _paged_gather(pool, block_tables):
 def decode_context(cfg, pos, cache, block_tables=None) -> dict:
     """What every layer of one decode step shares: the RoPE tables of the
     rows' positions, the write slots and the valid lengths.  ``cache`` is
-    any attention layer's cache (stacked or not): a paged pool when
-    ``block_tables`` is given, else a dense ring.  The reference computes
-    these inside each layer; computing them once per step gives the same
-    values with 32x fewer launches."""
+    any attention layer's cache (stacked or not): a paged pool (then
+    ``block_tables`` maps its rows) or a dense ring, rolling when it is
+    shorter than the positions it serves (sliding-window attention, in
+    either layout).  The reference computes these inside each layer;
+    computing them once per step gives the same values with 32x fewer
+    launches."""
     cos, sin = rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    if block_tables is None:
+    if "kp" not in cache:
         T = cache["k"].shape[-3]
         write = _ring_write_index(pos, T)
     else:
@@ -351,13 +370,17 @@ def _qkv(x, p, ctx, compute):
     return q, k, _project(x, p["wv"], compute)
 
 
-def attention_decode(x, p, cfg, cache, pos, *, block_tables=None, ctx=None,
-                     compute=COMPUTE):
+def attention_decode(x, p, cfg, cache, pos, *, window=None,
+                     block_tables=None, ctx=None, compute=COMPUTE):
     """One decode step.  x: (B,1,D); cache {"kp","vp"}: (nb,bs,K,Dh) pools
     (then ``block_tables`` (B,mb) int32 maps rows to blocks) or {"k","v"}:
-    (B,T,K,Dh) dense rings, updated in place; pos: scalar or (B,) absolute
-    position of the new token; ``ctx`` the step's `decode_context`
-    (computed here when None).  Returns (out (B,1,D), cache)."""
+    (B,T,K,Dh) dense rings, rolling at ``pos mod T`` when T is a sliding
+    window, updated in place; pos: scalar or (B,) absolute position of the
+    new token; ``ctx`` the step's `decode_context` (computed here when
+    None).  The kernels attend the whole ring with no window (it holds
+    only the window); ``window`` goes to the plain `decode_attend`, which
+    does not apply it either, as in the reference.  Returns (out (B,1,D),
+    cache)."""
     _check_gqa(cfg)
     paged = "kp" in cache
     if paged and block_tables is None:
@@ -384,9 +407,10 @@ def attention_decode(x, p, cfg, cache, pos, *, block_tables=None, ctx=None,
         out = out[:, None]
     elif paged:
         out = decode_attend(q, _paged_gather(kc, block_tables),
-                            _paged_gather(vc, block_tables), ctx["cache_len"])
+                            _paged_gather(vc, block_tables), ctx["cache_len"],
+                            window=window)
     else:
-        out = decode_attend(q, kc, vc, ctx["cache_len"])
+        out = decode_attend(q, kc, vc, ctx["cache_len"], window=window)
     return _out_project(out, p["wo"], compute), cache
 
 
@@ -513,7 +537,7 @@ def attention_prefill_chunk(x, p, cfg, cache, table_row, slot: int,
         kg = _paged_gather(cache["kp"], table_row[None])      # (1,T,K,Dh)
         vg = _paged_gather(cache["vp"], table_row[None])
         out = _chunk_attend(q, kg, vg, positions)
-    else:                                    # dense ring row, T == W
+    else:                                    # dense ring row of W slots
         k_row, v_row = cache["k"][slot], cache["v"][slot]
         W = k_row.shape[0]
         # the last W cached positions in order, read BEFORE the chunk
@@ -535,18 +559,27 @@ def attention_prefill_chunk(x, p, cfg, cache, table_row, slot: int,
 # ==========================================================================
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=COMPUTE, device="cpu"):
-    """Per-attention-layer dense cache (the one-shot prefill's output)."""
+    """Per-attention-layer dense cache (the one-shot prefill's output):
+    rings of ``min(max_len, sliding_window)`` positions (all of
+    ``max_len`` without a window)."""
     _check_gqa(cfg)
+    T = (max_len if cfg.sliding_window is None
+         else min(max_len, cfg.sliding_window))
     K, Dh = cfg.num_kv_heads, cfg.head_dim
-    return {"k": torch.zeros((batch, max_len, K, Dh), dtype=dtype, device=device),
-            "v": torch.zeros((batch, max_len, K, Dh), dtype=dtype, device=device)}
+    return {"k": torch.zeros((batch, T, K, Dh), dtype=dtype, device=device),
+            "v": torch.zeros((batch, T, K, Dh), dtype=dtype, device=device)}
 
 
 def init_kv_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
                         block_size: int, dtype=COMPUTE, device="cpu"):
-    """Per-attention-layer paged cache: a shared block pool (``batch`` and
-    ``max_len`` size the reference's SWA rings, a later slice)."""
+    """Per-attention-layer paged cache: a shared block pool.  A
+    sliding-window layer keeps its dense rolling ring instead (`batch` x
+    ``min(max_len, window)``), as in the reference: the ring is always
+    fully live, so paging it saves nothing, and it keeps decode bitwise
+    the dense path's."""
     _check_gqa(cfg)
+    if cfg.sliding_window is not None:
+        return init_kv_cache(cfg, batch, max_len, dtype, device)
     K, Dh = cfg.num_kv_heads, cfg.head_dim
     shape = (num_blocks, block_size, K, Dh)
     return {"kp": torch.zeros(shape, dtype=dtype, device=device),

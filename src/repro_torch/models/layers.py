@@ -4,7 +4,8 @@ Port of ``repro.models.layers``.  Parameters are stored in the dtype they
 are used in (matrices bf16, norm scales f32); reductions that need
 precision (norm variance, softmax) run in f32.  Divergence traps against
 the JAX reference, each mirrored here: gelu is the tanh approximation,
-RMSNorm stores ``scale - 1`` and applies ``1 + scale`` in f32, and RoPE
+RMSNorm stores ``scale - 1`` and applies ``1 + scale`` in f32 (LayerNorm
+stores and applies ``scale`` and ``bias`` as they are, in f32), and RoPE
 splits each head in half (no interleave).
 """
 
@@ -49,18 +50,30 @@ def rmsnorm(x, scale, eps: float = 1e-5):
     return (out * (1.0 + scale.float())).to(dt)
 
 
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dt)
+
+
 def init_norm(cfg, d: int | None = None, device="cpu"):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"{cfg.norm}: only RMSNorm is ported (layernorm comes with the "
-            "starcoder2/whisper slice)")
+    """LayerNorm: ``scale`` ones and ``bias`` zeros (applied as they are);
+    RMSNorm: ``scale`` zeros (it stores ``scale - 1``).  All f32."""
     d = d or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+                "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
     return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
 def apply_norm(x, p, cfg):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"{cfg.norm}: only RMSNorm is ported")
+    """LayerNorm is taken before ``norm_impl`` is read, as in the
+    reference: the RMSNorm kernel never runs for a LayerNorm arch."""
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     if cfg.norm_impl == "pallas":
         from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
         return rmsnorm_fused(x.contiguous(), p["scale"], eps=cfg.norm_eps)[0]

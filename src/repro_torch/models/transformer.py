@@ -80,12 +80,23 @@ def layer_slots(cfg) -> list[dict]:
 
 
 def _check_slice(cfg):
-    mixers = {s["mixer"] for s in layer_slots(cfg)}
-    if cfg.is_encdec or len(mixers) > 1:
+    """Refuse the arch families the port does not carry yet, naming their
+    ROADMAP.md item; it carries GQA decoders (with or without a sliding
+    window, dense or MoE FFNs, RMSNorm or LayerNorm) and attention-free
+    SSM stacks."""
+    later = "is a later slice of the port (ROADMAP.md Queue 1 item 6, {})"
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: hybrid (SSM + attention) and encoder-decoder "
-            "archs are later slices of the port; this one carries GQA "
-            "decoders with dense or MoE FFNs and attention-free SSM stacks")
+            f"{cfg.name}: an encoder-decoder arch "
+            + later.format("Encoder-decoder"))
+    if cfg.frontend_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: a VLM frontend " + later.format("VLM frontend stub"))
+    mixers = {s["mixer"] for s in layer_slots(cfg)}
+    if len(mixers) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a hybrid (SSM + attention) arch "
+            + later.format("Hybrid"))
     if "attn" in mixers:
         attn._check_gqa(cfg)
 
@@ -115,7 +126,7 @@ class LMParams(nn.Module):
     ``embed`` (V,D), ``final_norm["scale"]`` (D,), optional ``head`` (D,V),
     and ``layers[slot]`` whose leaves are stacked ``(n_groups, ...)``.
     For serving, matrices are bf16 (the reference casts them to bf16 at
-    use); norm scales (``1 + scale`` is taken in f32), MoE routers (f32
+    use); norm scales and LayerNorm biases (applied in f32), MoE routers (f32
     logits) and the SSM mixer's ``A_log``, ``dt_bias``, ``D_skip`` and
     ``norm_scale`` stay f32.  A train state holds every leaf in f32 (the
     master weights; the layers cast at use) and turns ``requires_grad``
@@ -352,17 +363,24 @@ def init_cache(cfg, batch: int, max_len: int, dtype=COMPUTE, device="cpu"):
 def init_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
                      block_size: int, dtype=COMPUTE, device="cpu"):
     """Stacked paged cache: per attention slot, pools (n_groups, nb, bs, K,
-    Dh); SSM state stays per row (it is O(1) per row, nothing to page)."""
+    Dh); SSM state stays per row (it is O(1) per row, nothing to page), and
+    so do sliding-window rings (always fully live)."""
     _check_slice(cfg)
     n_groups = cfg.num_layers // group_period(cfg)
     K, Dh = cfg.num_kv_heads, cfg.head_dim
     shape = (n_groups, num_blocks, block_size, K, Dh)
-    return [{"kp": torch.zeros(shape, dtype=dtype, device=device),
-             "vp": torch.zeros(shape, dtype=dtype, device=device)}
-            if s["mixer"] == "attn"
-            else _stacked(ssm.init_ssm_cache(cfg, batch, dtype, device),
-                          n_groups)
-            for s in layer_slots(cfg)]
+
+    def one(s):
+        if s["mixer"] != "attn":
+            return _stacked(ssm.init_ssm_cache(cfg, batch, dtype, device),
+                            n_groups)
+        if cfg.sliding_window is not None:
+            return _stacked(attn.init_kv_cache_paged(
+                cfg, batch, max_len, num_blocks, block_size, dtype, device),
+                n_groups)
+        return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+                "vp": torch.zeros(shape, dtype=dtype, device=device)}
+    return [one(s) for s in layer_slots(cfg)]
 
 
 # --------------------------------------------------------------------------
@@ -400,8 +418,9 @@ def lm_prefill(params: LMParams, cfg, tokens, cache, *, compute=COMPUTE):
             h = apply_norm(x, p["mixer_norm"], cfg)
             if slot["mixer"] == "attn":
                 old = {k: v[g] for k, v in cache[i].items()}
-                out, nc = attn.attention_prefill(h, p["mixer"], cfg, rope,
-                                                 old, compute=compute)
+                out, nc = attn.attention_prefill(
+                    h, p["mixer"], cfg, rope, old, window=cfg.sliding_window,
+                    compute=compute)
             else:
                 out, nc = ssm.ssm_forward_with_cache(h, p["mixer"], cfg,
                                                      compute=compute)
@@ -433,9 +452,10 @@ def lm_decode(params: LMParams, cfg, token, cache, pos, *, block_tables=None,
             h = apply_norm(x, p["mixer_norm"], cfg)
             layer_cache = {k: v[g] for k, v in cache[i].items()}
             if slot["mixer"] == "attn":
-                h, _ = attn.attention_decode(h, p["mixer"], cfg, layer_cache,
-                                             pos, block_tables=block_tables,
-                                             ctx=ctx, compute=compute)
+                h, _ = attn.attention_decode(
+                    h, p["mixer"], cfg, layer_cache, pos,
+                    window=cfg.sliding_window, block_tables=block_tables,
+                    ctx=ctx, compute=compute)
             else:
                 h, _ = ssm.ssm_decode(h, p["mixer"], cfg, layer_cache,
                                       compute=compute)

@@ -15,7 +15,10 @@ the decode loop never touches the table.  ``kv="dense"`` keeps a
 paged decode (same shapes, same masks, same reduction order).  An
 attention-free arch (Mamba-2) has nothing to page: it serves on the dense
 layout, whose SSM slots hold per-row ``{conv, ssd}`` state that admission
-writes whole.
+writes whole.  So does a sliding-window arch (mixtral), whose rings hold
+``min(max_len, window)`` positions a row, written at ``pos mod window``
+(always fully live, nothing to page); it has no prefix cache and no
+speculation (a ring overwrites history in place).
 
 * **prefix reuse** (paged) — admission hashes the padded prompt per full
   block (chain hash, so a hit guarantees bit-identical KV); matching
@@ -381,7 +384,11 @@ class ServeEngine:
             nb = num_blocks or default_num_blocks(slots, max_len, block_size)
             self._num_blocks = nb
             self.allocator = BlockAllocator(nb, block_size)
-            self.prefix = PrefixCache(self.allocator) if prefix_sharing else None
+            # per-row state (SWA rings, SSM rows) rides no block chain, so a
+            # prefix hit could not restore it (the reference's gate)
+            prefix_ok = (prefix_sharing and cfg.sliding_window is None
+                         and cfg.ssm is None)
+            self.prefix = PrefixCache(self.allocator) if prefix_ok else None
             self.state = init_decode_state(cfg, slots, max_len, kv="paged",
                                            num_blocks=nb,
                                            block_size=block_size,
@@ -1133,11 +1140,16 @@ def _install_slot_paged(state, prefill_cache, slot: int, plen: int,
                         block_size: int):
     """Install a one-shot prefill into the paged decode state IN PLACE:
     scatter the dense prefill rows into the slot's fresh blocks (prefix-hit
-    blocks already hold bit-identical content and are not written), then
-    set the slot's token, position and block-table row."""
+    blocks already hold bit-identical content and are not written), write
+    the per-row leaves (sliding-window rings, SSM rows) into batch row
+    ``slot`` as `_install_slot` does, then set the slot's token, position
+    and block-table row."""
     for st_leaf, pf_leaf in zip(state["cache"], prefill_cache):
-        _scatter_blocks(st_leaf["kp"], pf_leaf["k"], row, nhit, block_size)
-        _scatter_blocks(st_leaf["vp"], pf_leaf["v"], row, nhit, block_size)
+        for key, dst in st_leaf.items():
+            if key in _PAGED_KEYS:
+                _scatter_blocks(dst, pf_leaf[key[0]], row, nhit, block_size)
+            else:
+                _merge_row(dst, pf_leaf[key], slot, ring=key in ("k", "v"))
     mb = state["block_tables"].shape[1]
     row_arr = np.zeros((mb,), np.int32)
     row_arr[:len(row)] = row

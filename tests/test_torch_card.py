@@ -12,14 +12,19 @@ heads, head dim 64, d_model 960; granite-moe-3b-a800m's experts: 40 of
 512; mamba2-370m's SSD scan: 32 heads of 64, state 128, chunk 256 at the
 1023-token admission); tolerances are those of tests/test_kernels.py:
 attention rtol=5e-2, atol=2e-2; RMSNorm and grouped matmul 5e-2; SSD scan
-1e-3 for f32 inputs, 6e-2 for bf16.  The flash kernel is also held at head
-widths 128 and 256 (the next families) and at the smoke widths the wrapper
-pads, and one raw Q.K^T tile of it against torch; the grouped matmul at
+1e-3 for f32 inputs, 6e-2 for bf16.  The kernels are also held at the
+widths of gemma-2b (MQA at head width 256: flash at its 1023-token
+admission, paged decode and verify at G = 8), starcoder2-3b (24 heads over
+2 of 128: G = 12) and mixtral-8x7b (flash at its 8191-token admission with
+a window of 4096; dense decode over its 4096-slot rings; its experts of
+4096 x 14336 at capacity 2560), RMSNorm at D = 2048.  The flash kernel is
+also held at the smoke widths the wrapper pads, and one raw Q.K^T tile of
+it against torch; the grouped matmul at
 every capacity bucket and with its wgmma in the SASS; the SSD scan with
 tensor-core instructions in its SASS; every kernel is also captured in one
 CUDA graph and replayed.  The serve engine's decode step, captured as a
 CUDA graph, is held bitwise to the eager step at smoke widths (paged,
-dense, mamba2), its replays to their launch counts, and a chunked
+dense, mamba2, and mixtral's rolling rings), its replays to their launch counts, and a chunked
 admission beside a decoding slot to its idle-engine run; one pilot binds
 two smoke serve images in turn, each bitwise its direct engine; three
 pilots serve one pool's requests, one killed, bitwise the direct engine.
@@ -69,7 +74,10 @@ def _bf16(rng, shape, dev):
             .to(dev, torch.bfloat16))
 
 
-@pytest.mark.parametrize("H,K,Dh", [(15, 5, 64), (3, 1, 20)])
+# gemma-2b (G = 8 at head width 256) and starcoder2-3b (G = 12) beside
+# smollm's heads and the smoke widths
+@pytest.mark.parametrize("H,K,Dh", [(15, 5, 64), (3, 1, 20), (8, 1, 256),
+                                    (24, 2, 128)])
 def test_paged_decode_kernel_matches_plain(card, H, K, Dh):
     """Ragged lengths (1 and mb*bs among them), a free slot over the
     scratch block 0, and NaN in every pool row no valid position reads."""
@@ -110,6 +118,9 @@ def test_paged_decode_kernel_matches_plain(card, H, K, Dh):
     (1, 300, 300, 16, 4, 128, None, True),    # Dh = 128
     (1, 200, 200, 8, 1, 256, None, True),     # Dh = 256, MQA (gemma)
     (1, 130, 130, 8, 1, 256, 50, True),       # Dh = 256 with a window
+    (1, 1023, 1023, 8, 1, 256, None, True),   # gemma-2b's 1023 admission
+    (1, 1023, 1023, 24, 2, 128, None, True),  # starcoder2-3b's
+    (1, 8191, 8191, 32, 8, 128, 4096, True),  # mixtral-8x7b's, window 4096
     (1, 37, 37, 3, 1, 20, None, True),        # smoke widths, padded to 64
     (1, 70, 70, 4, 2, 100, None, True),       # padded to 128
 ])
@@ -122,9 +133,13 @@ def test_flash_kernel_matches_plain(card, B, S, T, H, K, Dh, window, causal):
     got = flash_attention(q, k, v, **kw)
     assert flash_attention.launches == before + 1
     assert got.shape == q.shape and torch.isfinite(got.float()).all()
-    torch.testing.assert_close(got.float(),
-                               flash_attention_plain(q, k, v, **kw).float(),
-                               **ATTN_TOL)
+    G = H // K
+    for kh in range(K):         # the plain version a KV head at a time
+        hs = slice(kh * G, (kh + 1) * G)
+        want = flash_attention_plain(q[:, :, hs], k[:, :, kh:kh + 1],
+                                     v[:, :, kh:kh + 1], **kw)
+        torch.testing.assert_close(got[:, :, hs].float(), want.float(),
+                                   **ATTN_TOL)
 
 
 @pytest.mark.parametrize("S,T", [(64, 64), (128, 64), (100, 100)])
@@ -149,7 +164,7 @@ def test_flash_qk_tile_matches_torch(card, S, T):
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("D", [60, 960, 1536, 4096])
+@pytest.mark.parametrize("D", [60, 960, 1536, 4096, 2048])
 @pytest.mark.parametrize("R", [1, 8, 1023])
 @pytest.mark.parametrize("with_residual", [False, True])
 def test_rmsnorm_kernel_matches_plain(card, R, D, with_residual):
@@ -229,7 +244,8 @@ def _pool_with_nan(rng, dev, tables, reach, nb, bs, K, Dh):
     return kp, vp
 
 
-@pytest.mark.parametrize("H,K,Dh", [(15, 5, 64), (3, 1, 20)])
+@pytest.mark.parametrize("H,K,Dh", [(15, 5, 64), (3, 1, 20), (8, 1, 256),
+                                    (24, 2, 128)])
 def test_paged_verify_kernel_matches_plain_and_decode(card, H, K, Dh):
     """S = 5 queries per row at ragged offsets, one of them overflowing the
     table (q_off = mb*bs - 2), a free slot over the scratch block: within
@@ -274,6 +290,38 @@ def test_decode_attention_kernel_matches_plain_and_paged(card, H, K, Dh):
     vc[past] = float("nan")
     q = _bf16(rng, (B, H, Dh), card)
     ln = torch.from_numpy(lens).to(card)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, ln)
+    assert decode_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), decode_attention_plain(q, kc, vc, ln).float(), **ATTN_TOL)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb)).reshape(
+        B, mb).astype(np.int32)).to(card)
+    pools = []
+    for c in (kc, vc):
+        pool = torch.zeros((nb, bs, K, Dh), dtype=torch.bfloat16, device=card)
+        pool[tables.reshape(-1).long()] = c.reshape(B * mb, bs, K, Dh)
+        pools.append(pool)
+    assert torch.equal(out, paged_decode_attention(q, *pools, tables, ln))
+
+
+def test_decode_attention_kernel_on_a_window_ring(card):
+    """mixtral-8x7b's decode: 32 heads over 8 KV heads of 128 on its
+    4096-slot rolling rings, lengths up to the full ring (a row whose
+    decode has crossed the window reads all 4096 slots): within tolerance
+    of the plain version, and bitwise the paged decode kernel on the same
+    rows (the same split plan at capacity 4096)."""
+    rng = np.random.default_rng(14)
+    B, T, H, K, Dh, bs = 8, 4096, 32, 8, 128, 16
+    mb, nb = T // bs, B * T // bs + 1
+    lens = np.array([T, 1, 4095, 2048, T, 129, 4000, 64], np.int32)
+    kc, vc = _bf16(rng, (B, T, K, Dh), card), _bf16(rng, (B, T, K, Dh), card)
+    ln = torch.from_numpy(lens).to(card)
+    past = torch.arange(T, device=card)[None] >= ln[:, None]
+    kc[past] = float("nan")
+    vc[past] = float("nan")
+    q = _bf16(rng, (B, H, Dh), card)
     before = decode_attention.launches
     out = decode_attention(q, kc, vc, ln)
     assert decode_attention.launches == before + 1
@@ -370,6 +418,22 @@ def test_grouped_matmul_kernel_matches_plain(card, C, D, F):
     """granite-moe's capacity buckets (40 experts), one launch."""
     rng = np.random.default_rng(5)
     E = 40
+    b = _bf16(rng, (E, C, D), card)
+    w = _bf16(rng, (E, D, F), card) * D ** -0.5
+    before = grouped_matmul.launches
+    got = bucket_matmul(b, w)
+    assert grouped_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = grouped_matmul_plain(b.reshape(E * C, D), w, [C] * E)
+    torch.testing.assert_close(got, want.reshape(E, C, F), **GMM_TOL)
+
+
+@pytest.mark.parametrize("D,F", [(4096, 14336), (14336, 4096)])
+def test_grouped_matmul_kernel_at_mixtral_widths(card, D, F):
+    """mixtral-8x7b's experts (8 of 4096 x 14336) at the capacity of its
+    8191-token admission, C = 2560: up/gate and down, one launch each."""
+    rng = np.random.default_rng(15)
+    E, C = 8, 2560
     b = _bf16(rng, (E, C, D), card)
     w = _bf16(rng, (E, D, F), card) * D ** -0.5
     before = grouped_matmul.launches
@@ -540,11 +604,11 @@ def test_ssd_scan_kernel_writes_y_in_x_dtype(card):
 # the engine's decode step as a captured CUDA graph, and chunked admission
 # ---------------------------------------------------------------------------
 
-def _smoke_engine(arch, kv, **kw):
+def _smoke_engine(arch, kv, max_len=64, **kw):
     from repro_torch.configs.base import get_smoke_config
     from repro_torch.launch.serve import build_engine
-    return build_engine(get_smoke_config(arch), 2, 64, kv=kv, device="cuda",
-                        **kw)
+    return build_engine(get_smoke_config(arch), 2, max_len, kv=kv,
+                        device="cuda", **kw)
 
 
 def _drive(eng, ticks=20):
@@ -577,6 +641,30 @@ def test_graphed_step_equals_eager_step(card, arch, kv):
     got, want = _drive(graphed), _drive(eager)
     assert got == want and sorted(got) == [0, 1, 2]
     assert graphed.d2h_transfers == graphed.steps == eager.steps
+
+
+def test_graphed_step_equals_eager_on_a_rolling_ring(card):
+    """mixtral-8x7b's smoke config (window 64) at max_len 256: a rolling
+    admission (100 tokens, bucket 128) and one whose decode crosses the
+    window (60 tokens, bucket 64), then a third into the freed slot.  The
+    captured step writes the rings in place at ``pos mod 64``: its streams
+    are the eager step's, bitwise."""
+    from repro_torch.serving.engine import Request
+    streams = []
+    for graph in (None, False):
+        eng = _smoke_engine("mixtral-8x7b", None, max_len=256,
+                            step_graph=graph)
+        assert eng.kv == "dense" and (eng._graph is None) == (graph is False)
+        assert eng.state["cache"][0]["k"].shape[2] == 64
+        rng = np.random.default_rng(0)
+        for rid, (n, budget) in enumerate(((100, 24), (60, 30), (9, 12))):
+            eng.submit(Request(rid, rng.integers(0, 512, size=n)
+                               .astype(np.int32), max_new_tokens=budget))
+        stats = eng.run()
+        assert stats["completed"] == 3
+        assert stats["d2h_transfers"] == stats["decode_steps"]
+        streams.append({rid: r.tokens for rid, r in eng.done.items()})
+    assert streams[0] == streams[1]
 
 
 def test_graph_replay_counts_its_launches(card):

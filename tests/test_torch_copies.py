@@ -24,6 +24,9 @@ PORT = ROOT / "src" / "repro_torch"
 # reference's kept lines as 1-based inclusive ranges, or None for all)
 COPIES = {
     "analysis/locks.py": ({}, None),
+    "configs/gemma_2b.py": ({}, None),
+    "configs/mixtral_8x7b.py": ({}, None),
+    "configs/starcoder2_3b.py": ({}, None),
     "core/arena.py": ({}, None),
     "core/proctable.py": ({}, None),
     "core/timerwheel.py": ({}, None),

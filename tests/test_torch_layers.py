@@ -75,22 +75,30 @@ def test_full_config_widths():
 # layers
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
 @pytest.mark.parametrize("impl", ["jnp", "pallas"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_apply_norm_matches_reference(impl, dtype):
-    """``1 + scale`` in f32, variance in f32; both the plain path and the
-    fused kernel's path (norm_impl="pallas")."""
-    cfg = dataclasses.replace(get_smoke_config("smollm-360m"), norm_impl=impl)
-    jcfg = dataclasses.replace(jax_get_smoke("smollm-360m"), norm_impl=impl)
+def test_apply_norm_matches_reference(impl, dtype, norm):
+    """RMSNorm: ``1 + scale`` in f32, variance in f32; both the plain path
+    and the fused kernel's path (norm_impl="pallas").  LayerNorm (the
+    starcoder2 arch): mean and variance in f32, ``scale`` and ``bias`` as
+    they are, whatever ``norm_impl`` says."""
+    arch = "smollm-360m" if norm == "rmsnorm" else "starcoder2-3b"
+    cfg = dataclasses.replace(get_smoke_config(arch), norm_impl=impl)
+    jcfg = dataclasses.replace(jax_get_smoke(arch), norm_impl=impl)
+    assert cfg.norm == jcfg.norm == norm
     x = _rand((2, 7, cfg.d_model), 0)
-    scale = _rand((cfg.d_model,), 1, 0.1)
+    p = {"scale": _rand((cfg.d_model,), 1, 0.1)}
+    if norm == "layernorm":
+        p = {"scale": 1 + p["scale"], "bias": _rand((cfg.d_model,), 2, 0.1)}
     if dtype == "bf16":
         xt, xj = _bf16(x)
         tol = BF16_TOL
     else:
         xt, xj, tol = torch.from_numpy(x), jnp.asarray(x), F32_TOL
-    out = tl.apply_norm(xt, {"scale": torch.from_numpy(scale)}, cfg)
-    ref = jl.apply_norm(xj, {"scale": jnp.asarray(scale)}, jcfg)
+    out = tl.apply_norm(xt, {k: torch.from_numpy(v) for k, v in p.items()},
+                        cfg)
+    ref = jl.apply_norm(xj, {k: jnp.asarray(v) for k, v in p.items()}, jcfg)
     assert out.dtype == xt.dtype
     np.testing.assert_allclose(_f(out), _f(ref), **tol)
 

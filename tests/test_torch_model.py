@@ -215,8 +215,10 @@ def test_paged_decode_independent_of_block_placement(attn_impl):
 
 
 def test_unported_families_raise():
-    from repro_torch.configs.base import ArchConfig
-    swa = dataclasses.replace(get_smoke_config(ARCH), sliding_window=32)
+    from repro_torch.configs.base import ArchConfig, MLASpec
+    mla = dataclasses.replace(get_smoke_config(ARCH), mla=MLASpec(
+        q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
+        qk_rope_head_dim=8, v_head_dim=8))
     with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(swa)
-    assert isinstance(swa, ArchConfig)
+        build_model(mla)
+    assert isinstance(mla, ArchConfig)

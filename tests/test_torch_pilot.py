@@ -10,9 +10,10 @@ fault-tolerance substrate: leases, re-queue on node failure,
 first-completion-wins.  Where the reference's tests run a train payload
 only as a payload that takes time, they run a decode or serve payload
 here; the train payload itself, its checkpoints and its resume across
-pilots are tests/test_torch_train.py's.  mamba2-370m stands in for
-gemma-2b, which the port does not have yet.  Every timeout is the
-reference test's.
+pilots are tests/test_torch_train.py's.  mamba2-370m stands in for the
+reference tests' gemma-2b (a second arch of another family);
+tests/test_torch_archs.py binds the smollm-360m, gemma-2b pair.  Every
+timeout is the reference test's.
 """
 
 from __future__ import annotations
