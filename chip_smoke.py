@@ -205,6 +205,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               pilot binds full-width smollm-360m, then gemma-2b,
               prefetched, with pilot_serve's gates (streams bitwise serve's
               and gemma_serve's).
+   mla_serve — serve's trace on minicpm3-4b (multi-head latent attention)
+              at full width and all 62 layers, random weights from seed 0,
+              paged latent pools, graphed: the gates of phase 3, flash
+              (V padded, Dh 96 on the 128 instance, G = 1) once a layer per
+              admission and RMSNorm launched; no decode, verify, grouped
+              matmul or scan kernel (MLA's decode is the absorbed latent
+              score in plain PyTorch, as the reference's).  Then
+              ``mla_serve_eager`` (streams bitwise, launches equal once the
+              graph's warm-up is taken off), ``mla_dense`` (dense latent
+              rings, streams bitwise mla_serve's) and ``mla_spec``
+              (self-draft, spec_k 4, the trace's first 8 requests:
+              acceptance above 0.5, flash twice a
+              layer per admission with the draft's prefill, no verify
+              kernel; whether each stream equals mla_serve's reported),
+              each run's numbers beside ``serve``'s (``mla_summary``).
+   chunked_mla — the same trace in 128-token chunks with chunked_serve's
+              gates (no flash launch), then chained chunk logits against
+              the one-shot prefill at buckets 64, 512 and 1023 within
+              LOGIT_TOL (``chunked_mla_logits``: absorbed against expanded
+              attention).
+   pilot_mla — one pilot binds full-width smollm-360m, then minicpm3-4b,
+              prefetched, with pilot_serve's gates.
+   mla_train_parity — train_parity on full-width minicpm3-4b cut to 2
+              layers, launching no kernel.
 10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
               admission (the kernel path's own activations), its output
               with the SSD-scan kernel against the same mixer on the
@@ -220,6 +244,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               on its rings, prompts of 4090 and 6000 tokens (its rolling
               prefill, then decodes past the window), moe "gmm" against
               "einsum", with the routers' top-k agreement.
+12. mla_model — minicpm3-4b teacher-forced as in phase 6 at full width
+              and depth (``MLA_GATED_LAYERS``), paged, within LOGIT_TOL; on
+              a miss the errors at 31, 16 and 8 layers are reported first.
 
 The kernels phase also checks every kernel at granite's shapes (24 heads,
 8 KV heads, d_model 1536); flash prefill at head widths 128 and 256 (MQA,
@@ -255,7 +282,9 @@ mixtral-8x7b's 8191-token admission (window 4096), with the Dh = 256
 instance's ptxas report; paged decode at gemma's G = 8, Dh = 256 and
 starcoder2's G = 12; dense decode over mixtral's 4096-slot rings; the
 grouped matmul at mixtral's experts (C = 2560); RMSNorm at D = 2048 and
-4096: each against its plain version and timed as above.
+4096; minicpm3-4b's flash admission (G = 1, Dh 96, run on the 128
+instance: ``instance``) and RMSNorm at D = 2560: each against its plain
+version and timed as above.
 
 ``python3 chip_smoke.py --times-of OTHER/src`` builds another checkout's
 kernels and prints the same main-shape times of rows 2 and 4-7 and of the
@@ -362,7 +391,8 @@ SWA_CHUNKED_PROMPTS = (5000, 3000)
 ARCH_FLASH = {"gemma_S1023 (1,1023,8/1,256)": (1023, 8, 1, 256, None),
               "starcoder2_S1023 (1,1023,24/2,128)": (1023, 24, 2, 128, None),
               "mixtral_S8191_w4096 (1,8191,32/8,128)":
-                  (8191, 32, 8, 128, 4096)}
+                  (8191, 32, 8, 128, 4096),
+              "minicpm3_S1023 (1,1023,40/40,96)": (1023, 40, 40, 96, None)}
 ARCH_PAGED = {"gemma (8,8,256), pools (513,16,1,256)": (8, 1, 256),
               "starcoder2 (8,24,128), pools (513,16,2,128)": (24, 2, 128)}
 ARCH_DENSE = ("mixtral q (8,32,128), rings (8,4096,8,128)",
@@ -375,7 +405,20 @@ ARCH_GMM = (8, 2560, {"mixtral_up (8,2560,4096)x(8,4096,14336)":
 ARCH_NORM = {"gemma_decode (8,2048)": (8, 2048),
              "gemma_prefill (1023,2048)": (1023, 2048),
              "mixtral_decode (8,4096)": (8, 4096),
-             "mixtral_prefill (8191,4096)": (8191, 4096)}
+             "mixtral_prefill (8191,4096)": (8191, 4096),
+             "minicpm3_decode (8,2560)": (8, 2560),
+             "minicpm3_prefill (1023,2560)": (1023, 2560)}
+# minicpm3-4b (MLA) at full width and all 62 layers (~4.26 B parameters,
+# ~8.5 GB in bf16): serve's trace on every serve path.  Its teacher-forced
+# logits are gated over MLA_GATED_LAYERS layers (all of them); if they
+# miss LOGIT_TOL there, the error at fewer layers is reported too.
+MLA_ARCH = "minicpm3-4b"
+MLA_GATED_LAYERS = 62
+MLA_DEPTHS = (31, 16, 8)
+# mla_spec runs the first 8 of serve's 16 requests (one wave of the 8
+# slots): its eager draft-and-verify step takes ~1 s at 62 layers, and
+# the 16 took 30 s of the phases' time
+MLA_SPEC_REQUESTS = 8
 # the pilot's cleanup (§3.6 of the paper) on the card: memory back within
 # this of its value before the first bind
 PILOT_MEMORY_SLACK = 64 << 20
@@ -1353,14 +1396,15 @@ def chunked_serve_phase(wrappers, oneshot):
     return launches
 
 
-def chunked_logits_phase(dev):
-    """Full smollm-360m on the kernels: ``prefill_chunk`` chained over
-    128-token chunks into a fresh paged state against the one-shot
-    ``prefill``, last-position logits, prompts at buckets 64, 512, 1023."""
+def chunked_logits_phase(dev, arch=DENSE_ARCH, phase="chunked_logits"):
+    """Full ``arch`` (smollm-360m) on the kernels: ``prefill_chunk``
+    chained over 128-token chunks into a fresh paged state against the
+    one-shot ``prefill``, last-position logits, prompts at buckets 64, 512,
+    1023."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.api import build_model, init_decode_state
     from repro_torch.serving.engine import admit_length
-    cfg = dataclasses.replace(get_config(DENSE_ARCH), attn_impl="pallas",
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas",
                               norm_impl="pallas")
     bundle = build_model(cfg)
     params = bundle.init(0, device=dev)
@@ -1386,8 +1430,10 @@ def chunked_logits_phase(dev):
         chunked.append(logits)
         buckets.append(plen)
     got, want = torch.cat(chunked).float(), torch.cat(oneshot).float()
-    err = check_close("chunked_logits", got, want, LOGIT_TOL)
-    say({"phase": "chunked_logits", "arch": cfg.name, "buckets": buckets,
+    del params, state
+    torch.cuda.empty_cache()
+    err = check_close(phase, got, want, LOGIT_TOL)
+    say({"phase": phase, "arch": cfg.name, "buckets": buckets,
          "chunk": CHUNK, "max_abs_err": err, "tol": LOGIT_TOL,
          "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
                                    .float().mean()),
@@ -1883,16 +1929,18 @@ def train_phase(wrappers):
     return launches
 
 
-def train_parity_phase():
-    """One train step of full-width smollm-360m cut to 2 layers on the card
-    and on the CPU from the same f32 state, held to ``TRAIN_PARITY_TOL``."""
+def train_parity_phase(arch=DENSE_ARCH, phase="train_parity",
+                       wrappers=None):
+    """One train step of full-width ``arch`` (smollm-360m) cut to 2 layers
+    on the card and on the CPU from the same f32 state, held to
+    ``TRAIN_PARITY_TOL``; with ``wrappers``, no kernel launched by it."""
     from repro_torch import tree
     from repro_torch.bridge import train_state_from_numpy, train_state_to_numpy
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
     from repro_torch.launch.steps import init_train_state, make_train_step
     from repro_torch.optim.adamw import OptimConfig, adamw_update
-    cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2)
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
     steps = TRAIN["steps"]
     oc = OptimConfig(total_steps=steps, warmup_steps=max(steps // 20, 5))
     cpu = init_train_state(cfg, 0, "cpu")
@@ -1900,10 +1948,13 @@ def train_parity_phase():
     gpu = train_state_from_numpy(start, cfg, "cuda")
     batch = SyntheticLM(SyntheticConfig(cfg.vocab_size, 128, 2)).batch_at(0)
     step = make_train_step(cfg, oc)
+    if wrappers is not None:
+        _zero(wrappers)
     t0 = time.monotonic()
     _, mg = step(gpu, to_device(batch, "cuda"))
     torch.cuda.synchronize()
     t1 = time.monotonic()
+    launches = _launches(wrappers) if wrappers is not None else None
     _, mc = step(cpu, to_device(batch, "cpu"))
     t2 = time.monotonic()
     lr = float(mc["lr"])
@@ -1931,7 +1982,8 @@ def train_parity_phase():
         p0 = torch.from_numpy(p0)
         flipped += int(((new_g - p0).sign() != (new_c - p0).sign()).sum())
         n += p0.numel()
-    say({"phase": "train_parity", "arch": cfg.name, "layers": 2, "batch": 2,
+    extra = {} if launches is None else {"launches": launches}
+    say({"phase": phase, "arch": cfg.name, "layers": 2, "batch": 2,
          "seq": 128, "loss": [float(mg["loss"]), float(mc["loss"])],
          "grad_norm": [float(mg["grad_norm"]), float(mc["grad_norm"])],
          "lr": lr, "max_grad_rel": max(grad_rel),
@@ -1939,7 +1991,9 @@ def train_parity_phase():
          "param_bound": 2 * lr + tol["param_atol"],
          "max_abs_err_vs_cpu_adamw_of_card_grads": adamw_err,
          "update_sign_differs_share": flipped / n,
-         "card_step_s": t1 - t0, "cpu_step_s": t2 - t1, "tol": tol})
+         "card_step_s": t1 - t0, "cpu_step_s": t2 - t1, "tol": tol,
+         **extra})
+    assert not any((launches or {}).values()), launches
     assert abs(float(mg["loss"]) - float(mc["loss"])) < tol["loss_abs"]
     assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) \
         < tol["grad_norm_rtol"] * float(mc["grad_norm"])
@@ -2514,6 +2568,129 @@ def arch_models_phase(dev):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# minicpm3-4b: multi-head latent attention (MLA)
+# --------------------------------------------------------------------------
+
+# the kernels no MLA serve path launches: MLA decode, verify and chunks
+# score the latent in plain PyTorch (the reference has no kernel for them)
+MLA_UNLAUNCHED = ("paged_decode_attention", "paged_verify_attention",
+                  "decode_attention", "grouped_matmul", "ssd_scan")
+
+
+def _same_streams(phase, got, want):
+    differ = [rid for rid, t in want.items() if got[rid] != t]
+    assert not differ, f"{phase}: streams differ: {differ}"
+
+
+def mla_serve_phases(wrappers, serve):
+    """serve's trace on full-width, full-depth minicpm3-4b: paged and
+    graphed (``mla_serve``), on the eager step (``mla_serve_eager``), dense
+    (``mla_dense``) and self-drafting (``mla_spec``, the trace's first
+    ``MLA_SPEC_REQUESTS``).  Gates: those of
+    every run; flash once a layer per admission (twice with the draft's
+    prefill) and RMSNorm launched, no other kernel; eager and dense
+    streams bitwise mla_serve's, eager launches equal to the graph's once
+    its warm-up steps are taken off; self-draft acceptance above 0.5, no
+    verify kernel.  Reported: whether each spec stream equals mla_serve's,
+    and mla_serve beside smollm's ``serve``.  Returns (mla_serve's stats,
+    {run: launches})."""
+    from repro_torch.configs.base import get_config
+    layers = get_config(MLA_ARCH).num_layers
+    trace = serve_trace(MLA_ARCH)
+    spec_load = dict(SERVE, n_requests=MLA_SPEC_REQUESTS)
+    runs, stats = {}, {}
+    for phase, kw in (("mla_serve", {}),
+                      ("mla_serve_eager", dict(step_graph=False)),
+                      ("mla_dense", dict(kv="dense")),
+                      ("mla_spec", dict(spec="draft", spec_k=4,
+                                        load=spec_load,
+                                        trace=trace[:MLA_SPEC_REQUESTS]))):
+        st, launches = serve_run(phase, wrappers, arch=MLA_ARCH, **kw)
+        assert st["kv"] == ("dense" if phase == "mla_dense" else "paged")
+        assert st["step_graph"] == (phase in ("mla_serve", "mla_dense"))
+        prefills = 2 if phase == "mla_spec" else 1
+        assert launches["flash_attention"] == \
+            prefills * layers * st["completed"], launches
+        assert launches["rmsnorm_fused"] > 0, launches
+        for w in MLA_UNLAUNCHED:
+            assert launches[w] == 0, (phase, launches)
+        runs[phase], stats[phase] = launches, st
+    graphed = stats["mla_serve"]
+    eager, dense, spec = (stats[p] for p in ("mla_serve_eager", "mla_dense",
+                                             "mla_spec"))
+    _same_streams("mla_serve_eager", eager["streams"], graphed["streams"])
+    _same_streams("mla_dense", dense["streams"], graphed["streams"])
+    warm = graphed["graph_warm_launches"]
+    replayed = {w: c - warm.get(w, 0) for w, c in runs["mla_serve"].items()}
+    assert replayed == runs["mla_serve_eager"], (replayed,
+                                                 runs["mla_serve_eager"])
+    assert spec["spec"] == "draft", spec["spec_fallback_reason"]
+    assert spec["acceptance_rate"] > 0.5, spec["acceptance_rate"]
+    same = {rid: graphed["streams"][rid] == t
+            for rid, t in spec["streams"].items()}
+    keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
+            "ttft_p99_s", "wall_s", "decode_steps")
+    say({"phase": "mla_summary", "arch": MLA_ARCH, "layers": layers,
+         "eager_streams_equal": len(graphed["streams"]),
+         "dense_streams_equal": len(graphed["streams"]),
+         "launches_equal": True,
+         "spec_streams_equal_spec_off": sum(same.values()), "of": len(same),
+         "spec_differ": [rid for rid, ok in same.items() if not ok],
+         "spec_acceptance": spec["acceptance_rate"],
+         "spec_tokens_per_step": spec["tokens_per_step"],
+         "mla_serve": {k: graphed[k] for k in keys},
+         "mla_serve_eager": {k: eager[k] for k in keys},
+         "mla_dense": {k: dense[k] for k in keys},
+         "mla_spec": {k: spec[k] for k in keys},
+         "serve_smollm": {k: serve[k] for k in keys}})
+    torch.cuda.empty_cache()
+    return graphed, runs
+
+
+def pilot_mla_phase(wrappers, direct):
+    """One pilot binds full-width smollm-360m, then minicpm3-4b, prefetched
+    (`pilot_run`'s gates: streams bitwise serve's and mla_serve's);
+    minicpm3's engine launched flash and RMSNorm and no other kernel.
+    Returns each payload engine's launches by arch."""
+    out, wall, launches, report, warm, memory = pilot_run(
+        wrappers, [DENSE_ARCH, MLA_ARCH], direct)
+    p2 = launches[MLA_ARCH]
+    for w in ("flash_attention", "rmsnorm_fused"):
+        assert p2[w] > 0, p2
+    for w in MLA_UNLAUNCHED:
+        assert p2[w] == 0, p2
+    pilot_report("pilot_mla", out, wall, report, warm, memory)
+    return launches
+
+
+def mla_model_phase(dev):
+    """minicpm3-4b teacher-forced as in phase 6 (kernels against the plain
+    path, paged), its first ``MLA_GATED_LAYERS`` layers (all 62) gated by
+    LOGIT_TOL; when they miss it, the errors at ``MLA_DEPTHS`` layers are
+    reported first."""
+    on = dict(attn_impl="pallas", norm_impl="pallas")
+    off = dict(attn_impl="chunked", norm_impl="jnp")
+    runs, params, _, _ = teacher_forced(MLA_ARCH, on, off, dev,
+                                        layers=MLA_GATED_LAYERS)
+    del params
+    torch.cuda.empty_cache()
+    if not torch.allclose(runs["kernels"], runs["plain"], **LOGIT_TOL):
+        depths = {MLA_GATED_LAYERS: runs}
+        for n in MLA_DEPTHS:
+            depths[n], params, _, _ = teacher_forced(MLA_ARCH, on, off, dev,
+                                                     layers=n)
+            del params
+            torch.cuda.empty_cache()
+        say({"phase": "mla_model_by_depth", "arch": MLA_ARCH, "tol": LOGIT_TOL,
+             "max_abs_err": {n: float((r["kernels"] - r["plain"]).abs().max())
+                             for n, r in depths.items()},
+             "within_tol": {n: bool(torch.allclose(r["kernels"], r["plain"],
+                                                   **LOGIT_TOL))
+                            for n, r in depths.items()}})
+    compare_logits("mla_model", MLA_ARCH, runs, layers=MLA_GATED_LAYERS)
+
+
 def _attn_case(rng, dev, B, S, H, K, Dh):
     return (bf16(rng, (B, S, H, Dh), dev), bf16(rng, (B, S, K, Dh), dev),
             bf16(rng, (B, S, K, Dh), dev))
@@ -2538,7 +2715,8 @@ def arch_kernel_shapes(rng, dev, ptxas):
     name: {shape name: entry}}."""
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, head_width)
     from repro_torch.kernels.grouped_matmul.ops import (
         bucket_matmul, grouped_matmul_plain)
     from repro_torch.kernels.paged_attention.ops import (
@@ -2569,8 +2747,16 @@ def arch_kernel_shapes(rng, dev, ptxas):
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)
         pairs = sum(min(i + 1, window or S) for i in range(S))
         nbytes = 2 * (2 * S * H * Dh + 2 * S * K * Dh)
+        width = head_width(Dh)
+        if width != Dh:
+            # the kernel alone on inputs already padded to its instance:
+            # the same work, without the wrapper's pads and output slice
+            qp, kp, vp = (F.pad(t, (0, width - Dh)) for t in (q, k, v))
+            instance_ms = graph_ms(
+                lambda: flash_attention(qp, kp, vp, **kw), n=10)
+            del qp, kp, vp
         flash[name] = {
-            "max_abs_err": err,
+            "instance": width, "max_abs_err": err,
             "ms": time_ms(lambda: flash_attention(q, k, v, **kw), n=10),
             "device_ms": graph_ms(lambda: flash_attention(q, k, v, **kw),
                                   n=10),
@@ -2579,6 +2765,8 @@ def arch_kernel_shapes(rng, dev, ptxas):
             "library_ms": time_ms(sdpa, n=10),
             "library_device_ms": graph_ms(sdpa, n=10),
             **bound(nbytes, 4 * Dh * H * pairs, BF16_FLOPS)}
+        if width != Dh:
+            flash[name]["device_ms_on_padded_inputs"] = instance_ms
         del q, k, v, qt, kt, vt, mask
     flash["ptxas_Dh256"] = {k: v for k, v in ptxas.get("flash_prefill",
                                                        {}).items()
@@ -2805,6 +2993,28 @@ def main(argv):
     arch_seconds["pilot_gemma"] = time.monotonic() - t0
     say({"phase": "arch_serve_all", "seconds": arch_seconds,
          "total_seconds": sum(arch_seconds.values())})
+    mla_seconds = {}
+    t0 = time.monotonic()
+    mla, mla_runs = mla_serve_phases(wrappers, serve)
+    runs.update(mla_runs)
+    mla_seconds["mla_serve_phases"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    _, runs["chunked_mla"] = chunked_run(
+        "chunked_mla", wrappers, MLA_ARCH, SERVE, CHUNK, ("rmsnorm_fused",),
+        ("flash_attention",) + MLA_UNLAUNCHED)
+    chunked_logits_phase(dev, MLA_ARCH, "chunked_mla_logits")
+    mla_seconds["chunked_mla"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    pilot = pilot_mla_phase(wrappers, {DENSE_ARCH: streams,
+                                       MLA_ARCH: mla["streams"]})
+    runs["pilot_mla_smollm"] = pilot[DENSE_ARCH]
+    runs["pilot_mla"] = pilot[MLA_ARCH]
+    mla_seconds["pilot_mla"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    train_parity_phase(MLA_ARCH, "mla_train_parity", wrappers)
+    mla_seconds["mla_train_parity"] = time.monotonic() - t0
+    say({"phase": "mla_serve_all", "seconds": mla_seconds,
+         "total_seconds": sum(mla_seconds.values())})
     t0 = time.monotonic()
     runs["train"] = train_phase(wrappers)
     train_parity_phase()
@@ -2832,6 +3042,9 @@ def main(argv):
     t0 = time.monotonic()
     arch_models_phase(dev)
     say({"phase": "arch_models_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    mla_model_phase(dev)
+    say({"phase": "mla_model_all", "seconds": time.monotonic() - t0})
     say({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

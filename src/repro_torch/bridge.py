@@ -11,7 +11,9 @@ float32 because the reference keeps them in f32 and applies them in f32
 logits decide which experts a token reaches (``moe.router_probs`` casts
 both operands to f32), and the SSM mixer's ``A_log``, ``dt_bias``,
 ``D_skip`` and ``norm_scale``, which the reference reads in f32
-(``models/ssm.py``); every other leaf is stored in bf16, which rounds
+(``models/ssm.py``), and MLA's ``q_norm`` and ``kv_norm`` scales, which
+the reference initialises and applies in f32 (``models/attention.py``);
+every other leaf is stored in bf16, which rounds
 exactly as the reference's ``.astype(bf16)`` at use does.
 
 A train state maps too: the reference's ``{"params", "opt": {"m", "v",
@@ -31,7 +33,7 @@ from repro_torch.models.transformer import LMParams
 
 
 F32_LEAVES = ("scale", "bias", "router", "A_log", "dt_bias", "D_skip",
-              "norm_scale")
+              "norm_scale", "q_norm", "kv_norm")
 
 
 def _keeps_f32(path: tuple) -> bool:

@@ -122,11 +122,13 @@ def sync(device: torch.device):
 
 def _kernel_sources(cfg: ArchConfig) -> list[str]:
     """The kernel libraries (``csrc/<name>.cu``) an engine of ``cfg`` can
-    launch: its ``*_impl`` flags select the hand-written kernels."""
+    launch: its ``*_impl`` flags select the hand-written kernels (MLA's
+    decode paths are plain: only its prefill reaches a kernel, flash)."""
     names = []
     if cfg.attn_impl == "pallas" and not cfg.is_attention_free:
-        names += ["flash_prefill", "paged_decode", "paged_verify",
-                  "decode_attention"]
+        names.append("flash_prefill")
+        if cfg.mla is None:
+            names += ["paged_decode", "paged_verify", "decode_attention"]
     if cfg.norm_impl == "pallas":
         names.append("rmsnorm")
     if cfg.moe_impl == "gmm" and cfg.moe is not None:

@@ -1,8 +1,8 @@
-"""Attention (GQA): prefill, decode (paged or dense KV) and speculative
-verify paths.
+"""Attention (GQA and MLA): prefill, decode (paged or dense KV) and
+speculative verify paths.
 
-Port of the GQA part of ``repro.models.attention``.  ``cfg.attn_impl``
-selects the attend step:
+Port of ``repro.models.attention``.  ``cfg.attn_impl`` selects the attend
+step:
 
 * ``"pallas"`` — the hand-written kernels: flash prefill
   (`repro_torch.kernels.flash_attention`), paged decode and paged verify
@@ -27,8 +27,20 @@ keeps each slot's latest occupant, and decode attends the whole ring
 (which holds only the window) with no window mask.  The prefill and chunk
 paths mask keys at or before ``pos - window``.
 
+Multi-head latent attention (MLA, minicpm3) caches one compressed latent
+per token, ``ckv`` (kv_lora_rank wide) and the rotated ``krope``
+(qk_rope_head_dim wide): dense rings ``{"ckv", "krope"}`` or paged pools
+``{"ckvp", "kropep"}``.  The train path and the one-shot prefill expand
+the latent into per-head keys and values and attend through `attend` (the
+flash kernel on the kernel flags), V zero-padded to the q/k head width;
+decode, verify and chunked admission score the queries against the latent
+itself with the absorbed weights (`_mla_latent_attend`), in plain PyTorch
+as in the reference, which has no kernel for it.  RoPE rotates only the
+``qk_rope_head_dim`` channels (`rope_dim`).  Its inner ``q_norm`` and
+``kv_norm`` are the plain `rmsnorm`, as in the reference.
+
 Masks use ``NEG_INF = -1e30`` (a fully masked row is uniform, not NaN);
-Q.K and P.V take bf16 operands and sum in f32.  MLA is a later slice.
+Q.K and P.V take bf16 operands and sum in f32.
 """
 
 from __future__ import annotations
@@ -36,17 +48,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.paged_attention.ops import gather_kv
-from repro_torch.models.layers import COMPUTE, apply_rope, dense_init, rope_table
+from repro_torch.models.layers import (
+    COMPUTE, apply_rope, dense_init, rmsnorm, rope_table)
 
 NEG_INF = -1e30
 
 
-def _check_gqa(cfg):
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA is a later slice of the port (ROADMAP.md "
-            "Queue 1 item 6, MLA); this one carries GQA, with or without a "
-            "sliding window")
+def rope_dim(cfg) -> int:
+    """The head sub-width RoPE rotates: MLA's ``qk_rope_head_dim``, else
+    the whole head."""
+    return cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.head_dim
 
 
 # ==========================================================================
@@ -54,13 +65,35 @@ def _check_gqa(cfg):
 # ==========================================================================
 
 def init_attention(gen, cfg, dtype=COMPUTE, device="cpu"):
-    _check_gqa(cfg)
+    if cfg.mla is not None:
+        return _init_mla(gen, cfg, dtype, device)
     D, H, K, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
         "wq": dense_init(gen, (D, H, Dh), dtype=dtype, device=device),
         "wk": dense_init(gen, (D, K, Dh), dtype=dtype, device=device),
         "wv": dense_init(gen, (D, K, Dh), dtype=dtype, device=device),
         "wo": dense_init(gen, (H, Dh, D), in_axis=0, dtype=dtype, device=device),
+    }
+
+
+def _init_mla(gen, cfg, dtype, device):
+    """MLA's parameters; the latent norms' scales are f32 zeros (RMSNorm
+    stores ``scale - 1``), as in the reference."""
+    s = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+
+    def w(shape, in_axis=0):
+        return dense_init(gen, shape, in_axis, dtype=dtype, device=device)
+    return {
+        "wq_a": w((D, s.q_lora_rank)),
+        "q_norm": torch.zeros((s.q_lora_rank,), dtype=torch.float32,
+                              device=device),
+        "wq_b": w((s.q_lora_rank, H, s.qk_head_dim)),
+        "wkv_a": w((D, s.kv_lora_rank + s.qk_rope_head_dim)),
+        "kv_norm": torch.zeros((s.kv_lora_rank,), dtype=torch.float32,
+                               device=device),
+        "wkv_b": w((s.kv_lora_rank, H, s.qk_nope_head_dim + s.v_head_dim)),
+        "wo": w((H, s.v_head_dim, D), in_axis=0),
     }
 
 
@@ -209,14 +242,15 @@ def decode_attend(q, k_cache, v_cache, cache_len, *, window=None):
 def attention_forward(x, p, cfg, *, rope_cos, rope_sin, causal=True,
                       window=None, kv=None, compute=COMPUTE):
     """Self-attention over a full sequence, the train path's layer.
-    x: (B,S,D); rope tables (S, Dh/2) match S.  Cross-attention (``kv``)
-    and MLA are ROADMAP.md Queue 1 item 6 (the encoder-decoder and MLA
-    archs)."""
-    if kv is not None or cfg.mla is not None:
+    x: (B,S,D); rope tables (S, rope_dim/2) match S.  Cross-attention
+    (``kv``) comes with the encoder-decoder arch, ROADMAP.md Queue 1 item
+    6."""
+    if kv is not None:
         raise NotImplementedError(
-            f"{cfg.name}: cross-attention and MLA come with their archs, "
-            "ROADMAP.md Queue 1 item 6")
-    _check_gqa(cfg)
+            f"{cfg.name}: cross-attention comes with the encoder-decoder "
+            "arch, ROADMAP.md Queue 1 item 6")
+    if cfg.mla is not None:
+        return _mla_forward(x, p, cfg, rope_cos, rope_sin, compute)
     q = _project(x, p["wq"], compute)
     k = _project(x, p["wk"], compute)
     v = _project(x, p["wv"], compute)
@@ -253,7 +287,8 @@ def attention_prefill(x, p, cfg, rope, cache, *, window=None,
     """Full-sequence causal self-attention (keys within ``window`` of each
     query when it is set) that also fills the decode cache.  Returns (out
     (B,S,D), new_cache)."""
-    _check_gqa(cfg)
+    if cfg.mla is not None:
+        return _mla_prefill(x, p, cfg, rope, cache, compute)
     q = _project(x, p["wq"], compute)
     k = _project(x, p["wk"], compute)
     v = _project(x, p["wv"], compute)
@@ -331,23 +366,36 @@ def _paged_gather(pool, block_tables):
     return gather_kv(pool, block_tables)
 
 
+def _cache_layout(cache) -> tuple[bool, int]:
+    """(paged, the extent of the cache's position axis: a pool's block
+    size or a ring's length).  GQA leaves end in (K, Dh), MLA's latent
+    leaves in one width; stacked or not."""
+    if "kp" in cache:
+        return True, cache["kp"].shape[-3]
+    if "ckvp" in cache:
+        return True, cache["ckvp"].shape[-2]
+    if "k" in cache:
+        return False, cache["k"].shape[-3]
+    return False, cache["ckv"].shape[-2]
+
+
 def decode_context(cfg, pos, cache, block_tables=None) -> dict:
     """What every layer of one decode step shares: the RoPE tables of the
-    rows' positions, the write slots and the valid lengths.  ``cache`` is
-    any attention layer's cache (stacked or not): a paged pool (then
-    ``block_tables`` maps its rows) or a dense ring, rolling when it is
-    shorter than the positions it serves (sliding-window attention, in
-    either layout).  The reference computes these inside each layer;
-    computing them once per step gives the same values with 32x fewer
-    launches."""
-    cos, sin = rope_table(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    if "kp" not in cache:
-        T = cache["k"].shape[-3]
-        write = _ring_write_index(pos, T)
+    rows' positions (at `rope_dim`), the write slots and the valid
+    lengths.  ``cache`` is any attention layer's cache (stacked or not): a
+    paged pool (then ``block_tables`` maps its rows) or a dense ring,
+    rolling when it is shorter than the positions it serves
+    (sliding-window attention, in either layout); K/V or MLA's latent.
+    The reference computes these inside each layer; computing them once
+    per step gives the same values with 32x fewer launches."""
+    cos, sin = rope_table(pos[:, None], rope_dim(cfg), cfg.rope_theta)
+    paged, n = _cache_layout(cache)
+    if paged:
+        T = block_tables.shape[1] * n
+        write = _paged_write_index(block_tables, pos, n)
     else:
-        bs = cache["kp"].shape[-3]
-        T = block_tables.shape[1] * bs
-        write = _paged_write_index(block_tables, pos, bs)
+        T = n
+        write = _ring_write_index(pos, T)
     return {"cos": cos, "sin": sin, "write": write,
             "cache_len": torch.clamp(pos + 1, max=T).to(torch.int32)}
 
@@ -357,10 +405,12 @@ def verify_context(cfg, pos, S: int, cache, block_tables) -> dict:
     row, overflow writes routed to the scratch block."""
     positions = pos[:, None] + torch.arange(S, dtype=torch.int32,
                                             device=pos.device)
-    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = rope_table(positions, rope_dim(cfg), cfg.rope_theta)
+    paged, bs = _cache_layout(cache)
+    if not paged:
+        raise ValueError("speculative verify requires a paged cache")
     return {"cos": cos, "sin": sin, "pos": pos,
-            "write": _paged_write_seq_index(block_tables, positions,
-                                            cache["kp"].shape[-3])}
+            "write": _paged_write_seq_index(block_tables, positions, bs)}
 
 
 def _qkv(x, p, ctx, compute):
@@ -380,8 +430,9 @@ def attention_decode(x, p, cfg, cache, pos, *, window=None,
     None).  The kernels attend the whole ring with no window (it holds
     only the window); ``window`` goes to the plain `decode_attend`, which
     does not apply it either, as in the reference.  Returns (out (B,1,D),
-    cache)."""
-    _check_gqa(cfg)
+    cache).  An MLA layer runs `_mla_decode` over its latent cache."""
+    if cfg.mla is not None:
+        return _mla_decode(x, p, cfg, cache, pos, block_tables, ctx, compute)
     paged = "kp" in cache
     if paged and block_tables is None:
         raise ValueError("a paged cache needs block_tables")
@@ -427,8 +478,10 @@ def attention_verify(x, p, cfg, cache, pos, *, block_tables, ctx=None,
     queries through `decode_attend`, the exact shapes, masks and reduction
     order of a decode step; the kernel runs the decode kernel's arithmetic
     per query.  Either way accepted speculative tokens are those of
-    spec="off" greedy decode.  Returns (out (B,S,D), cache)."""
-    _check_gqa(cfg)
+    spec="off" greedy decode.  Returns (out (B,S,D), cache).  An MLA layer
+    runs `_mla_verify` over its latent pools."""
+    if cfg.mla is not None:
+        return _mla_verify(x, p, cfg, cache, pos, block_tables, ctx, compute)
     if "kp" not in cache:
         raise ValueError("attention_verify requires a paged KV cache")
     B, S, _ = x.shape
@@ -523,8 +576,11 @@ def attention_prefill_chunk(x, p, cfg, cache, table_row, slot: int,
     ids of the admitted row (passed explicitly: the engine installs the row
     into the shared block table only when the last chunk lands, so free-slot
     writes keep hitting the scratch block meanwhile); slot: the batch row;
-    q_offset: absolute position of x[:,0].  Returns (out (1,C,D), cache)."""
-    _check_gqa(cfg)
+    q_offset: absolute position of x[:,0].  Returns (out (1,C,D), cache).
+    An MLA layer runs `_mla_prefill_chunk` (paged latent pools only)."""
+    if cfg.mla is not None:
+        return _mla_prefill_chunk(x, p, cfg, cache, table_row, q_offset,
+                                  compute)
     C = x.shape[1]
     positions = q_offset + torch.arange(C, device=x.device)
     cos, sin = rope_table(positions[None], cfg.head_dim, cfg.rope_theta)
@@ -561,8 +617,14 @@ def attention_prefill_chunk(x, p, cfg, cache, table_row, slot: int,
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=COMPUTE, device="cpu"):
     """Per-attention-layer dense cache (the one-shot prefill's output):
     rings of ``min(max_len, sliding_window)`` positions (all of
-    ``max_len`` without a window)."""
-    _check_gqa(cfg)
+    ``max_len`` without a window).  MLA: latent rings ``{"ckv",
+    "krope"}`` of ``max_len`` positions."""
+    if cfg.mla is not None:
+        s = cfg.mla
+        return {"ckv": torch.zeros((batch, max_len, s.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "krope": torch.zeros((batch, max_len, s.qk_rope_head_dim),
+                                     dtype=dtype, device=device)}
     T = (max_len if cfg.sliding_window is None
          else min(max_len, cfg.sliding_window))
     K, Dh = cfg.num_kv_heads, cfg.head_dim
@@ -572,15 +634,198 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=COMPUTE, device="cpu"):
 
 def init_kv_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
                         block_size: int, dtype=COMPUTE, device="cpu"):
-    """Per-attention-layer paged cache: a shared block pool.  A
-    sliding-window layer keeps its dense rolling ring instead (`batch` x
-    ``min(max_len, window)``), as in the reference: the ring is always
-    fully live, so paging it saves nothing, and it keeps decode bitwise
-    the dense path's."""
-    _check_gqa(cfg)
-    if cfg.sliding_window is not None:
+    """Per-attention-layer paged cache: shared block pools, ``{"kp",
+    "vp"}`` (nb, bs, K, Dh) or MLA's latent ``{"ckvp", "kropep"}`` (nb, bs,
+    kv_lora_rank / qk_rope_head_dim).  A GQA sliding-window layer keeps its
+    dense rolling ring instead (``batch`` x ``min(max_len, window)``), as
+    in the reference: the ring is always fully live, so paging it saves
+    nothing, and it keeps decode bitwise the dense path's."""
+    if cfg.mla is not None:                  # the latent pools
+        s = cfg.mla
+        shapes = {"ckvp": (num_blocks, block_size, s.kv_lora_rank),
+                  "kropep": (num_blocks, block_size, s.qk_rope_head_dim)}
+    elif cfg.sliding_window is not None:
         return init_kv_cache(cfg, batch, max_len, dtype, device)
-    K, Dh = cfg.num_kv_heads, cfg.head_dim
-    shape = (num_blocks, block_size, K, Dh)
-    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
-            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+    else:
+        shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+        shapes = {"kp": shape, "vp": shape}
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k, shape in shapes.items()}
+
+
+# ==========================================================================
+# MLA (multi-head latent attention)
+# ==========================================================================
+#
+# Expanded (train, one-shot prefill): every head's key is [k_nope, k_rope]
+# (k_nope from the latent through ``wkv_b``, k_rope one rotated key shared
+# by the heads) and its value, zero-padded to the key's width, goes through
+# `attend`.  Absorbed (decode, verify, chunks): ``wkv_b``'s key half folds
+# into the query, so each query scores the cached latent directly,
+#     score = (q_nope W_k) . ckv + q_rope . krope,
+# and its value half maps the attended latent back to each head.
+
+
+def _mla_project_q(x, p, cfg, compute):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), q_rope not rotated."""
+    s = cfg.mla
+    ql = rmsnorm(x @ p["wq_a"].to(compute), p["q_norm"], cfg.norm_eps)
+    q = _project(ql, p["wq_b"], compute)
+    return q[..., :s.qk_nope_head_dim], q[..., s.qk_nope_head_dim:]
+
+
+def _mla_latent(x, p, cfg, cos, sin, compute):
+    """The new tokens' cache rows: the normed latent ckv (B,S,r) and the
+    rotated shared key krope (B,S,rope)."""
+    r = cfg.mla.kv_lora_rank
+    kv_a = x @ p["wkv_a"].to(compute)
+    ckv = rmsnorm(kv_a[..., :r], p["kv_norm"], cfg.norm_eps)
+    return ckv, apply_rope(kv_a[:, :, None, r:], cos, sin)[:, :, 0]
+
+
+def _mla_expanded(x, p, cfg, cos, sin, compute):
+    """The expanded attention of a full sequence: (out (B,S,D), ckv,
+    krope), ``attend`` run on q/k of width ``qk_head_dim`` and V padded to
+    it."""
+    s = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_project_q(x, p, cfg, compute)
+    q_rope = apply_rope(q_rope, cos, sin)
+    ckv, krope = _mla_latent(x, p, cfg, cos, sin, compute)
+    kv = _project(ckv, p["wkv_b"], compute)              # (B,S,H,nope+v)
+    k_nope, v = kv[..., :s.qk_nope_head_dim], kv[..., s.qk_nope_head_dim:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None].expand(
+        B, S, H, s.qk_rope_head_dim)], dim=-1)
+    v_pad = torch.nn.functional.pad(v, (0, s.qk_head_dim - s.v_head_dim))
+    out = attend(q, k, v_pad, cfg, causal=True)[..., :s.v_head_dim]
+    return _out_project(out, p["wo"], compute), ckv, krope
+
+
+def _mla_forward(x, p, cfg, rope_cos, rope_sin, compute):
+    """The train path's MLA layer (full expansion)."""
+    return _mla_expanded(x, p, cfg, rope_cos, rope_sin, compute)[0]
+
+
+def _mla_prefill(x, p, cfg, rope, cache, compute):
+    """MLA prefill: the expanded attention, and the latent rows written
+    into the ring ``cache`` {"ckv", "krope"} (B,T,*): padded past S, or
+    the last T positions when S > T."""
+    out, ckv, krope = _mla_expanded(x, p, cfg, rope[0], rope[1], compute)
+    S, T = x.shape[1], cache["ckv"].shape[1]
+
+    def fit(t, like):
+        t = (torch.nn.functional.pad(t, (0, 0, 0, T - S)) if S <= T
+             else t[:, -T:])
+        return t.to(like.dtype)
+    return out, {"ckv": fit(ckv, cache["ckv"]),
+                 "krope": fit(krope, cache["krope"])}
+
+
+def _mla_latent_attend(q_nope, q_rope, ckv, krope, valid, p, cfg, compute):
+    """The absorbed-weight score over a latent view, the reference's
+    `_mla_decode` math with a query axis: q_nope (B,C,H,nope) and q_rope
+    (B,C,H,rope) rotated; ckv (B,T,r), krope (B,T,rope); valid (B,C,T).
+    The score and value sums take bf16 operands and sum in f32; f32
+    softmax.  Returns the heads' outputs (B,C,H,v) in ``compute``."""
+    s = cfg.mla
+    wkv_b = p["wkv_b"].to(compute)                       # (r,H,nope+v)
+    wk = wkv_b[..., :s.qk_nope_head_dim]
+    wv = wkv_b[..., s.qk_nope_head_dim:]
+    q_lat = torch.einsum("bchn,rhn->bchr", q_nope, wk)   # absorb, bf16
+    ckv_f = ckv.to(compute).float()
+    scores = (torch.einsum("bchr,btr->bhct", q_lat.float(), ckv_f)
+              + torch.einsum("bchk,btk->bhct", q_rope.to(compute).float(),
+                             krope.to(compute).float())
+              ) * (1.0 / s.qk_head_dim ** 0.5)
+    scores = torch.where(valid[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhct,btr->bchr", probs.to(compute).float(), ckv_f)
+    return torch.einsum("bchr,rhv->bchv", out_lat.to(compute), wv)
+
+
+def _mla_decode(x, p, cfg, cache, pos, block_tables, ctx, compute):
+    """One MLA decode step over the latent cache: paged pools {"ckvp",
+    "kropep"} (nb,bs,*) read through ``block_tables``, or dense rings
+    {"ckv", "krope"} (B,T,*); the new rows written in place at the
+    step context's slots."""
+    paged = "ckvp" in cache
+    if paged and block_tables is None:
+        raise ValueError("a paged cache needs block_tables")
+    B = x.shape[0]
+    if ctx is None:
+        ctx = decode_context(cfg, _row_positions(pos, B, x.device), cache,
+                             block_tables)
+    q_nope, q_rope = _mla_project_q(x, p, cfg, compute)
+    q_rope = apply_rope(q_rope, ctx["cos"], ctx["sin"])
+    ckv_new, kr_new = _mla_latent(x, p, cfg, ctx["cos"], ctx["sin"], compute)
+    if paged:
+        _write_rows(cache["ckvp"], ckv_new, ctx["write"])
+        _write_rows(cache["kropep"], kr_new, ctx["write"])
+        ckv = _paged_gather(cache["ckvp"], block_tables)
+        krope = _paged_gather(cache["kropep"], block_tables)
+    else:
+        ckv = _write_rows(cache["ckv"], ckv_new, ctx["write"])
+        krope = _write_rows(cache["krope"], kr_new, ctx["write"])
+    T = ckv.shape[1]
+    valid = (torch.arange(T, device=x.device)[None]
+             < ctx["cache_len"][:, None])[:, None]          # (B,1,T)
+    out = _mla_latent_attend(q_nope, q_rope, ckv, krope, valid, p, cfg,
+                             compute)
+    return _out_project(out, p["wo"], compute), cache
+
+
+def _mla_verify(x, p, cfg, cache, pos, block_tables, ctx, compute):
+    """MLA speculative verify over the paged latent pools: the S new rows
+    written at ``pos..pos+S-1``, then each query through `_mla_decode`'s
+    math at its own frontier (the same shapes and reduction order: the
+    bitwise-parity contract)."""
+    if "ckvp" not in cache:
+        raise ValueError("MLA verify requires the paged latent pools")
+    B, S, _ = x.shape
+    if ctx is None:
+        ctx = verify_context(cfg, _row_positions(pos, B, x.device), S, cache,
+                             block_tables)
+    q_nope, q_rope = _mla_project_q(x, p, cfg, compute)
+    q_rope = apply_rope(q_rope, ctx["cos"], ctx["sin"])
+    ckv_new, kr_new = _mla_latent(x, p, cfg, ctx["cos"], ctx["sin"], compute)
+    _write_rows(cache["ckvp"], ckv_new, ctx["write"])
+    _write_rows(cache["kropep"], kr_new, ctx["write"])
+    ckv = _paged_gather(cache["ckvp"], block_tables)
+    krope = _paged_gather(cache["kropep"], block_tables)
+    T = ckv.shape[1]
+    t = torch.arange(T, device=x.device)[None]
+    outs = []
+    for sq in range(S):
+        valid = (t < torch.clamp(ctx["pos"] + sq + 1, max=T)[:, None])[:, None]
+        out = _mla_latent_attend(q_nope[:, sq:sq + 1], q_rope[:, sq:sq + 1],
+                                 ckv, krope, valid, p, cfg, compute)
+        outs.append(_out_project(out, p["wo"], compute))
+    return torch.cat(outs, dim=1), cache
+
+
+def _mla_prefill_chunk(x, p, cfg, cache, table_row, q_offset, compute):
+    """One chunk of an MLA admission into the paged latent pools: its rows
+    written at ``q_offset..``, then its C queries scored against the
+    row's latent view by the absorbed math, causally.  A dense MLA engine
+    admits one-shot (the reference's chunk path speaks only the pools)."""
+    if "ckvp" not in cache:
+        raise ValueError("MLA chunked admission requires the paged latent "
+                         "pools; a dense MLA engine admits one-shot")
+    C = x.shape[1]
+    positions = q_offset + torch.arange(C, device=x.device)
+    cos, sin = rope_table(positions[None], rope_dim(cfg), cfg.rope_theta)
+    q_nope, q_rope = _mla_project_q(x, p, cfg, compute)
+    q_rope = apply_rope(q_rope, cos, sin)
+    ckv_new, kr_new = _mla_latent(x, p, cfg, cos, sin, compute)
+    _paged_write_chunk(cache["ckvp"], ckv_new[0], table_row, positions)
+    _paged_write_chunk(cache["kropep"], kr_new[0], table_row, positions)
+    ckv = _paged_gather(cache["ckvp"], table_row[None])          # (1,T,r)
+    krope = _paged_gather(cache["kropep"], table_row[None])
+    T = ckv.shape[1]
+    valid = (torch.arange(T, device=x.device)[None, :]
+             <= positions[:, None])[None]                        # (1,C,T)
+    out = _mla_latent_attend(q_nope, q_rope, ckv, krope, valid, p, cfg,
+                             compute)
+    return _out_project(out, p["wo"], compute), cache

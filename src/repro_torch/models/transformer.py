@@ -1,5 +1,5 @@
-"""Decoder-only LM (GQA attention with a dense or MoE FFN, or Mamba-2 SSM
-mixers): parameters, the train loss, caches, prefill, decode.
+"""Decoder-only LM (GQA or MLA attention with a dense or MoE FFN, or
+Mamba-2 SSM mixers): parameters, the train loss, caches, prefill, decode.
 
 Port of the attention and SSM parts of ``repro.models.transformer``.  Layers are
 organised into groups of ``period`` layers exactly as in the reference,
@@ -82,8 +82,8 @@ def layer_slots(cfg) -> list[dict]:
 def _check_slice(cfg):
     """Refuse the arch families the port does not carry yet, naming their
     ROADMAP.md item; it carries GQA decoders (with or without a sliding
-    window, dense or MoE FFNs, RMSNorm or LayerNorm) and attention-free
-    SSM stacks."""
+    window, dense or MoE FFNs, RMSNorm or LayerNorm), MLA decoders and
+    attention-free SSM stacks."""
     later = "is a later slice of the port (ROADMAP.md Queue 1 item 6, {})"
     if cfg.is_encdec:
         raise NotImplementedError(
@@ -97,8 +97,6 @@ def _check_slice(cfg):
         raise NotImplementedError(
             f"{cfg.name}: a hybrid (SSM + attention) arch "
             + later.format("Hybrid"))
-    if "attn" in mixers:
-        attn._check_gqa(cfg)
 
 
 def _attn_slot(slots) -> int | None:
@@ -126,11 +124,12 @@ class LMParams(nn.Module):
     ``embed`` (V,D), ``final_norm["scale"]`` (D,), optional ``head`` (D,V),
     and ``layers[slot]`` whose leaves are stacked ``(n_groups, ...)``.
     For serving, matrices are bf16 (the reference casts them to bf16 at
-    use); norm scales and LayerNorm biases (applied in f32), MoE routers (f32
-    logits) and the SSM mixer's ``A_log``, ``dt_bias``, ``D_skip`` and
-    ``norm_scale`` stay f32.  A train state holds every leaf in f32 (the
-    master weights; the layers cast at use) and turns ``requires_grad``
-    on; every parameter is made frozen.
+    use); norm scales and LayerNorm biases (applied in f32), MLA's
+    ``q_norm`` and ``kv_norm`` scales, MoE routers (f32 logits) and the SSM
+    mixer's ``A_log``, ``dt_bias``, ``D_skip`` and ``norm_scale`` stay f32.
+    A train state holds every leaf in f32 (the master weights; the layers
+    cast at use) and turns ``requires_grad`` on; every parameter is made
+    frozen.
 
     The serve paths read `group` (views of ``.data``, built once, which
     a captured CUDA graph replays); the train path reads `live_groups`,
@@ -304,7 +303,7 @@ def lm_backbone(params: LMParams, cfg, x, *, compute=COMPUTE):
     slots = layer_slots(cfg)
     rope = ((None, None) if _attn_slot(slots) is None else
             rope_table(torch.arange(x.shape[1], device=x.device),
-                       cfg.head_dim, cfg.rope_theta))
+                       attn.rope_dim(cfg), cfg.rope_theta))
 
     def group_body(x, gp):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -349,8 +348,8 @@ def _stacked(c: dict, n_groups: int) -> dict:
 
 def init_cache(cfg, batch: int, max_len: int, dtype=COMPUTE, device="cpu"):
     """Stacked dense cache: one dict per slot, leaves (n_groups, ...):
-    rings ``{"k", "v"}`` for attention slots, per-row ``{"conv", "ssd"}``
-    state for SSM slots."""
+    rings ``{"k", "v"}`` (MLA: latent rings ``{"ckv", "krope"}``) for
+    attention slots, per-row ``{"conv", "ssd"}`` state for SSM slots."""
     _check_slice(cfg)
     n_groups = cfg.num_layers // group_period(cfg)
     return [_stacked(attn.init_kv_cache(cfg, batch, max_len, dtype, device)
@@ -362,25 +361,19 @@ def init_cache(cfg, batch: int, max_len: int, dtype=COMPUTE, device="cpu"):
 
 def init_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
                      block_size: int, dtype=COMPUTE, device="cpu"):
-    """Stacked paged cache: per attention slot, pools (n_groups, nb, bs, K,
-    Dh); SSM state stays per row (it is O(1) per row, nothing to page), and
-    so do sliding-window rings (always fully live)."""
+    """Stacked paged cache: per attention slot, pools (n_groups, nb, bs,
+    ...) of K/V or of MLA's latent (`attention.init_kv_cache_paged`); SSM
+    state stays per row (it is O(1) per row, nothing to page), and so do
+    sliding-window rings (always fully live)."""
     _check_slice(cfg)
     n_groups = cfg.num_layers // group_period(cfg)
-    K, Dh = cfg.num_kv_heads, cfg.head_dim
-    shape = (n_groups, num_blocks, block_size, K, Dh)
-
-    def one(s):
-        if s["mixer"] != "attn":
-            return _stacked(ssm.init_ssm_cache(cfg, batch, dtype, device),
-                            n_groups)
-        if cfg.sliding_window is not None:
-            return _stacked(attn.init_kv_cache_paged(
-                cfg, batch, max_len, num_blocks, block_size, dtype, device),
-                n_groups)
-        return {"kp": torch.zeros(shape, dtype=dtype, device=device),
-                "vp": torch.zeros(shape, dtype=dtype, device=device)}
-    return [one(s) for s in layer_slots(cfg)]
+    return [_stacked(attn.init_kv_cache_paged(cfg, batch, max_len,
+                                              num_blocks, block_size, dtype,
+                                              device)
+                     if s["mixer"] == "attn"
+                     else ssm.init_ssm_cache(cfg, batch, dtype, device),
+                     n_groups)
+            for s in layer_slots(cfg)]
 
 
 # --------------------------------------------------------------------------
@@ -407,7 +400,7 @@ def lm_prefill(params: LMParams, cfg, tokens, cache, *, compute=COMPUTE):
     slots = layer_slots(cfg)
     x = embed_lookup(tokens, params.embed, compute)
     S = x.shape[1]
-    rope = (rope_table(torch.arange(S, device=x.device), cfg.head_dim,
+    rope = (rope_table(torch.arange(S, device=x.device), attn.rope_dim(cfg),
                        cfg.rope_theta)
             if _attn_slot(slots) is not None else None)
     new = [{k: [] for k in c} for c in cache]

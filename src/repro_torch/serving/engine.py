@@ -4,7 +4,8 @@ cache, with optional draft-and-verify speculative decoding.
 Port of ``repro.serving.engine`` for the unified-role, single-device
 path.  With ``kv="paged"`` (the default) the engine owns one
 block pool per attention slot — ``(n_groups, num_blocks, block_size,
-heads, dh)`` — plus a per-slot block table ``(slots, max_len //
+heads, dh)``, or MLA's latent pools ``(..., kv_lora_rank)`` and ``(...,
+qk_rope_head_dim)`` — plus a per-slot block table ``(slots, max_len //
 block_size)`` mapping logical position ``p`` of slot ``s`` to
 ``pool[table[s, p // bs], p % bs]``.  A host-side
 :class:`~repro_torch.serving.blockpool.BlockAllocator` hands out physical
@@ -275,7 +276,10 @@ def spec_ineligible_reason(cfg, kv: str) -> str | None:
     return None
 
 
-_PAGED_KEYS = ("kp", "vp")
+# each paged pool's key -> the key of the one-shot prefill's leaf it takes
+_PAGED_KEYS = {"kp": "k", "vp": "v", "ckvp": "ckv", "kropep": "krope"}
+# the dense per-row leaves that are rings of positions (K/V, MLA's latent)
+_RING_KEYS = ("k", "v", "ckv", "krope")
 
 
 def _on_device(method):
@@ -317,7 +321,8 @@ class ServeEngine:
       ``spec_fallback_reason``.
     * ``prefill`` — "oneshot" (the whole bucket at admission) or "chunked"
       (``prefill_chunk``-token chunks, at most one a tick, interleaved with
-      decode; a multiple of ``block_size`` on the paged layout).
+      decode; a multiple of ``block_size`` on the paged layout; a dense MLA
+      engine admits one-shot, as the reference's).
     * ``step_graph`` — None: the decode step is a captured CUDA graph on a
       CUDA device with ``spec="off"``, eager otherwise; False: always
       eager; True: the graph, raising where there can be none (the CPU,
@@ -373,7 +378,11 @@ class ServeEngine:
         self.role = role
         self.block_size = block_size
         self.bundle = bundle or build_model(cfg)
-        self.prefill_mode = prefill
+        # chunked admission runs on both layouts except dense MLA, whose
+        # chunk path speaks only the paged latent pools (the reference's
+        # gate): it admits one-shot
+        self.prefill_mode = ("oneshot" if kv == "dense"
+                             and cfg.mla is not None else prefill)
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk <= 0 or (kv == "paged"
                                        and self.prefill_chunk % block_size):
@@ -1114,7 +1123,7 @@ def _install_slot(state, prefill_cache, slot: int, plen: int,
     then the slot's token and position are set."""
     for st_leaf, pf_leaf in zip(state["cache"], prefill_cache):
         for key, dst in st_leaf.items():
-            _merge_row(dst, pf_leaf[key], slot, ring=key in ("k", "v"))
+            _merge_row(dst, pf_leaf[key], slot, ring=key in _RING_KEYS)
     state["token"][slot, 0] = next_token
     state["pos"][slot] = plen
     return state
@@ -1147,9 +1156,10 @@ def _install_slot_paged(state, prefill_cache, slot: int, plen: int,
     for st_leaf, pf_leaf in zip(state["cache"], prefill_cache):
         for key, dst in st_leaf.items():
             if key in _PAGED_KEYS:
-                _scatter_blocks(dst, pf_leaf[key[0]], row, nhit, block_size)
+                _scatter_blocks(dst, pf_leaf[_PAGED_KEYS[key]], row, nhit,
+                                block_size)
             else:
-                _merge_row(dst, pf_leaf[key], slot, ring=key in ("k", "v"))
+                _merge_row(dst, pf_leaf[key], slot, ring=key in _RING_KEYS)
     mb = state["block_tables"].shape[1]
     row_arr = np.zeros((mb,), np.int32)
     row_arr[:len(row)] = row
@@ -1165,8 +1175,9 @@ def _install_draft_paged(cache, prefill_cache, row: list, nhit: int,
     PLACE, at the same physical ids the target admission mapped (hit
     blocks untouched).  Spec eligibility makes every draft leaf paged."""
     for st_leaf, pf_leaf in zip(cache, prefill_cache):
-        _scatter_blocks(st_leaf["kp"], pf_leaf["k"], row, nhit, block_size)
-        _scatter_blocks(st_leaf["vp"], pf_leaf["v"], row, nhit, block_size)
+        for key, pool in st_leaf.items():
+            _scatter_blocks(pool, pf_leaf[_PAGED_KEYS[key]], row, nhit,
+                            block_size)
     return cache
 
 

@@ -17,14 +17,18 @@ widths of gemma-2b (MQA at head width 256: flash at its 1023-token
 admission, paged decode and verify at G = 8), starcoder2-3b (24 heads over
 2 of 128: G = 12) and mixtral-8x7b (flash at its 8191-token admission with
 a window of 4096; dense decode over its 4096-slot rings; its experts of
-4096 x 14336 at capacity 2560), RMSNorm at D = 2048.  The flash kernel is
+4096 x 14336 at capacity 2560), RMSNorm at D = 2048, and minicpm3-4b
+(MLA: flash at its 1023-token admission with every head its own KV head,
+G = 1, at the q/k width 96 the wrapper pads to 128; RMSNorm at D = 2560).
+The flash kernel is
 also held at the smoke widths the wrapper pads, and one raw Q.K^T tile of
 it against torch; the grouped matmul at
 every capacity bucket and with its wgmma in the SASS; the SSD scan with
 tensor-core instructions in its SASS; every kernel is also captured in one
 CUDA graph and replayed.  The serve engine's decode step, captured as a
 CUDA graph, is held bitwise to the eager step at smoke widths (paged,
-dense, mamba2, and mixtral's rolling rings), its replays to their launch counts, and a chunked
+dense, mamba2, mixtral's rolling rings, and minicpm3's latent pools and
+rings), its replays to their launch counts, and a chunked
 admission beside a decoding slot to its idle-engine run; one pilot binds
 two smoke serve images in turn, each bitwise its direct engine; three
 pilots serve one pool's requests, one killed, bitwise the direct engine.
@@ -121,6 +125,7 @@ def test_paged_decode_kernel_matches_plain(card, H, K, Dh):
     (1, 1023, 1023, 8, 1, 256, None, True),   # gemma-2b's 1023 admission
     (1, 1023, 1023, 24, 2, 128, None, True),  # starcoder2-3b's
     (1, 8191, 8191, 32, 8, 128, 4096, True),  # mixtral-8x7b's, window 4096
+    (1, 1023, 1023, 40, 40, 96, None, True),  # minicpm3-4b's: G = 1, Dh 96
     (1, 37, 37, 3, 1, 20, None, True),        # smoke widths, padded to 64
     (1, 70, 70, 4, 2, 100, None, True),       # padded to 128
 ])
@@ -164,7 +169,7 @@ def test_flash_qk_tile_matches_torch(card, S, T):
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("D", [60, 960, 1536, 4096, 2048])
+@pytest.mark.parametrize("D", [60, 960, 1536, 4096, 2048, 2560])
 @pytest.mark.parametrize("R", [1, 8, 1023])
 @pytest.mark.parametrize("with_residual", [False, True])
 def test_rmsnorm_kernel_matches_plain(card, R, D, with_residual):
@@ -630,11 +635,14 @@ def _drive(eng, ticks=20):
 
 @pytest.mark.parametrize("arch,kv", [("smollm-360m", "paged"),
                                      ("smollm-360m", "dense"),
-                                     ("mamba2-370m", "dense")])
+                                     ("mamba2-370m", "dense"),
+                                     ("minicpm3-4b", "paged"),
+                                     ("minicpm3-4b", "dense")])
 def test_graphed_step_equals_eager_step(card, arch, kv):
     """Twenty ticks of the replayed graph, with admissions and an eviction
     between replays, give the eager step's streams bitwise, with one
-    device->host copy a step."""
+    device->host copy a step (minicpm3-4b: MLA's latent pools and rings,
+    written in place)."""
     graphed = _smoke_engine(arch, kv)
     eager = _smoke_engine(arch, kv, step_graph=False)
     assert graphed._graph is not None and eager._graph is None
@@ -690,7 +698,8 @@ def test_graph_replay_counts_its_launches(card):
 
 
 @pytest.mark.parametrize("arch,kv", [("smollm-360m", "paged"),
-                                     ("mamba2-370m", "dense")])
+                                     ("mamba2-370m", "dense"),
+                                     ("minicpm3-4b", "paged")])
 def test_chunked_admission_on_card_matches_idle_engine(card, arch, kv):
     """A request admitted chunk by chunk while another slot decodes
     (graphed) gives its idle-engine tokens bitwise."""

@@ -25,6 +25,7 @@ PORT = ROOT / "src" / "repro_torch"
 COPIES = {
     "analysis/locks.py": ({}, None),
     "configs/gemma_2b.py": ({}, None),
+    "configs/minicpm3_4b.py": ({}, None),
     "configs/mixtral_8x7b.py": ({}, None),
     "configs/starcoder2_3b.py": ({}, None),
     "core/arena.py": ({}, None),
