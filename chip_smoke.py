@@ -229,6 +229,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
               prefetched, with pilot_serve's gates.
    mla_train_parity — train_parity on full-width minicpm3-4b cut to 2
               layers, launching no kernel.
+   hybrid_serve — serve's trace on jamba-v0.1-52b at full width and 8 of
+              its 32 layers (one period: 7 Mamba-2 SSM slots and 1
+              attention slot, MoE on every other; all 32 layers do not fit
+              one card), random weights from seed 0, paged and graphed,
+              asking for speculation: the gates of phase 3, the SSM
+              reason recorded and speculation off, no prefix cache, flash
+              once per admission (the attention slot), the SSD scan 7
+              times and the grouped matmul 12 times (16 experts, top 2),
+              paged decode and RMSNorm launched, no verify.  Then
+              ``hybrid_serve_eager`` and ``hybrid_dense`` (the dense decode
+              kernel): streams bitwise hybrid_serve's, eager launches the
+              graph's once its warm-up is taken off (``hybrid_summary``).
+   chunked_hybrid — 4 jamba requests of 130-300 tokens in 128-token
+              chunks with chunked_serve's gates (no flash, scan or grouped
+              matmul launch: the chunk path is plain, as the reference's).
+   vlm_serve — serve's trace on full llava-next-mistral-7b, text only as
+              the reference's engine serves it, paged and graphed, and on
+              the eager step (``vlm_serve_eager``): the gates of phase 3,
+              flash once a layer per admission, paged decode and RMSNorm,
+              streams bitwise, launches equal once the warm-up is taken
+              off.
+   encdec_model — whisper-small at full width and depth: 8 rows of 1500
+              stub frames and a 4-token prompt through ``encdec_prefill``
+              (flash at ``causal=0`` in the encoder and in the
+              cross-attention, S != T), a dense state of max_len 448 built
+              from its caches, 124 greedy decode steps (dense decode at
+              G = 1); the plain path teacher-forced with the kernel path's
+              tokens: logits at the prefill and every step within
+              LOGIT_TOL; the encoder's, the prefill's and a step's ms and
+              the decode tokens/s reported.
+   encdec_train_parity — train_parity on whisper-small cut to 2 encoder
+              and 2 decoder layers, with a ``frontend`` batch of frames,
+              launching no kernel.
+   pilot_families — one pilot binds whisper's "prefill" image, then its
+              "decode" image, then llava's "serve" image, prefetched: all
+              exit 0, the serve payload's streams bitwise vlm_serve's, its
+              bind a cache hit, memory back within 64 MiB.
 10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
               admission (the kernel path's own activations), its output
               with the SSD-scan kernel against the same mixer on the
@@ -247,6 +284,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 12. mla_model — minicpm3-4b teacher-forced as in phase 6 at full width
               and depth (``MLA_GATED_LAYERS``), paged, within LOGIT_TOL; on
               a miss the errors at 31, 16 and 8 layers are reported first.
+13. hybrid_model — jamba (8 layers) teacher-forced as in phase 6, every
+              kernel against the plain path within LOGIT_TOL, with the
+              routers' top-k agreement; then each of its SSM mixers on a
+              1023-token admission against its plain scan
+              (``hybrid_layers``, as ``mamba_layers``).
+14. vlm_model — llava (32 layers): a prefill of 576 stub patch
+              embeddings and 447 text tokens, then 8 teacher-forced decode
+              steps, the kernel path against the plain path within
+              LOGIT_TOL.
 
 The kernels phase also checks every kernel at granite's shapes (24 heads,
 8 KV heads, d_model 1536); flash prefill at head widths 128 and 256 (MQA,
@@ -283,8 +329,12 @@ instance's ptxas report; paged decode at gemma's G = 8, Dh = 256 and
 starcoder2's G = 12; dense decode over mixtral's 4096-slot rings; the
 grouped matmul at mixtral's experts (C = 2560); RMSNorm at D = 2048 and
 4096; minicpm3-4b's flash admission (G = 1, Dh 96, run on the 128
-instance: ``instance``) and RMSNorm at D = 2560: each against its plain
-version and timed as above.
+instance: ``instance``) and RMSNorm at D = 2560; jamba's and llava's flash
+admission (1,1023,32/8,128), whisper's non-causal flash over 1500 frames
+(its encoder, S = T, and its cross-attention, S = 4), paged decode at
+G = 4, Dh 128, dense decode at G = 1 over a 448-slot cache, jamba's
+experts (16, C = 160), its SSD scan (state 16, 128 heads) and RMSNorm at
+(1023, 4096): each against its plain version and timed as above.
 
 ``python3 chip_smoke.py --times-of OTHER/src`` builds another checkout's
 kernels and prints the same main-shape times of rows 2 and 4-7 and of the
@@ -394,7 +444,9 @@ ARCH_FLASH = {"gemma_S1023 (1,1023,8/1,256)": (1023, 8, 1, 256, None),
                   (8191, 32, 8, 128, 4096),
               "minicpm3_S1023 (1,1023,40/40,96)": (1023, 40, 40, 96, None)}
 ARCH_PAGED = {"gemma (8,8,256), pools (513,16,1,256)": (8, 1, 256),
-              "starcoder2 (8,24,128), pools (513,16,2,128)": (24, 2, 128)}
+              "starcoder2 (8,24,128), pools (513,16,2,128)": (24, 2, 128),
+              "jamba_llava (8,32,128), pools (513,16,8,128), G = 4":
+                  (32, 8, 128)}
 ARCH_DENSE = ("mixtral q (8,32,128), rings (8,4096,8,128)",
               (8, 4096, 32, 8, 128, [4096, 1, 4095, 2048, 4096, 129, 4000,
                                      64]))
@@ -407,7 +459,8 @@ ARCH_NORM = {"gemma_decode (8,2048)": (8, 2048),
              "mixtral_decode (8,4096)": (8, 4096),
              "mixtral_prefill (8191,4096)": (8191, 4096),
              "minicpm3_decode (8,2560)": (8, 2560),
-             "minicpm3_prefill (1023,2560)": (1023, 2560)}
+             "minicpm3_prefill (1023,2560)": (1023, 2560),
+             "jamba_llava_prefill (1023,4096)": (1023, 4096)}
 # minicpm3-4b (MLA) at full width and all 62 layers (~4.26 B parameters,
 # ~8.5 GB in bf16): serve's trace on every serve path.  Its teacher-forced
 # logits are gated over MLA_GATED_LAYERS layers (all of them); if they
@@ -419,6 +472,44 @@ MLA_DEPTHS = (31, 16, 8)
 # slots): its eager draft-and-verify step takes ~1 s at 62 layers, and
 # the 16 took 30 s of the phases' time
 MLA_SPEC_REQUESTS = 8
+# the last families: jamba-v0.1-52b (hybrid: seven Mamba-2 SSM slots and
+# one attention slot a group of 8, MoE on every other slot, 16 experts top
+# 2) at full width and one period, 8 of its 32 layers (13.27 B parameters,
+# 26.5 GB in bf16; all 32 layers are 102.9 GB and do not fit one card);
+# llava-next-mistral-7b (the VLM stub: 576 patch embeddings) and
+# whisper-small (the encoder-decoder over 1500 stub frames) at full width
+# and depth
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_LAYERS = 8
+# chunked_hybrid: 4 requests of 130-300 tokens in 128-token chunks (each
+# chunk token runs the 7 SSM slots' decode step: chunks are long on SSM
+# stacks, as chunked_mamba's)
+HYBRID_CHUNKED = dict(n_requests=4, slots=8, max_len=1024, seed=0,
+                      prompt_len=(130, 300), max_new_tokens=32)
+VLM_ARCH = "llava-next-mistral-7b"
+VLM_TEXT = 447            # text tokens after the 576 patches: 1023 positions
+ENCDEC_ARCH = "whisper-small"
+ENCDEC = dict(batch=8, prompt=4, max_len=448, steps=124)
+# their kernel shapes (arch_kernel_shapes): flash (B, S, T, H, K, Dh,
+# causal) at jamba's and llava's 1023-position admission, whisper's
+# encoder (S = T = 1500, non-causal) and its cross-attention (a 4-token
+# prompt over 1500 frames); paged decode at G = 4, Dh 128; dense decode at
+# G = 1 over whisper's 448-slot cache; jamba's experts at the 1023
+# bucket's capacity (C = 160); the SSD scan at state 16 over 128 heads
+FAMILY_FLASH = {
+    "jamba_llava_S1023 (1,1023,32/8,128)": (1, 1023, 1023, 32, 8, 128, True),
+    "whisper_encoder (8,1500,12/12,64) non-causal":
+        (8, 1500, 1500, 12, 12, 64, False),
+    "whisper_cross (8,4,12/12,64) over (8,1500,12,64) non-causal":
+        (8, 4, 1500, 12, 12, 64, False)}
+FAMILY_DENSE = ("whisper q (8,12,64), cache (8,448,12,64), G = 1",
+                (8, 448, 12, 12, 64, [5, 128, 66, 6, 100, 30, 127, 64]))
+FAMILY_GMM = (16, 160, {"jamba_up (16,160,4096)x(16,4096,14336)":
+                        (4096, 14336),
+                        "jamba_down (16,160,14336)x(16,14336,4096)":
+                        (14336, 4096)})
+FAMILY_SSD = {"jamba_S1023 (1,1023,128,64), B/C (1,1023,1,16)":
+              (1, 1023, 128, 64, 1, 16, 256)}
 # the pilot's cleanup (§3.6 of the paper) on the card: memory back within
 # this of its value before the first bind
 PILOT_MEMORY_SLACK = 64 << 20
@@ -508,6 +599,14 @@ def time_ms(fn, n=50, warm=3):
 def bf16(rng, shape, dev, scale=1.0):
     return (torch.from_numpy(rng.normal(size=shape).astype(np.float32) * scale)
             .to(dev, torch.bfloat16))
+
+
+def bf16_on(gen, shape, dev, scale=1.0):
+    """`bf16` drawn on the card from ``gen`` (a generator on ``dev``): the
+    experts' weights of the new archs are ~10^9 values, which numpy would
+    draw on the host for a minute."""
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+        torch.bfloat16)
 
 
 # --------------------------------------------------------------------------
@@ -1339,14 +1438,16 @@ def serve_eager_phase(wrappers, graphed, graphed_launches):
     return launches
 
 
-def idle_stream(arch, entry, **kw):
+def idle_stream(arch, entry, cfg=None, **kw):
     """The tokens of one trace request admitted into an idle engine built
-    as ``serve_direct`` builds it (seed 0, ``SERVE``'s slots and max_len)."""
+    as ``serve_direct`` builds it (seed 0, ``SERVE``'s slots and max_len),
+    on ``arch``'s config or on ``cfg``."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import build_engine
     from repro_torch.serving.engine import Request
-    eng = build_engine(get_config(arch), SERVE["slots"], SERVE["max_len"],
-                       seed=SERVE["seed"], device="cuda", **kw)
+    eng = build_engine(cfg or get_config(arch), SERVE["slots"],
+                       SERVE["max_len"], seed=SERVE["seed"], device="cuda",
+                       **kw)
     eng.submit(Request(rid=entry["rid"],
                        prompt=np.asarray(entry["prompt"], np.int32),
                        max_new_tokens=int(entry["max_new_tokens"])))
@@ -1354,15 +1455,18 @@ def idle_stream(arch, entry, **kw):
     return eng.done[entry["rid"]].tokens
 
 
-def chunked_run(phase, wrappers, arch, load, chunk, launched, unlaunched):
+def chunked_run(phase, wrappers, arch, load, chunk, launched, unlaunched,
+                cfg=None):
     """A chunked-admission serve run, graphed decode, prefix sharing off:
     the gates of every run, exactly the chunks the trace's buckets need,
     the kernels in ``launched`` launched and those in ``unlaunched`` (the
-    one-shot admission's) not, and the last request, admitted while the others decode, bitwise equal
-    to its run in an idle chunked engine."""
+    one-shot admission's) not, and the last request, admitted while the
+    others decode, bitwise equal to its run in an idle chunked engine.
+    ``cfg`` (default ``arch``'s) is the model served."""
     from repro_torch.serving.engine import admit_length
     kw = dict(prefill="chunked", prefill_chunk=chunk, prefix_sharing=False)
-    stats, launches = serve_run(phase, wrappers, arch=arch, load=load, **kw)
+    stats, launches = serve_run(phase, wrappers, arch=arch, load=load,
+                                cfg=cfg, trace=serve_trace(arch, load), **kw)
     assert stats["step_graph"] and stats["prefill"] == "chunked"
     trace = serve_trace(arch, load)
     want = sum(-(-admit_length(len(e["prompt"]), load["max_len"]) // chunk)
@@ -1373,7 +1477,7 @@ def chunked_run(phase, wrappers, arch, load, chunk, launched, unlaunched):
     for w in unlaunched:
         assert launches[w] == 0, launches
     last = trace[-1]
-    alone = idle_stream(arch, last, **kw)
+    alone = idle_stream(arch, last, cfg=cfg, **kw)
     assert alone == stats["streams"][last["rid"]], (alone, last["rid"])
     say({"phase": f"{phase}_isolation", "arch": arch, "rid": last["rid"],
          "prompt_len": len(last["prompt"]), "tokens": len(alone),
@@ -1932,30 +2036,47 @@ def train_phase(wrappers):
 def train_parity_phase(arch=DENSE_ARCH, phase="train_parity",
                        wrappers=None):
     """One train step of full-width ``arch`` (smollm-360m) cut to 2 layers
-    on the card and on the CPU from the same f32 state, held to
-    ``TRAIN_PARITY_TOL``; with ``wrappers``, no kernel launched by it."""
+    (an encoder-decoder's encoder too) on the card and on the CPU from the
+    same f32 state, held to ``TRAIN_PARITY_TOL``; with ``wrappers``, no
+    kernel launched by it.  A VLM's or an audio arch's batch carries the
+    frontend's stub embeddings (normal x 0.02, seed 0), which
+    ``bundle.loss`` prepends or encodes."""
     from repro_torch import tree
     from repro_torch.bridge import train_state_from_numpy, train_state_to_numpy
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
     from repro_torch.launch.steps import init_train_state, make_train_step
     from repro_torch.optim.adamw import OptimConfig, adamw_update
-    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    from repro_torch.models.api import _has_frontend
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=2,
+                              encoder_layers=min(cfg.encoder_layers, 2))
     steps = TRAIN["steps"]
     oc = OptimConfig(total_steps=steps, warmup_steps=max(steps // 20, 5))
     cpu = init_train_state(cfg, 0, "cpu")
     start = train_state_to_numpy(cpu)
     gpu = train_state_from_numpy(start, cfg, "cuda")
     batch = SyntheticLM(SyntheticConfig(cfg.vocab_size, 128, 2)).batch_at(0)
+    frontend = None
+    if _has_frontend(cfg):
+        frontend = torch.from_numpy((np.random.default_rng(0).normal(
+            size=(2, cfg.frontend_tokens, cfg.d_model)) * 0.02)
+            .astype(np.float32))
+
+    def on(dev):
+        b = to_device(batch, dev)
+        if frontend is not None:
+            b["frontend"] = frontend.to(dev)
+        return b
     step = make_train_step(cfg, oc)
     if wrappers is not None:
         _zero(wrappers)
     t0 = time.monotonic()
-    _, mg = step(gpu, to_device(batch, "cuda"))
+    _, mg = step(gpu, on("cuda"))
     torch.cuda.synchronize()
     t1 = time.monotonic()
     launches = _launches(wrappers) if wrappers is not None else None
-    _, mc = step(cpu, to_device(batch, "cpu"))
+    _, mc = step(cpu, on("cpu"))
     t2 = time.monotonic()
     lr = float(mc["lr"])
     tol = TRAIN_PARITY_TOL
@@ -1983,8 +2104,11 @@ def train_parity_phase(arch=DENSE_ARCH, phase="train_parity",
         flipped += int(((new_g - p0).sign() != (new_c - p0).sign()).sum())
         n += p0.numel()
     extra = {} if launches is None else {"launches": launches}
-    say({"phase": phase, "arch": cfg.name, "layers": 2, "batch": 2,
-         "seq": 128, "loss": [float(mg["loss"]), float(mc["loss"])],
+    say({"phase": phase, "arch": cfg.name, "layers": 2,
+         "encoder_layers": cfg.encoder_layers,
+         "frontend_tokens": 0 if frontend is None else cfg.frontend_tokens,
+         "batch": 2, "seq": 128,
+         "loss": [float(mg["loss"]), float(mc["loss"])],
          "grad_norm": [float(mg["grad_norm"]), float(mc["grad_norm"])],
          "lr": lr, "max_grad_rel": max(grad_rel),
          "max_param_abs_err": param_err,
@@ -2172,14 +2296,18 @@ def prefilled_state(bundle, params, cfg, prompts, dev, kv="paged",
 
 
 def teacher_forced(arch, kern, plain, dev, kv="paged", layers=None,
-                   prompt_lens=(300, 700), max_len=1024):
+                   prompt_lens=(300, 700), max_len=1024, pin_routes=False):
     """``arch`` (its first ``layers`` layers, all by default) teacher-forced
     with the kernels (``kern``) and with the plain path (``plain``) from
     the same weights: prefill of prompts of ``prompt_lens`` tokens (by
     default 300 and 700: buckets 512 and 1023), then 8 decode steps of
     forced tokens on a ``kv`` state of ``max_len``.  Returns each run's
     logits, the weights, the rng, and each run's router top-k expert sets
-    (sorted, one tensor per MoE call; empty for a dense arch)."""
+    (sorted, one tensor per MoE call; empty for a dense arch).  With
+    ``pin_routes`` the plain run's routers take the kernel run's expert
+    choices, call by call (their weights from the plain run's own
+    probabilities): the two runs then differ by the kernels' numerics
+    alone, not by a near-tie that one run's rounding flips."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import moe
     from repro_torch.models.api import build_model
@@ -2195,12 +2323,22 @@ def teacher_forced(arch, kern, plain, dev, kv="paged", layers=None,
     forced = rng.integers(0, base.vocab_size,
                           size=(8, len(prompts))).astype(np.int32)
     top_k = moe.top_k
-    runs, routes = {}, {}
+    runs, routes, chosen = {}, {}, []
     for name, cfg in (("kernels", kern), ("plain", plain)):
         routes[name] = []
+        pinned = iter(chosen) if pin_routes and name == "plain" else None
 
-        def recording(probs, k, seen=routes[name]):
-            wts, idx = top_k(probs, k)
+        def recording(probs, k, seen=routes[name], pinned=pinned,
+                      record=name == "kernels"):
+            if pinned is None:
+                wts, idx = top_k(probs, k)
+            else:
+                idx = next(pinned)
+                wts = torch.gather(probs, -1, idx)
+                wts = wts / torch.clamp(wts.sum(dim=-1, keepdim=True),
+                                        min=1e-9)
+            if record:
+                chosen.append(idx)
             seen.append(idx.sort(dim=-1).values.cpu())
             return wts, idx
         moe.top_k = recording
@@ -2691,6 +2829,454 @@ def mla_model_phase(dev):
     compare_logits("mla_model", MLA_ARCH, runs, layers=MLA_GATED_LAYERS)
 
 
+# --------------------------------------------------------------------------
+# the last families: hybrid jamba, the llava VLM stub, whisper enc-dec
+# --------------------------------------------------------------------------
+
+def hybrid_config():
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config(HYBRID_ARCH),
+                               num_layers=HYBRID_LAYERS)
+
+
+def hybrid_serve_phases(wrappers):
+    """serve's trace on jamba (8 layers, full width): paged and graphed,
+    asking for speculation (``hybrid_serve``: the engine records the SSM
+    reason and serves with it off), on the eager step
+    (``hybrid_serve_eager``) and on the dense layout (``hybrid_dense``).
+    Gates: those of every run; no prefix cache and no speculation; flash
+    once a layer per admission on the attention slot, the SSD scan once on
+    each of the 7 SSM slots, the grouped matmul 3 times on each of the 4
+    MoE slots, RMSNorm and the decode kernel of the layout launched, no
+    verify; the three runs' streams bitwise equal, the eager launches the
+    graph's once its warm-up is taken off.  Returns (hybrid_serve's stats,
+    {run: launches})."""
+    from repro_torch.models.transformer import layer_slots
+    cfg = hybrid_config()
+    slots = layer_slots(cfg)
+    groups = cfg.num_layers // len(slots)
+    per = {m: groups * sum(s["mixer"] == m for s in slots)
+           for m in ("attn", "ssm")}
+    moe_layers = groups * sum(s["ffn"] == "moe" for s in slots)
+    trace = serve_trace(HYBRID_ARCH)
+    runs, stats = {}, {}
+    for phase, kw in (("hybrid_serve", dict(spec="draft")),
+                      ("hybrid_serve_eager", dict(step_graph=False)),
+                      ("hybrid_dense", dict(kv="dense"))):
+        st, launches = serve_run(phase, wrappers, cfg=cfg, trace=trace, **kw)
+        dense = phase == "hybrid_dense"
+        assert st["kv"] == ("dense" if dense else "paged"), st["kv"]
+        assert st["step_graph"] == (phase != "hybrid_serve_eager"), phase
+        assert st["spec"] == "off", st["spec"]
+        n = st["completed"]
+        assert launches["flash_attention"] == per["attn"] * n, launches
+        assert launches["ssd_scan"] == per["ssm"] * n, launches
+        assert launches["grouped_matmul"] == 3 * moe_layers * n, launches
+        decode = "decode_attention" if dense else "paged_decode_attention"
+        other = "paged_decode_attention" if dense else "decode_attention"
+        assert launches[decode] > 0 and launches["rmsnorm_fused"] > 0
+        assert launches[other] == launches["paged_verify_attention"] == 0
+        runs[phase], stats[phase] = launches, st
+    graphed = stats["hybrid_serve"]
+    assert "SSM state rows" in graphed["spec_fallback_reason"], graphed
+    for phase in ("hybrid_serve_eager", "hybrid_dense"):
+        _same_streams(phase, stats[phase]["streams"], graphed["streams"])
+    warm = graphed["graph_warm_launches"]
+    replayed = {w: c - warm.get(w, 0) for w, c in runs["hybrid_serve"].items()}
+    assert replayed == runs["hybrid_serve_eager"], (
+        replayed, runs["hybrid_serve_eager"])
+    keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
+            "ttft_p99_s", "wall_s", "decode_steps")
+    say({"phase": "hybrid_summary", "arch": cfg.name,
+         "layers": cfg.num_layers, "reduced": "8 of 32 layers",
+         "attention_layers": per["attn"], "ssm_layers": per["ssm"],
+         "moe_layers": moe_layers,
+         "spec_fallback_reason": graphed["spec_fallback_reason"],
+         "eager_streams_equal": len(graphed["streams"]),
+         "dense_streams_equal": len(graphed["streams"]),
+         "launches_equal": True,
+         **{p: {k: st[k] for k in keys} for p, st in stats.items()}})
+    torch.cuda.empty_cache()
+    return graphed, runs
+
+
+def hybrid_layers_check(dev, cfg, params):
+    """Each SSM mixer of jamba (8 layers) on a 1023-token admission, on the
+    kernel path's own activations (every layer of the stack run through):
+    the mixer with the SSD-scan kernel against the same mixer on the
+    scan's plain version, within MIXER_TOL and ROW_REL_TOL, the state
+    within the f32 scan tolerance, as ``mamba_layers``."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import apply_norm, embed_lookup, rope_table
+    from repro_torch.models.transformer import _ffn, layer_slots
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, 1023))
+                              .astype(np.int32)).to(dev)
+    x = embed_lookup(tokens, params.embed)
+    rope = rope_table(torch.arange(1023, device=dev), cfg.head_dim,
+                      cfg.rope_theta)
+    kernel = ops.ssd_scan
+    errs, rels, state_errs = [], [], []
+    for g in range(params.n_groups):
+        for slot, p in zip(layer_slots(cfg), params.group(g)):
+            h = apply_norm(x, p["mixer_norm"], cfg)
+            if slot["mixer"] == "attn":
+                out = attn.attention_forward(h, p["mixer"], cfg,
+                                             rope_cos=rope[0],
+                                             rope_sin=rope[1])
+            else:
+                out, cache = ssm.ssm_forward_with_cache(h, p["mixer"], cfg)
+                ops.ssd_scan = ops.ssd_scan_plain
+                try:
+                    want, wcache = ssm.ssm_forward_with_cache(h, p["mixer"],
+                                                              cfg)
+                finally:
+                    ops.ssd_scan = kernel
+                name = f"hybrid_layers/{len(errs)}"
+                errs.append(check_close(f"{name}/out", out, want, MIXER_TOL,
+                                        ROW_REL_TOL))
+                err = (out.float() - want.float()).norm(dim=-1)
+                rels.append(float((err / want.float().norm(dim=-1)
+                                   .clamp_min(1e-30)).max()))
+                state_errs.append(check_close(
+                    f"{name}/state", cache["ssd"], wcache["ssd"],
+                    SSD_TOL[torch.float32]))
+            x = _ffn(x + out, p, cfg, slot, torch.bfloat16, prefill=True)
+    say({"phase": "hybrid_layers", "arch": cfg.name, "ssm_layers": len(errs),
+         "tokens": 1023, "max_abs_err": max(errs), "tol": MIXER_TOL,
+         "max_row_rel_err": max(rels), "row_rel_tol": ROW_REL_TOL,
+         "state_max_abs_err": max(state_errs)})
+
+
+def hybrid_model_phase(dev):
+    """jamba (8 layers, full width) teacher-forced as in phase 6 on its
+    paged layout, every kernel (attention, norm, ssm "pallas", moe "gmm")
+    against the plain path, the plain run's routers pinned to the kernel
+    run's expert choices (`teacher_forced`'s ``pin_routes``): within
+    LOGIT_TOL.  With free routers, a near-tie that the two runs' rounding
+    breaks apart moves a token to another of 16 experts, and the same
+    comparison is reported with how often the top-2 sets agree; then each
+    SSM mixer against its plain scan (`hybrid_layers_check`)."""
+    on = dict(attn_impl="pallas", norm_impl="pallas", ssm_impl="pallas",
+              moe_impl="gmm")
+    off = dict(attn_impl="chunked", norm_impl="jnp", ssm_impl="chunked",
+               moe_impl="einsum")
+
+    def agreement(routes):
+        same = total = 0
+        for a, b in zip(routes["kernels"], routes["plain"]):
+            eq = (a == b).all(dim=-1)
+            same += int(eq.sum())
+            total += eq.numel()
+        return same / total, total
+    free, params, _, routes = teacher_forced(HYBRID_ARCH, on, off, dev,
+                                             layers=HYBRID_LAYERS)
+    del params
+    torch.cuda.empty_cache()
+    err = (free["kernels"] - free["plain"]).abs()
+    free_agree, routed = agreement(routes)
+    runs, params, _, routes = teacher_forced(HYBRID_ARCH, on, off, dev,
+                                             layers=HYBRID_LAYERS,
+                                             pin_routes=True)
+    assert agreement(routes)[0] == 1.0
+    compare_logits(
+        "hybrid_model", HYBRID_ARCH, runs, layers=HYBRID_LAYERS,
+        reduced="8 of 32 layers", routes="pinned to the kernel run's",
+        free_routes={
+            "max_abs_err": float(err.max()),
+            "row_max_abs_err": err.max(dim=-1).values.tolist(),
+            "outside_logit_tol": int((err > LOGIT_TOL["atol"]
+                                      + LOGIT_TOL["rtol"]
+                                      * free["plain"].abs()).sum()),
+            "argmax_agreement": float((free["kernels"].argmax(-1)
+                                       == free["plain"].argmax(-1))
+                                      .float().mean()),
+            "topk_set_agreement": free_agree, "routed_rows": routed})
+    hybrid_layers_check(dev, dataclasses.replace(hybrid_config(), **on),
+                        params)
+    del params
+    torch.cuda.empty_cache()
+
+
+def vlm_serve_phases(wrappers):
+    """serve's trace on full llava-next-mistral-7b, text only as the
+    reference's engine serves it: paged and graphed (``vlm_serve``) and on
+    the eager step (``vlm_serve_eager``).  Gates: those of every run;
+    flash once a layer per admission, paged decode and RMSNorm launched,
+    no other kernel; streams bitwise equal, launches equal once the
+    graph's warm-up is taken off.  Returns (vlm_serve's stats, {run:
+    launches})."""
+    from repro_torch.configs.base import get_config
+    layers = get_config(VLM_ARCH).num_layers
+    runs, stats = {}, {}
+    for phase, kw in (("vlm_serve", {}),
+                      ("vlm_serve_eager", dict(step_graph=False))):
+        st, launches = serve_run(phase, wrappers, arch=VLM_ARCH, **kw)
+        assert st["kv"] == "paged" and st["spec"] == "off", st["kv"]
+        assert st["step_graph"] == (phase == "vlm_serve"), phase
+        assert launches["flash_attention"] == layers * st["completed"]
+        for w in ("paged_decode_attention", "rmsnorm_fused"):
+            assert launches[w] > 0, (phase, launches)
+        for w in ("decode_attention", "paged_verify_attention",
+                  "grouped_matmul", "ssd_scan"):
+            assert launches[w] == 0, (phase, launches)
+        runs[phase], stats[phase] = launches, st
+    graphed, eager = stats["vlm_serve"], stats["vlm_serve_eager"]
+    _same_streams("vlm_serve_eager", eager["streams"], graphed["streams"])
+    warm = graphed["graph_warm_launches"]
+    replayed = {w: c - warm.get(w, 0) for w, c in runs["vlm_serve"].items()}
+    assert replayed == runs["vlm_serve_eager"], (replayed,
+                                                 runs["vlm_serve_eager"])
+    keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
+            "ttft_p99_s", "wall_s", "decode_steps")
+    say({"phase": "vlm_graph_vs_eager", "arch": VLM_ARCH, "layers": layers,
+         "streams_equal": len(graphed["streams"]),
+         "of": len(graphed["streams"]), "launches_equal": True,
+         "graph": {k: graphed[k] for k in keys},
+         "eager": {k: eager[k] for k in keys}})
+    torch.cuda.empty_cache()
+    return graphed, runs
+
+
+def vlm_model_phase(dev):
+    """llava (all 32 layers, full width), two rows: each a prefill of 576
+    stub patch embeddings (normal x 0.02) and 447 text tokens (the 1023
+    positions of the longest admission) installed into a paged state of
+    max_len 2048, then 8 teacher-forced decode steps; the kernel path
+    against the plain path within LOGIT_TOL, flash once a layer per
+    prefill on the kernel path and never on the plain one."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.api import build_model, init_decode_state
+    from repro_torch.serving.engine import _install_slot_paged
+    base = get_config(VLM_ARCH)
+    on = dataclasses.replace(base, attn_impl="pallas", norm_impl="pallas")
+    off = dataclasses.replace(base, attn_impl="chunked", norm_impl="jnp")
+    params = build_model(on).init(0, device=dev)
+    rng = np.random.default_rng(3)
+    B, F_, steps = 2, base.frontend_tokens, 8
+    max_len = 2048
+    mb = max_len // 16
+    text = rng.integers(0, base.vocab_size,
+                        size=(B, VLM_TEXT)).astype(np.int32)
+    patches = (torch.from_numpy(rng.normal(size=(B, F_, base.d_model))
+                                .astype(np.float32)) * 0.02).to(
+        dev, torch.bfloat16)
+    forced = rng.integers(0, base.vocab_size,
+                          size=(steps, B)).astype(np.int32)
+    runs, launches = {}, {}
+    for name, cfg in (("kernels", on), ("plain", off)):
+        bundle = build_model(cfg)
+        before = flash_attention.launches
+        state = init_decode_state(cfg, B, max_len, device=dev)
+        out = []
+        for b in range(B):
+            logits, cache = bundle.prefill(params, {
+                "tokens": torch.from_numpy(text[b:b + 1]).to(dev),
+                "frontend": patches[b:b + 1]})
+            assert cache[0]["k"].shape[2] == F_ + VLM_TEXT
+            out.append(logits[:, -1])
+            row = list(range(1 + b * mb, 1 + (b + 1) * mb))
+            _install_slot_paged(state, cache, b, F_ + VLM_TEXT, 0, row, 0, 16)
+        for t in range(steps):
+            state["token"] = torch.from_numpy(forced[t][:, None]).to(dev)
+            logits, state = bundle.decode(params, state)
+            out.append(logits[:, 0])
+        runs[name] = torch.cat(out).float()
+        launches[name] = flash_attention.launches - before
+        del state, cache
+    del params
+    torch.cuda.empty_cache()
+    assert launches["kernels"] == B * base.num_layers, launches
+    assert launches["plain"] == 0, launches
+    compare_logits("vlm_model", VLM_ARCH, runs, layers=base.num_layers,
+                   frontend_tokens=F_, text_tokens=VLM_TEXT,
+                   decode_steps=steps, flash_launches=launches["kernels"])
+
+
+def encdec_state(cfg, cache, dev):
+    """A dense decode state of ``ENCDEC['max_len']`` from an
+    ``encdec_prefill``'s caches: the self K/V into the first rows, the
+    cross K/V whole, every row at the prompt's end."""
+    from repro_torch.models.api import init_decode_state
+    state = init_decode_state(cfg, ENCDEC["batch"], ENCDEC["max_len"],
+                              kv="dense", device=dev)
+    S = cache["self"]["k"].shape[2]
+    for k in ("k", "v"):
+        state["cache"]["self"][k][:, :, :S] = cache["self"][k]
+        state["cache"]["cross"][k].copy_(cache["cross"][k])
+    state["pos"][:] = S
+    return state
+
+
+def encdec_model_phase(wrappers, dev):
+    """whisper-small at full width and depth: 8 rows of 1500 stub frames
+    (normal x 0.02, seed 0) and a 4-token prompt through
+    ``encdec_prefill`` (the encoder and the decoder's cross-attention on
+    flash at ``causal=0``), then a dense state of max_len 448 built from
+    its caches and 124 greedy decode steps (the self-attention on the
+    dense decode kernel at G = 1; the cross-attention plain, as the
+    reference's).  The plain path (attention "chunked") is then
+    teacher-forced with the kernel path's tokens: logits at the prefill
+    and at every step within LOGIT_TOL.  Launches of the kernel path's
+    run are counted (flash 2 a decoder layer and 1 an encoder layer;
+    dense decode a layer a step).  Reported: the encoder's, the prefill's
+    and a decode step's ms and the decode tokens/s.  Returns the
+    launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.api import build_model
+    base = get_config(ENCDEC_ARCH)
+    on = dataclasses.replace(base, attn_impl="pallas", norm_impl="pallas")
+    off = dataclasses.replace(base, attn_impl="chunked", norm_impl="jnp")
+    params = build_model(on).init(0, device=dev)
+    rng = np.random.default_rng(4)
+    B, S, steps = ENCDEC["batch"], ENCDEC["prompt"], ENCDEC["steps"]
+    frames = (torch.from_numpy(rng.normal(
+        size=(B, base.frontend_tokens, base.d_model)).astype(np.float32))
+        * 0.02).to(dev, torch.bfloat16)
+    prompt = torch.from_numpy(rng.integers(
+        0, base.vocab_size, size=(B, S)).astype(np.int32)).to(dev)
+    batch = {"tokens": prompt, "frontend": frames}
+    runs, tokens = {}, []
+    for name, cfg in (("kernels", on), ("plain", off)):
+        bundle = build_model(cfg)
+        if name == "kernels":
+            _zero(wrappers)
+        logits, cache = bundle.prefill(params, batch)
+        state = encdec_state(cfg, cache, dev)
+        out = [logits[:, -1]]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for t in range(steps):
+            if name == "kernels":
+                state["token"] = out[-1].argmax(-1, keepdim=True).to(
+                    torch.int32)
+                tokens.append(state["token"])
+            else:
+                state["token"] = tokens[t]
+            logits, state = bundle.decode(params, state)
+            out.append(logits[:, 0])
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t0
+        if name == "kernels":
+            launches = _launches(wrappers)
+            step_ms = time_ms(lambda: bundle.decode(params, state), n=10)
+            encode_ms = time_ms(lambda: encdec.encode(params, cfg, frames),
+                                n=5)
+            prefill_ms = time_ms(lambda: bundle.prefill(params, batch), n=5)
+            kern_s = decode_s
+        runs[name] = torch.stack(out, dim=1).float()       # (B, steps+1, V)
+        del state, cache
+    del params
+    torch.cuda.empty_cache()
+    enc, dec = base.encoder_layers, base.num_layers
+    assert launches["flash_attention"] == enc + 2 * dec, launches
+    assert launches["decode_attention"] == dec * steps, launches
+    for w in ("paged_decode_attention", "paged_verify_attention",
+              "rmsnorm_fused", "grouped_matmul", "ssd_scan"):
+        assert launches[w] == 0, launches
+    at_prefill = check_close("encdec_model/prefill", runs["kernels"][:, 0],
+                             runs["plain"][:, 0], LOGIT_TOL)
+    compare_logits("encdec_model", ENCDEC_ARCH,
+                   {k: v.reshape(-1, v.shape[-1]) for k, v in runs.items()},
+                   encoder_layers=enc, decoder_layers=dec, batch=B,
+                   frames=base.frontend_tokens, prompt=S, decode_steps=steps,
+                   max_len=ENCDEC["max_len"],
+                   prefill_max_abs_err=at_prefill,
+                   encode_ms=encode_ms, prefill_ms=prefill_ms,
+                   decode_step_ms=step_ms,
+                   decode_tok_per_s=B * steps / kern_s, launches=launches)
+    return launches
+
+
+def pilot_families_phase(wrappers, vlm_streams):
+    """One pilot on the card binds whisper-small's "prefill" image (8 rows
+    of 1500 frames, a 4-token prompt), then its "decode" image (a dense
+    state of max_len 448, 16 steps), then llava's "serve" image, which it
+    prefetched while the decode payload ran.  Gates: all three exit 0;
+    the serve payload's streams bitwise ``vlm_serve``'s, with the gates of
+    every serve run; its bind a prefetched cache hit; memory back within
+    ``PILOT_MEMORY_SLACK`` after the drain.  Reported: each bind's
+    seconds.  Returns each payload engine's launches (the serve payload's
+    engine)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.cluster import ClusterSim
+    from repro_torch.core.images import PayloadImage
+    from repro_torch.core.pilot import PilotConfig
+    from repro_torch.launch.serve import KERNEL_FLAGS, expected_tokens
+    trace = serve_trace(VLM_ARCH)
+    images = [
+        PayloadImage(ENCDEC_ARCH, f"custom:{ENCDEC['prompt']}x"
+                     f"{ENCDEC['batch']}", "prefill", smoke=False,
+                     flags=KERNEL_FLAGS),
+        PayloadImage(ENCDEC_ARCH, f"custom:{ENCDEC['max_len']}x"
+                     f"{ENCDEC['batch']}", "decode", smoke=False,
+                     flags=KERNEL_FLAGS),
+        PayloadImage(VLM_ARCH, f"custom:{SERVE['max_len']}x{SERVE['slots']}",
+                     "serve", smoke=False, flags=KERNEL_FLAGS)]
+    specs = [({}, 1), ({}, 16),
+             ({"trace": trace, "max_len": SERVE["max_len"],
+               "slots": SERVE["slots"]}, 100_000)]
+    mem_before = allocated_bytes()
+    _zero(wrappers)
+    t0 = time.monotonic()
+    sim = ClusterSim(device="cuda")
+    tids = [sim.repo.submit(img, n_steps=n, payload_spec=spec,
+                            prefetch_hint=images[i + 1]
+                            if i + 1 < len(images) else None)
+            for i, (img, (spec, n)) in enumerate(zip(images, specs))]
+    (sl,) = sim.provision(1)
+    pilot = sim.spawn_pilot(sl, PilotConfig(max_payloads=4, idle_grace=2.0))
+    drained = sim.run_until_drained(timeout=600.0)
+    sim.join_all(timeout=30.0)
+    wall = time.monotonic() - t0
+    assert drained, sim.repo.stats()
+    assert sim.registry.prefetch(images[2], "cuda").wait(300.0)
+    torch.cuda.synchronize()
+    total = _launches(wrappers)
+    report = []
+    for i, (tid, img) in enumerate(zip(tids, images)):
+        r = sim.repo.result(tid)
+        h = pilot.history[i]
+        tel = r.telemetry
+        assert r.exitcode == 0, (img.arch, img.mode, tel.get("error"))
+        report.append({"arch": img.arch, "mode": img.mode,
+                       "bind_seconds": h.get("bind_seconds"),
+                       "bind_cached": h.get("bind_cached"),
+                       "prefetch_started": h.get("prefetch_started"),
+                       "steps": tel.get("steps"),
+                       "step_times": tel.get("step_times")})
+    serve_tel = sim.repo.result(tids[2]).telemetry
+    sv, eng = serve_tel["serve"], serve_tel["engine"]
+    got = {int(rid): t for rid, t in serve_tel["tokens"].items()}
+    want = {e["rid"]: expected_tokens(e, SERVE["max_len"]) for e in trace}
+    assert {rid: len(t) for rid, t in got.items()} == want
+    assert sv["d2h_transfers"] == sv["decode_steps"] > 0
+    assert eng["block_leaks"] == 0 and eng["step_graph"]
+    _same_streams("pilot_families", got, vlm_streams)
+    assert pilot.history[2]["bind_cached"] is True, pilot.history[2]
+    launches = {w.__name__: eng["launches"].get(w.__name__, 0)
+                for w in wrappers}
+    layers = get_config(VLM_ARCH).num_layers
+    assert launches["flash_attention"] == layers * len(trace), launches
+    del sim, pilot
+    mem_after = allocated_bytes()
+    assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
+        mem_before, mem_after)
+    say({"phase": "pilot_families", "wall_s": wall, "payloads": report,
+         "serve": {k: sv[k] for k in ("tok_per_s", "ttft_p50_s",
+                                      "decode_steps", "completed")},
+         "itl_p99_s": eng["itl_p99_s"],
+         "streams_equal_vlm_serve": len(got),
+         "engine_launches": launches, "all_launches": total,
+         "memory_allocated": {"before": mem_before, "after": mem_after,
+                              "slack": PILOT_MEMORY_SLACK}})
+    return launches
+
+
 def _attn_case(rng, dev, B, S, H, K, Dh):
     return (bf16(rng, (B, S, H, Dh), dev), bf16(rng, (B, S, K, Dh), dev),
             bf16(rng, (B, S, K, Dh), dev))
@@ -2723,7 +3309,8 @@ def arch_kernel_shapes(rng, dev, ptxas):
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
     out = {"flash_attention": {}, "paged_decode_attention": {},
-           "decode_attention": {}, "grouped_matmul": {}, "rmsnorm_fused": {}}
+           "decode_attention": {}, "grouped_matmul": {}, "rmsnorm_fused": {},
+           "ssd_scan": {}}
 
     # flash prefill at each arch's longest admission
     flash = out["flash_attention"]
@@ -2772,6 +3359,34 @@ def arch_kernel_shapes(rng, dev, ptxas):
                                                        {}).items()
                             if "256" in k}
 
+    # the last families' flash: jamba's and llava's admission (causal),
+    # whisper's encoder and cross-attention (non-causal, T = 1500 frames)
+    for name, (B, S, T, H, K, Dh, causal) in FAMILY_FLASH.items():
+        q = bf16(rng, (B, S, H, Dh), dev)
+        k, v = bf16(rng, (B, T, K, Dh), dev), bf16(rng, (B, T, K, Dh), dev)
+        kw = dict(causal=causal)
+        err = check_close(f"flash/{name}", flash_attention(q, k, v, **kw),
+                          _flash_plain_by_head(q, k, v, **kw), ATTN_TOL,
+                          ROW_REL_TOL)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        pairs = S * (S + 1) // 2 if causal else S * T
+        flash[name] = {
+            "causal": causal, "instance": head_width(Dh), "max_abs_err": err,
+            "ms": time_ms(lambda: flash_attention(q, k, v, **kw), n=10),
+            "device_ms": graph_ms(lambda: flash_attention(q, k, v, **kw),
+                                  n=10),
+            "plain_ms": time_ms(lambda: _flash_plain_by_head(q, k, v, **kw),
+                                n=2, warm=1),
+            "library_ms": time_ms(sdpa, n=10),
+            "library_device_ms": graph_ms(sdpa, n=10),
+            **bound(2 * (2 * B * S * H * Dh + 2 * B * T * K * Dh),
+                    4 * Dh * H * B * pairs, BF16_FLOPS)}
+        del q, k, v, qt, kt, vt
+
     # paged decode at gemma's (G = 8, Dh 256) and starcoder2's (G = 12)
     for name, (H, K, Dh) in ARCH_PAGED.items():
         c = dict(PAGED_MAIN, H=H, K=K, Dh=Dh)
@@ -2791,53 +3406,84 @@ def arch_kernel_shapes(rng, dev, ptxas):
             "library_ms": None,
             **bound(nbytes, 4 * live * H * Dh, BF16_FLOPS)}
 
-    # dense decode over mixtral's 4096-slot rings
-    name, (B, T, H, K, Dh, lens) = ARCH_DENSE
-    q, kc, vc, ln = dense_inputs(rng, dev, B, T, H, K, Dh, lens)
-    err = check_close("dense/mixtral", decode_attention(q, kc, vc, ln),
-                      decode_attention_plain(q, kc, vc, ln), ATTN_TOL,
-                      ROW_REL_TOL)
-    qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
-    mask = (torch.arange(T, device=dev)[None] < ln[:, None])[:, None, None]
+    # dense decode over mixtral's 4096-slot rings, and at G = 1 over
+    # whisper's 448-slot decoder cache
+    for name, (B, T, H, K, Dh, lens) in (ARCH_DENSE, FAMILY_DENSE):
+        q, kc, vc, ln = dense_inputs(rng, dev, B, T, H, K, Dh, lens)
+        err = check_close(f"dense/{name}", decode_attention(q, kc, vc, ln),
+                          decode_attention_plain(q, kc, vc, ln), ATTN_TOL,
+                          ROW_REL_TOL)
+        qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        mask = (torch.arange(T, device=dev)[None]
+                < ln[:, None])[:, None, None]
 
-    def sdpa_ring():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              enable_gqa=True)
-    live = sum(lens)
-    out["decode_attention"][name] = {
-        "lens": lens, "max_abs_err": err,
-        "ms": time_ms(lambda: decode_attention(q, kc, vc, ln)),
-        "device_ms": graph_ms(lambda: decode_attention(q, kc, vc, ln)),
-        "plain_ms": time_ms(lambda: decode_attention_plain(q, kc, vc, ln)),
-        "library_ms": time_ms(sdpa_ring),
-        "library_device_ms": graph_ms(sdpa_ring),
-        **bound(live * K * Dh * 2 * 2 + 2 * B * H * Dh * 2 + B * 4,
-                4 * live * H * Dh, BF16_FLOPS)}
-    del q, kc, vc, qt, kt, vt
+        def sdpa_ring(qt=qt, kt=kt, vt=vt, mask=mask):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        live = sum(lens)
+        out["decode_attention"][name] = {
+            "lens": lens, "max_abs_err": err,
+            "ms": time_ms(lambda: decode_attention(q, kc, vc, ln)),
+            "device_ms": graph_ms(lambda: decode_attention(q, kc, vc, ln)),
+            "plain_ms": time_ms(
+                lambda: decode_attention_plain(q, kc, vc, ln)),
+            "library_ms": time_ms(sdpa_ring),
+            "library_device_ms": graph_ms(sdpa_ring),
+            **bound(live * K * Dh * 2 * 2 + 2 * B * H * Dh * 2 + B * 4,
+                    4 * live * H * Dh, BF16_FLOPS)}
+        del q, kc, vc, qt, kt, vt
 
-    # mixtral's experts at its 8191-token admission's capacity (C = 2560)
-    E, C, products = ARCH_GMM
-    for name, (D, F_) in products.items():
-        b = bf16(rng, (E, C, D), dev)
-        w = bf16(rng, (E, D, F_), dev, scale=D ** -0.5)
-        err = check_close(f"gmm/{name}", bucket_matmul(b, w),
-                          grouped_matmul_plain(b.reshape(E * C, D), w,
-                                               [C] * E).reshape(E, C, F_),
-                          GMM_TOL)
+    # mixtral's experts at its 8191-token admission's capacity (C = 2560);
+    # jamba's at its 1023-token admission's (C = 160)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    for E, C, products in (ARCH_GMM, FAMILY_GMM):
+        for name, (D, F_) in products.items():
+            b = bf16_on(gen, (E, C, D), dev)
+            w = bf16_on(gen, (E, D, F_), dev, scale=D ** -0.5)
+            err = check_close(f"gmm/{name}", bucket_matmul(b, w),
+                              grouped_matmul_plain(
+                                  b.reshape(E * C, D), w,
+                                  [C] * E).reshape(E, C, F_),
+                              GMM_TOL)
 
-        def bmm_f32(b=b, w=w):
-            return torch.bmm(b, w, out_dtype=torch.float32)
-        out["grouped_matmul"][name] = {
+            def bmm_f32(b=b, w=w):
+                return torch.bmm(b, w, out_dtype=torch.float32)
+            out["grouped_matmul"][name] = {
+                "max_abs_err": err,
+                "ms": time_ms(lambda: bucket_matmul(b, w), n=10),
+                "device_ms": graph_ms(lambda: bucket_matmul(b, w), n=10),
+                "plain_ms": time_ms(lambda: grouped_matmul_plain(
+                    b.reshape(E * C, D), w, [C] * E), n=2, warm=1),
+                "library_ms": time_ms(bmm_f32, n=10),
+                "library_device_ms": graph_ms(bmm_f32, n=10),
+                **bound(E * C * D * 2 + E * D * F_ * 2 + E * C * F_ * 4,
+                        2 * E * C * D * F_, BF16_FLOPS)}
+            del b, w
+
+    # the SSD scan at jamba's admission: state 16, 128 heads of 64, one
+    # group of B/C shared by every head
+    from repro_torch.kernels.ssd_scan.ops import (
+        KERNEL_CHUNK, chunk_for, ssd_scan, ssd_scan_plain)
+    for name, (b, S, H, P, G, N, Q) in FAMILY_SSD.items():
+        args = ssd_inputs(rng, dev, b, S, H, P, G, N, torch.bfloat16)
+        y, st = ssd_scan(*args, chunk=Q)
+        yw, sw = ssd_scan_plain(*args, chunk=Q)
+        tol = SSD_TOL[torch.bfloat16]
+        err = max(check_close(f"ssd/{name}/y", y, yw, tol),
+                  check_close(f"ssd/{name}/state", st, sw, tol))
+        nbytes, flops, tc_flops = ssd_work(
+            b, S, H, P, G, N, min(chunk_for(S, Q), KERNEL_CHUNK), 2)
+        out["ssd_scan"][name] = {
             "max_abs_err": err,
-            "ms": time_ms(lambda: bucket_matmul(b, w), n=10),
-            "device_ms": graph_ms(lambda: bucket_matmul(b, w), n=10),
-            "plain_ms": time_ms(lambda: grouped_matmul_plain(
-                b.reshape(E * C, D), w, [C] * E), n=2, warm=1),
-            "library_ms": time_ms(bmm_f32, n=10),
-            "library_device_ms": graph_ms(bmm_f32, n=10),
-            **bound(E * C * D * 2 + E * D * F_ * 2 + E * C * F_ * 4,
-                    2 * E * C * D * F_, BF16_FLOPS)}
-        del b, w
+            "ms": time_ms(lambda: ssd_scan(*args, chunk=Q), n=10),
+            "device_ms": graph_ms(lambda: ssd_scan(*args, chunk=Q), n=10),
+            "plain_ms": time_ms(lambda: ssd_scan_plain(*args, chunk=Q), n=3,
+                                warm=1),
+            "library_ms": None,
+            **bound(nbytes, tc_flops, BF16_FLOPS),
+            "function_flops": flops}
+        del args, y, st, yw, sw
 
     # RMSNorm at gemma's (2048) and mixtral's (4096) widths, decode rows
     for name, (R, D) in ARCH_NORM.items():
@@ -3015,6 +3661,33 @@ def main(argv):
     mla_seconds["mla_train_parity"] = time.monotonic() - t0
     say({"phase": "mla_serve_all", "seconds": mla_seconds,
          "total_seconds": sum(mla_seconds.values())})
+    fam_seconds = {}
+    t0 = time.monotonic()
+    _, hybrid_runs = hybrid_serve_phases(wrappers)
+    runs.update(hybrid_runs)
+    fam_seconds["hybrid_serve_phases"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    _, runs["chunked_hybrid"] = chunked_run(
+        "chunked_hybrid", wrappers, HYBRID_ARCH, HYBRID_CHUNKED, CHUNK,
+        ("paged_decode_attention", "rmsnorm_fused"),
+        ("flash_attention", "ssd_scan", "grouped_matmul"),
+        cfg=hybrid_config())
+    fam_seconds["chunked_hybrid"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    vlm, vlm_runs = vlm_serve_phases(wrappers)
+    runs.update(vlm_runs)
+    fam_seconds["vlm_serve_phases"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    runs["encdec_model"] = encdec_model_phase(wrappers, dev)
+    fam_seconds["encdec_model"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    train_parity_phase(ENCDEC_ARCH, "encdec_train_parity", wrappers)
+    fam_seconds["encdec_train_parity"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    runs["pilot_llava"] = pilot_families_phase(wrappers, vlm["streams"])
+    fam_seconds["pilot_families"] = time.monotonic() - t0
+    say({"phase": "family_serve_all", "seconds": fam_seconds,
+         "total_seconds": sum(fam_seconds.values())})
     t0 = time.monotonic()
     runs["train"] = train_phase(wrappers)
     train_parity_phase()
@@ -3045,6 +3718,10 @@ def main(argv):
     t0 = time.monotonic()
     mla_model_phase(dev)
     say({"phase": "mla_model_all", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    hybrid_model_phase(dev)
+    vlm_model_phase(dev)
+    say({"phase": "family_model_all", "seconds": time.monotonic() - t0})
     say({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -14,13 +14,18 @@ both operands to f32), and the SSM mixer's ``A_log``, ``dt_bias``,
 (``models/ssm.py``), and MLA's ``q_norm`` and ``kv_norm`` scales, which
 the reference initialises and applies in f32 (``models/attention.py``);
 every other leaf is stored in bf16, which rounds
-exactly as the reference's ``.astype(bf16)`` at use does.
+exactly as the reference's ``.astype(bf16)`` at use does.  An
+encoder-decoder's tree (``embed``, ``enc_layers``, ``enc_norm``,
+``dec_layers``, ``final_norm``; `repro_torch.models.encdec`) maps the same
+way onto :class:`EncDecParams`, its LayerNorms' ``scale`` and ``bias`` in
+f32.
 
 A train state maps too: the reference's ``{"params", "opt": {"m", "v",
 "step"}}`` (`repro.launch.steps.init_train_state`) becomes the port's
-(`repro_torch.launch.steps.init_train_state`) with every leaf in f32 (the
-master weights and moments; ``matrix_dtype=torch.float32``), the
-parameters requiring grad and ``step`` an int32 scalar, and back.
+(`repro_torch.launch.steps.init_train_state`), of either family, with
+every leaf in f32 (the master weights and moments;
+``matrix_dtype=torch.float32``), the parameters requiring grad and
+``step`` an int32 scalar, and back.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.models.encdec import EncDecParams
 from repro_torch.models.transformer import LMParams
 
 
@@ -53,13 +59,14 @@ def _convert(tree, path, device, matrix_dtype):
 
 
 def params_from_numpy(tree: dict, cfg, device="cuda",
-                      matrix_dtype=torch.bfloat16) -> LMParams:
+                      matrix_dtype=torch.bfloat16):
     """The reference's parameter pytree (numpy leaves) -> :class:`LMParams`
-    on ``device``."""
+    on ``device``, or :class:`EncDecParams` for an encoder-decoder
+    config."""
     out = _convert(tree, (), torch.device(device), matrix_dtype)
     if cfg.tie_embeddings and "head" in out:
         raise ValueError("tied-embedding config but the tree has a head")
-    return LMParams(out)
+    return EncDecParams(out) if cfg.is_encdec else LMParams(out)
 
 
 def _host_f32(t) -> np.ndarray:
@@ -68,8 +75,9 @@ def _host_f32(t) -> np.ndarray:
     return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
 
-def params_to_numpy(params: LMParams) -> dict:
-    """:class:`LMParams` -> the reference's pytree layout, float32 numpy."""
+def params_to_numpy(params) -> dict:
+    """:class:`LMParams` or :class:`EncDecParams` -> the reference's pytree
+    layout, float32 numpy."""
     return tree_mod.map_leaves(_host_f32, params.tree())
 
 

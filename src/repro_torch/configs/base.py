@@ -1,8 +1,8 @@
 """Architecture + input-shape configuration system (the port's own copy).
 
 Field names and defaults are those of ``repro.configs.base``, so
-``dataclasses.asdict`` of a config matches the reference's.  Only the
-architectures the port runs are registered here.
+``dataclasses.asdict`` of a config matches the reference's, and every
+architecture the reference registers is registered here.
 
 Every assigned architecture is described by an :class:`ArchConfig`; every
 assigned input shape by a :class:`ShapeSpec`.  A ``(ArchConfig, ShapeSpec)``
@@ -325,8 +325,11 @@ def _ensure_loaded():
     _LOADED = True
     from repro_torch.configs import gemma_2b  # noqa: F401
     from repro_torch.configs import granite_moe_3b_a800m  # noqa: F401
+    from repro_torch.configs import jamba_v01_52b  # noqa: F401
+    from repro_torch.configs import llava_next_mistral_7b  # noqa: F401
     from repro_torch.configs import mamba2_370m  # noqa: F401
     from repro_torch.configs import minicpm3_4b  # noqa: F401
     from repro_torch.configs import mixtral_8x7b  # noqa: F401
     from repro_torch.configs import smollm_360m  # noqa: F401
     from repro_torch.configs import starcoder2_3b  # noqa: F401
+    from repro_torch.configs import whisper_small  # noqa: F401

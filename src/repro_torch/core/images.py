@@ -9,6 +9,11 @@ the node's local image cache — a warm ``bind()`` skips the pull exactly as
 a cached image does.  The reference keys its cache on the slice's mesh;
 here the key holds the slice's device.
 
+An encoder-decoder (whisper) runs through its "prefill" image (frames and
+a prompt) and its "decode" image (a dense decode state); its "serve"
+image's engine refuses it, and its "train" image fails on the batch's
+missing ``frontend``, as the reference's do.
+
 A train image binds the train step (`repro_torch.launch.steps`) with its
 state and data builders; it runs the plain paths, so an image whose flags
 select a hand-written kernel fails its pull: the kernels are forward only,
@@ -42,7 +47,8 @@ from repro_torch.configs.base import (
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
 from repro_torch.launch.steps import (
     init_train_state, make_prefill_step, make_serve_step, make_train_step)
-from repro_torch.models.api import build_model, resolve_device
+from repro_torch.models.api import (
+    _has_frontend, _text_len, build_model, resolve_device)
 from repro_torch.optim.adamw import OptimConfig
 from repro_torch.serving.graph import DEVICE_LOCK
 
@@ -121,15 +127,19 @@ def sync(device: torch.device):
 
 
 def _kernel_sources(cfg: ArchConfig) -> list[str]:
-    """The kernel libraries (``csrc/<name>.cu``) an engine of ``cfg`` can
-    launch: its ``*_impl`` flags select the hand-written kernels (MLA's
-    decode paths are plain: only its prefill reaches a kernel, flash)."""
+    """The kernel libraries (``csrc/<name>.cu``) an engine or a bundle of
+    ``cfg`` can launch: its ``*_impl`` flags select the hand-written
+    kernels (MLA's decode paths are plain: only its prefill reaches a
+    kernel, flash; an encoder-decoder runs flash and the dense decode
+    kernel; LayerNorm archs reach no RMSNorm kernel)."""
     names = []
     if cfg.attn_impl == "pallas" and not cfg.is_attention_free:
         names.append("flash_prefill")
-        if cfg.mla is None:
+        if cfg.is_encdec:
+            names.append("decode_attention")
+        elif cfg.mla is None:
             names += ["paged_decode", "paged_verify", "decode_attention"]
-    if cfg.norm_impl == "pallas":
+    if cfg.norm_impl == "pallas" and cfg.norm == "rmsnorm":
         names.append("rmsnorm")
     if cfg.moe_impl == "gmm" and cfg.moe is not None:
         names.append("grouped_matmul")
@@ -321,8 +331,8 @@ def _train_factory(cfg, shape, dev):
 
     def make_inputs(seed):
         state = init_train_state(cfg, seed, dev)
-        data = SyntheticLM(SyntheticConfig(cfg.vocab_size, shape.seq_len,
-                                           shape.global_batch))
+        data = SyntheticLM(SyntheticConfig(
+            cfg.vocab_size, _text_len(cfg, shape.seq_len), shape.global_batch))
         return state, data
 
     def warm():
@@ -432,11 +442,19 @@ def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev):
 
 
 def _concrete_batch(cfg, shape, seed: int, device: torch.device) -> dict:
-    """A prefill batch of ``shape``: token ids from a generator seeded with
-    ``seed`` on ``device``."""
+    """A prefill batch of ``shape``: token ids (the text length: a VLM's
+    patches take part of the sequence) from a generator seeded with
+    ``seed`` on ``device``, and for the VLM and audio families the
+    frontend's stub embeddings, normal x 0.02 in bf16, as the reference's."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    B = shape.global_batch
     tokens = torch.randint(0, cfg.vocab_size,
-                           (shape.global_batch, shape.seq_len),
+                           (B, _text_len(cfg, shape.seq_len)),
                            generator=gen, device=device, dtype=torch.int32)
-    return {"tokens": tokens}
+    batch = {"tokens": tokens}
+    if _has_frontend(cfg):
+        batch["frontend"] = torch.randn(
+            (B, cfg.frontend_tokens, cfg.d_model), generator=gen,
+            device=device).to(torch.bfloat16) * 0.02
+    return batch

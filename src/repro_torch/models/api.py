@@ -1,6 +1,6 @@
 """Public model API of the port: ``build_model(cfg)`` -> :class:`ModelBundle`.
 
-Port of the decoder-LM part of ``repro.models.api``:
+Port of ``repro.models.api``.  A decoder LM's bundle:
 
 * ``init(seed, device="cuda", dtype=bf16)`` -> :class:`LMParams`
   (frozen; ``dtype`` is that of the matrices: bf16 to serve, f32 for a
@@ -17,7 +17,14 @@ Port of the decoder-LM part of ``repro.models.api``:
 with ``block_tables``) or a dense one (``kv="dense"``); ``verify`` on a
 paged state; ``prefill_chunk`` on either.  All three update the caches in
 place; the JAX reference returns new arrays and its engine donates the old
-ones, which is the same memory behaviour.
+ones, which is the same memory behaviour.  A VLM's ``loss`` and
+``prefill`` prepend the batch's ``frontend`` stub embeddings.
+
+An encoder-decoder's bundle (whisper) has ``init`` ->
+:class:`~repro_torch.models.encdec.EncDecParams`, ``loss`` and
+``prefill`` of a batch with ``frontend`` frames, and ``decode`` on a dense
+state (``init_decode_state(..., kv="dense")``); its ``verify`` and
+``prefill_chunk`` are None, as the reference's.
 """
 
 from __future__ import annotations
@@ -28,8 +35,20 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import COMPUTE
+
+
+def _text_len(cfg: ArchConfig, seq_len: int) -> int:
+    """VLM stubs spend part of the assigned seq budget on patch embeds."""
+    if cfg.family == "vlm":
+        return seq_len - cfg.frontend_tokens
+    return seq_len
+
+
+def _has_frontend(cfg: ArchConfig) -> bool:
+    return cfg.family in ("vlm", "audio")
 
 
 def resolve_device(device) -> torch.device:
@@ -53,8 +72,9 @@ class ModelBundle:
     loss: Callable[[Any, Any], Any]
     prefill: Callable[[Any, Any], Any]
     decode: Callable[[Any, Any], Any]
-    verify: Callable[[Any, Any, Any], Any]
-    prefill_chunk: Callable[..., Any]
+    # None for enc-dec: no speculative verify and no chunked admission
+    verify: Callable[[Any, Any, Any], Any] | None = None
+    prefill_chunk: Callable[..., Any] | None = None
 
 
 def default_num_blocks(batch: int, max_len: int, block_size: int) -> int:
@@ -72,12 +92,20 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     ``block_tables`` (batch, max_len // block_size).  ``kv="dense"``:
     per-slot rings (n_groups, batch, max_len, K, Dh) and no tables.  SSM
     slots hold per-row state in both layouts: ``conv`` (n_groups, batch,
-    W-1, conv_dim) bf16 and ``ssd`` (n_groups, batch, H, N, P) f32."""
+    W-1, conv_dim) bf16 and ``ssd`` (n_groups, batch, H, N, P) f32.  An
+    encoder-decoder's state is dense only (`encdec.init_encdec_cache`);
+    ``kv="paged"`` raises for it, as in the reference."""
     if kv not in ("paged", "dense"):
         raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
+    if cfg.is_encdec and kv == "paged":
+        raise ValueError("paged KV is a decoder-LM path; "
+                         f"{cfg.name} is enc-dec (use kv='dense')")
     dev = resolve_device(device)
     state = {"token": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
              "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.is_encdec:
+        return {"cache": encdec_mod.init_encdec_cache(cfg, batch, max_len,
+                                                      dtype, dev), **state}
     if kv == "dense":
         return {"cache": tf.init_cache(cfg, batch, max_len, dtype, dev),
                 **state}
@@ -95,12 +123,21 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
 
 
 def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
-    tf._check_slice(cfg)
+    if cfg.is_encdec:
+        return _build_encdec(cfg, compute)
+    return _build_lm(cfg, compute)
 
+
+def _seeded(device, seed: int):
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return dev, gen
+
+
+def _build_lm(cfg, compute):
     def init(seed: int = 0, *, device="cuda", dtype=compute):
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        dev, gen = _seeded(device, seed)
         return tf.init_lm_params(cfg, gen, dev, dtype)
 
     def loss(params, batch):
@@ -110,8 +147,11 @@ def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
     def prefill(params, batch):
         tokens = batch["tokens"]
         B, S = tokens.shape
+        S += cfg.frontend_tokens if _has_frontend(cfg) else 0
         cache = tf.init_cache(cfg, B, S, dtype=compute, device=tokens.device)
-        return tf.lm_prefill(params, cfg, tokens, cache, compute=compute)
+        return tf.lm_prefill(params, cfg, tokens, cache,
+                             extra_embeds=batch.get("frontend"),
+                             compute=compute)
 
     def decode(params, state):
         logits, cache = tf.lm_decode(params, cfg, state["token"],
@@ -137,3 +177,32 @@ def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
 
     return ModelBundle(cfg, init, loss, prefill, decode, verify,
                        prefill_chunk)
+
+
+def _build_encdec(cfg, compute):
+    def init(seed: int = 0, *, device="cuda", dtype=compute):
+        dev, gen = _seeded(device, seed)
+        return encdec_mod.init_encdec_params(cfg, gen, dev, dtype)
+
+    def loss(params, batch):
+        return encdec_mod.encdec_loss(params, cfg, batch["frontend"],
+                                      batch["tokens"], batch["targets"],
+                                      compute=compute)
+
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        cache = encdec_mod.init_encdec_cache(cfg, B, S, dtype=compute,
+                                             device=tokens.device)
+        return encdec_mod.encdec_prefill(params, cfg, batch["frontend"],
+                                         tokens, cache, compute=compute)
+
+    def decode(params, state):
+        logits, cache = encdec_mod.encdec_decode(
+            params, cfg, state["token"], state["cache"], state["pos"],
+            compute=compute)
+        token = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        return logits, {**state, "cache": cache, "token": token,
+                        "pos": state["pos"] + 1}
+
+    return ModelBundle(cfg, init, loss, prefill, decode)

@@ -241,19 +241,18 @@ def decode_attend(q, k_cache, v_cache, cache_len, *, window=None):
 
 def attention_forward(x, p, cfg, *, rope_cos, rope_sin, causal=True,
                       window=None, kv=None, compute=COMPUTE):
-    """Self-attention over a full sequence, the train path's layer.
-    x: (B,S,D); rope tables (S, rope_dim/2) match S.  Cross-attention
-    (``kv``) comes with the encoder-decoder arch, ROADMAP.md Queue 1 item
-    6."""
-    if kv is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention comes with the encoder-decoder "
-            "arch, ROADMAP.md Queue 1 item 6")
+    """Self-attention (``kv`` None) or cross-attention over a full
+    sequence.  x: (B,S,D); rope tables (S, rope_dim/2) match S, None for
+    cross-attention.  Cross-attention projects K and V from ``kv``
+    (B,T,D), the encoder's output, and attends every query to all T keys
+    when ``causal`` is False (through `attend`: the flash kernel at S != T
+    on the kernel flags)."""
     if cfg.mla is not None:
         return _mla_forward(x, p, cfg, rope_cos, rope_sin, compute)
+    src = x if kv is None else kv
     q = _project(x, p["wq"], compute)
-    k = _project(x, p["wk"], compute)
-    v = _project(x, p["wv"], compute)
+    k = _project(src, p["wk"], compute)
+    v = _project(src, p["wv"], compute)
     if rope_cos is not None:
         q = apply_rope(q, rope_cos, rope_sin)
         k = apply_rope(k, rope_cos, rope_sin)

@@ -1,7 +1,8 @@
-"""Decoder-only LM (GQA or MLA attention with a dense or MoE FFN, or
-Mamba-2 SSM mixers): parameters, the train loss, caches, prefill, decode.
+"""Decoder-only LM (GQA or MLA attention with a dense or MoE FFN, Mamba-2
+SSM mixers, or both in one stack): parameters, the train loss, caches,
+prefill, decode.
 
-Port of the attention and SSM parts of ``repro.models.transformer``.  Layers are
+Port of ``repro.models.transformer``.  Layers are
 organised into groups of ``period`` layers exactly as in the reference,
 and the layer parameters keep its stacked ``(n_groups, ...)`` leaves, so
 the parameter bridge maps leaf to leaf.  The reference's ``lax.scan`` over
@@ -13,7 +14,11 @@ dispatch (``moe.apply_moe``) in prefill and the dense-gated MoE
 SSM slot (attention-free archs such as mamba2-370m) runs the SSD mixer
 (``ssm.ssm_forward_with_cache`` in prefill, ``ssm.ssm_decode`` in decode)
 over per-row ``{"conv", "ssd"}`` state, and a slot with ``ffn == "none"``
-has no FFN.  ``lm_prefill_chunk`` runs one chunk of a chunked admission
+has no FFN.  A hybrid stack (jamba) mixes the two in one group: seven SSM
+slots and one attention slot, which need not be slot 0, so the decode
+step's context is built from the first attention slot's cache.  A VLM
+(llava) prepends its frontend's stub embeddings in `lm_prefill` and
+`lm_loss`.  ``lm_prefill_chunk`` runs one chunk of a chunked admission
 into one row of the engine's cache (paged pools, dense rings or SSM rows),
 with the dense-gated MoE as in the reference's chunk path.
 
@@ -77,26 +82,6 @@ def layer_slots(cfg) -> list[dict]:
             ffn = "none"
         slots.append({"mixer": mixer, "ffn": ffn})
     return slots
-
-
-def _check_slice(cfg):
-    """Refuse the arch families the port does not carry yet, naming their
-    ROADMAP.md item; it carries GQA decoders (with or without a sliding
-    window, dense or MoE FFNs, RMSNorm or LayerNorm), MLA decoders and
-    attention-free SSM stacks."""
-    later = "is a later slice of the port (ROADMAP.md Queue 1 item 6, {})"
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: an encoder-decoder arch "
-            + later.format("Encoder-decoder"))
-    if cfg.frontend_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: a VLM frontend " + later.format("VLM frontend stub"))
-    mixers = {s["mixer"] for s in layer_slots(cfg)}
-    if len(mixers) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a hybrid (SSM + attention) arch "
-            + later.format("Hybrid"))
 
 
 def _attn_slot(slots) -> int | None:
@@ -216,7 +201,6 @@ def init_lm_params(cfg, gen: torch.Generator, device="cpu",
     """Seeded random parameters (``gen`` lives on ``device``).  torch's
     generator gives other numbers than jax.random, so tests bridge the
     reference's parameters instead of comparing inits."""
-    _check_slice(cfg)
     n_groups = cfg.num_layers // group_period(cfg)
 
     def slot(s):
@@ -323,17 +307,18 @@ def lm_backbone(params: LMParams, cfg, x, *, compute=COMPUTE):
 def lm_loss(params: LMParams, cfg, tokens, targets, *, extra_embeds=None,
             loss_mask=None, compute=COMPUTE):
     """Next-token CE loss plus the MoE aux loss: (loss, {"ce", "aux"}).
-    ``extra_embeds`` (the VLM and audio frontends' stub embeddings) come
-    with those archs, ROADMAP.md Queue 1 item 6."""
-    if extra_embeds is not None:
-        raise NotImplementedError(
-            "extra_embeds (VLM/audio frontends) come with their archs, "
-            "ROADMAP.md Queue 1 item 6")
+    ``extra_embeds`` (B,F,D) (the VLM and audio frontends' stub
+    embeddings) are prepended in the compute dtype; the loss covers the
+    token positions only."""
     x = embed_lookup(tokens, params.embed, compute)
+    n_extra = 0
+    if extra_embeds is not None:
+        n_extra = extra_embeds.shape[1]
+        x = torch.cat([extra_embeds.to(compute), x], dim=1)
     h, aux = lm_backbone(params, cfg, x, compute=compute)
     ce = softmax_cross_entropy_fused(
-        h, head_matrix(params, cfg), targets, softcap=cfg.logit_softcap,
-        mask=loss_mask, chunk=cfg.loss_chunk)
+        h[:, n_extra:], head_matrix(params, cfg), targets,
+        softcap=cfg.logit_softcap, mask=loss_mask, chunk=cfg.loss_chunk)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -350,7 +335,6 @@ def init_cache(cfg, batch: int, max_len: int, dtype=COMPUTE, device="cpu"):
     """Stacked dense cache: one dict per slot, leaves (n_groups, ...):
     rings ``{"k", "v"}`` (MLA: latent rings ``{"ckv", "krope"}``) for
     attention slots, per-row ``{"conv", "ssd"}`` state for SSM slots."""
-    _check_slice(cfg)
     n_groups = cfg.num_layers // group_period(cfg)
     return [_stacked(attn.init_kv_cache(cfg, batch, max_len, dtype, device)
                      if s["mixer"] == "attn"
@@ -365,7 +349,6 @@ def init_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
     ...) of K/V or of MLA's latent (`attention.init_kv_cache_paged`); SSM
     state stays per row (it is O(1) per row, nothing to page), and so do
     sliding-window rings (always fully live)."""
-    _check_slice(cfg)
     n_groups = cfg.num_layers // group_period(cfg)
     return [_stacked(attn.init_kv_cache_paged(cfg, batch, max_len,
                                               num_blocks, block_size, dtype,
@@ -394,11 +377,16 @@ def _ffn(x, p, cfg, slot, compute, *, prefill=False):
     return x + moe_fn(h, p["ffn"], cfg, compute)[0]
 
 
-def lm_prefill(params: LMParams, cfg, tokens, cache, *, compute=COMPUTE):
+def lm_prefill(params: LMParams, cfg, tokens, cache, *, extra_embeds=None,
+               compute=COMPUTE):
     """Full-sequence prefill: returns (last-position logits (B,1,V) f32,
-    filled dense cache, stacked like ``cache``)."""
+    filled dense cache, stacked like ``cache``).  ``extra_embeds`` (B,F,D)
+    (a VLM's stub patch embeddings) are prepended in the compute dtype, and
+    RoPE and the cache cover all F + S positions."""
     slots = layer_slots(cfg)
     x = embed_lookup(tokens, params.embed, compute)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(compute), x], dim=1)
     S = x.shape[1]
     rope = (rope_table(torch.arange(S, device=x.device), attn.rope_dim(cfg),
                        cfg.rope_theta)

@@ -19,7 +19,11 @@ layout, whose SSM slots hold per-row ``{conv, ssd}`` state that admission
 writes whole.  So does a sliding-window arch (mixtral), whose rings hold
 ``min(max_len, window)`` positions a row, written at ``pos mod window``
 (always fully live, nothing to page); it has no prefix cache and no
-speculation (a ring overwrites history in place).
+speculation (a ring overwrites history in place).  A hybrid (jamba) pages
+its attention slots and keeps per-row state in its SSM slots, with no
+prefix cache and no speculation; a VLM (llava) serves text only, as the
+reference's engine does; an encoder-decoder (whisper) is refused at
+construction: its prefill needs frames, and it runs through its bundle.
 
 * **prefix reuse** (paged) — admission hashes the padded prompt per full
   block (chain hash, so a hit guarantees bit-identical KV); matching
@@ -347,6 +351,11 @@ class ServeEngine:
                  verify_fn=None, draft_prefill_fn=None, mesh=None,
                  role: str = "unified", device="cuda",
                  step_graph: bool | None = None):
+        if cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name}: enc-dec archs do not run the decoder-only serve "
+                "path; their prefill needs frames (run the bundle's prefill "
+                "and decode, or the prefill and decode images)")
         if prefill not in ("oneshot", "chunked"):
             raise ValueError(
                 f"prefill must be 'oneshot' or 'chunked', got {prefill!r}")
@@ -364,7 +373,7 @@ class ServeEngine:
                              f"engine on {self.device}")
         # an arch pages only if some attention layer's per-token state can
         # live in blocks (all-SWA rings and pure SSM state cannot)
-        pages = (not cfg.is_encdec and not cfg.is_attention_free
+        pages = (not cfg.is_attention_free
                  and (cfg.mla is not None or cfg.sliding_window is None))
         if kv is None or (kv == "paged" and not pages):
             kv = "paged" if pages else "dense"
@@ -1183,7 +1192,10 @@ def _install_draft_paged(cache, prefill_cache, row: list, nhit: int,
 
 def _scatter_blocks(pool, src, row: list, nhit: int, block_size: int):
     """Scatter a dense prefill leaf (groups, 1, T', ...) into pool blocks
-    (groups, nb, bs, ...) ``row[nhit:]`` in place (hit blocks untouched)."""
+    (groups, nb, bs, ...) ``row[nhit:]`` in place (hit blocks untouched).
+    Rows past the slot's blocks are dropped: a VLM's text-only prefill
+    allocates its cache ``frontend_tokens`` longer than the prompt, and
+    those rows are zeros past every position the slot can reach."""
     rows = src[:, 0]                                  # (groups, T', ...)
     Tp = rows.shape[1]
     n_pb = -(-Tp // block_size)
@@ -1196,5 +1208,5 @@ def _scatter_blocks(pool, src, row: list, nhit: int, block_size: int):
     rows = rows.reshape((rows.shape[0], n_pb, block_size) + rows.shape[2:])
     ids = torch.as_tensor(np.asarray(row[nhit:n_pb], np.int64),
                           device=pool.device)
-    pool[:, ids] = rows[:, nhit:].to(pool.dtype)
+    pool[:, ids] = rows[:, nhit:nhit + len(ids)].to(pool.dtype)
     return pool

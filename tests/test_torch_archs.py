@@ -120,7 +120,7 @@ def _prompt(vocab, n, plen, seed):
 
 
 # ---------------------------------------------------------------------------
-# configs, and the archs the port still refuses
+# configs, and every arch the reference registers
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -157,16 +157,29 @@ def _port_cfg(jcfg):
     return tbase.ArchConfig(**kw)
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("jamba-v0.1-52b", "Hybrid"),
-    ("whisper-small", "Encoder-decoder"),
-    ("llava-next-mistral-7b", "VLM frontend")])
-def test_later_families_still_raise_naming_their_item(arch, item):
-    assert arch in jax_archs()
-    cfg = _port_cfg(jax_smoke(arch))
-    with pytest.raises(NotImplementedError,
-                       match=f"Queue 1 item 6, {item}"):
-        build_model(cfg)
+@pytest.mark.parametrize("arch", sorted(jax_archs()))
+def test_every_reference_arch_builds_and_prefills(arch):
+    """Every arch the reference registers is registered in the port, its
+    bundle builds, its decode state initialises (dense; paged too for a
+    decoder LM), and its smoke config's prefill runs on the CPU: finite
+    last logits (B, 1, V).  A VLM's and an audio arch's batch carries the
+    frontend's stub embeddings."""
+    cfg = get_smoke_config(arch)
+    assert _port_cfg(jax_smoke(arch)) == cfg
+    bundle = build_model(cfg)
+    assert (bundle.verify is None) == cfg.is_encdec
+    init_decode_state(cfg, 2, 64, kv="dense", device=CPU)
+    if not cfg.is_encdec:
+        init_decode_state(cfg, 2, 64, kv="paged", device=CPU)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32))}
+    if cfg.family in ("vlm", "audio"):
+        batch["frontend"] = torch.randn(
+            (2, cfg.frontend_tokens, cfg.d_model)).to(torch.bfloat16) * 0.02
+    with torch.no_grad():
+        logits, _ = bundle.prefill(bundle.init(0, device=CPU), batch)
+    assert tuple(logits.shape) == (2, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------------------------------

@@ -17,9 +17,14 @@ widths of gemma-2b (MQA at head width 256: flash at its 1023-token
 admission, paged decode and verify at G = 8), starcoder2-3b (24 heads over
 2 of 128: G = 12) and mixtral-8x7b (flash at its 8191-token admission with
 a window of 4096; dense decode over its 4096-slot rings; its experts of
-4096 x 14336 at capacity 2560), RMSNorm at D = 2048, and minicpm3-4b
+4096 x 14336 at capacity 2560), RMSNorm at D = 2048, minicpm3-4b
 (MLA: flash at its 1023-token admission with every head its own KV head,
-G = 1, at the q/k width 96 the wrapper pads to 128; RMSNorm at D = 2560).
+G = 1, at the q/k width 96 the wrapper pads to 128; RMSNorm at D = 2560),
+jamba-v0.1-52b and llava-next-mistral-7b (flash at (1,1023,32/8,128);
+jamba's 16 experts at capacity 160; its SSD scan at state 16 over 128
+heads) and whisper-small (flash non-causal over its 1500 frames, S = T
+in the encoder and S != T in the cross-attention; dense decode at G = 1
+over its 448-slot cache).
 The flash kernel is
 also held at the smoke widths the wrapper pads, and one raw Q.K^T tile of
 it against torch; the grouped matmul at
@@ -27,8 +32,8 @@ every capacity bucket and with its wgmma in the SASS; the SSD scan with
 tensor-core instructions in its SASS; every kernel is also captured in one
 CUDA graph and replayed.  The serve engine's decode step, captured as a
 CUDA graph, is held bitwise to the eager step at smoke widths (paged,
-dense, mamba2, mixtral's rolling rings, and minicpm3's latent pools and
-rings), its replays to their launch counts, and a chunked
+dense, mamba2, mixtral's rolling rings, minicpm3's latent pools and
+rings, jamba's paged and dense hybrid stacks, and llava text only), its replays to their launch counts, and a chunked
 admission beside a decoding slot to its idle-engine run; one pilot binds
 two smoke serve images in turn, each bitwise its direct engine; three
 pilots serve one pool's requests, one killed, bitwise the direct engine.
@@ -126,6 +131,10 @@ def test_paged_decode_kernel_matches_plain(card, H, K, Dh):
     (1, 1023, 1023, 24, 2, 128, None, True),  # starcoder2-3b's
     (1, 8191, 8191, 32, 8, 128, 4096, True),  # mixtral-8x7b's, window 4096
     (1, 1023, 1023, 40, 40, 96, None, True),  # minicpm3-4b's: G = 1, Dh 96
+    (1, 1023, 1023, 32, 8, 128, None, True),  # jamba's and llava's 1023
+    (8, 1500, 1500, 12, 12, 64, None, False),  # whisper's encoder: S = T
+    (8, 4, 1500, 12, 12, 64, None, False),    # its cross-attention, S != T
+    (2, 100, 1500, 12, 12, 64, None, False),  # a longer prompt over frames
     (1, 37, 37, 3, 1, 20, None, True),        # smoke widths, padded to 64
     (1, 70, 70, 4, 2, 100, None, True),       # padded to 128
 ])
@@ -311,6 +320,28 @@ def test_decode_attention_kernel_matches_plain_and_paged(card, H, K, Dh):
     assert torch.equal(out, paged_decode_attention(q, *pools, tables, ln))
 
 
+def test_decode_attention_kernel_at_g1(card):
+    """whisper-small's decoder self-attention: 12 heads over 12 KV heads
+    (G = 1) of width 64 against its 448-slot dense cache, ragged lengths
+    and NaN past them: within tolerance of the plain version."""
+    rng = np.random.default_rng(14)
+    B, T, H, Dh = 8, 448, 12, 64
+    lens = np.array([1, 4, 5, 64, 128, 200, 447, 448], np.int32)
+    kc, vc = _bf16(rng, (B, T, H, Dh), card), _bf16(rng, (B, T, H, Dh), card)
+    past = torch.arange(T, device=card)[None] >= torch.from_numpy(lens).to(
+        card)[:, None]
+    kc[past] = float("nan")
+    vc[past] = float("nan")
+    q = _bf16(rng, (B, H, Dh), card)
+    ln = torch.from_numpy(lens).to(card)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, ln)
+    assert decode_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), decode_attention_plain(q, kc, vc, ln).float(), **ATTN_TOL)
+
+
 def test_decode_attention_kernel_on_a_window_ring(card):
     """mixtral-8x7b's decode: 32 heads over 8 KV heads of 128 on its
     4096-slot rolling rings, lengths up to the full ring (a row whose
@@ -449,6 +480,23 @@ def test_grouped_matmul_kernel_at_mixtral_widths(card, D, F):
     torch.testing.assert_close(got, want.reshape(E, C, F), **GMM_TOL)
 
 
+@pytest.mark.parametrize("D,F", [(4096, 14336), (14336, 4096)])
+def test_grouped_matmul_kernel_at_jamba_widths(card, D, F):
+    """jamba-v0.1-52b's experts (16 of 4096 x 14336, top 2) at the
+    capacity of its 1023-token admission, C = 160: up/gate and down, one
+    launch each."""
+    rng = np.random.default_rng(16)
+    E, C = 16, 160
+    b = _bf16(rng, (E, C, D), card)
+    w = _bf16(rng, (E, D, F), card) * D ** -0.5
+    before = grouped_matmul.launches
+    got = bucket_matmul(b, w)
+    assert grouped_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = grouped_matmul_plain(b.reshape(E * C, D), w, [C] * E)
+    torch.testing.assert_close(got, want.reshape(E, C, F), **GMM_TOL)
+
+
 @pytest.mark.parametrize("E,D,F,sizes,tail", [
     (3, 96, 96, (0, 64, 32), 32),                  # empty group
     (40, 1536, 512, "ragged", 100),                # granite, ragged sizes
@@ -536,6 +584,8 @@ def _ssd_inputs(rng, dev, b, S, H, P, G, N, dtype):
     (1, 64, 32, 64, 1, 128, 256, torch.bfloat16),    # chunk 64
     (1, 32, 32, 64, 1, 128, 256, torch.bfloat16),    # chunk 32
     (1, 100, 4, 32, 1, 64, 32, torch.bfloat16),      # padded: 4 chunks of 32
+    (1, 1023, 128, 64, 1, 16, 256, torch.bfloat16),  # jamba: N = 16, 128 heads
+    (1, 300, 128, 64, 1, 16, 256, torch.float32),
     (1, 300, 4, 96, 2, 40, 256, torch.bfloat16),     # two P panels, N = 40
     (1, 300, 4, 96, 2, 40, 256, torch.float32),
     (1, 192, 8, 32, 2, 64, 64, torch.bfloat16),      # grouped B/C
@@ -646,6 +696,21 @@ def test_graphed_step_equals_eager_step(card, arch, kv):
     graphed = _smoke_engine(arch, kv)
     eager = _smoke_engine(arch, kv, step_graph=False)
     assert graphed._graph is not None and eager._graph is None
+    got, want = _drive(graphed), _drive(eager)
+    assert got == want and sorted(got) == [0, 1, 2]
+    assert graphed.d2h_transfers == graphed.steps == eager.steps
+
+
+@pytest.mark.parametrize("arch,kv", [("jamba-v0.1-52b", "paged"),
+                                     ("jamba-v0.1-52b", "dense"),
+                                     ("llava-next-mistral-7b", "paged")])
+def test_graphed_step_equals_eager_on_the_last_families(card, arch, kv):
+    """The hybrid (its attention slot paged or dense, its SSM rows written
+    in place by the captured step) and the VLM served text only: the
+    replayed graph's streams are the eager step's, bitwise."""
+    graphed = _smoke_engine(arch, kv)
+    eager = _smoke_engine(arch, kv, step_graph=False)
+    assert graphed._graph is not None and graphed.kv == kv
     got, want = _drive(graphed), _drive(eager)
     assert got == want and sorted(got) == [0, 1, 2]
     assert graphed.d2h_transfers == graphed.steps == eager.steps

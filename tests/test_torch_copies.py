@@ -25,9 +25,12 @@ PORT = ROOT / "src" / "repro_torch"
 COPIES = {
     "analysis/locks.py": ({}, None),
     "configs/gemma_2b.py": ({}, None),
+    "configs/jamba_v01_52b.py": ({}, None),
+    "configs/llava_next_mistral_7b.py": ({}, None),
     "configs/minicpm3_4b.py": ({}, None),
     "configs/mixtral_8x7b.py": ({}, None),
     "configs/starcoder2_3b.py": ({}, None),
+    "configs/whisper_small.py": ({}, None),
     "core/arena.py": ({}, None),
     "core/proctable.py": ({}, None),
     "core/timerwheel.py": ({}, None),

@@ -212,18 +212,3 @@ def test_paged_decode_independent_of_block_placement(attn_impl):
     assert torch.equal(outs[0][0], outs[1][0])
     for key in ("kp", "vp"):
         assert torch.equal(outs[0][1][key], outs[1][1][key])
-
-
-def test_unported_families_raise():
-    """The families still to come raise, naming their slice: an
-    encoder-decoder and a VLM frontend on this config.  MLA, once among
-    them, builds (tests/test_torch_mla.py holds it to the reference)."""
-    from repro_torch.configs.base import ArchConfig, MLASpec
-    base = get_smoke_config(ARCH)
-    for kw in (dict(encoder_layers=2), dict(frontend_tokens=4)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_model(dataclasses.replace(base, **kw))
-    mla = dataclasses.replace(base, mla=MLASpec(
-        q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=8,
-        qk_rope_head_dim=8, v_head_dim=8))
-    assert isinstance(build_model(mla).cfg, ArchConfig)

@@ -366,13 +366,17 @@ def test_serve_entry_runs_the_kernels():
 
 
 def test_hybrid_and_verify_are_later_slices():
-    """A hybrid stack (SSM + attention layers) is refused at build, and an
-    SSM model has no verify forward (its state cannot roll back)."""
+    """A hybrid stack (SSM + attention layers) builds (tests/test_torch_hybrid.py
+    holds jamba to the reference), and neither it nor an SSM model has a
+    verify forward (SSM state cannot roll back)."""
     cfg, _ = _cfgs()
     hybrid = dataclasses.replace(cfg, num_heads=4, num_kv_heads=2,
                                  attn_period=2)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        build_model(hybrid)
+    hb = build_model(hybrid)
+    hstate = init_decode_state(hybrid, 2, 32, kv="paged", device="cpu")
+    with pytest.raises(ValueError, match="SSM state rows"):
+        hb.verify(hb.init(0, device="cpu"),
+                  torch.zeros((2, 3), dtype=torch.int32), hstate)
     bundle = build_model(cfg)
     params = bundle.init(0, device="cpu")
     state = init_decode_state(cfg, 2, 32, kv="dense", device="cpu")
