@@ -145,6 +145,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
               bitwise); memory back within the slack.  Reported: the
               join's length and the live server's longest gap between
               renewals across it, against the TTL.
+   disagg_serve — ``serve_disagg`` on full-width smollm-360m: one
+              prefill-role pilot and one decode-role pilot (each its own
+              image: the role is part of the key) answer serve's trace, 8
+              slots a server, a 3 s lease TTL; each finished prefill
+              exports its prompt blocks as a KV handoff (one device buffer,
+              one host pull) that becomes a lease in the decode pool,
+              where the decode server imports it in place and decodes on
+              its captured step.  Gates: drained, every rid once, streams
+              bitwise serve's, 16 exports and 16 imports, no leaked block
+              on either side, memory back within the slack; the prefill
+              server launched flash and no paged decode, the decode server
+              paged decode and no flash.  Reported: goodput, TTFT (at the
+              export) and resume (at the import) p50/p99, handoff bytes
+              mean/max, export and import ms p50/max.
+   disagg_requeue — the same with 2 + 2 pilots, one prefill pilot killed
+              once 2 prefills have settled and one decode pilot once 4
+              streams have: each stage lost exactly one pilot, every rid
+              completed once, streams bitwise serve's, the decode replays
+              (>= 1) imported the handoff again and prefilled nothing
+              again (the prefill pool saw each rid once).
+   serve_wave — serve's trace direct with ``admission="wave"``: the gates
+              of phase 3, streams bitwise serve's, its tokens/s beside
+              serve's.
    train    — ``train_direct`` (launch/train.py) on full-width
               smollm-360m (random f32 weights from seed 0), batch 8, seq
               512, 30 steps on the synthetic data, ``OptimConfig`` as
@@ -227,6 +250,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               attention).
    pilot_mla — one pilot binds full-width smollm-360m, then minicpm3-4b,
               prefetched, with pilot_serve's gates.
+   disagg_mla — disagg_serve's gates on full-width minicpm3-4b (all 62
+              layers, paged latent pools), 1 + 1 pilots, the trace's
+              first 8 requests (``DISAGG_MLA_REQUESTS``, reduced as
+              mla_spec is): streams bitwise mla_serve's for those rids;
+              flash 62 times per admission on the prefill server, RMSNorm
+              and no attention kernel on the decode server (MLA decode is
+              plain).
    mla_train_parity — train_parity on full-width minicpm3-4b cut to 2
               layers, launching no kernel.
    hybrid_serve — serve's trace on jamba-v0.1-52b at full width and 8 of
@@ -533,6 +563,14 @@ AUTOSCALE = dict(n_requests=24, bursts=2, burst_s=2.0, gap_s=4.0,
 # requests of serve's shape (serve's 16 first) has completed; alone, the
 # server takes several joins' worth of time over them
 JOIN_REQUESTS = 64
+# disaggregated serve: serve's trace through 1 prefill + 1 decode pilot
+# (disagg_serve) and 2 + 2 with one pilot of each stage killed
+# (disagg_requeue, after 2 settled prefills and 4 settled streams), at
+# fleet serve's TTL; minicpm3-4b's run takes the trace's first 8 requests
+# (one wave of the 8 slots), as mla_spec does
+DISAGG_FAIL_PREFILL_AT = 2
+DISAGG_FAIL_DECODE_AT = 4
+DISAGG_MLA_REQUESTS = 8
 # training: full-width smollm-360m (train, pilot_train) and mamba2-370m
 TRAIN = dict(batch=8, seq=512, steps=30)
 TRAIN_MAMBA = dict(batch=4, seq=512, steps=5)
@@ -1703,6 +1741,163 @@ def pilot_serve_phase(wrappers, direct):
     ex.arena.destroy()
     pilot_report("pilot_serve", out, wall, report, warm, memory,
                  bare_executor=bare)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# disaggregated serve
+# --------------------------------------------------------------------------
+
+def disagg_run(phase, wrappers, direct, arch, n_pilots, trace, expect,
+               **kw):
+    """One ``serve_disagg`` run of ``trace`` on full-width ``arch``, 8
+    slots a server, ``n_pilots`` pilots in each role, with every launch
+    count set to 0 just before it and read just after; the gates every
+    disaggregated run passes (drained, each rid once in each pool, tokens
+    bitwise ``direct``'s, the graceful servers' gates: exit 0, their
+    role, no leaked block, the prefill servers with no decode step, the
+    decode servers graphed with one device->host copy a step, and each
+    server's own launches as ``expect`` {role: (launched, unlaunched)}
+    says; memory back within the slack).  Returns the run and its
+    launches."""
+    from repro_torch.launch.serve import serve_disagg
+    mem_before = allocated_bytes()
+    _zero(wrappers)
+    out = serve_disagg(arch, len(trace), prefill_pilots=n_pilots,
+                       decode_pilots=n_pilots, slots=SERVE["slots"],
+                       max_len=SERVE["max_len"], lease_ttl=FLEET_TTL,
+                       trace=trace, device="cuda", **kw)
+    torch.cuda.synchronize()
+    launches = _launches(wrappers)
+    mem_after = allocated_bytes()
+    rows = {}
+    for role, servers in out["servers"].items():
+        rows[role] = []
+        for s in servers:
+            sv, eng = s["serve"], s["engine"]
+            if not sv.get("fleet"):
+                continue                       # killed: reports nothing
+            assert s["exitcode"] == 0, (role, s["exitcode"], s["error"])
+            assert sv["role"] == role, (role, sv["role"])
+            assert sv["fleet"]["leaked_blocks"] == 0 == eng["block_leaks"]
+            n = {w.__name__: eng["launches"].get(w.__name__, 0)
+                 for w in wrappers}
+            if role == "prefill":
+                assert sv["decode_steps"] == 0 and not eng["step_graph"], sv
+                assert sv["prefills_exported"] == sv["fleet"]["completed_here"]
+            else:
+                assert eng["step_graph"], f"{phase}: eager decode server"
+                assert sv["d2h_transfers"] == sv["decode_steps"] > 0, sv
+            launched, unlaunched = expect[role]
+            assert all(n[w] > 0 for w in launched), (phase, role, n)
+            assert all(n[w] == 0 for w in unlaunched), (phase, role, n)
+            rows[role].append({
+                "server": sv["fleet"]["server_id"],
+                "fetched": sv["fleet"]["fetched"],
+                "completed_here": sv["fleet"]["completed_here"],
+                "prefills_exported": sv["prefills_exported"],
+                "handoffs_imported": sv["handoffs_imported"],
+                "decode_steps": sv["decode_steps"],
+                "tok_per_s": sv["tok_per_s"],
+                "itl_p99_s": eng["itl_p99_s"], "itl_max_s": eng["itl_max_s"],
+                "launches": n})
+        assert rows[role], (phase, role, out["servers"][role])
+    keys = ("drained", "wall_s", "goodput_tok_per_s", "ttft_p50_s",
+            "ttft_p99_s", "resume_p50_s", "resume_p99_s", "failed_pilots",
+            "pilot_seconds", "leaked_blocks", "prefills_exported",
+            "handoffs_imported", "handoff_bytes_mean", "handoff_bytes_max",
+            "export_ms_p50", "export_ms_max", "import_ms_p50",
+            "import_ms_max", "stats")
+    say({"phase": phase, "arch": arch, "pilots_per_role": n_pilots,
+         "requests": len(trace), "lease_ttl": FLEET_TTL,
+         **{k: out[k] for k in keys}, "servers": rows, "launches": launches,
+         "memory_allocated": {"before": mem_before, "after": mem_after,
+                              "slack": PILOT_MEMORY_SLACK}})
+    n = len(trace)
+    assert out["drained"], f"{phase}: not drained"
+    assert sorted(out["results"]) == sorted(e["rid"] for e in trace)
+    for role in ("prefill", "decode"):
+        assert out["stats"][role]["completed"] == n, out["stats"][role]
+        assert out["stats"][role]["duplicates"] == 0, out["stats"][role]
+    assert out["leaked_blocks"] == 0
+    _same_streams(phase, out["results"],
+                  {e["rid"]: direct[e["rid"]] for e in trace})
+    for w in expect["prefill"][0] + expect["decode"][0]:
+        assert launches[w] > 0, (phase, launches)
+    assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
+        phase, mem_before, mem_after)
+    return out, launches
+
+
+# each role's server launches the first and never the second
+DISAGG_SMOLLM = {"prefill": (("flash_attention", "rmsnorm_fused"),
+                             ("paged_decode_attention",)),
+                 "decode": (("paged_decode_attention", "rmsnorm_fused"),
+                            ("flash_attention",))}
+
+
+def disagg_serve_phase(wrappers, direct):
+    """1 prefill + 1 decode pilot on full-width smollm-360m answer serve's
+    trace: every prompt exported once and imported once."""
+    out, launches = disagg_run("disagg_serve", wrappers, direct, DENSE_ARCH,
+                               1, serve_trace(DENSE_ARCH), DISAGG_SMOLLM)
+    n = SERVE["n_requests"]
+    assert out["prefills_exported"] == out["handoffs_imported"] == n, out
+    assert not any(out["failed_pilots"].values()), out["failed_pilots"]
+    return launches
+
+
+def disagg_requeue_phase(wrappers, direct):
+    """2 + 2 pilots, one of each stage killed: prompts of the dead prefill
+    pilot replay from the prompt, streams of the dead decode pilot from
+    their handoff; the prefill pool sees each rid once (no re-prefill of
+    a decode replay), the decode pool replays at least one."""
+    out, launches = disagg_run(
+        "disagg_requeue", wrappers, direct, DENSE_ARCH, 2,
+        serve_trace(DENSE_ARCH), DISAGG_SMOLLM,
+        fail_prefill_at=DISAGG_FAIL_PREFILL_AT,
+        fail_decode_at=DISAGG_FAIL_DECODE_AT)
+    for role in ("prefill", "decode"):
+        assert len(out["failed_pilots"][role]) == 1, out["failed_pilots"]
+    assert out["stats"]["prefill"]["requests"] == SERVE["n_requests"]
+    assert out["stats"]["decode"]["replays"] >= 1, out["stats"]["decode"]
+    return launches
+
+
+def disagg_mla_phase(wrappers, mla_streams):
+    """1 + 1 pilots on full-width minicpm3-4b over the trace's first
+    ``DISAGG_MLA_REQUESTS``: flash once a layer per admission on the
+    prefill server, RMSNorm on both, no attention kernel on the decode
+    server (MLA decode is plain); streams bitwise mla_serve's."""
+    from repro_torch.configs.base import get_config
+    trace = serve_trace(MLA_ARCH)[:DISAGG_MLA_REQUESTS]
+    expect = {"prefill": (("flash_attention",), MLA_UNLAUNCHED),
+              "decode": (("rmsnorm_fused",),
+                         ("flash_attention",) + MLA_UNLAUNCHED)}
+    out, launches = disagg_run("disagg_mla", wrappers, mla_streams, MLA_ARCH,
+                               1, trace, expect)
+    layers = get_config(MLA_ARCH).num_layers
+    (pf,) = out["servers"]["prefill"]
+    flash = pf["engine"]["launches"].get("flash_attention", 0)
+    assert flash == layers * DISAGG_MLA_REQUESTS, flash
+    for w in MLA_UNLAUNCHED:
+        assert launches[w] == 0, ("disagg_mla", launches)
+    assert out["prefills_exported"] == out["handoffs_imported"] == len(trace)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_wave_phase(wrappers, serve):
+    """serve's trace direct with wave admission: streams bitwise serve's;
+    tokens/s beside serve's."""
+    stats, launches = serve_run("serve_wave", wrappers, admission="wave")
+    _same_streams("serve_wave", stats["streams"], serve["streams"])
+    keys = ("tok_per_s", "ttft_p50_s", "ttft_p99_s", "wall_s",
+            "decode_steps", "slot_utilization")
+    say({"phase": "wave_vs_continuous", "arch": DENSE_ARCH,
+         "streams_equal": len(serve["streams"]),
+         "wave": {k: stats[k] for k in keys},
+         "continuous": {k: serve[k] for k in keys}})
     return launches
 
 
@@ -3616,6 +3811,16 @@ def main(argv):
     runs["fleet_autoscale"] = fleet_autoscale_phase(wrappers, streams)
     runs["fleet_join"] = fleet_join_phase(wrappers, streams)
     say({"phase": "fleet_all", "seconds": time.monotonic() - t0})
+    disagg_seconds = {}
+    t0 = time.monotonic()
+    runs["disagg_serve"] = disagg_serve_phase(wrappers, streams)
+    disagg_seconds["disagg_serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    runs["disagg_requeue"] = disagg_requeue_phase(wrappers, streams)
+    disagg_seconds["disagg_requeue"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    runs["serve_wave"] = serve_wave_phase(wrappers, serve)
+    disagg_seconds["serve_wave"] = time.monotonic() - t0
     arch_seconds = {}
     t0 = time.monotonic()
     gemma, runs["gemma_serve"] = dense_arch_serve_phase(
@@ -3656,6 +3861,11 @@ def main(argv):
     runs["pilot_mla_smollm"] = pilot[DENSE_ARCH]
     runs["pilot_mla"] = pilot[MLA_ARCH]
     mla_seconds["pilot_mla"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    runs["disagg_mla"] = disagg_mla_phase(wrappers, mla["streams"])
+    disagg_seconds["disagg_mla"] = time.monotonic() - t0
+    say({"phase": "disagg_all", "seconds": disagg_seconds,
+         "total_seconds": sum(disagg_seconds.values())})
     t0 = time.monotonic()
     train_parity_phase(MLA_ARCH, "mla_train_parity", wrappers)
     mla_seconds["mla_train_parity"] = time.monotonic() - t0

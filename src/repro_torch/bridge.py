@@ -26,6 +26,11 @@ A train state maps too: the reference's ``{"params", "opt": {"m", "v",
 every leaf in f32 (the master weights and moments;
 ``matrix_dtype=torch.float32``), the parameters requiring grad and
 ``step`` an int32 scalar, and back.
+
+A KV handoff maps too (`handoff_from_reference`): the reference's
+``KVHandoff`` carries ml_dtypes bf16 buffers, the port's the same bits as
+int16 (its wire format, `repro_torch.serving.blockpool`), and each
+fingerprint names its own package's dtype.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from repro_torch import tree as tree_mod
 from repro_torch.models.encdec import EncDecParams
 from repro_torch.models.transformer import LMParams
+from repro_torch.serving.blockpool import KVHandoff
 
 
 F32_LEAVES = ("scale", "bias", "router", "A_log", "dt_bias", "D_skip",
@@ -104,3 +110,29 @@ def train_state_to_numpy(state: dict) -> dict:
             "opt": {"m": tree_mod.map_leaves(_host_f32, opt["m"]),
                     "v": tree_mod.map_leaves(_host_f32, opt["v"]),
                     "step": np.asarray(int(opt["step"]), np.int32)}}
+
+
+def _wire(buf) -> np.ndarray:
+    """A reference handoff buffer in the port's wire dtype: a 2-byte
+    bfloat16 buffer as the same bits in int16, anything else as it is."""
+    buf = np.asarray(buf)
+    if buf.dtype.name == "bfloat16":
+        return buf.view(np.int16)
+    return buf
+
+
+def handoff_from_reference(h) -> KVHandoff:
+    """The reference's ``KVHandoff`` (ml_dtypes bf16 numpy buffers) -> the
+    port's: the same fields and keys, each buffer viewed as the port's
+    wire dtype (bits unchanged) and the fingerprint's dtype names given as
+    torch names, so a port engine of the same layout imports it."""
+    bs, layers = h.fingerprint
+    fingerprint = (bs, tuple(
+        tuple((k, tuple(shape), str(getattr(torch, dtype)))
+              for k, shape, dtype in layer)
+        for layer in layers))
+    return KVHandoff(
+        rid=h.rid, prompt=np.asarray(h.prompt, np.int32), plen=h.plen,
+        first_token=int(h.first_token), max_new_tokens=h.max_new_tokens,
+        block_hashes=tuple(h.block_hashes), fingerprint=fingerprint,
+        blocks=[{k: _wire(v) for k, v in leaf.items()} for leaf in h.blocks])

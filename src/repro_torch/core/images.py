@@ -69,8 +69,10 @@ class PayloadImage:
     # serve mode only: device-mesh shape ``(data, model)``; tensor-parallel
     # serving is ROADMAP.md Queue 1 item 8, so only None (one device) binds.
     mesh_shape: tuple | None = None
-    # serve mode only: the engine's serving ROLE in a disaggregated fleet;
-    # only "unified" binds until ROADMAP.md Queue 1 item 7.
+    # serve mode only: the engine's serving ROLE in a disaggregated fleet
+    # ("unified" | "prefill" | "decode").  A bind-time decision exactly
+    # like the arch: a pilot claims a slice first and the role comes with
+    # the image it binds, which stages only that role's half.
     role: str = "unified"
 
     def key(self) -> tuple:
@@ -126,35 +128,41 @@ def sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def _kernel_sources(cfg: ArchConfig) -> list[str]:
+def _kernel_sources(cfg: ArchConfig, role: str = "unified") -> list[str]:
     """The kernel libraries (``csrc/<name>.cu``) an engine or a bundle of
-    ``cfg`` can launch: its ``*_impl`` flags select the hand-written
-    kernels (MLA's decode paths are plain: only its prefill reaches a
-    kernel, flash; an encoder-decoder runs flash and the dense decode
-    kernel; LayerNorm archs reach no RMSNorm kernel)."""
+    ``cfg`` in serving ``role`` can launch: its ``*_impl`` flags select the
+    hand-written kernels (MLA's decode paths are plain: only its prefill
+    reaches a kernel, flash; an encoder-decoder runs flash and the dense
+    decode kernel; LayerNorm archs reach no RMSNorm kernel).  A prefill
+    role runs admissions only (flash, the grouped matmul); a decode role
+    runs the paged decode step only (spec is off, the layout paged)."""
     names = []
     if cfg.attn_impl == "pallas" and not cfg.is_attention_free:
-        names.append("flash_prefill")
+        if role != "decode":
+            names.append("flash_prefill")
         if cfg.is_encdec:
             names.append("decode_attention")
-        elif cfg.mla is None:
+        elif cfg.mla is None and role == "decode":
+            names.append("paged_decode")
+        elif cfg.mla is None and role == "unified":
             names += ["paged_decode", "paged_verify", "decode_attention"]
     if cfg.norm_impl == "pallas" and cfg.norm == "rmsnorm":
         names.append("rmsnorm")
-    if cfg.moe_impl == "gmm" and cfg.moe is not None:
+    if cfg.moe_impl == "gmm" and cfg.moe is not None and role != "decode":
         names.append("grouped_matmul")
     if cfg.ssm_impl == "pallas" and cfg.ssm is not None:
         names.append("ssd_scan")
     return names
 
 
-def _load_kernels(cfgs, device: torch.device):
+def _load_kernels(cfgs, device: torch.device, role: str = "unified"):
     """Build (outside the lock: nvcc runs on the host) and load (under it)
-    the kernel libraries of ``cfgs``.  The CPU runs the plain versions."""
+    the kernel libraries of ``cfgs`` in serving ``role``.  The CPU runs the
+    plain versions."""
     if device.type != "cuda":
         return
     from repro_torch.kernels import _build
-    names = sorted({n for cfg in cfgs for n in _kernel_sources(cfg)})
+    names = sorted({n for cfg in cfgs for n in _kernel_sources(cfg, role)})
     _build.build(names)
     with DEVICE_LOCK:
         for n in names:
@@ -276,7 +284,8 @@ class ExecutableRegistry:
         if image.mode == "serve" and image.draft:
             draft_cfg = (get_smoke_config(image.draft) if image.smoke
                          else get_config(image.draft))
-        _load_kernels([c for c in (cfg, draft_cfg) if c is not None], dev)
+        _load_kernels([c for c in (cfg, draft_cfg) if c is not None], dev,
+                      image.role)
 
         if image.mode == "prefill":
             fn = make_prefill_step(cfg)
@@ -353,7 +362,10 @@ def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev):
     prefill and chunk functions, and one draft model (weights from seed 0)
     — so a fleet's servers draft and replay bitwise alike; params come from
     the image's seed.  A captured CUDA graph replays one engine's own
-    tensors, so each engine captures its own at construction.
+    tensors, so each engine captures its own at construction.  The image's
+    role picks the half it stages: a prefill image wires no step function
+    (its engines capture no graph), a decode image no prefill or chunk
+    function (its engines admit through the import scatter).
 
     Returns ``(fn, make_inputs, warm)``."""
     from repro_torch.serving.engine import (
@@ -389,7 +401,10 @@ def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev):
         # a startup-spec mesh overrides the image's; any mesh raises in the
         # engine (tensor-parallel serving is a later slice)
         mesh = image.mesh_shape if mesh_shape is None else tuple(mesh_shape)
-        if image.draft and kw["role"] == "unified":
+        role = kw["role"]
+        if image.draft and role == "unified":
+            # a split role forces spec off (draft KV does not ride the
+            # handoff): it gets no draft functions to drop
             kw.setdefault("spec", "draft")
         if kw.get("spec") == "draft":
             kw.setdefault("spec_k", 4)
@@ -402,10 +417,13 @@ def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev):
                 kw.setdefault("draft_params", draft_params_for())
                 kw.setdefault("draft_prefill_fn", draft_bundle.prefill)
         return ServeEngine(cfg, params, slots=slots or shape.global_batch,
-                           max_len=ml, bundle=bundle, step_fn=step_for(ml),
-                           prefill_fn=bundle.prefill,
-                           chunk_fn=bundle.prefill_chunk, mesh=mesh,
-                           device=dev, **kw)
+                           max_len=ml, bundle=bundle,
+                           step_fn=step_for(ml) if role != "prefill" else None,
+                           prefill_fn=(bundle.prefill if role != "decode"
+                                       else None),
+                           chunk_fn=(bundle.prefill_chunk if role != "decode"
+                                     else None),
+                           mesh=mesh, device=dev, **kw)
 
     def make_inputs(seed):
         return bundle.init(seed, device=dev)
@@ -422,18 +440,23 @@ def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev):
         per-shape compile for a chunked warm-up to stage.  It holds the
         device lock throughout: a payload serving meanwhile waits for it
         once, at one tick (taking the lock piece by piece spread the wait
-        over several ticks, with no gain in tokens/s)."""
+        over several ticks, with no gain in tokens/s).  A prefill image's
+        engine warms its admissions only; a decode image's warms no
+        prefill but runs its dummy handoffs through the import scatter
+        and the decode step (`ServeEngine.warm_install`)."""
         with DEVICE_LOCK:
             params = bundle.init(0, device=dev)
             eng = fn(params, step_graph=False)
-            eng.warm_admission()
-            if eng.spec == "draft":
+            eng.warm_admission()                 # no-op for a decode role
+            if eng.role == "decode":
+                eng.warm_install()
+            elif eng.spec == "draft":
                 drafts, _ = eng._draft_fn(
                     eng.draft_params, eng._draft_cache, eng.state["token"],
                     eng.state["pos"], eng.state["block_tables"])
                 eng._verify_fn(params, eng.state, eng.active, eng.budget,
                                drafts)
-            else:
+            elif eng.role == "unified":          # a prefill role never steps
                 eng._step_fn(params, eng.state, eng.active, eng.budget)
             sync(dev)
             del eng, params              # freed before the lock is let go

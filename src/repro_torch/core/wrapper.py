@@ -338,8 +338,10 @@ def _fleet_serve_loop(eng, spec, n_steps, entry, proctable, telemetry) -> int:
             continue
         for rid in [r for r in inflight if r in eng.done]:
             req = inflight.pop(rid)
-            # a unified engine completes with handoff=None; a prefill-role
-            # engine's export (the disaggregated slice) would ride here
+            # a unified or decode-role engine completes with handoff=None;
+            # a prefill-role engine's export rides here into the decode
+            # pool (a decode server's requeued entry carries the same
+            # handoff back, so a replay imports it again: no re-prefill)
             if pool.complete(server_id, rid, req.tokens,
                              first_token_s=req.first_token_s,
                              handoff=req.handoff):
@@ -455,4 +457,6 @@ _SERVE_STAT_KEYS = (
     "role", "prefills_exported", "handoffs_imported")
 
 _ENGINE_STAT_KEYS = ("itl_p50_s", "itl_p99_s", "itl_max_s", "step_graph",
-                     "graph_warm_launches", "launches", "device")
+                     "graph_warm_launches", "launches", "device",
+                     "handoff_export_ms", "handoff_import_ms",
+                     "handoff_bytes")

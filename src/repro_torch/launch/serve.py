@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --requests 16 --slots 8 --max-len 1024 [--spec draft] [--kv dense] \
-        [--prefill chunked --prefill-chunk 128] [--eager]
+        [--prefill chunked --prefill-chunk 128] [--eager] [--wave]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
         [--smoke --device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --via-pilots \\
@@ -18,7 +18,8 @@ dense KV cache, with or without draft-and-verify speculation.  An
 attention-free arch, and a sliding-window one such as mixtral-8x7b (its
 rolling rings), serve on the dense layout with speculation off, as the
 reference's engine chooses.
-Admission is one-shot or chunked (``prefill="chunked"``); on the card a
+Admission is one-shot or chunked (``prefill="chunked"``), continuous or in
+waves (``admission="wave"``, ``--wave``: the baseline); on the card a
 ``spec="off"`` engine replays its decode step as a captured CUDA graph
 (``step_graph=False``, ``--eager``: the eager step).
 
@@ -33,6 +34,9 @@ server's run.
         [--fail-at 4] [--draft self] [--chaos] [--smoke --device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --autoscale \
         [--pilots 3] [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --disagg \
+        [--prefill-pilots 2 --decode-pilots 2] [--fail-prefill-at 2] \
+        [--fail-decode-at 4] [--arch minicpm3-4b] [--smoke --device cpu]
 
 ``--pilots N`` (`serve_fleet`) is fleet serve: N pilots each late-bind the
 same serve image and lease requests from one
@@ -46,6 +50,14 @@ shrinks it to zero in the gaps.  Every slice of a ``ClusterSim`` holds
 every card of the host, so on one card the fleet is N engines on that
 card, each on its pilot's thread, taking turns at
 `repro_torch.serving.graph.DEVICE_LOCK`.
+
+``--disagg`` (`serve_disagg`) splits the fleet by role: prompts lease into
+a pool of prefill-role servers, each finished prefill exports a KV block
+handoff that becomes a lease in a pool of decode-role servers (the
+:class:`~repro_torch.serving.dispatch.DisaggRouter`), and
+``--fail-prefill-at`` / ``--fail-decode-at`` kill one pilot of a stage.
+`serve_disagg_schedule` runs the two pools under two autoscalers, each
+reading its own pool's slice of the pressure.
 """
 
 from __future__ import annotations
@@ -121,14 +133,15 @@ def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
                  draft_cfg=None, draft_seed: int = 0,
                  prefill: str = "oneshot", prefill_chunk: int = 32,
                  step_graph: bool | None = None, prefix_sharing: bool = True,
+                 admission: str = "continuous", role: str = "unified",
                  device="cuda") -> ServeEngine:
     """The serve entry point's engine: ``cfg`` on the hand-written kernels,
     weights from ``seed``, a paged pool of ``num_blocks`` blocks (or a
     dense cache with ``kv="dense"``).  ``spec="draft"`` proposes
     ``spec_k`` tokens a step from ``draft_cfg`` with weights from
     ``draft_seed`` (``draft_cfg=None``: the target drafts for itself).
-    ``prefill``, ``prefill_chunk``, ``step_graph`` and ``prefix_sharing``
-    go to the engine."""
+    ``prefill``, ``prefill_chunk``, ``step_graph``, ``prefix_sharing``,
+    ``admission`` and ``role`` go to the engine."""
     dev = resolve_device(device)
     cfg = _on_kernels(cfg)
     bundle = build_model(cfg)
@@ -143,7 +156,7 @@ def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
                        draft_cfg=draft_cfg, draft_params=draft_params,
                        prefill=prefill, prefill_chunk=prefill_chunk,
                        step_graph=step_graph, prefix_sharing=prefix_sharing,
-                       device=dev)
+                       admission=admission, role=role, device=dev)
 
 
 def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
@@ -154,8 +167,8 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
                  spec: str = "off", spec_k: int = 4, draft_cfg=None,
                  draft_seed: int = 0, prefill: str = "oneshot",
                  prefill_chunk: int = 32, step_graph: bool | None = None,
-                 prefix_sharing: bool = True, device="cuda",
-                 trace: list[dict] | None = None) -> dict:
+                 prefix_sharing: bool = True, admission: str = "continuous",
+                 device="cuda", trace: list[dict] | None = None) -> dict:
     """Build the model from ``seed`` and an engine over it
     (`build_engine`), answer ``trace`` (default: a ``make_trace`` trace of
     ``n_requests``), and return the engine's stats plus ``streams`` ({rid:
@@ -165,7 +178,8 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
                        spec_k=spec_k, draft_cfg=draft_cfg,
                        draft_seed=draft_seed, prefill=prefill,
                        prefill_chunk=prefill_chunk, step_graph=step_graph,
-                       prefix_sharing=prefix_sharing, device=device)
+                       prefix_sharing=prefix_sharing, admission=admission,
+                       device=device)
     if trace is None:
         trace = make_trace(cfg.vocab_size, n_requests, max_len=max_len,
                            seed=seed, prompt_len=prompt_len,
@@ -234,14 +248,16 @@ def serve_via_pilots(archs: list[str], n_requests: int = 8,
             "sim": sim, "pilot": pilot}
 
 
-def _fleet_image(arch, max_len, slots, smoke, draft=None) -> PayloadImage:
+def _fleet_image(arch, max_len, slots, smoke, draft=None,
+                 role="unified") -> PayloadImage:
     """The serve image every server of a fleet binds: ``arch`` of shape
     ``custom:<max_len>x<slots>`` on the hand-written kernels, full width
-    unless ``smoke``; ``draft`` names a draft arch's image (None and
-    "self" share the plain one)."""
+    unless ``smoke``, in serving ``role``; ``draft`` names a draft arch's
+    image (None and "self" share the plain one)."""
     return PayloadImage(arch=arch, shape=f"custom:{max_len}x{slots}",
                         mode="serve", smoke=smoke, flags=KERNEL_FLAGS,
-                        draft=None if draft in (None, "self") else draft)
+                        draft=None if draft in (None, "self") else draft,
+                        role=role)
 
 
 def _server_rows(sim, tids) -> list[dict]:
@@ -400,6 +416,220 @@ def serve_fleet(arch: str, n_requests: int, n_pilots: int, *,
     }
 
 
+def _pct(v, q):
+    return float(np.percentile(v, q)) if v else None
+
+
+def _disagg_pools(router, smoke, arch, max_len, slots):
+    """The prefill and decode images of a disaggregated fleet (the role is
+    part of the image key) and each pool's server spec, its servers
+    labelled with their pool."""
+    imgs = {role: _fleet_image(arch, max_len, slots, smoke, role=role)
+            for role in ("prefill", "decode")}
+    specs = {role: {"slots": slots, "max_len": max_len,
+                    "server_labels": {"pool": role}}
+             for role in ("prefill", "decode")}
+    pools = {"prefill": router.prefill, "decode": router.decode}
+    return imgs, specs, pools
+
+
+def serve_disagg(arch: str, n_requests: int, *, prefill_pilots: int = 2,
+                 decode_pilots: int = 2, slots: int = 8, max_len: int = 1024,
+                 fail_prefill_at: int | None = None,
+                 fail_decode_at: int | None = None, lease_ttl: float = 0.5,
+                 registry=None, seed: int = 0,
+                 trace: list[dict] | None = None, smoke: bool = False,
+                 device="cuda") -> dict:
+    """Disaggregated fleet serve on ``device``: prompts lease into a pool of
+    ``prefill_pilots`` prefill-role servers whose engines export KV block
+    handoffs; each completed prefill becomes a lease in the decode pool
+    (the :class:`~repro_torch.serving.dispatch.DisaggRouter` forward),
+    where ``decode_pilots`` decode-role servers resume each stream from its
+    handoff.  Every server binds the `_fleet_image` of ``arch`` with its
+    role (weights from seed 0); ``trace`` defaults to a ``make_trace``
+    trace from ``seed``.
+
+    ``fail_prefill_at`` / ``fail_decode_at`` hard-kill a lease-holding
+    pilot of that stage once K requests have settled there: a dead prefill
+    pilot's prompts replay from the PROMPT on survivors; a dead decode
+    pilot's streams replay from the HANDOFF (the prompt is never
+    prefilled again).  Either replay reproduces the lost tokens bitwise.
+
+    Returns the run's stats (TTFT at the prefill export, the resume time
+    at the decode import, goodput, leaks, exports and imports) and, the
+    port's own, each handoff's export and import milliseconds and wire
+    bytes over the servers that ended gracefully, and ``servers``: each
+    pool's server rows (exit code, serve telemetry, engine stats)."""
+    from repro_torch.serving.dispatch import DisaggRouter
+
+    sim = ClusterSim(registry=registry, device=device)
+    router = DisaggRouter(lease_ttl=lease_ttl)
+    imgs, specs, pools = _disagg_pools(router, smoke, arch, max_len, slots)
+    if trace is None:
+        trace = make_trace(imgs["prefill"].config().vocab_size, n_requests,
+                           max_len=max_len, seed=seed)
+    counts = {"prefill": prefill_pilots, "decode": decode_pilots}
+    fleets = {role: sim.spawn_fleet(n, PilotConfig(max_payloads=2,
+                                                   idle_grace=0.3))
+              for role, n in counts.items()}
+    tids = {role: fleets[role].submit_servers(
+                imgs[role], pools[role].name, n=counts[role],
+                spec=specs[role])
+            for role in counts}
+    for role, n in counts.items():
+        if not pools[role].wait_servers(n, timeout=300.0):
+            router.close()
+            for f in fleets.values():
+                f.drain_all()
+                f.join_all(30.0)
+            raise RuntimeError(
+                f"only {len(pools[role].servers)}/{n} {role} servers came "
+                f"up within 300s: {_server_rows(sim, tids[role])}")
+    t0 = time.monotonic()
+    router.submit_trace(trace)
+    router.seal()
+    failed = {"prefill": [], "decode": []}
+    try:
+        for role, at in (("prefill", fail_prefill_at),
+                         ("decode", fail_decode_at)):
+            if at is None or not pools[role].wait_completed(at,
+                                                            timeout=300.0):
+                continue
+            victim = _pick_victim(fleets[role], pools[role])
+            if victim is not None:
+                failed[role].append(victim.pilot_id)
+                sim.fail_node(victim.slice.slice_id)
+        ok = router.wait_all(timeout=600.0)
+    finally:
+        router.close()
+        for f in fleets.values():
+            f.drain_all()
+            f.join_all(30.0)
+    wall = time.monotonic() - t0
+    for f in fleets.values():
+        f.reap()
+    # end-to-end TTFT: the first generated token exists at the prefill
+    # export (it rides the handoff), so the prefill-stage records, timed
+    # from the ORIGINAL submit, hold the time to first token.  The decode
+    # stage's records time the same start to the import: the resume time
+    recs = router.decode.records()
+    ttfts = [r.first_token_s for r in router.prefill.records().values()
+             if r.first_token_s is not None]
+    resumes = [r.first_token_s for r in recs.values()
+               if r.first_token_s is not None]
+    goodput = sum(len(r.tokens) for r in recs.values()
+                  if r.tokens is not None) / wall if wall else 0.0
+    servers = {role: _server_rows(sim, t) for role, t in tids.items()}
+    rows = servers["prefill"] + servers["decode"]
+    leaked = sum(r["serve"]["fleet"].get("leaked_blocks", 0)
+                 for r in rows if r["serve"].get("fleet"))
+    handoff = {k: [x for r in rows for x in r["engine"].get(k) or ()]
+               for k in ("handoff_export_ms", "handoff_import_ms",
+                         "handoff_bytes")}
+    return {
+        "drained": ok,
+        "wall_s": wall,
+        "goodput_tok_per_s": goodput,
+        "ttft_p50_s": _pct(ttfts, 50),
+        "ttft_p99_s": _pct(ttfts, 99),
+        "resume_p50_s": _pct(resumes, 50),
+        "resume_p99_s": _pct(resumes, 99),
+        "failed_pilots": failed,
+        "pilot_seconds": sum(f.pilot_seconds() for f in fleets.values()),
+        "results": router.results(),
+        "leaked_blocks": leaked,
+        "prefills_exported": sum(r["serve"].get("prefills_exported") or 0
+                                 for r in rows),
+        "handoffs_imported": sum(r["serve"].get("handoffs_imported") or 0
+                                 for r in rows),
+        "export_ms_p50": _pct(handoff["handoff_export_ms"], 50),
+        "export_ms_max": max(handoff["handoff_export_ms"], default=None),
+        "import_ms_p50": _pct(handoff["handoff_import_ms"], 50),
+        "import_ms_max": max(handoff["handoff_import_ms"], default=None),
+        "handoff_bytes_mean": (float(np.mean(handoff["handoff_bytes"]))
+                               if handoff["handoff_bytes"] else None),
+        "handoff_bytes_max": max(handoff["handoff_bytes"], default=None),
+        "pool_pressure": router.pool_pressure(),
+        "stats": router.stats(),
+        "servers": servers,
+    }
+
+
+def serve_disagg_schedule(arch: str, schedule: list[tuple[float, dict]], *,
+                          slots: int = 8, max_len: int = 1024,
+                          prefill_policy=None, decode_policy=None,
+                          initial_pilots: int = 1, lease_ttl: float = 0.5,
+                          idle_grace: float = 0.5, registry=None,
+                          smoke: bool = False, device="cuda") -> dict:
+    """Disaggregated fleets on ``device`` under TWO independent autoscalers,
+    one per role pool, each reading its own label's ``pool_pressure()``
+    slice: a prefill-bound trace grows only the prefill fleet, a
+    decode-bound one only the decode fleet.  A pool whose policy is None
+    keeps its ``initial_pilots``."""
+    from repro_torch.core.autoscaler import FleetAutoscaler
+    from repro_torch.serving.dispatch import DisaggRouter
+
+    sim = ClusterSim(registry=registry, device=device)
+    router = DisaggRouter(lease_ttl=lease_ttl)
+    imgs, specs, pools = _disagg_pools(router, smoke, arch, max_len, slots)
+    policies = {"prefill": prefill_policy, "decode": decode_policy}
+    fleets = {role: sim.spawn_fleet(initial_pilots,
+                                    PilotConfig(max_payloads=4,
+                                                idle_grace=idle_grace))
+              for role in policies}
+    scalers = {}
+    out: dict = {}
+    try:
+        if initial_pilots:
+            for role, f in fleets.items():
+                f.submit_servers(imgs[role], pools[role].name,
+                                 n=initial_pilots, spec=specs[role])
+            for role, pool in pools.items():
+                if not pool.wait_servers(initial_pilots, timeout=300.0):
+                    raise RuntimeError(f"{pool.name} servers not warm "
+                                       f"within 300s")
+        for role, policy in policies.items():
+            if policy is None:
+                continue
+            scalers[role] = FleetAutoscaler(
+                fleets[role], imgs[role], pool=pools[role], pool_label=role,
+                policy=policy, spec=specs[role])
+            scalers[role].start()
+        t0 = time.monotonic()
+        for dt, entry in schedule:
+            lag = dt - (time.monotonic() - t0)
+            if lag > 0:
+                time.sleep(lag)
+            router.submit(entry)
+        router.seal()
+        out["drained"] = router.wait_all(timeout=600.0)
+        out["wall_s"] = time.monotonic() - t0
+    finally:
+        for sc in scalers.values():
+            sc.stop()
+        router.close()
+        for f in fleets.values():
+            f.drain_all()
+            f.join_all(30.0)
+            f.reap()
+    recs = router.decode.records()
+    ttfts = [r.first_token_s for r in recs.values()
+             if r.first_token_s is not None]
+    out.update({
+        "ttft_p50_s": _pct(ttfts, 50),
+        "ttft_p99_s": _pct(ttfts, 99),
+        "pilot_seconds": {role: f.pilot_seconds()
+                          for role, f in fleets.items()},
+        "peak_pilots": {role: (scalers[role].peak_live if role in scalers
+                               else None) for role in fleets},
+        "results": router.results(),
+        "stats": router.stats(),
+    })
+    for role, sc in scalers.items():
+        out.setdefault("autoscale", {})[role] = sc.stats()
+    return out
+
+
 def make_bursty_schedule(trace: list[dict], *, bursts: int, burst_s: float,
                          gap_s: float, seed: int = 0) -> list[tuple[float, dict]]:
     """Square-wave arrival schedule with Poisson arrivals inside each high
@@ -556,6 +786,9 @@ def main(argv=None):
                          "multiple of the block size, 16, when paged)")
     ap.add_argument("--eager", action="store_true",
                     help="run the decode step eagerly, not as a CUDA graph")
+    ap.add_argument("--wave", action="store_true",
+                    help="wave admission: refill slots only once all are "
+                         "free (the static-batching baseline)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--via-pilots", action="store_true",
                     help="serve each arch of --archs as a payload that one "
@@ -582,11 +815,38 @@ def main(argv=None):
     ap.add_argument("--quarantine-after", type=int, default=None,
                     help="fleet serve: quarantine a request once this many "
                          "distinct pilots died holding it (0 disables)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serve: a prefill fleet exports KV "
+                         "handoffs that a decode fleet resumes (pool sizes "
+                         "via --prefill-pilots/--decode-pilots)")
+    ap.add_argument("--prefill-pilots", type=int, default=2,
+                    help="disagg: prefill pool size")
+    ap.add_argument("--decode-pilots", type=int, default=2,
+                    help="disagg: decode pool size")
+    ap.add_argument("--fail-prefill-at", type=int, default=None,
+                    help="disagg: kill a prefill pilot after K settled "
+                         "prefills (replay-from-prompt)")
+    ap.add_argument("--fail-decode-at", type=int, default=None,
+                    help="disagg: kill a decode pilot after K finished "
+                         "streams (replay-from-handoff)")
     ap.add_argument("--autoscale", action="store_true",
                     help="fleet serve on a bursty square-wave trace with "
                          "the demand-driven autoscaler (--pilots caps the "
                          "fleet; starts at 1, scales to zero in the gaps)")
     args = ap.parse_args(argv)
+    if args.disagg:
+        out = serve_disagg(args.arch, args.requests,
+                           prefill_pilots=args.prefill_pilots,
+                           decode_pilots=args.decode_pilots,
+                           slots=args.slots, max_len=args.max_len,
+                           fail_prefill_at=args.fail_prefill_at,
+                           fail_decode_at=args.fail_decode_at,
+                           seed=args.seed, smoke=args.smoke,
+                           device=args.device)
+        for k in ("results", "pool_pressure", "servers"):
+            out.pop(k)
+        print(json.dumps(out, default=str))
+        return 0 if out["drained"] else 1
     if args.autoscale:
         return _autoscale_main(args)
     if args.pilots:
@@ -606,6 +866,7 @@ def main(argv=None):
                          spec_k=args.spec_k, prefill=args.prefill,
                          prefill_chunk=args.prefill_chunk,
                          step_graph=False if args.eager else None,
+                         admission="wave" if args.wave else "continuous",
                          device=args.device)
     del stats["streams"]
     print(json.dumps(stats))

@@ -1,7 +1,9 @@
 """Host-side block allocator + prefix cache for the paged KV serve path.
 
-The port's copy of ``repro.serving.blockpool`` (pure Python and numpy; the
-KV handoff of disaggregated serving is a later slice).
+The port's copy of ``repro.serving.blockpool`` (pure Python and numpy).
+Numpy has no bfloat16, so a bf16 pool's handoff buffers carry its raw
+16-bit patterns as int16: the fingerprint names the pool's torch dtype,
+and the importer views the buffers back as that dtype on the device.
 
 The device holds one block pool per attention layer, all indexed by the
 SAME physical block ids; the allocator hands out ids, so one host-side
@@ -34,6 +36,7 @@ evicted oldest-first.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from collections import OrderedDict
 
@@ -164,3 +167,68 @@ class PrefixCache:
 
     def __len__(self):
         return len(self._map)
+
+
+# --------------------------------------------------------------------------
+# KV block handoff: the disaggregated prefill -> decode wire format
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KVHandoff:
+    """A finished prompt's KV, packaged for import into ANOTHER engine's
+    block pool — the payload a prefill pilot hands to the decode fleet.
+
+    ``blocks`` is one dict per attention layer, each mapping a paged pool
+    key (``kp``/``vp`` for GQA, ``ckvp``/``kropep`` for MLA) to a host
+    buffer of shape ``(groups, n_prompt_blocks, block_size, ...)`` — the
+    slot's block chain gathered contiguously (device-side gather, one
+    host pull for the whole pytree).  Because chunk boundaries, padding
+    and bucket shapes are identical on both sides, scattering these
+    buffers into the importer's pool reproduces the exporter's KV rows
+    bit for bit.
+
+    ``block_hashes`` carries the exporter's chain-hash keys over the
+    padded prompt, so the importer can (a) skip scattering blocks its own
+    :class:`PrefixCache` already holds and (b) republish the fresh full
+    blocks under the SAME keys — prefix sharing survives the handoff.
+
+    ``fingerprint`` pins everything the scatter relies on (block size
+    plus every paged leaf's pool layout and dtype); an importer whose
+    pools disagree must reject the handoff rather than write garbage.
+
+    ``first_token`` is the admission-time argmax — the one token prefill
+    produced.  A decode engine that installs ``pos = plen``, ``token =
+    first_token`` and the scattered blocks holds EXACTLY the state a
+    unified engine holds after admission, which is why the resumed greedy
+    stream is bitwise identical (DESIGN.md "Disaggregated prefill/decode").
+    """
+
+    rid: int
+    prompt: np.ndarray                 # (prompt_len,) int32, unpadded
+    plen: int                          # admission bucket (padded length)
+    first_token: int                   # argmax of the prefill logits
+    max_new_tokens: int                # decode budget riding along
+    block_hashes: tuple                # chain-hash keys, one per FULL block
+    fingerprint: tuple                 # (block_size, per-layer pool layout)
+    blocks: list                       # per-layer {key: np.ndarray} buffers
+
+    @property
+    def n_prompt_blocks(self) -> int:
+        bs = self.fingerprint[0]
+        return -(-self.plen // bs)
+
+    @property
+    def nbytes(self) -> int:
+        """Handoff wire size: what actually crosses pools per request."""
+        return sum(int(buf.nbytes)
+                   for leaf in self.blocks for buf in leaf.values())
+
+    def validate_against(self, fingerprint: tuple):
+        """Raise unless the importer's pools can hold these buffers."""
+        if fingerprint != self.fingerprint:
+            raise ValueError(
+                f"handoff fingerprint mismatch for rid {self.rid}: "
+                f"exporter {self.fingerprint!r} vs importer "
+                f"{fingerprint!r}; prefill and decode images must share "
+                f"the arch, block size and KV dtype")

@@ -72,8 +72,20 @@ it was given.  Construction, each step, the admission warm-up and a cancel
 hold `repro_torch.serving.graph.DEVICE_LOCK` (the device work of a
 prefetch on another thread waits for them, and they for it), and the
 engine counts the kernel launches it made under it (``launches`` in its
-stats).  Tensor parallelism and the disaggregated roles are later slices:
-asking for them raises ``NotImplementedError``.
+stats).  Tensor parallelism is a later slice: asking for a mesh raises
+``NotImplementedError``.
+
+* **disaggregated roles** (``role="prefill"`` / ``"decode"``, paged only)
+  — a prefill-role engine admits, exports the slot's prompt blocks as a
+  :class:`~repro_torch.serving.blockpool.KVHandoff` and frees the slot at
+  once; it has no step function and captures no graph.  A decode-role
+  engine admits only handoffs: it scatters their blocks into its own pool
+  IN PLACE (the captured step replays fixed addresses) and resumes at the
+  handoff's first token, bitwise as a unified engine would.  The export
+  gathers every layer's blocks into one device buffer and pulls it to the
+  host once; a bf16 pool travels as its raw 16-bit pattern (int16).
+* **wave admission** (``admission="wave"``, the baseline) — free slots
+  refill only once every slot is free.
 """
 
 from __future__ import annotations
@@ -88,7 +100,8 @@ import torch
 
 from repro_torch.models.api import (
     build_model, default_num_blocks, init_decode_state, resolve_device)
-from repro_torch.serving.blockpool import BlockAllocator, PrefixCache
+from repro_torch.serving.blockpool import (
+    BlockAllocator, KVHandoff, PrefixCache)
 from repro_torch.serving.graph import DEVICE_LOCK, StepGraph, launch_counts
 
 
@@ -102,9 +115,9 @@ class Request:
     tokens: list = dataclasses.field(default_factory=list)
     first_token_s: float | None = None
     done_s: float | None = None
-    # a KV handoff to resume from (role="decode", the disaggregated slice:
-    # ROADMAP.md Queue 1 item 7); a unified engine rejects one in `submit`
-    handoff: object | None = None
+    # disaggregated serving: a prefill-role engine fills this on export;
+    # a decode-role engine resumes from it instead of a raw prompt
+    handoff: KVHandoff | None = None
 
 
 @dataclasses.dataclass
@@ -280,6 +293,24 @@ def spec_ineligible_reason(cfg, kv: str) -> str | None:
     return None
 
 
+def handoff_ineligible_reason(cfg, kv: str) -> str | None:
+    """Why an arch cannot serve in a disaggregated role (None == it can).
+    The KV handoff moves PAGED BLOCKS between pools, so every per-token
+    byte a decode step reads must live inside blocks: per-row state (SSM
+    scan rows, SWA rolling rings) has no block id to ship."""
+    if cfg.is_encdec:
+        return "enc-dec archs do not run the decoder-only serve path"
+    if cfg.is_attention_free or cfg.ssm is not None:
+        return ("SSM state rows are per-slot, not per-block; they cannot "
+                "ride a block-chain handoff")
+    if cfg.sliding_window is not None:
+        return ("SWA ring rows are per-slot, not per-block; they cannot "
+                "ride a block-chain handoff")
+    if kv != "paged":
+        return "the handoff ships paged blocks; kv='dense' has none"
+    return None
+
+
 # each paged pool's key -> the key of the one-shot prefill's leaf it takes
 _PAGED_KEYS = {"kp": "k", "vp": "v", "ckvp": "ckv", "kropep": "krope"}
 # the dense per-row leaves that are rings of positions (K/V, MLA's latent)
@@ -328,9 +359,15 @@ class ServeEngine:
       decode; a multiple of ``block_size`` on the paged layout; a dense MLA
       engine admits one-shot, as the reference's).
     * ``step_graph`` — None: the decode step is a captured CUDA graph on a
-      CUDA device with ``spec="off"``, eager otherwise; False: always
-      eager; True: the graph, raising where there can be none (the CPU,
-      ``spec="draft"``).
+      CUDA device with ``spec="off"`` (and a role that decodes), eager
+      otherwise; False: always eager; True: the graph, raising where there
+      can be none (the CPU, ``spec="draft"``, ``role="prefill"``).
+    * ``role`` — "unified", or a disaggregated "prefill" (admits and
+      exports handoffs; no step function) or "decode" (imports handoffs;
+      no prefill or chunk function, one-shot); a split role forces
+      ``spec="off"`` and records why.
+    * ``admission`` — "continuous" (refill any free slot) or "wave" (the
+      baseline: refill once every slot is free).
     * ``step_fn``, ``prefill_fn``, ``chunk_fn``, ``draft_fn``,
       ``verify_fn``, ``draft_prefill_fn`` — the functions a serve image's
       factory shares among its engines (`make_engine_step`,
@@ -338,7 +375,7 @@ class ServeEngine:
       `make_verify_step`, the draft bundle's prefill); None builds the
       engine's own.
 
-    This slice serves ``role="unified"`` and ``mesh=None``."""
+    This slice serves ``mesh=None``."""
 
     @_on_device
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
@@ -349,19 +386,35 @@ class ServeEngine:
                  spec: str = "off", spec_k: int = 4, draft_cfg=None,
                  draft_params=None, draft_bundle=None, draft_fn=None,
                  verify_fn=None, draft_prefill_fn=None, mesh=None,
-                 role: str = "unified", device="cuda",
-                 step_graph: bool | None = None):
+                 role: str = "unified", admission: str = "continuous",
+                 device="cuda", step_graph: bool | None = None):
+        if prefill not in ("oneshot", "chunked"):
+            raise ValueError(
+                f"prefill must be 'oneshot' or 'chunked', got {prefill!r}")
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"role must be 'unified', 'prefill' or "
+                             f"'decode', got {role!r}")
+        if admission not in ("continuous", "wave"):
+            raise ValueError(f"admission must be 'continuous' or 'wave', "
+                             f"got {admission!r}")
+        # an arch pages only if some attention layer's per-token state can
+        # live in blocks (all-SWA rings and pure SSM state cannot)
+        pages = (not cfg.is_attention_free
+                 and (cfg.mla is not None or cfg.sliding_window is None))
+        if kv is None or (kv == "paged" and not pages):
+            kv = "paged" if pages else "dense"
+        if kv not in ("paged", "dense"):
+            raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
+        if role != "unified":
+            reason = handoff_ineligible_reason(cfg, kv)
+            if reason is not None:
+                raise ValueError(
+                    f"role={role!r} needs the KV block handoff: {reason}")
         if cfg.is_encdec:
             raise ValueError(
                 f"{cfg.name}: enc-dec archs do not run the decoder-only serve "
                 "path; their prefill needs frames (run the bundle's prefill "
                 "and decode, or the prefill and decode images)")
-        if prefill not in ("oneshot", "chunked"):
-            raise ValueError(
-                f"prefill must be 'oneshot' or 'chunked', got {prefill!r}")
-        if role != "unified":
-            _later("role", role, "disaggregated prefill/decode slice "
-                   "(ROADMAP.md Queue 1 item 7)")
         if mesh is not None:
             _later("mesh", mesh, "tensor-parallel serving slice "
                    "(ROADMAP.md Queue 1 item 8)")
@@ -371,20 +424,13 @@ class ServeEngine:
         if params.embed.device != self.device:
             raise ValueError(f"params live on {params.embed.device}, the "
                              f"engine on {self.device}")
-        # an arch pages only if some attention layer's per-token state can
-        # live in blocks (all-SWA rings and pure SSM state cannot)
-        pages = (not cfg.is_attention_free
-                 and (cfg.mla is not None or cfg.sliding_window is None))
-        if kv is None or (kv == "paged" and not pages):
-            kv = "paged" if pages else "dense"
-        if kv not in ("paged", "dense"):
-            raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
         self.cfg = cfg
         self.params = params
         self.slots = slots
         self.max_len = max_len
         self.kv = kv
         self.role = role
+        self.admission = admission
         self.block_size = block_size
         self.bundle = bundle or build_model(cfg)
         # chunked admission runs on both layouts except dense MLA, whose
@@ -431,6 +477,13 @@ class ServeEngine:
         self._host_pos = [0] * slots
         self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
         self._tick_times: list[float] = []
+        # the disaggregated roles' handoffs: each export's and import's
+        # host milliseconds and each export's wire bytes
+        self.prefills_exported = 0
+        self.handoffs_imported = 0
+        self._export_ms: list[float] = []
+        self._import_ms: list[float] = []
+        self._handoff_bytes: list[int] = []
         self.steps = 0
         self.idle_slot_steps = 0
         self.d2h_transfers = 0         # must equal `steps` (one per step)
@@ -446,14 +499,29 @@ class ServeEngine:
         self.spec_accepted = 0         # of those, committed to requests
         self.draft_time_s = 0.0        # time inside the draft chain
         self._draft_events = None      # CUDA events around this step's chain
-        self._step_fn = step_fn or make_engine_step(self.bundle, max_len)
-        self._prefill = prefill_fn or self.bundle.prefill
-        self._chunk_fn = chunk_fn or self.bundle.prefill_chunk
+        # a prefill-role engine never decodes (its slots turn over at the
+        # export) and a decode-role engine never prefills (its admissions
+        # scatter imported blocks), so each drops the other half
+        self._step_fn = (None if role == "prefill"
+                         else step_fn or make_engine_step(self.bundle,
+                                                          max_len))
+        self._prefill = (None if role == "decode"
+                         else prefill_fn or self.bundle.prefill)
+        self._chunk_fn = (None if role == "decode"
+                          else chunk_fn or self.bundle.prefill_chunk)
+        if role == "decode":
+            self.prefill_mode = "oneshot"    # no chunk path to interleave
 
         # ---- speculative decoding: draft-and-verify multi-token steps ----
         self.spec = "off"
         self.spec_k = int(spec_k)
         self.spec_fallback_reason = None
+        if spec == "draft" and role != "unified":
+            # the draft's shadow pools do not ride the handoff, so a
+            # resumed request would draft over garbage KV
+            self.spec_fallback_reason = (
+                f"role={role}: draft KV does not ride the block handoff")
+            spec = "off"
         if spec == "draft":
             reason = spec_ineligible_reason(cfg, self.kv)
             if reason is None and draft_cfg is not None:
@@ -504,7 +572,11 @@ class ServeEngine:
 
         # ---- the decode step as one captured CUDA graph ----
         if step_graph is None:
-            step_graph = self.device.type == "cuda" and self.spec == "off"
+            step_graph = (self.device.type == "cuda" and self.spec == "off"
+                          and role != "prefill")
+        if step_graph and role == "prefill":
+            raise ValueError("step_graph=True needs a decode step; a "
+                             "prefill-role engine has none")
         if step_graph and self.device.type != "cuda":
             raise ValueError("step_graph=True needs a CUDA device; the CPU "
                              "runs the eager step")
@@ -545,11 +617,35 @@ class ServeEngine:
             raise ValueError("request id -1 is reserved (the engine's "
                              "free-slot sentinel)")
         if req.handoff is not None:
+            if self.role != "decode":
+                raise ValueError(
+                    f"role={self.role!r} engine cannot import a KV handoff "
+                    "(only role='decode' resumes from one)")
+            req.handoff.validate_against(self.kv_fingerprint())
+            plen = req.handoff.plen
+            if plen >= self.max_len:
+                raise ValueError(
+                    f"handoff bucket {plen} leaves no decode room inside "
+                    f"max_len {self.max_len}")
+            end_max = min(plen + req.max_new_tokens, self.max_len)
+            need = -(-end_max // self.block_size)
+            if need > self.allocator.capacity_blocks:
+                raise ValueError(
+                    f"handoff needs {need} KV blocks (bucket {plen} + "
+                    f"budget {req.max_new_tokens}) but the pool holds "
+                    f"{self.allocator.capacity_blocks}")
+            self.queue.append(req)
+            return
+        if self.role == "decode":
             raise ValueError(
-                f"role={self.role!r} engine cannot import a KV handoff "
-                "(only role='decode' resumes from one)")
+                "role='decode' engine only accepts handoff requests; "
+                "route raw prompts to the prefill pool")
         plen = admit_length(len(req.prompt), self.max_len)
-        end_max = min(plen + req.max_new_tokens, self.max_len)
+        # a prefill-role engine maps only the prompt's blocks: its slots
+        # turn over at the export, so the decode budget's reach is the
+        # decode pool's
+        end_max = (plen if self.role == "prefill"
+                   else min(plen + req.max_new_tokens, self.max_len))
         need = -(-end_max // self.block_size)
         if self.kv == "paged" and need > self.allocator.capacity_blocks:
             raise ValueError(
@@ -564,9 +660,12 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     def _admit(self):
-        """Fill free slots from the queue.  Pool pressure defers
-        admission."""
+        """Fill free slots from the queue: any free slot at once
+        (continuous), or only once every slot is free (wave).  Pool
+        pressure defers admission."""
         free = [i for i, m in enumerate(self.slot_meta) if m.rid == -1]
+        if self.admission == "wave" and len(free) < self.slots:
+            return
         for si in free:
             if not self.queue:
                 break
@@ -579,13 +678,16 @@ class ServeEngine:
         prefill, or a chunked job); the other slots' decode state stays
         untouched.  Returns False when the pool cannot hold the request
         yet."""
+        if req.handoff is not None:
+            return self._admit_handoff_into(si, req)
         plen = admit_length(len(req.prompt), self.max_len)
         bs = self.block_size
         padded = np.zeros((plen,), np.int32)
         padded[-len(req.prompt):] = req.prompt                # left-pad
         row, keys, nhit, shareable = [], [], 0, 0
         if self.kv == "paged":
-            end_max = min(plen + req.max_new_tokens, self.max_len)
+            end_max = (plen if self.role == "prefill"
+                       else min(plen + req.max_new_tokens, self.max_len))
             total_blocks = -(-end_max // bs)
             n_full = plen // bs
             # keep >= 1 prompt position outside the shared prefix
@@ -628,7 +730,10 @@ class ServeEngine:
             self._install_draft(tokens, row, nhit)
         else:
             _install_slot(self.state, cache, si, plen, nxt)
-        self._finish_admission(si, req, plen, nxt)
+        if self.role == "prefill":
+            self._finish_prefill_export(si, req, plen, nxt, padded, keys)
+        else:
+            self._finish_admission(si, req, plen, nxt)
         return True
 
     def _finish_admission(self, si: int, req: Request, plen: int, nxt: int):
@@ -641,6 +746,129 @@ class ServeEngine:
         req.tokens.append(nxt)
         req.first_token_s = time.monotonic() - req.submitted
         self._live[req.rid] = req
+
+    # ------------------------------------------------------------------
+    # disaggregated serving: KV block export (prefill) / import (decode)
+    # ------------------------------------------------------------------
+
+    def kv_fingerprint(self) -> tuple:
+        """Pool-layout identity a handoff must match: the block size and
+        each layer's paged keys with their per-block shapes and torch
+        dtypes.  Two engines agree iff a block gathered from one scatters
+        into the other unchanged."""
+        if self.kv != "paged":
+            raise ValueError("the fingerprint is a paged-pool property")
+        layers = tuple(
+            tuple(sorted((k, (v.shape[0],) + tuple(v.shape[2:]), str(v.dtype))
+                         for k, v in leaf.items() if k in _PAGED_KEYS))
+            for leaf in self.state["cache"])
+        return (self.block_size, layers)
+
+    def _finish_prefill_export(self, si: int, req: Request, plen: int,
+                               nxt: int, padded: np.ndarray, keys: list):
+        """Prefill-role completion: gather the slot's prompt blocks into
+        host buffers (one device buffer, one host pull), attach the
+        chain-hash keys and the admission token, and finish the request;
+        the slot and its blocks turn over at once."""
+        bs = self.block_size
+        n_pb = -(-plen // bs)
+        if not keys:
+            # prefix sharing may be off here, but the decode pool still
+            # wants the keys to republish: they depend on the tokens only
+            keys = PrefixCache.block_keys(padded, bs, plen // bs)
+        t0 = time.monotonic()
+        bufs = _gather_blocks(self.state["cache"],
+                              self._slot_blocks[si][:n_pb], self.device)
+        self._export_ms.append((time.monotonic() - t0) * 1e3)
+        req.handoff = KVHandoff(
+            rid=req.rid, prompt=np.asarray(req.prompt, np.int32),
+            plen=plen, first_token=nxt, max_new_tokens=req.max_new_tokens,
+            block_hashes=tuple(keys), fingerprint=self.kv_fingerprint(),
+            blocks=bufs)
+        self._handoff_bytes.append(req.handoff.nbytes)
+        now = time.monotonic()
+        req.tokens.append(nxt)
+        req.first_token_s = now - req.submitted
+        req.done_s = now - req.submitted
+        self.prefills_exported += 1
+        self._live.pop(req.rid, None)
+        self.done[req.rid] = req
+        self._evict_slot(si)
+
+    def _admit_handoff_into(self, si: int, req: Request) -> bool:
+        """Decode-role admission: scatter an imported block chain into this
+        pool and resume at the first generated token.  The slot is left
+        EXACTLY as `_finish_admission` leaves a unified engine's (``pos =
+        plen``, ``token = first_token``, the prompt's KV in rows
+        ``0..plen-1``), so the greedy stream continues bitwise.  Prefix-hit
+        blocks are not written, and fresh full blocks are republished under
+        the handoff's own keys: sharing crosses the pool boundary."""
+        h = req.handoff
+        bs = self.block_size
+        plen = h.plen
+        end_max = min(plen + req.max_new_tokens, self.max_len)
+        total_blocks = -(-end_max // bs)
+        shareable = min(plen // bs, (plen - 1) // bs)
+        keys = list(h.block_hashes)
+        hit = self.prefix.match(keys[:shareable]) if self.prefix else []
+        need = total_blocks - len(hit)
+        if self.allocator.available_blocks < need:
+            if self.prefix is not None:
+                self.prefix.evict_unreferenced(
+                    need - self.allocator.available_blocks)
+            if self.allocator.available_blocks < need:
+                for bid in hit:                    # undo the match refs
+                    self.allocator.free(bid)
+                self.blocked_admissions += 1
+                return False
+        row = hit + [self.allocator.alloc() for _ in range(need)]
+        self._slot_blocks[si] = list(row)
+        nhit = len(hit)
+        self.prefix_hit_tokens += nhit * bs
+        self.prompt_tokens_total += plen
+        self.slot_meta[si].rid = req.rid
+        t0 = time.monotonic()
+        _import_blocks_paged(self.state, h.blocks, si, plen, h.first_token,
+                             row, nhit, bs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._import_ms.append((time.monotonic() - t0) * 1e3)
+        self._publish_prefix(keys, row, nhit, shareable)
+        self.handoffs_imported += 1
+        m = self.slot_meta[si]
+        m.active = True
+        self.active[si] = True
+        self.budget[si] = req.max_new_tokens
+        self._host_pos[si] = plen
+        if not req.tokens:
+            # the stream starts with the prefill's admission token; a
+            # replayed import (requeued from the handoff) gets it again on
+            # the fresh Request the dispatcher rebuilt
+            req.tokens.append(h.first_token)
+        req.first_token_s = time.monotonic() - req.submitted
+        self._live[req.rid] = req
+        return True
+
+    def _dummy_handoff(self, plen: int) -> KVHandoff:
+        """A zero-KV handoff shaped as a real one of bucket ``plen``:
+        `warm_install` feeds these through the import scatter so a decode
+        server takes its first-use costs before it takes leases."""
+        bs = self.block_size
+        n_pb = -(-plen // bs)
+        prompt = (np.arange(max(plen - 1, 1)) % self.cfg.vocab_size).astype(
+            np.int32)
+        padded = np.zeros((plen,), np.int32)
+        padded[-len(prompt):] = prompt
+        blocks = [
+            {k: np.zeros((v.shape[0], n_pb) + tuple(v.shape[2:]),
+                         _wire_dtype(v.dtype))
+             for k, v in leaf.items() if k in _PAGED_KEYS}
+            for leaf in self.state["cache"]]
+        return KVHandoff(
+            rid=-2, prompt=prompt, plen=plen, first_token=0,
+            max_new_tokens=1,
+            block_hashes=tuple(PrefixCache.block_keys(padded, bs, plen // bs)),
+            fingerprint=self.kv_fingerprint(), blocks=blocks)
 
     def _publish_prefix(self, keys, row, nhit: int, shareable: int):
         """Register freshly filled full blocks, capped at the matchable
@@ -713,8 +941,12 @@ class ServeEngine:
         bs = self.block_size
         self._publish_prefix(job.keys, job.row, 0,
                              min(job.plen // bs, (job.plen - 1) // bs))
-        self._finish_admission(job.si, job.req, job.plen, nxt)
         self._jobs.popleft()
+        if self.role == "prefill":
+            self._finish_prefill_export(job.si, job.req, job.plen, nxt,
+                                        job.padded, job.keys)
+        else:
+            self._finish_admission(job.si, job.req, job.plen, nxt)
 
     def _guard_rows(self):
         """Snapshot the PER-ROW cache leaves (dense rings, SSM rows) of
@@ -889,6 +1121,8 @@ class ServeEngine:
         advance are zeroed after."""
         if self._live or self._jobs:
             raise RuntimeError("warm_admission needs an idle engine")
+        if self.role == "decode":
+            return                     # no prefill to warm
         for pb in admit_buckets(self.max_len):
             batch = {"tokens": torch.zeros((1, pb), dtype=torch.int32,
                                            device=self.device)}
@@ -915,12 +1149,19 @@ class ServeEngine:
         scatter, the table writes, the decode step and the packed step's
         unpack), so their first-use costs land before a fleet server takes
         leases: one tick held past the lease TTL makes the pool requeue
-        what the server just fetched."""
+        what the server just fetched.  A decode-role engine admits through
+        the import scatter, so its dummies are zero-KV handoffs
+        (`_dummy_handoff`)."""
         assert not self._live and not self.queue and not self._jobs, \
             "warm on an idle engine"
         for i, pb in enumerate(admit_buckets(self.max_len)):
             try:
                 # rid -1 is the free-slot sentinel: dummies start at -2
+                if self.role == "decode":
+                    h = self._dummy_handoff(pb)
+                    self.submit(Request(rid=-2 - i, prompt=h.prompt,
+                                        max_new_tokens=1, handoff=h))
+                    continue
                 self.submit(Request(
                     rid=-2 - i,
                     prompt=(np.arange(pb) % self.cfg.vocab_size).astype(
@@ -948,6 +1189,11 @@ class ServeEngine:
         self.d2h_transfers = 0
         self.prefill_chunks = 0
         self.blocked_admissions = 0
+        self.prefills_exported = 0
+        self.handoffs_imported = 0
+        self._export_ms = []
+        self._import_ms = []
+        self._handoff_bytes = []
         self.prompt_tokens_total = 0
         self.prefix_hit_tokens = 0
         self._kv_util_sum = 0.0
@@ -991,6 +1237,8 @@ class ServeEngine:
         return {
             "kv": self.kv,
             "role": self.role,
+            "prefills_exported": self.prefills_exported,
+            "handoffs_imported": self.handoffs_imported,
             "kv_memory_utilization": live / allocated if allocated else 0.0,
             "kv_live_tokens": live,
             "kv_peak_live_tokens": self.kv_peak_live_tokens,
@@ -1114,8 +1362,12 @@ class ServeEngine:
             "slots": self.slots,
             "kv_pool_bytes": pool_bytes,
             "kv_pool_bytes_per_device": pool_bytes,
-            "prefills_exported": 0,
-            "handoffs_imported": 0,
+            "prefills_exported": self.prefills_exported,
+            "handoffs_imported": self.handoffs_imported,
+            # the port's own: each handoff's host ms and wire bytes
+            "handoff_export_ms": list(self._export_ms),
+            "handoff_import_ms": list(self._import_ms),
+            "handoff_bytes": list(self._handoff_bytes),
             "launches": dict(self.launches),
             "device": str(self.device),
         }
@@ -1210,3 +1462,66 @@ def _scatter_blocks(pool, src, row: list, nhit: int, block_size: int):
                           device=pool.device)
     pool[:, ids] = rows[:, nhit:nhit + len(ids)].to(pool.dtype)
     return pool
+
+
+def _wire_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a pool of ``dtype`` travels as in a handoff: bf16,
+    which numpy lacks, as its raw 16-bit pattern (int16)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.int16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def _gather_blocks(cache, row: list, device: torch.device) -> list:
+    """The export half of the KV handoff: gather a slot's block chain out
+    of every layer's paged pools on the device (``index_select``), pack
+    every gathered leaf's bytes into ONE device buffer and pull it to the
+    host once.  Returns one dict per layer of host buffers ``(groups,
+    n_pb, bs, ...)`` in their wire dtype (`_wire_dtype`)."""
+    leaves, parts = [], []
+    ids = torch.as_tensor(np.asarray(row, np.int64), device=device)
+    for li, leaf in enumerate(cache):
+        for k, pool in leaf.items():
+            if k not in _PAGED_KEYS:
+                continue
+            blocks = pool.index_select(1, ids)
+            leaves.append((li, k, tuple(blocks.shape), pool.dtype))
+            parts.append(blocks.reshape(-1).view(torch.uint8))
+    host = torch.cat(parts).cpu().numpy()               # THE one host pull
+    out = [{} for _ in cache]
+    off = 0
+    for (li, k, shape, dtype), part in zip(leaves, parts):
+        n = part.numel()
+        out[li][k] = host[off:off + n].view(_wire_dtype(dtype)).reshape(shape)
+        off += n
+    return out
+
+
+def _import_blocks_paged(state, bufs: list, slot: int, plen: int,
+                         next_token: int, row: list, nhit: int,
+                         block_size: int):
+    """The import half of the KV handoff, IN PLACE: copy each handoff
+    buffer (per layer, ``(groups, n_pb, bs, ...)`` in its wire dtype) to
+    the device, view it as its pool's dtype and scatter it into blocks
+    ``row[nhit:n_pb]`` (``index_copy_``; prefix-hit blocks already hold
+    bit-identical content), then write the slot's block-table row, token
+    and position.  Nothing in ``state`` is rebound: a captured decode
+    step replays its fixed addresses."""
+    n_pb = -(-plen // block_size)
+    dev = state["token"].device
+    ids = torch.as_tensor(np.asarray(row[nhit:n_pb], np.int64), device=dev)
+    for st_leaf, hb in zip(state["cache"], bufs if nhit < n_pb else ()):
+        for key, buf in hb.items():
+            pool = st_leaf[key]
+            buf = np.ascontiguousarray(buf[:, nhit:])
+            if not buf.flags.writeable:    # torch takes no read-only array
+                buf = buf.copy()
+            src = torch.from_numpy(buf)
+            pool.index_copy_(1, ids, src.to(dev).view(pool.dtype))
+    mb = state["block_tables"].shape[1]
+    row_arr = np.zeros((mb,), np.int32)
+    row_arr[:len(row)] = row
+    state["token"][slot, 0] = next_token
+    state["pos"][slot] = plen
+    state["block_tables"][slot] = torch.from_numpy(row_arr)
+    return state

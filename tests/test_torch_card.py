@@ -36,7 +36,10 @@ dense, mamba2, mixtral's rolling rings, minicpm3's latent pools and
 rings, jamba's paged and dense hybrid stacks, and llava text only), its replays to their launch counts, and a chunked
 admission beside a decoding slot to its idle-engine run; one pilot binds
 two smoke serve images in turn, each bitwise its direct engine; three
-pilots serve one pool's requests, one killed, bitwise the direct engine.
+pilots serve one pool's requests, one killed, bitwise the direct engine; a
+decode-role engine imports prefill-role handoffs into its graphed step
+bitwise a unified engine, and a disaggregated fleet with one pilot of each
+stage killed replays bitwise the direct engine.
 The train step on the card is held to the same step on the CPU (loss,
 norm, every gradient leaf) with no kernel launched, every kernel wrapper
 refuses a CUDA input that requires grad, and a pilot's train payload
@@ -839,6 +842,55 @@ def test_fleet_requeues_a_dead_servers_requests_on_the_card(card):
     for s in done:
         assert s["exitcode"] == 0 and s["engine"]["step_graph"], s["error"]
         assert s["serve"]["fleet"]["leaked_blocks"] == 0
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "minicpm3-4b"])
+def test_decode_role_imports_into_its_graph_on_the_card(card, arch):
+    """A prefill-role engine (no step, no graph) exports each request's
+    blocks; a decode-role engine imports them in place and replays its
+    captured step: streams bitwise a unified graphed engine's (a rebound
+    pool would leave the graph reading stale addresses)."""
+    from repro_torch.serving.engine import Request
+    uni = _smoke_engine(arch, "paged")
+    pf = _smoke_engine(arch, "paged", role="prefill")
+    dc = _smoke_engine(arch, "paged", role="decode")
+    assert pf._graph is None and dc._graph is not None
+    rng = np.random.default_rng(3)
+    reqs = [(rid, rng.integers(0, 512, size=int(rng.integers(4, 40)))
+             .astype(np.int32), int(rng.integers(4, 12))) for rid in range(5)]
+    for rid, prompt, mnt in reqs:
+        uni.submit(Request(rid, prompt, max_new_tokens=mnt))
+        pf.submit(Request(rid, prompt, max_new_tokens=mnt))
+    uni.run()
+    pf.run()
+    for rid, prompt, mnt in reqs:
+        dc.submit(Request(rid, prompt, max_new_tokens=mnt,
+                          handoff=pf.done[rid].handoff))
+    dc.run()
+    assert {r: dc.done[r].tokens for r, _, _ in reqs} == \
+        {r: uni.done[r].tokens for r, _, _ in reqs}
+    assert pf.block_leaks() == 0 == dc.block_leaks()
+    assert dc.handoffs_imported == pf.prefills_exported == len(reqs)
+
+
+def test_disagg_fleet_replays_on_the_card(card):
+    """Two prefill-role and two decode-role pilots on the card, one of
+    each killed: every request completes once, bitwise ``serve_direct``'s,
+    and every surviving server returns each KV block."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.serve import serve_direct, serve_disagg
+    out = serve_disagg("smollm-360m", 10, prefill_pilots=2, decode_pilots=2,
+                       slots=2, max_len=64, fail_prefill_at=2,
+                       fail_decode_at=4, lease_ttl=1.0, smoke=True,
+                       device="cuda")
+    assert out["drained"] and sorted(out["results"]) == list(range(10))
+    direct = serve_direct(get_smoke_config("smollm-360m"), 10, 2, 64,
+                          device="cuda")
+    assert out["results"] == direct["streams"]
+    assert out["leaked_blocks"] == 0
+    for s in out["servers"]["decode"]:
+        if s["serve"].get("fleet"):
+            assert s["exitcode"] == 0 and s["engine"]["step_graph"]
 
 
 # ---------------------------------------------------------------------------

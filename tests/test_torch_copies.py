@@ -39,6 +39,13 @@ COPIES = {
     "core/chaos.py": ({}, None),
     "core/autoscaler.py": ({}, None),
     "serving/dispatch.py": ({}, None),
+    # the port's docstring lines on the handoff's wire format, and its
+    # "Invariants:" in place of the reference's line naming its own test
+    "serving/blockpool.py": (
+        {**{n: "the port's docstring: the handoff's wire format"
+            for n in range(2, 7)},
+         15: "the port's docstring: no reference test named"},
+        [(1, 9), (11, 229)]),
     "runtime/elastic.py": ({}, None),
     # MeshSpec alone: a docstring of its own; the reference's imports of
     # jax and typing.Sequence, MeshSpec.build and everything after

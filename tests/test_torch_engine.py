@@ -285,7 +285,7 @@ def test_step_graph_true_without_a_card_raises(model, kw):
     assert _engine(model, **kw)._graph is None      # the CPU default
 
 
-@pytest.mark.parametrize("kw", [dict(role="prefill"), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_later_slices_raise(model, kw):
     with pytest.raises(NotImplementedError, match="later|slice"):
         _engine(model, **kw)

@@ -438,7 +438,7 @@ def test_warm_install_leaves_an_idle_engine(kw):
 
 
 def test_unified_engine_rejects_a_handoff_through_the_pool():
-    """A KV handoff resumes only on a role="decode" engine (a later slice):
+    """A KV handoff resumes only on a role="decode" engine:
     a unified server's ``submit`` raises, so the fleet loop ``reject``s the
     entry and the pool settles it failed, while the rest complete."""
     eng = build_engine(get_smoke_config(ARCH), SLOTS, MAX_LEN, device=CPU)

@@ -262,12 +262,7 @@ def test_train_image_raises_naming_item_4(tmp_path):
 @pytest.mark.parametrize("image_kw, spec_kw, item", [
     (dict(mesh_shape=(1, 2)), {}, "item 8"),
     ({}, dict(mesh_shape=[1, 2]), "item 8"),
-    (dict(role="prefill"), {}, "item 7"),
-    ({}, dict(role="decode"), "item 7"),
-    # fleet serve binds (tests/test_torch_fleet.py), but a fleet server
-    # whose spec asks for a later slice's engine still raises
-    ({}, dict(dispatch="pool-a", role="decode"), "item 7"),
-], ids=["image_mesh", "spec_mesh", "image_role", "spec_role", "dispatch"])
+], ids=["image_mesh", "spec_mesh"])
 def test_later_serve_slices_raise(tmp_path, image_kw, spec_kw, item):
     img = PayloadImage(ARCH, "smoke", "serve", **image_kw)
     exe = ExecutableRegistry().pull(img, CPU)
