@@ -296,6 +296,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
               "decode" image, then llava's "serve" image, prefetched: all
               exit 0, the serve payload's streams bitwise vlm_serve's, its
               bind a cache hit, memory back within 64 MiB.
+   tp_serve — tensor-parallel serving: a (1, 2) mesh whose two ranks
+              share the card (``TP_DEVICES``), against a one-device engine
+              on the same card (``*_single``): full-width starcoder2-3b, 30
+              layers, serve's trace plus 6 requests sharing a 40-token
+              prompt (2 full blocks: prefix hits, refcounts), graphed.
+              Gates: streams bitwise, one device->host copy a step, no
+              leaked block, per-rank KV bytes at most ``TP_KV_SHARE`` of
+              the total, prefix hits, paged decode and flash launched
+              twice as often as one device's, at half its heads (each
+              call's shapes recorded).  ``tp_gemm_diagnostic``: each
+              column leaf at full width split in two, whether each rank's
+              product is bitwise the whole product's columns at M = 8,
+              1023 and every row count the engine takes, and the leaves
+              the engine kept whole on the lead device.
+   tp_spec  — the same arch self-drafting (spec_k 3), the trace's first 8
+              requests, eager: tp_serve's gates, verify per rank too.
+   tp_mla   — minicpm3-4b, 62 layers, the trace's first 8 requests,
+              graphed: the gates, flash per rank at 20 heads, RMSNorm once
+              (on the lead device), no decode kernel; its diagnostic.
+   tp_pilot — one pilot holding a slice of the mesh late-binds a (1, 2)
+              starcoder2-3b serve image and answers serve's trace: exit
+              0, streams bitwise tp_serve's one-device run's, the mesh in
+              its telemetry, the gates, memory back within 64 MiB.
+              Every tp phase prints tokens/s, ITL p50 and per-rank KV bytes
+              of both runs beside nvidia-smi's name and power limit.
 10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
               admission (the kernel path's own activations), its output
               with the SSD-scan kernel against the same mixer on the
@@ -364,7 +389,11 @@ admission (1,1023,32/8,128), whisper's non-causal flash over 1500 frames
 (its encoder, S = T, and its cross-attention, S = 4), paged decode at
 G = 4, Dh 128, dense decode at G = 1 over a 448-slot cache, jamba's
 experts (16, C = 160), its SSD scan (state 16, 128 heads) and RMSNorm at
-(1023, 4096): each against its plain version and timed as above.
+(1023, 4096); and a rank's shapes on the (1, 2) mesh: flash at
+starcoder2-3b's (1,1023,12/1,128) and minicpm3-4b's (1,1023,20/20,96),
+paged decode at (8,12,128) over (513,16,1,128), and paged verify at
+(8,4,12,128) beside the whole model's (8,4,24,128): each against its plain
+version and timed as above.
 
 ``python3 chip_smoke.py --times-of OTHER/src`` builds another checkout's
 kernels and prints the same main-shape times of rows 2 and 4-7 and of the
@@ -472,11 +501,24 @@ ARCH_FLASH = {"gemma_S1023 (1,1023,8/1,256)": (1023, 8, 1, 256, None),
               "starcoder2_S1023 (1,1023,24/2,128)": (1023, 24, 2, 128, None),
               "mixtral_S8191_w4096 (1,8191,32/8,128)":
                   (8191, 32, 8, 128, 4096),
-              "minicpm3_S1023 (1,1023,40/40,96)": (1023, 40, 40, 96, None)}
+              "minicpm3_S1023 (1,1023,40/40,96)": (1023, 40, 40, 96, None),
+              # a rank's heads on tp_serve's and tp_mla's (1, 2) meshes
+              "starcoder2_rank_S1023 (1,1023,12/1,128)":
+                  (1023, 12, 1, 128, None),
+              "minicpm3_rank_S1023 (1,1023,20/20,96)":
+                  (1023, 20, 20, 96, None)}
 ARCH_PAGED = {"gemma (8,8,256), pools (513,16,1,256)": (8, 1, 256),
               "starcoder2 (8,24,128), pools (513,16,2,128)": (24, 2, 128),
               "jamba_llava (8,32,128), pools (513,16,8,128), G = 4":
-                  (32, 8, 128)}
+                  (32, 8, 128),
+              "starcoder2_rank (8,12,128), pools (513,16,1,128), G = 12":
+                  (12, 1, 128)}
+# paged verify (H, K, Dh) at VERIFY_MAIN's rows with tp_spec's S = 4: a
+# rank's heads of starcoder2-3b on the (1, 2) mesh, and the whole model's
+ARCH_VERIFY = {"starcoder2_rank (8,4,12,128), pools (513,16,1,128)":
+               (12, 1, 128),
+               "starcoder2 (8,4,24,128), pools (513,16,2,128)":
+               (24, 2, 128)}
 ARCH_DENSE = ("mixtral q (8,32,128), rings (8,4096,8,128)",
               (8, 4096, 32, 8, 128, [4096, 1, 4095, 2048, 4096, 129, 4000,
                                      64]))
@@ -543,6 +585,16 @@ FAMILY_SSD = {"jamba_S1023 (1,1023,128,64), B/C (1,1023,1,16)":
 # the pilot's cleanup (§3.6 of the paper) on the card: memory back within
 # this of its value before the first bind
 PILOT_MEMORY_SLACK = 64 << 20
+# tensor-parallel serving: a (1, 2) mesh whose two ranks share the card;
+# per-rank KV bytes at most this share of the total; tp_serve's churn
+# (the reference battery's: requests sharing a 40-token prompt); tp_spec
+# and tp_mla take the trace's first 8 requests (one wave of the 8 slots),
+# as mla_spec does
+TP_DEVICES = ("cuda:0", "cuda:0")
+TP_KV_SHARE = 0.6
+TP_CHURN = 6
+TP_SPEC_REQUESTS = 8
+TP_MLA_REQUESTS = 8
 # fleet serve: serve's trace over 3 pilots of 8 slots each, leasing from
 # one pool.  A server renews its leases once a tick, and its first tick
 # waits for the other servers' first ticks at the device lock (8
@@ -3472,6 +3524,351 @@ def pilot_families_phase(wrappers, vlm_streams):
     return launches
 
 
+# --------------------------------------------------------------------------
+# tensor-parallel serving: a (1, 2) mesh of two ranks on the one card
+# --------------------------------------------------------------------------
+
+class _ShapeRecorder:
+    """Stands in a kernel wrapper's module attribute: records the shapes
+    of the first ``n`` arguments under ``name``, then calls the wrapper.
+    ``launches`` reads and writes the wrapper's own count (the wrapper
+    adds to it through its module-level name)."""
+
+    def __init__(self, wrapper, name, n, seen):
+        self.wrapper, self.name, self.n, self.seen = wrapper, name, n, seen
+
+    def __call__(self, *a, **k):
+        self.seen.setdefault(self.name, set()).add(
+            " ".join(str(tuple(t.shape)) for t in a[:self.n]))
+        return self.wrapper(*a, **k)
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapper.launches = n
+
+
+def kernel_shapes():
+    """A context in which each attention and norm kernel wrapper records
+    the shapes it is called with, by wrapper name (q's and the pools' or
+    k's; x's for RMSNorm).  The model code imports the wrappers at each
+    call, so the module attributes are what it calls; the launch counts
+    stay the wrappers' own.  Graph replays run no Python: a graphed step's
+    shapes are those of its capture and warm-up steps."""
+    import contextlib
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.rmsnorm import ops as rops
+
+    @contextlib.contextmanager
+    def record():
+        seen = {}
+        patched = []
+        for mod, name, n in ((pops, "paged_decode_attention", 2),
+                             (pops, "paged_verify_attention", 2),
+                             (fops, "flash_attention", 2),
+                             (dops, "decode_attention", 2),
+                             (rops, "rmsnorm_fused", 1)):
+            orig = getattr(mod, name)
+            setattr(mod, name, _ShapeRecorder(orig, name, n, seen))
+            patched.append((mod, name, orig))
+        try:
+            yield seen
+        finally:
+            for mod, name, orig in patched:
+                setattr(mod, name, orig)
+    return record()
+
+
+def tp_churn(vocab):
+    """The reference battery's churn: TP_CHURN requests sharing one
+    40-token prompt (two full 16-token blocks), 4 new tokens each."""
+    base = (np.arange(40) % (vocab - 2) + 2).astype(np.int32)
+    return [{"rid": 1000 + i, "prompt": base.tolist(), "max_new_tokens": 4}
+            for i in range(TP_CHURN)]
+
+
+def tp_run(phase, wrappers, arch, mesh, trace, load=SERVE, churn=False,
+           **kw):
+    """``serve_direct``'s engine (`build_engine`, weights from seed 0) of
+    ``arch`` on ``mesh`` (None: one device) answering ``trace``, then the
+    churn when asked, with every launch count set to 0 just before and
+    read just after and each kernel's call shapes recorded.  Gates: every
+    request's full token count, one device->host copy a step, no leaked
+    block.  Returns a record: streams, launches, shapes, stats."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import build_engine, expected_tokens
+    from repro_torch.serving.engine import Request
+    cfg = get_config(arch)
+    extra = tp_churn(cfg.vocab_size) if churn else []
+    for w in wrappers:
+        w.launches = 0
+    with kernel_shapes() as shapes:
+        eng = build_engine(cfg, load["slots"], load["max_len"],
+                           seed=load["seed"], device="cuda", mesh=mesh, **kw)
+        stats = eng.run_trace(trace)
+        for e in extra:
+            eng.submit(Request(rid=e["rid"],
+                               prompt=np.asarray(e["prompt"], np.int32),
+                               max_new_tokens=e["max_new_tokens"]))
+        eng.run()
+        torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    streams = {rid: list(r.tokens) for rid, r in sorted(eng.done.items())}
+    want = {e["rid"]: expected_tokens(e, load["max_len"])
+            for e in list(trace) + extra}
+    assert {rid: len(t) for rid, t in streams.items()} == want, phase
+    assert eng.d2h_transfers == eng.steps > 0, phase
+    leaks = eng.block_leaks()
+    assert leaks == 0, (phase, leaks)
+    kvb = eng.kv_pool_bytes()
+    rec = {"phase": phase, "arch": arch, "streams": streams,
+           "launches": launches,
+           "shapes": {k: sorted(v) for k, v in shapes.items()},
+           "steps": eng.steps, "d2h_transfers": eng.d2h_transfers,
+           "prefix_hit_tokens": eng.prefix_hit_tokens,
+           "kv_share": kvb["kv_pool_bytes_per_device"] / kvb["kv_pool_bytes"],
+           **kvb, **{k: stats[k] for k in (
+               "tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
+               "decode_steps", "step_graph", "spec", "acceptance_rate",
+               "mesh_shape", "mesh_devices", "mesh_whole_leaves")}}
+    rec["engine"] = eng
+    return rec
+
+
+def engine_rows(load=SERVE, spec_k=4):
+    """The row counts a one-shot engine of ``load`` multiplies its column
+    leaves by (`ServeEngine`'s own list): 1 (the admission's logits), the
+    slots (a step), slots x (spec_k + 1) (a verify burst), every bucket."""
+    from repro_torch.serving.engine import admit_buckets
+    return sorted({1, load["slots"], load["slots"] * (spec_k + 1),
+                   *admit_buckets(load["max_len"])})
+
+
+def gemm_diagnostic(params, mesh, rows):
+    """Each column-parallel leaf of ``params`` at full width (the embedding
+    where it is the tied head), split in two as the mesh splits it: whether each rank's product ``x @ W[:, r]`` is
+    bitwise ``(x @ W)[:, r]`` at M = 8, at M = 1023 and at every row count
+    the engine takes (``rows``), by (leaf, shape)."""
+    from repro_torch.runtime import sharding
+    out = {}
+    tree = params.tree()
+    dims = sharding.serve_param_shardings(tree, mesh)
+
+    def visit(path, t):
+        dim = sharding._get(dims, path)
+        name = sharding._leaf_name(path)
+        key = f"{name} {tuple(t.shape)}"
+        if dim is None or key in out or (name == "embed" and "head" in tree):
+            return                  # an untied embedding is only looked up
+        parts = [c.contiguous() for c in torch.chunk(t, 2, dim)]
+        out[key] = {"M=8": sharding.slices_exact(name, t, parts, (8,)),
+                    "M=1023": sharding.slices_exact(name, t, parts, (1023,)),
+                    "engine_rows": sharding.slices_exact(name, t, parts,
+                                                         rows)}
+    sharding.map_with_path(visit, tree)
+    return out
+
+
+def tp_compare(phase, single, sharded, per_rank, replicated, heads,
+               smi):
+    """The gates of a tensor-parallel phase against its single-device run
+    on the same card: streams bitwise, per-rank KV bytes at most
+    ``TP_KV_SHARE`` of the total, each kernel in ``per_rank`` launched
+    twice as often (once a rank) at per-rank shapes (``heads``: {kernel:
+    (single-device heads, per-rank heads)} at q's third-from-last dim) and
+    each in ``replicated`` as often (the lead device's).  Prints both
+    runs' tokens/s, ITL p50 and per-rank KV bytes."""
+    differ = [rid for rid, t in single["streams"].items()
+              if sharded["streams"].get(rid) != t]
+    assert not differ, f"{phase}: streams differ: {differ}"
+    assert sharded["kv_share"] <= TP_KV_SHARE, sharded["kv_share"]
+    assert sharded["mesh_shape"] == (1, 2), sharded["mesh_shape"]
+    for w in per_rank:
+        n1, n2 = single["launches"][w], sharded["launches"][w]
+        assert n1 > 0 and n2 == 2 * n1, (phase, w, n1, n2)
+    for w in replicated:
+        assert sharded["launches"][w] == single["launches"][w] > 0, (
+            phase, w)
+    for w, (h1, h2) in heads.items():
+        for run, h in ((single, h1), (sharded, h2)):
+            got = {int(s.split(")")[0].split(",")[-2]) for s in
+                   run["shapes"][w]}
+            assert got == {h}, (phase, w, run["phase"], run["shapes"][w])
+    keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
+            "decode_steps", "kv_pool_bytes", "kv_pool_bytes_per_device",
+            "kv_share", "step_graph", "acceptance_rate", "launches",
+            "shapes", "mesh_whole_leaves", "prefix_hit_tokens")
+    say({"phase": phase, "arch": sharded["arch"], "mesh": "1x2 cuda:0,cuda:0",
+         "streams_equal": len(single["streams"]), "card": smi,
+         "sharded": {k: sharded[k] for k in keys},
+         "single": {k: single[k] for k in keys}})
+
+
+def tp_phases(wrappers):
+    """tp_serve, tp_spec, tp_mla and tp_pilot (module docstring).  Returns
+    {run: launches} and {run: {kernel: shapes}}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.runtime.mesh import serve_mesh
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    mesh = serve_mesh((1, 2), TP_DEVICES)
+    runs, shapes, seconds = {}, {}, {}
+
+    def keep(name, rec):
+        runs[name] = rec["launches"]
+        shapes[name] = rec["shapes"]
+        eng = rec.pop("engine")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # tp_serve: starcoder2-3b, serve's trace + the churn, graphed
+    t0 = time.monotonic()
+    trace = serve_trace(CODE_ARCH)
+    single = tp_run("tp_serve_single", wrappers, CODE_ARCH, None, trace,
+                    churn=True)
+    diag = gemm_diagnostic(single["engine"].params, mesh, engine_rows())
+    keep("tp_serve_single", single)
+    sharded = tp_run("tp_serve", wrappers, CODE_ARCH, mesh, trace,
+                     churn=True)
+    keep("tp_serve", sharded)
+    say({"phase": "tp_gemm_diagnostic", "arch": CODE_ARCH, "leaves": diag,
+         "differ": sorted(k for k, v in diag.items()
+                          if not all(v.values())),
+         "kept_whole_by_engine": sharded["mesh_whole_leaves"], "card": smi})
+    assert sharded["step_graph"] and single["step_graph"]
+    assert sharded["prefix_hit_tokens"] > 0, sharded["prefix_hit_tokens"]
+    cfg = get_config(CODE_ARCH)
+    h, k = cfg.num_heads, cfg.num_kv_heads
+    tp_compare("tp_serve", single, sharded,
+               ("paged_decode_attention", "flash_attention"), (),
+               {"paged_decode_attention": (h, h // 2),
+                "flash_attention": (h, h // 2)}, smi)
+    for w in ("paged_verify_attention", "decode_attention", "rmsnorm_fused",
+              "grouped_matmul", "ssd_scan"):
+        assert sharded["launches"][w] == 0, (w, sharded["launches"])
+    serve_streams = {rid: single["streams"][rid] for rid in
+                     (e["rid"] for e in trace)}
+    seconds["tp_serve"] = time.monotonic() - t0
+
+    # tp_spec: the same arch self-drafting, spec_k 3, the first 8 requests
+    t0 = time.monotonic()
+    load = dict(SERVE, n_requests=TP_SPEC_REQUESTS)
+    spec = dict(spec="draft", spec_k=3)
+    single = tp_run("tp_spec_single", wrappers, CODE_ARCH, None,
+                    trace[:TP_SPEC_REQUESTS], load=load, **spec)
+    keep("tp_spec_single", single)
+    sharded = tp_run("tp_spec", wrappers, CODE_ARCH, mesh,
+                     trace[:TP_SPEC_REQUESTS], load=load, **spec)
+    keep("tp_spec", sharded)
+    assert sharded["spec"] == "draft", sharded["spec"]
+    tp_compare("tp_spec", single, sharded,
+               ("paged_decode_attention", "paged_verify_attention",
+                "flash_attention"), (),
+               {"paged_verify_attention": (h, h // 2)}, smi)
+    seconds["tp_spec"] = time.monotonic() - t0
+
+    # tp_mla: minicpm3-4b, 62 layers, the first 8 requests, graphed
+    t0 = time.monotonic()
+    mla_trace = serve_trace(MLA_ARCH)[:TP_MLA_REQUESTS]
+    load = dict(SERVE, n_requests=TP_MLA_REQUESTS)
+    single = tp_run("tp_mla_single", wrappers, MLA_ARCH, None, mla_trace,
+                    load=load)
+    mla_diag = gemm_diagnostic(single["engine"].params, mesh, engine_rows())
+    keep("tp_mla_single", single)
+    sharded = tp_run("tp_mla", wrappers, MLA_ARCH, mesh, mla_trace,
+                     load=load)
+    keep("tp_mla", sharded)
+    say({"phase": "tp_gemm_diagnostic", "arch": MLA_ARCH,
+         "leaves": mla_diag,
+         "differ": sorted(k for k, v in mla_diag.items()
+                          if not all(v.values())),
+         "kept_whole_by_engine": sharded["mesh_whole_leaves"], "card": smi})
+    assert sharded["step_graph"]
+    mh = get_config(MLA_ARCH).num_heads
+    tp_compare("tp_mla", single, sharded, ("flash_attention",),
+               ("rmsnorm_fused",), {"flash_attention": (mh, mh // 2)}, smi)
+    for w in MLA_UNLAUNCHED:
+        assert sharded["launches"][w] == 0, (w, sharded["launches"])
+    seconds["tp_mla"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    runs["tp_pilot"] = tp_pilot_phase(wrappers, mesh, trace, serve_streams,
+                                      smi)
+    seconds["tp_pilot"] = time.monotonic() - t0
+    say({"phase": "tp_all", "seconds": seconds,
+         "total_seconds": sum(seconds.values())})
+    return runs, shapes
+
+
+def tp_pilot_phase(wrappers, mesh, trace, direct, smi):
+    """One pilot holding a slice of the (1, 2) mesh late-binds the
+    full-width starcoder2-3b serve image of that mesh shape and answers
+    serve's trace: exit 0, streams bitwise tp_serve's single-device run's,
+    the mesh's shape and devices in its telemetry, per-rank KV bytes at
+    most ``TP_KV_SHARE`` of the total, one device->host copy a step, no
+    leaked block, the captured step, paged decode and flash launched by
+    its engine, memory back within ``PILOT_MEMORY_SLACK``."""
+    from repro_torch.core.cluster import ClusterSim
+    from repro_torch.core.images import PayloadImage
+    from repro_torch.core.pilot import PilotConfig
+    from repro_torch.launch.serve import KERNEL_FLAGS
+    mem_before = allocated_bytes()
+    sim = ClusterSim(device="cuda")
+    img = PayloadImage(CODE_ARCH, f"custom:{SERVE['max_len']}x"
+                       f"{SERVE['slots']}", "serve", smoke=False,
+                       flags=KERNEL_FLAGS, mesh_shape=(1, 2))
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.monotonic()
+    tid = sim.repo.submit(img, n_steps=100_000, payload_spec={
+        "trace": trace, "max_len": SERVE["max_len"],
+        "slots": SERVE["slots"]})
+    (s,) = sim.provision(1, mesh=mesh)
+    pilot = sim.spawn_pilot(s, PilotConfig(max_payloads=2, idle_grace=1.0))
+    assert sim.run_until_drained(timeout=600.0)
+    sim.join_all(timeout=60.0)
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    r = sim.repo.result(tid)
+    tel = r.telemetry
+    assert r.exitcode == 0, (r.exitcode, tel.get("error"))
+    sv, eng = tel["serve"], tel["engine"]
+    got = {int(rid): t for rid, t in tel["tokens"].items()}
+    differ = [rid for rid, t in direct.items() if got.get(rid) != t]
+    assert not differ, f"tp_pilot: streams differ from tp_serve's: {differ}"
+    assert sv["mesh_shape"] == (1, 2) and sv["mesh_devices"] == 2, sv
+    share = sv["kv_pool_bytes_per_device"] / sv["kv_pool_bytes"]
+    assert share <= TP_KV_SHARE, share
+    assert sv["d2h_transfers"] == sv["decode_steps"] > 0
+    assert eng["block_leaks"] == 0 and eng["step_graph"]
+    launches = {w.__name__: eng["launches"].get(w.__name__, 0)
+                for w in wrappers}
+    for w in ("paged_decode_attention", "flash_attention"):
+        assert launches[w] > 0, launches
+    bind = pilot.history[0].get("bind_seconds")
+    del sim, pilot, r, tel
+    mem_after = allocated_bytes()
+    assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
+        mem_before, mem_after)
+    say({"phase": "tp_pilot", "arch": CODE_ARCH, "wall_s": wall,
+         "bind_seconds": bind,
+         "tok_per_s": sv["tok_per_s"], "itl_p50_s": eng["itl_p50_s"],
+         "kv_pool_bytes": sv["kv_pool_bytes"],
+         "kv_pool_bytes_per_device": sv["kv_pool_bytes_per_device"],
+         "streams_equal_tp_serve_single": len(direct), "launches": launches,
+         "memory_allocated": {"before": mem_before, "after": mem_after},
+         "card": smi})
+    return launches
+
+
 def _attn_case(rng, dev, B, S, H, K, Dh):
     return (bf16(rng, (B, S, H, Dh), dev), bf16(rng, (B, S, K, Dh), dev),
             bf16(rng, (B, S, K, Dh), dev))
@@ -3501,11 +3898,12 @@ def arch_kernel_shapes(rng, dev, ptxas):
     from repro_torch.kernels.grouped_matmul.ops import (
         bucket_matmul, grouped_matmul_plain)
     from repro_torch.kernels.paged_attention.ops import (
-        paged_decode_attention, paged_decode_attention_plain)
+        paged_decode_attention, paged_decode_attention_plain,
+        paged_verify_attention, paged_verify_attention_plain)
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused, rmsnorm_plain
     out = {"flash_attention": {}, "paged_decode_attention": {},
-           "decode_attention": {}, "grouped_matmul": {}, "rmsnorm_fused": {},
-           "ssd_scan": {}}
+           "paged_verify_attention": {}, "decode_attention": {},
+           "grouped_matmul": {}, "rmsnorm_fused": {}, "ssd_scan": {}}
 
     # flash prefill at each arch's longest admission
     flash = out["flash_attention"]
@@ -3600,6 +3998,29 @@ def arch_kernel_shapes(rng, dev, ptxas):
             "plain_ms": time_ms(lambda: paged_decode_attention_plain(*args)),
             "library_ms": None,
             **bound(nbytes, 4 * live * H * Dh, BF16_FLOPS)}
+
+    # paged verify at a rank's heads of tp_spec and at the whole model's
+    for name, (H, K, Dh) in ARCH_VERIFY.items():
+        c = dict(VERIFY_MAIN, S=4, H=H, K=K, Dh=Dh)
+        args = paged_inputs(rng, dev, **c)
+        err = check_close(f"verify/{name}", paged_verify_attention(*args),
+                          paged_verify_attention_plain(*args), ATTN_TOL,
+                          ROW_REL_TOL)
+        T = c["mb"] * c["bs"]
+        off = np.asarray(c["lens"])
+        reach = np.minimum(off + c["S"], T)
+        qlen = sum(int(min(o + s + 1, T)) for o in off
+                   for s in range(c["S"]))
+        nbytes = (int(reach.sum()) * K * Dh * 2 * 2
+                  + 2 * c["B"] * c["S"] * H * Dh * 2
+                  + int((-(-reach // c["bs"])).sum()) * 4 + c["B"] * 4)
+        out["paged_verify_attention"][name] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: paged_verify_attention(*args)),
+            "device_ms": graph_ms(lambda: paged_verify_attention(*args)),
+            "plain_ms": time_ms(lambda: paged_verify_attention_plain(*args)),
+            "library_ms": None,
+            **bound(nbytes, 4 * H * Dh * qlen, BF16_FLOPS)}
 
     # dense decode over mixtral's 4096-slot rings, and at G = 1 over
     # whisper's 448-slot decoder cache
@@ -3898,6 +4319,8 @@ def main(argv):
     fam_seconds["pilot_families"] = time.monotonic() - t0
     say({"phase": "family_serve_all", "seconds": fam_seconds,
          "total_seconds": sum(fam_seconds.values())})
+    tp_runs, tp_shapes = tp_phases(wrappers)
+    runs.update(tp_runs)
     t0 = time.monotonic()
     runs["train"] = train_phase(wrappers)
     train_parity_phase()
@@ -3913,6 +4336,10 @@ def main(argv):
         name = w.__name__
         k["launches"] = sum(runs[r][name] for r in paths.get(name, ("serve",)))
         k["launches_by_run"] = {r: n[name] for r, n in runs.items()}
+        # the tensor-parallel runs' call shapes: each rank's q (and pools
+        # or k), the single-device runs' beside them
+        k["shapes_by_run"] = {r: sh[name] for r, sh in tp_shapes.items()
+                              if name in sh}
     t0 = time.monotonic()
     model_phase(dev)
     say({"phase": "model_all", "seconds": time.monotonic() - t0})

@@ -91,14 +91,19 @@ class ClusterSim:
 
     def provision(self, n_slices: int = 1, *, labels: dict | None = None,
                   mesh=None) -> list[PilotSlice]:
-        devs = _devices(self.device)
+        """``n_slices`` slices of this host's devices; with ``mesh`` (a
+        `repro_torch.runtime.mesh.DeviceMesh`) each slice holds the mesh's
+        devices and runs on its lead device."""
+        devs = (list(mesh.devices.flat) if mesh is not None
+                else _devices(self.device))
         out = []
         with self._lock:
             for _ in range(n_slices):
                 sid = next(self._ids)
                 s = PilotSlice(slice_id=sid, devices=list(devs),
                                labels=dict(labels or {}), mesh=mesh,
-                               device=self.device)
+                               device=(mesh.lead if mesh is not None
+                                       else self.device))
                 self.slices[sid] = s
                 out.append(s)
         return out

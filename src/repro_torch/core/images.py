@@ -7,7 +7,11 @@ the kernel libraries its flags select (``kernels/_build.py``: nvcc at first
 use, cached on disk under ``build/kernels/``); the registry's cache plays
 the node's local image cache — a warm ``bind()`` skips the pull exactly as
 a cached image does.  The reference keys its cache on the slice's mesh;
-here the key holds the slice's device.
+here the key holds the slice's device, or its mesh when the slice holds
+one (a `repro_torch.runtime.mesh.DeviceMesh`): a serve image of a
+``mesh_shape`` builds its engines on that shape over the slice's mesh
+devices, so a pilot late-binds a tensor-parallel image onto a slice it
+already holds.
 
 An encoder-decoder (whisper) runs through its "prefill" image (frames and
 a prompt) and its "decode" image (a dense decode state); its "serve"
@@ -50,6 +54,7 @@ from repro_torch.launch.steps import (
 from repro_torch.models.api import (
     _has_frontend, _text_len, build_model, resolve_device)
 from repro_torch.optim.adamw import OptimConfig
+from repro_torch.runtime.mesh import DeviceMesh
 from repro_torch.serving.graph import DEVICE_LOCK
 
 
@@ -66,8 +71,10 @@ class PayloadImage:
     # decision — it names a different image (own cache key), and engines
     # from the image default to spec="draft" with this draft.
     draft: str | None = None
-    # serve mode only: device-mesh shape ``(data, model)``; tensor-parallel
-    # serving is ROADMAP.md Queue 1 item 8, so only None (one device) binds.
+    # serve mode only: device-mesh shape ``(data, model)`` the image's
+    # engines run on (None = one device).  Mesh shape is a late-binding
+    # decision exactly like the arch: a pilot claims devices first, and the
+    # mesh-shaped image binds after, so it is part of ``key()``.
     mesh_shape: tuple | None = None
     # serve mode only: the engine's serving ROLE in a disaggregated fleet
     # ("unified" | "prefill" | "decode").  A bind-time decision exactly
@@ -79,13 +86,13 @@ class PayloadImage:
         return (self.arch, self.shape, self.mode, self.smoke, self.flags,
                 self.draft, self.mesh_shape, self.role)
 
-    def build_mesh(self):
-        """The serve mesh this image requests: None (one device)."""
+    def build_mesh(self, devices=None):
+        """The serve mesh this image requests over ``devices`` (one per
+        rank; None: ``cuda:0..N-1``), or None (one device)."""
         if self.mesh_shape is None:
             return None
-        raise NotImplementedError(
-            f"mesh_shape={self.mesh_shape!r}: tensor-parallel serving is "
-            f"ROADMAP.md Queue 1 item 8")
+        from repro_torch.runtime.mesh import serve_mesh
+        return serve_mesh(self.mesh_shape, devices)
 
     def config(self) -> ArchConfig:
         cfg = get_smoke_config(self.arch) if self.smoke else get_config(self.arch)
@@ -170,8 +177,11 @@ def _load_kernels(cfgs, device: torch.device, role: str = "unified"):
 
 
 class ExecutableRegistry:
-    """Image cache keyed by (image, device).  Thread-safe; one build per
-    key even under concurrent binds (single-flight)."""
+    """Image cache keyed by (image, device) or (image, mesh).  Thread-safe;
+    one build per key even under concurrent binds (single-flight).  The
+    second argument of `pull` and `prefetch` is where the slice runs: its
+    device (None is the card) or its `repro_torch.runtime.mesh.DeviceMesh`
+    (the reference passes the slice's mesh there)."""
 
     def __init__(self):
         self._lock = make_lock("images.registry")
@@ -181,15 +191,19 @@ class ExecutableRegistry:
         self.stats = {"hits": 0, "misses": 0, "prefetches": 0}
 
     @staticmethod
-    def _device(device) -> torch.device:
-        """The slice's device; None is the card (raises without one)."""
-        return resolve_device("cuda" if device is None else device)
+    def _device(where) -> torch.device:
+        """The slice's device (a mesh's lead); None is the card (raises
+        without one)."""
+        if isinstance(where, DeviceMesh):
+            return where.lead
+        return resolve_device("cuda" if where is None else where)
 
     @classmethod
-    def _key(cls, image: PayloadImage, device) -> tuple:
-        return (image.key(), cls._device(device))
+    def _key(cls, image: PayloadImage, where) -> tuple:
+        mesh = where.key() if isinstance(where, DeviceMesh) else None
+        return (image.key(), cls._device(where), mesh)
 
-    def prefetch(self, image: PayloadImage, device=None) -> threading.Event:
+    def prefetch(self, image: PayloadImage, where=None) -> threading.Event:
         """Start pulling an image in the BACKGROUND and return an event that
         is set once it is cached.  Single-flight with `pull`: a concurrent
         bind for the same key waits on the same build instead of starting
@@ -201,7 +215,7 @@ class ExecutableRegistry:
         late-binding analogue of a kubelet pre-pulling the next image while
         the current container still executes.
         """
-        key = self._key(image, device)
+        key = self._key(image, where)
         with self._lock:
             ev = self._prefetching.get(key)
             if ev is not None:                # join the in-progress prefetch:
@@ -218,7 +232,7 @@ class ExecutableRegistry:
         def work():
             try:
                 # pull() joins any concurrent bind's build (single-flight)
-                exe = self.pull(image, device)
+                exe = self.pull(image, where)
                 if exe.warm is not None:
                     exe.warm()            # stage the first-use costs too
             except Exception:             # noqa: BLE001 — prefetch is a hint
@@ -232,8 +246,8 @@ class ExecutableRegistry:
                          name=f"prefetch-{image.arch}:{image.mode}").start()
         return done
 
-    def pull(self, image: PayloadImage, device=None) -> Executable:
-        key = self._key(image, device)
+    def pull(self, image: PayloadImage, where=None) -> Executable:
+        key = self._key(image, where)
         while True:
             with self._lock:
                 if key in self._cache:
@@ -248,7 +262,7 @@ class ExecutableRegistry:
                     break
             ev.wait()                    # another bind is building this image
         try:
-            exe = self._build(image, key[1])
+            exe = self._build(image, key[1], where if key[2] else None)
             with self._lock:
                 self._cache[key] = exe
                 self.stats["misses"] += 1
@@ -260,7 +274,8 @@ class ExecutableRegistry:
 
     # ------------------------------------------------------------------
 
-    def _build(self, image: PayloadImage, dev: torch.device) -> Executable:
+    def _build(self, image: PayloadImage, dev: torch.device,
+               mesh=None) -> Executable:
         t0 = time.monotonic()
         if image.mode == "noop":
             def fn(x):
@@ -301,7 +316,7 @@ class ExecutableRegistry:
                     sync(dev)
         elif image.mode == "serve":
             fn, make_inputs, warm = _serve_factory(image, cfg, shape, bundle,
-                                                   draft_cfg, dev)
+                                                   draft_cfg, dev, mesh)
         else:                            # decode
             fn = make_serve_step(cfg)
 
@@ -354,7 +369,8 @@ def _train_factory(cfg, shape, dev):
     return fn, make_inputs, warm
 
 
-def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev):
+def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev,
+                   slice_mesh=None):
     """A serve image is an ENGINE factory: the wrapper builds a
     continuous-batching ServeEngine over freshly initialized params and
     drives it from the request trace in the startup spec.  Every engine
@@ -365,7 +381,10 @@ def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev):
     tensors, so each engine captures its own at construction.  The image's
     role picks the half it stages: a prefill image wires no step function
     (its engines capture no graph), a decode image no prefill or chunk
-    function (its engines admit through the import scatter).
+    function (its engines admit through the import scatter).  An image
+    with a ``mesh_shape`` (or a startup spec's ``mesh_shape``, which
+    overrides it) builds each engine on that mesh over the slice's mesh
+    devices (``slice_mesh``; without one, ``cuda:0..N-1``).
 
     Returns ``(fn, make_inputs, warm)``."""
     from repro_torch.serving.engine import (
@@ -395,12 +414,16 @@ def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev):
                                                                  device=dev)
         return draft_params_cache["params"]
 
+    mesh_devices = (None if slice_mesh is None
+                    else list(slice_mesh.devices.flat))
+
     def fn(params, slots=None, max_len=None, mesh_shape=None, **kw):
         ml = max_len or shape.seq_len
         kw.setdefault("role", image.role)
-        # a startup-spec mesh overrides the image's; any mesh raises in the
-        # engine (tensor-parallel serving is a later slice)
-        mesh = image.mesh_shape if mesh_shape is None else tuple(mesh_shape)
+        # a startup-spec mesh overrides the image's
+        img = (image if mesh_shape is None else
+               dataclasses.replace(image, mesh_shape=tuple(mesh_shape)))
+        mesh = img.build_mesh(mesh_devices)
         role = kw["role"]
         if image.draft and role == "unified":
             # a split role forces spec off (draft KV does not ride the

@@ -17,7 +17,9 @@ The image pull (model bundle, kernel libraries) happens at patch time via
 the ExecutableRegistry; a warm cache makes rebinding nearly free — the
 measurable win of late-binding over re-provisioning.  Port of
 ``repro.core.latebind``: the executor takes the slice's ``device`` where
-the reference takes its ``mesh``, and pulls every image for it.
+the reference takes its ``mesh``, and pulls every image for it, or for
+the slice's ``mesh`` when it holds one (a tensor-parallel serve image then
+builds its engines over the mesh's devices).
 """
 
 from __future__ import annotations
@@ -52,14 +54,17 @@ class PodPatchCapability:
 class PayloadExecutor:
     def __init__(self, pod_id: str, arena: SharedArena,
                  proctable: ProcessTable, registry: ExecutableRegistry,
-                 device=None):
+                 device=None, mesh=None):
         self.pod_id = pod_id
         self.arena = arena
         self.proctable = proctable
         self.registry = registry
         self.device = device
+        self.mesh = mesh
+        # where every image is pulled for: the slice's mesh, else device
+        self.where = mesh if mesh is not None else device
         self.image: PayloadImage = PLACEHOLDER
-        self.exe: Executable | None = registry.pull(PLACEHOLDER, device)
+        self.exe: Executable | None = registry.pull(PLACEHOLDER, self.where)
         self.state = UNBOUND
         self.generation = 0               # bumped by every restart/patch
         self.exit_event: threading.Event | None = None
@@ -82,7 +87,7 @@ class PayloadExecutor:
             raise PermissionError_(
                 f"capability for pod {cap.pod_id!r} cannot patch {self.pod_id!r}")
         t0 = time.monotonic()
-        exe = self.registry.pull(image, self.device)      # the image pull
+        exe = self.registry.pull(image, self.where)       # the image pull
         with self._lock:
             self.image = image
             self.exe = exe
@@ -191,7 +196,7 @@ class PayloadExecutor:
             self.exit_event = None
             if back_to_placeholder:
                 self.image = PLACEHOLDER
-                self.exe = self.registry.pull(PLACEHOLDER, self.device)
+                self.exe = self.registry.pull(PLACEHOLDER, self.where)
                 self.state = UNBOUND
             else:
                 self.state = BOUND if self.exe is not None else UNBOUND

@@ -37,7 +37,8 @@ cleanup — the lease-expiry path then re-queues the task elsewhere, which is
 the system's node-failure story.
 
 Port of ``repro.core.pilot``: the payload executor and the prefetch hint
-take the slice's ``device`` where the reference passes its ``mesh``.
+take the slice's ``device`` where the reference passes its ``mesh``, and
+the slice's mesh when it holds one.
 """
 
 from __future__ import annotations
@@ -227,7 +228,9 @@ class Pilot:
         self.executor = PayloadExecutor(self.pod_id, self.arena,
                                         self.proctable, self.registry,
                                         device=getattr(self.slice, "device",
-                                                       None))
+                                                       None),
+                                        mesh=getattr(self.slice, "mesh",
+                                                     None))
         self.proctable.subscribe(self._on_proc_event)
         self.repo.heartbeat_pilot(self.pilot_id)
         self._transition("idle")
@@ -303,7 +306,7 @@ class Pilot:
             if task.prefetch_hint is not None:
                 try:
                     self.registry.prefetch(task.prefetch_hint,
-                                           getattr(self.slice, "device", None))
+                                           self.executor.where)
                     record["prefetch_started"] = True
                 except Exception:         # noqa: BLE001 — the hint is
                     pass                  # advisory; never fail the payload

@@ -7,6 +7,8 @@
         [--smoke --device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --via-pilots \\
         --archs smollm-360m,mamba2-370m [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
+        --mesh 1x2 [--mesh-devices cuda:0,cuda:0] [--smoke --device cpu]
 
 Port of ``make_trace`` and ``serve_direct`` from ``repro.launch.serve``.
 The serve entry point builds the main path with the hand-written kernels
@@ -17,7 +19,10 @@ without a card it raises unless the caller asks for "cpu"): a paged or
 dense KV cache, with or without draft-and-verify speculation.  An
 attention-free arch, and a sliding-window one such as mixtral-8x7b (its
 rolling rings), serve on the dense layout with speculation off, as the
-reference's engine chooses.
+reference's engine chooses.  ``mesh_shape`` (``--mesh AxB``) serves
+tensor-parallel over a ``(data, model)`` mesh (`serve_mesh_for`): params
+and KV pools split over the model ranks, streams bitwise the single-device
+engine's.
 Admission is one-shot or chunked (``prefill="chunked"``), continuous or in
 waves (``admission="wave"``, ``--wave``: the baseline); on the card a
 ``spec="off"`` engine replays its decode step as a captured CUDA graph
@@ -74,6 +79,9 @@ from repro_torch.core.cluster import ClusterSim
 from repro_torch.core.images import PayloadImage
 from repro_torch.core.pilot import PilotConfig
 from repro_torch.models.api import build_model, resolve_device
+from repro_torch.runtime.mesh import (
+    parse_mesh_shape, serve_mesh, serve_mesh_spec)
+from repro_torch.runtime.sharding import check_serve_mesh
 from repro_torch.serving.dispatch import FleetDispatcher
 from repro_torch.serving.engine import ServeEngine, admit_length
 
@@ -134,15 +142,17 @@ def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
                  prefill: str = "oneshot", prefill_chunk: int = 32,
                  step_graph: bool | None = None, prefix_sharing: bool = True,
                  admission: str = "continuous", role: str = "unified",
-                 device="cuda") -> ServeEngine:
+                 device="cuda", mesh=None) -> ServeEngine:
     """The serve entry point's engine: ``cfg`` on the hand-written kernels,
     weights from ``seed``, a paged pool of ``num_blocks`` blocks (or a
     dense cache with ``kv="dense"``).  ``spec="draft"`` proposes
     ``spec_k`` tokens a step from ``draft_cfg`` with weights from
     ``draft_seed`` (``draft_cfg=None``: the target drafts for itself).
     ``prefill``, ``prefill_chunk``, ``step_graph``, ``prefix_sharing``,
-    ``admission`` and ``role`` go to the engine."""
-    dev = resolve_device(device)
+    ``admission`` and ``role`` go to the engine.  ``mesh`` (a
+    `repro_torch.runtime.mesh.DeviceMesh`, see `serve_mesh_for`) shards
+    the engine over its ranks; the weights are made on its lead device."""
+    dev = mesh.lead if mesh is not None else resolve_device(device)
     cfg = _on_kernels(cfg)
     bundle = build_model(cfg)
     params = bundle.init(seed, device=dev)
@@ -156,7 +166,21 @@ def build_engine(cfg, slots: int, max_len: int, seed: int = 0,
                        draft_cfg=draft_cfg, draft_params=draft_params,
                        prefill=prefill, prefill_chunk=prefill_chunk,
                        step_graph=step_graph, prefix_sharing=prefix_sharing,
-                       admission=admission, role=role, device=dev)
+                       admission=admission, role=role, device=dev, mesh=mesh)
+
+
+def serve_mesh_for(mesh_shape, mesh_devices=None, device="cuda"):
+    """The serve mesh of ``mesh_shape`` (``"AxB"`` or a tuple; None: no
+    mesh) over ``mesh_devices``.  Without devices, a CPU entry point puts
+    every rank on the CPU (the caller asked for it), and a card entry
+    point takes ``cuda:0..N-1`` (`serve_mesh` raises on fewer cards; two
+    ranks on one card are asked for as ``("cuda:0", "cuda:0")``)."""
+    if mesh_shape is None:
+        return None
+    spec = serve_mesh_spec(mesh_shape)
+    if mesh_devices is None and resolve_device(device).type == "cpu":
+        mesh_devices = ["cpu"] * spec.num_devices
+    return serve_mesh(spec.shape, mesh_devices)
 
 
 def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
@@ -168,18 +192,21 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
                  draft_seed: int = 0, prefill: str = "oneshot",
                  prefill_chunk: int = 32, step_graph: bool | None = None,
                  prefix_sharing: bool = True, admission: str = "continuous",
-                 device="cuda", trace: list[dict] | None = None) -> dict:
+                 device="cuda", trace: list[dict] | None = None,
+                 mesh_shape=None, mesh_devices=None) -> dict:
     """Build the model from ``seed`` and an engine over it
     (`build_engine`), answer ``trace`` (default: a ``make_trace`` trace of
     ``n_requests``), and return the engine's stats plus ``streams`` ({rid:
-    tokens}), ``tokens_per_request`` ({rid: count}) and ``block_leaks``."""
+    tokens}), ``tokens_per_request`` ({rid: count}) and ``block_leaks``.
+    ``mesh_shape`` serves tensor-parallel over `serve_mesh_for`'s mesh."""
     eng = build_engine(cfg, slots, max_len, seed=seed, num_blocks=num_blocks,
                        block_size=block_size, kv=kv, spec=spec,
                        spec_k=spec_k, draft_cfg=draft_cfg,
                        draft_seed=draft_seed, prefill=prefill,
                        prefill_chunk=prefill_chunk, step_graph=step_graph,
                        prefix_sharing=prefix_sharing, admission=admission,
-                       device=device)
+                       device=device,
+                       mesh=serve_mesh_for(mesh_shape, mesh_devices, device))
     if trace is None:
         trace = make_trace(cfg.vocab_size, n_requests, max_len=max_len,
                            seed=seed, prompt_len=prompt_len,
@@ -249,14 +276,17 @@ def serve_via_pilots(archs: list[str], n_requests: int = 8,
 
 
 def _fleet_image(arch, max_len, slots, smoke, draft=None,
-                 role="unified") -> PayloadImage:
+                 role="unified", mesh_shape=None) -> PayloadImage:
     """The serve image every server of a fleet binds: ``arch`` of shape
     ``custom:<max_len>x<slots>`` on the hand-written kernels, full width
-    unless ``smoke``, in serving ``role``; ``draft`` names a draft arch's
-    image (None and "self" share the plain one)."""
+    unless ``smoke``, in serving ``role``, over a mesh of ``mesh_shape``
+    (None: one device); ``draft`` names a draft arch's image (None and
+    "self" share the plain one)."""
     return PayloadImage(arch=arch, shape=f"custom:{max_len}x{slots}",
                         mode="serve", smoke=smoke, flags=KERNEL_FLAGS,
                         draft=None if draft in (None, "self") else draft,
+                        mesh_shape=(None if mesh_shape is None
+                                    else serve_mesh_spec(mesh_shape).shape),
                         role=role)
 
 
@@ -282,8 +312,8 @@ def serve_fleet(arch: str, n_requests: int, n_pilots: int, *,
                 lease_ttl: float = 0.5, registry=None, seed: int = 0,
                 draft: str | None = None, spec_k: int = 4, robustness=None,
                 chaos_plan=None, poison: int = 0, mesh_shape=None,
-                trace: list[dict] | None = None, smoke: bool = False,
-                device="cuda") -> dict:
+                mesh_devices=None, trace: list[dict] | None = None,
+                smoke: bool = False, device="cuda") -> dict:
     """Fleet serve: N pilots on ``device`` lease requests from one pool.
     Each binds the `_fleet_image` of ``arch`` (weights from seed 0) and
     serves ``slots`` requests at a time; ``trace`` defaults to a
@@ -303,8 +333,10 @@ def serve_fleet(arch: str, n_requests: int, n_pilots: int, *,
     :class:`~repro_torch.core.chaos.ChaosController` against the fleet for
     the duration of the trace; ``poison`` appends that many poison request
     entries (lethal while the plan arms them — each kills the pilot that
-    fetches it until the pool quarantines it).  ``mesh_shape`` raises:
-    tensor-parallel serving is a later slice.
+    fetches it until the pool quarantines it).  ``mesh_shape`` makes every
+    server tensor-parallel: each pilot's slice holds the mesh of
+    `serve_mesh_for` (``mesh_devices``), and its server shards over it;
+    it stays one unit of ``slots`` capacity.
 
     Returns pool + timing stats and, the port's own, ``servers``: each
     server payload's exit code and serve telemetry; the caller owns no
@@ -312,11 +344,11 @@ def serve_fleet(arch: str, n_requests: int, n_pilots: int, *,
     """
     from repro_torch.core.chaos import ChaosController
 
-    if mesh_shape is not None:
-        raise NotImplementedError(
-            f"mesh_shape={mesh_shape!r}: tensor-parallel serving is "
-            f"ROADMAP.md Queue 1 item 8")
-    img = _fleet_image(arch, max_len, slots, smoke, draft)
+    mesh = serve_mesh_for(mesh_shape, mesh_devices, device)
+    if mesh is not None:
+        check_serve_mesh(mesh)            # before any pilot starts
+    img = _fleet_image(arch, max_len, slots, smoke, draft,
+                       mesh_shape=mesh_shape)
     sim = ClusterSim(registry=registry, device=device)
     pool = FleetDispatcher(lease_ttl=lease_ttl, policy=robustness)
     if trace is None:
@@ -329,8 +361,12 @@ def serve_fleet(arch: str, n_requests: int, n_pilots: int, *,
         trace.append({"rid": rid, "prompt": [1, 2, 3, 4],
                       "max_new_tokens": 4, "poison": True})
     fleet = sim.spawn_fleet(n_pilots, PilotConfig(max_payloads=2,
-                                                  idle_grace=0.3))
+                                                  idle_grace=0.3), mesh=mesh)
     server_spec = {"slots": slots, "max_len": max_len}
+    if mesh is not None:
+        # the startup spec names the geometry too, so telemetry and dumps
+        # of the spec show what was served
+        server_spec["mesh_shape"] = list(mesh.spec.shape)
     if draft is not None:
         server_spec.update({"spec": "draft", "spec_k": spec_k})
     tids = fleet.submit_servers(img, pool.name, n=n_pilots,
@@ -790,6 +826,15 @@ def main(argv=None):
                     help="wave admission: refill slots only once all are "
                          "free (the static-batching baseline)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", type=parse_mesh_shape, default=None,
+                    help="serve over a device mesh, 'AxB' = (data, model): "
+                         "'1x2' splits params and KV pools on the head axis "
+                         "over 2 ranks (direct and fleet modes)")
+    ap.add_argument("--mesh-devices", default=None,
+                    help="comma-separated devices of the mesh's ranks, e.g. "
+                         "'cuda:0,cuda:0' for two ranks on one card "
+                         "(default: cuda:0..N-1; every rank on the CPU "
+                         "with --device cpu)")
     ap.add_argument("--via-pilots", action="store_true",
                     help="serve each arch of --archs as a payload that one "
                          "pilot late-binds in turn")
@@ -834,6 +879,8 @@ def main(argv=None):
                          "the demand-driven autoscaler (--pilots caps the "
                          "fleet; starts at 1, scales to zero in the gaps)")
     args = ap.parse_args(argv)
+    args.mesh_devices = (args.mesh_devices.split(",") if args.mesh_devices
+                         else None)
     if args.disagg:
         out = serve_disagg(args.arch, args.requests,
                            prefill_pilots=args.prefill_pilots,
@@ -867,8 +914,14 @@ def main(argv=None):
                          prefill_chunk=args.prefill_chunk,
                          step_graph=False if args.eager else None,
                          admission="wave" if args.wave else "continuous",
-                         device=args.device)
+                         device=args.device, mesh_shape=args.mesh,
+                         mesh_devices=args.mesh_devices)
     del stats["streams"]
+    if args.mesh is not None:
+        print(f"[mesh] shape={'x'.join(map(str, args.mesh))} "
+              f"devices={stats['mesh_devices']} "
+              f"kv_pool_bytes_per_device={stats['kv_pool_bytes_per_device']} "
+              f"(total {stats['kv_pool_bytes']})")
     print(json.dumps(stats))
 
 
@@ -898,8 +951,13 @@ def _fleet_main(args) -> int:
                       fail_at=args.fail_at, seed=args.seed,
                       draft=args.draft, spec_k=args.spec_k,
                       robustness=robustness, chaos_plan=chaos_plan,
-                      poison=poison, smoke=args.smoke, device=args.device)
+                      poison=poison, mesh_shape=args.mesh,
+                      mesh_devices=args.mesh_devices, smoke=args.smoke,
+                      device=args.device)
     out.pop("results")
+    if args.mesh is not None:
+        print(f"[mesh] shape={'x'.join(map(str, args.mesh))} "
+              f"(fleet: every server shards over its own mesh)")
     if args.draft:
         print(f"[spec] servers={out['spec_servers']} "
               f"acceptance_rate={out['acceptance_rate']:.3f} "

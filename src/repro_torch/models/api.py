@@ -86,7 +86,7 @@ def default_num_blocks(batch: int, max_len: int, block_size: int) -> int:
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
                       dtype=COMPUTE, kv: str = "paged",
                       num_blocks: int | None = None, block_size: int = 16,
-                      device="cuda"):
+                      device="cuda", mesh=None):
     """Zero decode state: the caches, per-row ``token`` (batch,1) and
     ``pos`` (batch,).  ``kv="paged"``: per-slot block pools plus
     ``block_tables`` (batch, max_len // block_size).  ``kv="dense"``:
@@ -94,12 +94,24 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     slots hold per-row state in both layouts: ``conv`` (n_groups, batch,
     W-1, conv_dim) bf16 and ``ssd`` (n_groups, batch, H, N, P) f32.  An
     encoder-decoder's state is dense only (`encdec.init_encdec_cache`);
-    ``kv="paged"`` raises for it, as in the reference."""
+    ``kv="paged"`` raises for it, as in the reference.
+
+    ``mesh`` (a `repro_torch.runtime.mesh.DeviceMesh`) makes the state on
+    its ranks by the serve tensor-parallel rules
+    (`repro_torch.runtime.sharding.serve_state_shardings`): KV pools and
+    rings split on their head or latent dim, each rank's part on its
+    device; block tables, ``token`` and ``pos`` one copy on the lead
+    device.  ``device`` is then not read."""
     if kv not in ("paged", "dense"):
         raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
     if cfg.is_encdec and kv == "paged":
         raise ValueError("paged KV is a decoder-LM path; "
                          f"{cfg.name} is enc-dec (use kv='dense')")
+    if mesh is not None:
+        from repro_torch.runtime.sharding import shard_state
+        return shard_state(init_decode_state(
+            cfg, batch, max_len, dtype=dtype, kv=kv, num_blocks=num_blocks,
+            block_size=block_size, device="meta"), mesh)
     dev = resolve_device(device)
     state = {"token": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
              "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}

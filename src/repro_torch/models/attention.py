@@ -45,11 +45,15 @@ Q.K and P.V take bf16 operands and sum in f32.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.paged_attention.ops import gather_kv
 from repro_torch.models.layers import (
     COMPUTE, apply_rope, dense_init, rmsnorm, rope_table)
+from repro_torch.runtime.sharding import (
+    Shards, gather, on_ranks, pairs, split)
 
 NEG_INF = -1e30
 
@@ -98,7 +102,14 @@ def _init_mla(gen, cfg, dtype, device):
 
 
 def _project(x, w, compute):
-    """einsum("bsd,dhk->bshk") as one matmul."""
+    """einsum("bsd,dhk->bshk") as one matmul; under a mesh each rank
+    projects its own heads with its column slice, and the output stays
+    split over the ranks on the head dim."""
+    return on_ranks(functools.partial(_project_whole, compute=compute), x, w,
+                    dim=-2)
+
+
+def _project_whole(x, w, compute):
     D, n, k = w.shape
     return (x @ w.to(compute).reshape(D, n * k)).reshape(
         x.shape[:-1] + (n, k))
@@ -288,13 +299,18 @@ def attention_prefill(x, p, cfg, rope, cache, *, window=None,
     (B,S,D), new_cache)."""
     if cfg.mla is not None:
         return _mla_prefill(x, p, cfg, rope, cache, compute)
-    q = _project(x, p["wq"], compute)
-    k = _project(x, p["wk"], compute)
-    v = _project(x, p["wv"], compute)
-    q = apply_rope(q, rope[0], rope[1])
-    k = apply_rope(k, rope[0], rope[1])
-    out = attend(q, k, v, cfg, causal=True, window=window)
-    return _out_project(out, p["wo"], compute), _ring_write_full(k, v, cache)
+    q, k, v = _split_heads(_project(x, p["wq"], compute),
+                           _project(x, p["wk"], compute),
+                           _project(x, p["wv"], compute))
+
+    def heads(q, k, v, cos, sin):
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        out = attend(q, k, v, cfg, causal=True, window=window)
+        ring = _ring_write_full(k, v, cache)     # reads cache's shapes only
+        return out, ring["k"], ring["v"]
+    out, k, v = on_ranks(heads, q, k, v, rope[0], rope[1], dim=-2)
+    return _out_project(gather(out), p["wo"], compute), {"k": k, "v": v}
 
 
 # ==========================================================================
@@ -412,11 +428,31 @@ def verify_context(cfg, pos, S: int, cache, block_tables) -> dict:
             "write": _paged_write_seq_index(block_tables, positions, bs)}
 
 
+def _split_heads(q, k, v):
+    """q, k and v as attention takes them under a mesh: split over the
+    ranks on their heads when the model axis divides the KV heads (k is a
+    `Shards`: each rank then holds whole kv-groups, query head h beside kv
+    head h // G), else all three whole on the lead device, where attention
+    runs whole (the reference's fallback when ``tp_heads`` is false).
+    Without a mesh, as they are."""
+    if isinstance(k, Shards):
+        return split(q, k), k, split(v, k)
+    return gather(q), k, gather(v)
+
+
+def _rotate(x, cos, sin):
+    """`apply_rope` on each rank's heads."""
+    return on_ranks(apply_rope, x, cos, sin, dim=-2)
+
+
 def _qkv(x, p, ctx, compute):
-    """The new tokens' q, k (both rotated to their positions) and v."""
-    q = apply_rope(_project(x, p["wq"], compute), ctx["cos"], ctx["sin"])
-    k = apply_rope(_project(x, p["wk"], compute), ctx["cos"], ctx["sin"])
-    return q, k, _project(x, p["wv"], compute)
+    """The new tokens' q, k (both rotated to their positions) and v, placed
+    by `_split_heads`."""
+    q, k, v = _split_heads(_project(x, p["wq"], compute),
+                           _project(x, p["wk"], compute),
+                           _project(x, p["wv"], compute))
+    return (_rotate(q, ctx["cos"], ctx["sin"]),
+            _rotate(k, ctx["cos"], ctx["sin"]), v)
 
 
 def attention_decode(x, p, cfg, cache, pos, *, window=None,
@@ -441,27 +477,36 @@ def attention_decode(x, p, cfg, cache, pos, *, window=None,
                              block_tables)
     q, k, v = _qkv(x, p, ctx, compute)
     kc, vc = (cache["kp"], cache["vp"]) if paged else (cache["k"], cache["v"])
-    _write_rows(kc, k, ctx["write"])
-    _write_rows(vc, v, ctx["write"])
+    out = on_ranks(functools.partial(_decode_heads, cfg=cfg, window=window,
+                                     paged=paged),
+                   q, k, v, kc, vc, block_tables, ctx["write"],
+                   ctx["cache_len"], dim=-2)
+    return _out_project(gather(out), p["wo"], compute), cache
+
+
+def _decode_heads(q, k, v, kc, vc, block_tables, write, cache_len, *, cfg,
+                  window, paged):
+    """One decode step's attention over one rank's heads (all of them
+    without a mesh): the new K/V rows written into the rank's pools or
+    rings in place, then the attend (a kernel on the kernel flags)."""
+    _write_rows(kc, k, write)
+    _write_rows(vc, v, write)
     if cfg.attn_impl == "pallas":
         if paged:
             from repro_torch.kernels.paged_attention.ops import (
                 paged_decode_attention)
             out = paged_decode_attention(q[:, 0].contiguous(), kc, vc,
-                                         block_tables, ctx["cache_len"])
+                                         block_tables, cache_len)
         else:
             from repro_torch.kernels.decode_attention.ops import (
                 decode_attention)
-            out = decode_attention(q[:, 0].contiguous(), kc, vc,
-                                   ctx["cache_len"])
-        out = out[:, None]
-    elif paged:
-        out = decode_attend(q, _paged_gather(kc, block_tables),
-                            _paged_gather(vc, block_tables), ctx["cache_len"],
-                            window=window)
-    else:
-        out = decode_attend(q, kc, vc, ctx["cache_len"], window=window)
-    return _out_project(out, p["wo"], compute), cache
+            out = decode_attention(q[:, 0].contiguous(), kc, vc, cache_len)
+        return out[:, None]
+    if paged:
+        return decode_attend(q, _paged_gather(kc, block_tables),
+                             _paged_gather(vc, block_tables), cache_len,
+                             window=window)
+    return decode_attend(q, kc, vc, cache_len, window=window)
 
 
 def attention_verify(x, p, cfg, cache, pos, *, block_tables, ctx=None,
@@ -488,21 +533,29 @@ def attention_verify(x, p, cfg, cache, pos, *, block_tables, ctx=None,
         ctx = verify_context(cfg, _row_positions(pos, B, x.device), S, cache,
                              block_tables)
     q, k, v = _qkv(x, p, ctx, compute)
-    kc = _write_rows(cache["kp"], k, ctx["write"])
-    vc = _write_rows(cache["vp"], v, ctx["write"])
+    out = on_ranks(functools.partial(_verify_heads, cfg=cfg), q, k, v,
+                   cache["kp"], cache["vp"], block_tables, ctx["write"],
+                   ctx["pos"], dim=-2)
+    return _out_project(gather(out), p["wo"], compute), cache
+
+
+def _verify_heads(q, k, v, kc, vc, block_tables, write, pos, *, cfg):
+    """A verify burst's attention over one rank's heads (all of them
+    without a mesh): the S new rows written into the rank's pools, then
+    each query at its own frontier."""
+    _write_rows(kc, k, write)
+    _write_rows(vc, v, write)
     if cfg.attn_impl == "pallas":
         from repro_torch.kernels.paged_attention.ops import (
             paged_verify_attention)
-        out = paged_verify_attention(q.contiguous(), kc, vc, block_tables,
-                                     ctx["pos"])
-    else:
-        T = block_tables.shape[1] * kc.shape[1]
-        kg = _paged_gather(kc, block_tables)
-        vg = _paged_gather(vc, block_tables)
-        out = torch.cat([decode_attend(q[:, s:s + 1], kg, vg,
-                                       torch.clamp(ctx["pos"] + s + 1, max=T))
-                         for s in range(S)], dim=1)
-    return _out_project(out, p["wo"], compute), cache
+        return paged_verify_attention(q.contiguous(), kc, vc, block_tables,
+                                      pos)
+    T = block_tables.shape[1] * kc.shape[1]
+    kg = _paged_gather(kc, block_tables)
+    vg = _paged_gather(vc, block_tables)
+    return torch.cat([decode_attend(q[:, s:s + 1], kg, vg,
+                                    torch.clamp(pos + s + 1, max=T))
+                      for s in range(q.shape[1])], dim=1)
 
 
 # ==========================================================================
@@ -583,30 +636,41 @@ def attention_prefill_chunk(x, p, cfg, cache, table_row, slot: int,
     C = x.shape[1]
     positions = q_offset + torch.arange(C, device=x.device)
     cos, sin = rope_table(positions[None], cfg.head_dim, cfg.rope_theta)
-    q = apply_rope(_project(x, p["wq"], compute), cos, sin)
-    k = apply_rope(_project(x, p["wk"], compute), cos, sin)
-    v = _project(x, p["wv"], compute)
-    if "kp" in cache:                        # paged pools
-        _paged_write_chunk(cache["kp"], k[0], table_row, positions)
-        _paged_write_chunk(cache["vp"], v[0], table_row, positions)
-        kg = _paged_gather(cache["kp"], table_row[None])      # (1,T,K,Dh)
-        vg = _paged_gather(cache["vp"], table_row[None])
-        out = _chunk_attend(q, kg, vg, positions)
-    else:                                    # dense ring row of W slots
-        k_row, v_row = cache["k"][slot], cache["v"][slot]
-        W = k_row.shape[0]
-        # the last W cached positions in order, read BEFORE the chunk
-        # writes over them (ring slot of position p is p mod W)
-        p_prev = q_offset - W + torch.arange(W, device=x.device)
-        slots_prev = torch.remainder(p_prev, W)
-        k_all = torch.cat([k_row[slots_prev][None], k], dim=1)
-        v_all = torch.cat([v_row[slots_prev][None], v], dim=1)
-        out = _chunk_attend(q, k_all, v_all, positions,
-                            t_pos=torch.cat([p_prev, positions]),
-                            window=window)
-        k_row.copy_(_ring_write_chunk_row(k_row, k[0], q_offset))
-        v_row.copy_(_ring_write_chunk_row(v_row, v[0], q_offset))
-    return _out_project(out, p["wo"], compute), cache
+    ctx = {"cos": cos, "sin": sin}
+    q, k, v = _qkv(x, p, ctx, compute)
+    paged = "kp" in cache
+    kc, vc = (cache["kp"], cache["vp"]) if paged else (cache["k"], cache["v"])
+    out = on_ranks(functools.partial(_chunk_heads, paged=paged, slot=slot,
+                                     q_offset=q_offset, window=window),
+                   q, k, v, kc, vc, table_row, positions, dim=-2)
+    return _out_project(gather(out), p["wo"], compute), cache
+
+
+def _chunk_heads(q, k, v, kc, vc, table_row, positions, *, paged, slot,
+                 q_offset, window):
+    """A prefill chunk's attention over one rank's heads (all of them
+    without a mesh): the chunk's K/V written into the rank's blocks or
+    ring row in place, then the causal attend against everything cached."""
+    if paged:
+        _paged_write_chunk(kc, k[0], table_row, positions)
+        _paged_write_chunk(vc, v[0], table_row, positions)
+        kg = _paged_gather(kc, table_row[None])              # (1,T,K,Dh)
+        vg = _paged_gather(vc, table_row[None])
+        return _chunk_attend(q, kg, vg, positions)
+    # dense ring row of W slots
+    k_row, v_row = kc[slot], vc[slot]
+    W = k_row.shape[0]
+    # the last W cached positions in order, read BEFORE the chunk writes
+    # over them (ring slot of position p is p mod W)
+    p_prev = q_offset - W + torch.arange(W, device=q.device)
+    slots_prev = torch.remainder(p_prev, W)
+    k_all = torch.cat([k_row[slots_prev][None], k], dim=1)
+    v_all = torch.cat([v_row[slots_prev][None], v], dim=1)
+    out = _chunk_attend(q, k_all, v_all, positions,
+                        t_pos=torch.cat([p_prev, positions]), window=window)
+    k_row.copy_(_ring_write_chunk_row(k_row, k[0], q_offset))
+    v_row.copy_(_ring_write_chunk_row(v_row, v[0], q_offset))
+    return out
 
 
 # ==========================================================================
@@ -665,17 +729,22 @@ def init_kv_cache_paged(cfg, batch: int, max_len: int, num_blocks: int,
 # and its value half maps the attended latent back to each head.
 
 
-def _mla_project_q(x, p, cfg, compute):
-    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), q_rope not rotated."""
-    s = cfg.mla
+def _mla_q(x, p, cfg, compute):
+    """The heads' queries (B,S,H,qk_head_dim) from the normed q latent
+    (``wq_a`` and ``q_norm`` whole on the lead device; under a mesh
+    ``wq_b`` splits the heads over the ranks), not rotated."""
     ql = rmsnorm(x @ p["wq_a"].to(compute), p["q_norm"], cfg.norm_eps)
-    q = _project(ql, p["wq_b"], compute)
-    return q[..., :s.qk_nope_head_dim], q[..., s.qk_nope_head_dim:]
+    return _project(ql, p["wq_b"], compute)
+
+
+def _mla_split_q(q, cos, sin, *, nope: int):
+    """(q_nope, q_rope rotated) of one rank's heads."""
+    return q[..., :nope], apply_rope(q[..., nope:], cos, sin)
 
 
 def _mla_latent(x, p, cfg, cos, sin, compute):
     """The new tokens' cache rows: the normed latent ckv (B,S,r) and the
-    rotated shared key krope (B,S,rope)."""
+    rotated shared key krope (B,S,rope), whole on the lead device."""
     r = cfg.mla.kv_lora_rank
     kv_a = x @ p["wkv_a"].to(compute)
     ckv = rmsnorm(kv_a[..., :r], p["kv_norm"], cfg.norm_eps)
@@ -685,21 +754,29 @@ def _mla_latent(x, p, cfg, cos, sin, compute):
 def _mla_expanded(x, p, cfg, cos, sin, compute):
     """The expanded attention of a full sequence: (out (B,S,D), ckv,
     krope), ``attend`` run on q/k of width ``qk_head_dim`` and V padded to
-    it."""
-    s = cfg.mla
-    B, S, _ = x.shape
-    H = cfg.num_heads
-    q_nope, q_rope = _mla_project_q(x, p, cfg, compute)
-    q_rope = apply_rope(q_rope, cos, sin)
+    it, over each rank's heads under a mesh."""
+    q = _mla_q(x, p, cfg, compute)
     ckv, krope = _mla_latent(x, p, cfg, cos, sin, compute)
-    kv = _project(ckv, p["wkv_b"], compute)              # (B,S,H,nope+v)
+    out = on_ranks(functools.partial(_mla_expanded_heads, cfg=cfg,
+                                     compute=compute),
+                   q, ckv, krope, p["wkv_b"], cos, sin, dim=-2)
+    return _out_project(gather(out), p["wo"], compute), ckv, krope
+
+
+def _mla_expanded_heads(q, ckv, krope, wkv_b, cos, sin, *, cfg, compute):
+    """The expanded attention of one rank's heads (all of them without a
+    mesh): per-head keys and values from the latent through the rank's
+    ``wkv_b`` columns."""
+    s = cfg.mla
+    B, S, H = q.shape[:3]
+    q_nope, q_rope = _mla_split_q(q, cos, sin, nope=s.qk_nope_head_dim)
+    kv = _project_whole(ckv, wkv_b, compute)             # (B,S,H,nope+v)
     k_nope, v = kv[..., :s.qk_nope_head_dim], kv[..., s.qk_nope_head_dim:]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, krope[:, :, None].expand(
         B, S, H, s.qk_rope_head_dim)], dim=-1)
     v_pad = torch.nn.functional.pad(v, (0, s.qk_head_dim - s.v_head_dim))
-    out = attend(q, k, v_pad, cfg, causal=True)[..., :s.v_head_dim]
-    return _out_project(out, p["wo"], compute), ckv, krope
+    return attend(q, k, v_pad, cfg, causal=True)[..., :s.v_head_dim]
 
 
 def _mla_forward(x, p, cfg, rope_cos, rope_sin, compute):
@@ -722,14 +799,16 @@ def _mla_prefill(x, p, cfg, rope, cache, compute):
                  "krope": fit(krope, cache["krope"])}
 
 
-def _mla_latent_attend(q_nope, q_rope, ckv, krope, valid, p, cfg, compute):
+def _mla_latent_attend(q_nope, q_rope, ckv, krope, valid, wkv_b, *, cfg,
+                       compute):
     """The absorbed-weight score over a latent view, the reference's
     `_mla_decode` math with a query axis: q_nope (B,C,H,nope) and q_rope
-    (B,C,H,rope) rotated; ckv (B,T,r), krope (B,T,rope); valid (B,C,T).
-    The score and value sums take bf16 operands and sum in f32; f32
-    softmax.  Returns the heads' outputs (B,C,H,v) in ``compute``."""
+    (B,C,H,rope) rotated; ckv (B,T,r), krope (B,T,rope); valid (B,C,T);
+    ``wkv_b`` (r,H,nope+v), the heads' columns.  The score and value sums
+    take bf16 operands and sum in f32; f32 softmax.  Returns the heads'
+    outputs (B,C,H,v) in ``compute``."""
     s = cfg.mla
-    wkv_b = p["wkv_b"].to(compute)                       # (r,H,nope+v)
+    wkv_b = wkv_b.to(compute)
     wk = wkv_b[..., :s.qk_nope_head_dim]
     wv = wkv_b[..., s.qk_nope_head_dim:]
     q_lat = torch.einsum("bchn,rhn->bchr", q_nope, wk)   # absorb, bf16
@@ -744,6 +823,36 @@ def _mla_latent_attend(q_nope, q_rope, ckv, krope, valid, p, cfg, compute):
     return torch.einsum("bchr,rhv->bchv", out_lat.to(compute), wv)
 
 
+def _mla_attend(q_nope, q_rope, ckv, krope, valid, p, cfg, compute):
+    """`_mla_latent_attend` over each rank's heads, gathered: the latent
+    view is whole on every rank (the reference gathers it before the
+    score), the heads and their ``wkv_b`` columns split."""
+    return gather(on_ranks(functools.partial(_mla_latent_attend, cfg=cfg,
+                                             compute=compute),
+                           q_nope, q_rope, ckv, krope, valid, p["wkv_b"],
+                           dim=-2))
+
+
+def _write_split(buf, new, write):
+    """`_write_rows` of ``new`` into ``buf`` in place, each rank its
+    part of a latent pool or ring split over the ranks."""
+    for dst, src in pairs(buf, new):
+        _write_rows(dst, src, tuple(i.to(dst.device) for i in write))
+    return buf
+
+
+def _latent_view(pool, block_tables):
+    """A paged latent pool's per-row view (B, mb * bs, *), whole on the
+    lead device: each rank's view of its latent columns, gathered."""
+    return gather(on_ranks(_paged_gather, pool, block_tables, dim=-1))
+
+
+def _mla_queries(x, p, cfg, cos, sin, compute):
+    s = cfg.mla
+    return on_ranks(functools.partial(_mla_split_q, nope=s.qk_nope_head_dim),
+                    _mla_q(x, p, cfg, compute), cos, sin, dim=-2)
+
+
 def _mla_decode(x, p, cfg, cache, pos, block_tables, ctx, compute):
     """One MLA decode step over the latent cache: paged pools {"ckvp",
     "kropep"} (nb,bs,*) read through ``block_tables``, or dense rings
@@ -756,22 +865,20 @@ def _mla_decode(x, p, cfg, cache, pos, block_tables, ctx, compute):
     if ctx is None:
         ctx = decode_context(cfg, _row_positions(pos, B, x.device), cache,
                              block_tables)
-    q_nope, q_rope = _mla_project_q(x, p, cfg, compute)
-    q_rope = apply_rope(q_rope, ctx["cos"], ctx["sin"])
+    q_nope, q_rope = _mla_queries(x, p, cfg, ctx["cos"], ctx["sin"], compute)
     ckv_new, kr_new = _mla_latent(x, p, cfg, ctx["cos"], ctx["sin"], compute)
     if paged:
-        _write_rows(cache["ckvp"], ckv_new, ctx["write"])
-        _write_rows(cache["kropep"], kr_new, ctx["write"])
-        ckv = _paged_gather(cache["ckvp"], block_tables)
-        krope = _paged_gather(cache["kropep"], block_tables)
+        _write_split(cache["ckvp"], ckv_new, ctx["write"])
+        _write_split(cache["kropep"], kr_new, ctx["write"])
+        ckv = _latent_view(cache["ckvp"], block_tables)
+        krope = _latent_view(cache["kropep"], block_tables)
     else:
-        ckv = _write_rows(cache["ckv"], ckv_new, ctx["write"])
-        krope = _write_rows(cache["krope"], kr_new, ctx["write"])
+        ckv = gather(_write_split(cache["ckv"], ckv_new, ctx["write"]))
+        krope = gather(_write_split(cache["krope"], kr_new, ctx["write"]))
     T = ckv.shape[1]
     valid = (torch.arange(T, device=x.device)[None]
              < ctx["cache_len"][:, None])[:, None]          # (B,1,T)
-    out = _mla_latent_attend(q_nope, q_rope, ckv, krope, valid, p, cfg,
-                             compute)
+    out = _mla_attend(q_nope, q_rope, ckv, krope, valid, p, cfg, compute)
     return _out_project(out, p["wo"], compute), cache
 
 
@@ -786,20 +893,19 @@ def _mla_verify(x, p, cfg, cache, pos, block_tables, ctx, compute):
     if ctx is None:
         ctx = verify_context(cfg, _row_positions(pos, B, x.device), S, cache,
                              block_tables)
-    q_nope, q_rope = _mla_project_q(x, p, cfg, compute)
-    q_rope = apply_rope(q_rope, ctx["cos"], ctx["sin"])
+    q_nope, q_rope = _mla_queries(x, p, cfg, ctx["cos"], ctx["sin"], compute)
     ckv_new, kr_new = _mla_latent(x, p, cfg, ctx["cos"], ctx["sin"], compute)
-    _write_rows(cache["ckvp"], ckv_new, ctx["write"])
-    _write_rows(cache["kropep"], kr_new, ctx["write"])
-    ckv = _paged_gather(cache["ckvp"], block_tables)
-    krope = _paged_gather(cache["kropep"], block_tables)
+    _write_split(cache["ckvp"], ckv_new, ctx["write"])
+    _write_split(cache["kropep"], kr_new, ctx["write"])
+    ckv = _latent_view(cache["ckvp"], block_tables)
+    krope = _latent_view(cache["kropep"], block_tables)
     T = ckv.shape[1]
     t = torch.arange(T, device=x.device)[None]
     outs = []
     for sq in range(S):
         valid = (t < torch.clamp(ctx["pos"] + sq + 1, max=T)[:, None])[:, None]
-        out = _mla_latent_attend(q_nope[:, sq:sq + 1], q_rope[:, sq:sq + 1],
-                                 ckv, krope, valid, p, cfg, compute)
+        out = _mla_attend(q_nope[:, sq:sq + 1], q_rope[:, sq:sq + 1], ckv,
+                          krope, valid, p, cfg, compute)
         outs.append(_out_project(out, p["wo"], compute))
     return torch.cat(outs, dim=1), cache
 
@@ -815,16 +921,17 @@ def _mla_prefill_chunk(x, p, cfg, cache, table_row, q_offset, compute):
     C = x.shape[1]
     positions = q_offset + torch.arange(C, device=x.device)
     cos, sin = rope_table(positions[None], rope_dim(cfg), cfg.rope_theta)
-    q_nope, q_rope = _mla_project_q(x, p, cfg, compute)
-    q_rope = apply_rope(q_rope, cos, sin)
+    q_nope, q_rope = _mla_queries(x, p, cfg, cos, sin, compute)
     ckv_new, kr_new = _mla_latent(x, p, cfg, cos, sin, compute)
-    _paged_write_chunk(cache["ckvp"], ckv_new[0], table_row, positions)
-    _paged_write_chunk(cache["kropep"], kr_new[0], table_row, positions)
-    ckv = _paged_gather(cache["ckvp"], table_row[None])          # (1,T,r)
-    krope = _paged_gather(cache["kropep"], table_row[None])
+    for pool, new in ((cache["ckvp"], ckv_new[0]), (cache["kropep"],
+                                                    kr_new[0])):
+        for dst, src in pairs(pool, new):
+            _paged_write_chunk(dst, src, table_row.to(dst.device),
+                               positions.to(dst.device))
+    ckv = _latent_view(cache["ckvp"], table_row[None])           # (1,T,r)
+    krope = _latent_view(cache["kropep"], table_row[None])
     T = ckv.shape[1]
     valid = (torch.arange(T, device=x.device)[None, :]
              <= positions[:, None])[None]                        # (1,C,T)
-    out = _mla_latent_attend(q_nope, q_rope, ckv, krope, valid, p, cfg,
-                             compute)
+    out = _mla_attend(q_nope, q_rope, ckv, krope, valid, p, cfg, compute)
     return _out_project(out, p["wo"], compute), cache

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.runtime.sharding import Shards, gather, on_ranks
+
 COMPUTE = torch.bfloat16
 
 
@@ -125,11 +127,21 @@ def init_mlp(gen, cfg, dtype=COMPUTE, device="cpu"):
     return p
 
 
+def column(x, w, compute=COMPUTE):
+    """``x @ w`` for a column-parallel leaf (D, N): under a mesh each
+    rank multiplies by its columns (`runtime.sharding.on_ranks`), and the
+    output stays split over the ranks."""
+    return on_ranks(lambda x, w: x @ w.to(compute), x, w, dim=-1)
+
+
 def apply_mlp(x, p, cfg, compute=COMPUTE):
+    """The MLP; under a mesh ``up`` and ``gate`` split d_ff over the ranks
+    and their outputs are gathered before ``down`` (replicated), which
+    contracts over d_ff whole."""
     act = act_fn(cfg.activation)
-    up = x @ p["up"].to(compute)
+    up = gather(column(x, p["up"], compute))
     if cfg.mlp_gated:
-        h = act(x @ p["gate"].to(compute)) * up
+        h = act(gather(column(x, p["gate"], compute))) * up
     else:
         h = act(up)
     return h @ p["down"].to(compute)
@@ -140,13 +152,29 @@ def apply_mlp(x, p, cfg, compute=COMPUTE):
 # --------------------------------------------------------------------------
 
 def embed_lookup(tokens, table, compute=COMPUTE):
-    return table[tokens.long()].to(compute)
+    """``table[tokens]``; a table split over the ranks on its vocab rows
+    (a `Shards`) is looked up exactly: each token's row comes from the
+    rank that holds it, onto the lead device."""
+    if isinstance(table, Shards):
+        out, lo = None, 0
+        lead = table.device
+        for part in table.parts:
+            n = part.shape[0]
+            t = tokens.long().to(part.device)
+            rows = part[torch.clamp(t - lo, 0, n - 1)].to(lead)
+            mine = ((t >= lo) & (t < lo + n)).to(lead)[..., None]
+            out = rows if out is None else torch.where(mine, rows, out)
+            lo += n
+        return out.to(compute)
+    return gather(table)[tokens.long()].to(compute)
 
 
 def lm_logits(x, head, softcap: float | None = None):
     """x: (B,S,D) compute dtype; head: (D,V).  Returns f32 logits (the
-    product is rounded to x's dtype first, as the reference's einsum is)."""
-    logits = (x @ head.to(x.dtype)).float()
+    product is rounded to x's dtype first, as the reference's einsum is).
+    A head split on the vocab over the ranks gives each rank its logits'
+    columns, gathered before the softcap."""
+    logits = gather(column(x, head, x.dtype)).float()
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

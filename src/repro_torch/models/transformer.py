@@ -6,9 +6,12 @@ Port of ``repro.models.transformer``.  Layers are
 organised into groups of ``period`` layers exactly as in the reference,
 and the layer parameters keep its stacked ``(n_groups, ...)`` leaves, so
 the parameter bridge maps leaf to leaf.  The reference's ``lax.scan`` over
-groups is a Python loop here; its ``constrain*`` calls are identity without
-a mesh and are dropped.  Caches are stacked the same way: one pool per
-slot with a leading ``n_groups`` dim.  An MoE slot runs the capacity
+groups is a Python loop here.  Its ``constrain*`` calls are identity
+without a mesh; under one the serve paths take
+`repro_torch.runtime.sharding.ShardedParams`, whose split leaves run each
+rank's slice, and gather before each product that contracts a split dim.
+Caches are stacked the same way: one pool per slot with a leading
+``n_groups`` dim.  An MoE slot runs the capacity
 dispatch (``moe.apply_moe``) in prefill and the dense-gated MoE
 (``moe.apply_moe_dense``) in decode and verify, as in the reference.  An
 SSM slot (attention-free archs such as mamba2-370m) runs the SSD mixer
@@ -47,6 +50,7 @@ from repro_torch.models.layers import (
     COMPUTE, apply_mlp, apply_norm, embed_init, embed_lookup, init_mlp,
     init_norm, lm_logits, rope_table, softmax_cross_entropy_fused,
 )
+from repro_torch.runtime.sharding import stack
 
 
 # --------------------------------------------------------------------------
@@ -410,7 +414,7 @@ def lm_prefill(params: LMParams, cfg, tokens, cache, *, extra_embeds=None,
             x = _ffn(x + out, p, cfg, slot, compute, prefill=True)
     x = apply_norm(x, params.final_norm, cfg)
     logits = lm_logits(x[:, -1:], head_matrix(params, cfg), cfg.logit_softcap)
-    return logits, [{k: torch.stack(v) for k, v in c.items()} for c in new]
+    return logits, [{k: stack(v) for k, v in c.items()} for c in new]
 
 
 def lm_decode(params: LMParams, cfg, token, cache, pos, *, block_tables=None,

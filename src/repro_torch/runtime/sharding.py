@@ -1,0 +1,488 @@
+"""Serve-path tensor parallelism of the port: the partition rules and the
+rank loop's placements.
+
+Port of the serve half of ``repro.runtime.sharding``.  The rules are the
+reference's: one table maps each parameter leaf name to its
+(tensor-parallel dim, FSDP dim) pair in negative indexing; serving splits
+only the COLUMN-parallel leaves (`_SERVE_TP_SAFE`: their TP dim is an
+output dim of the forward product, so each rank's outputs are the
+single-device outputs' slice) and the KV pools on their head or latent
+dim; a rule falls back to replication when the model axis does not divide
+the dim.  `serve_param_shardings` and `serve_state_shardings` return the
+split dim of each leaf (None: replicated) where the reference returns a
+``NamedSharding``; `serve_param_shard_factor` and
+`serve_state_shard_factor` are its pure mirrors.
+
+The reference runs one SPMD program and lets GSPMD place each op; the port
+runs one process over a `DeviceMesh` and loops over the model ranks inside
+each layer.  A split leaf is a `Shards` (one part per rank, on the rank's
+device); a replicated one stays one tensor on the lead device (rank 0's),
+which both ranks read when they share it.  `on_ranks` is the loop: it
+runs a function once per rank on the ranks' parts, or once on the lead
+device when nothing is split.  `gather` is the counterpart of the
+reference's ``constrain_replicated``: it concatenates the parts onto the
+lead device before every product whose contraction dim was split (the
+out-projection over heads, the MLP's ``down`` over d_ff, MLA's score over
+the latent), so the product runs whole, in the single-device engine's
+order, and the tokens stay bitwise the single-device engine's.
+
+A column slice of a product is not always bitwise the whole product's
+slice: the library may pick another algorithm (another split of the
+contraction) for another width.  `shard_params` checks each column leaf at
+the row counts its engine multiplies by (`slices_exact`) and keeps a leaf
+that differs whole on the lead device, as a `Whole`: `on_ranks` runs its
+product there and splits the output over the ranks.
+
+The train and FSDP rules (``param_spec``, ``train_state_shardings``,
+``batch_shardings``, ``constrain``) are not ported (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.runtime.mesh import MODEL_AXIS, DeviceMesh, mesh_axis_size
+
+
+# --------------------------------------------------------------------------
+# parameter rules: name -> (tp_dim, fsdp_dim), negative indices
+# --------------------------------------------------------------------------
+
+_PARAM_RULES: dict[str, tuple[int | None, int | None]] = {
+    "embed":    (-2, -1),   # (V, D): vocab over model, D FSDP
+    "head":     (-1, -2),   # (D, V)
+    "wq":       (-2, -3),   # (..., D, H, Dh)
+    "wk":       (-2, -3),
+    "wv":       (-2, -3),
+    "wo":       (-3, -1),   # (..., H, Dh, D)
+    "wq_a":     (-1, -2),   # (..., D, r)
+    "wq_b":     (-2, -3),   # (..., r, H, k)
+    "wkv_a":    (-1, -2),
+    "wkv_b":    (-2, -3),
+    "up":       (-1, -2),   # dense (..., D, F) and MoE (..., E, D, F)
+    "gate":     (-1, -2),
+    "down":     (-2, -1),   # dense (..., F, D) and MoE (..., E, F, D)
+    "router":   (None, -2),
+    "in_proj":  (-1, -2),   # (..., D, Z)
+    "out_proj": (-2, -1),   # (..., d_inner, D)
+    "conv_w":   (-1, None),
+    "conv_b":   (-1, None),
+}
+
+_SERVE_TP_SAFE = frozenset(
+    {"embed", "head", "wq", "wk", "wv", "wq_b", "wkv_b", "up", "gate"})
+
+
+def _leaf_name(path) -> str:
+    """The leaf's name: the last dict key on its path (a path is a tuple
+    of dict keys and list indices)."""
+    for k in reversed(path):
+        if isinstance(k, str):
+            return k
+    return ""
+
+
+def serve_param_shard_factor(path, shape, model_axis_size: int) -> int:
+    """How many ways :func:`serve_param_shardings` would split this leaf
+    on a mesh with ``model_axis_size`` model shards — as a PURE divisor,
+    no Mesh or devices required.  Mirrors the sharding rules exactly
+    (column-parallel leaves only, divisibility-gated, else replicated),
+    so a dry run can account per-device serve memory without building
+    the mesh it is sizing for."""
+    name = _leaf_name(path)
+    ndim = len(shape)
+    if model_axis_size <= 1 or name not in _SERVE_TP_SAFE or ndim == 0:
+        return 1
+    tp_dim, _ = _PARAM_RULES[name]
+    if tp_dim is None or -tp_dim > ndim:
+        return 1
+    return (model_axis_size
+            if shape[tp_dim % ndim] % model_axis_size == 0 else 1)
+
+
+def serve_state_shard_factor(path, shape, model_axis_size: int) -> int:
+    """Pure-divisor mirror of :func:`serve_state_shardings`: KV pools and
+    dense caches split on the head/latent dim over the model axis when it
+    divides, everything else (ssd/conv/token/pos/block_tables) replicates."""
+    name = _leaf_name(path)
+    ndim = len(shape)
+    msz = model_axis_size
+    if msz <= 1 or ndim < 2:
+        return 1
+    if name in ("kp", "vp"):
+        return msz if shape[-2] % msz == 0 else 1
+    if name in ("ckvp", "kropep"):
+        return msz if shape[-1] % msz == 0 else 1
+    if name in ("k", "v"):
+        return msz if (ndim >= 3 and shape[-2] % msz == 0) else 1
+    if name in ("ckv", "krope"):
+        return msz if shape[-1] % msz == 0 else 1
+    return 1
+
+
+def _split_dim(path, shape, msz: int, rule: str) -> int | None:
+    """The dim (non-negative) ``rule`` ("param" or "state") splits this
+    leaf on over ``msz`` model ranks, or None."""
+    if rule == "param":
+        if serve_param_shard_factor(path, shape, msz) == 1:
+            return None
+        return _PARAM_RULES[_leaf_name(path)][0] % len(shape)
+    if serve_state_shard_factor(path, shape, msz) == 1:
+        return None
+    last = _leaf_name(path) in ("ckvp", "kropep", "ckv", "krope")
+    return len(shape) - (1 if last else 2)
+
+
+def map_with_path(fn, tree, path=()):
+    """``tree`` (nested dicts and lists) with every leaf replaced by
+    ``fn(path, leaf)``; a path is the tuple of keys and indices to it."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def serve_param_shardings(tree, mesh: DeviceMesh):
+    """Order-preserving tensor parallelism for the serve engine: ``tree``
+    (`LMParams.tree()`) with each leaf replaced by the dim it splits on
+    over the model axis, or None where it is replicated.
+
+    Only COLUMN-parallel weights shard — those whose TP dim is an *output*
+    dim of the forward contraction (wq/wk/wv/up/gate/... split heads or
+    d_ff; the contraction dim D/r stays whole on every shard, so each
+    shard's outputs are bitwise identical to the single-device slices).
+    ROW-parallel weights (wo, down, out_proj: TP dim is the contraction
+    dim) are deliberately replicated: sharding them turns the contraction
+    into partial sums, whose reduction order differs from the
+    single-device product and flips argmax on near-tie logits.
+    wq_a/wkv_a are also replicated (their outputs feed rmsnorm over the
+    latent dim, a reduction that must not be sharded).  The memory win
+    that matters for serving — the paged KV pools — comes from
+    :func:`serve_state_shardings`, not from here."""
+    msz = mesh_axis_size(mesh, MODEL_AXIS)
+    return map_with_path(
+        lambda path, leaf: _split_dim(path, tuple(leaf.shape), msz, "param"),
+        tree)
+
+
+def serve_state_shardings(tree, mesh: DeviceMesh):
+    """Serve-engine decode state under tensor parallelism: ``tree`` with
+    each leaf replaced by its split dim over the model axis, or None.  KV
+    pools split on the HEAD dim, never on the sequence/block dim, so every
+    per-head softmax and weighted sum is the single-device one:
+
+      kp/vp       (nb, bs, K, Dh)        -> K (dim -2)
+      ckvp        (nb, bs, r_latent)     -> latent (dim -1)
+      kropep      (nb, bs, d_rope)       -> latent (dim -1)
+      k/v dense   (B, T, K, Dh)          -> K (dim -2)
+      ckv/krope dense (B, T, r)          -> latent (dim -1)
+      ssd/conv / token / pos / block_tables -> replicated
+
+    Every rule degrades to replication when the axis doesn't divide the
+    dim; a stacked group dim in front changes nothing (negative dims)."""
+    msz = mesh_axis_size(mesh, MODEL_AXIS)
+    return map_with_path(
+        lambda path, leaf: _split_dim(path, tuple(leaf.shape), msz, "state"),
+        tree)
+
+
+def tp_heads(mesh, num_kv_heads: int, num_heads: int) -> bool:
+    """True iff the attention kernels can be head-sharded on this mesh:
+    the model axis must divide the KV head count (whole kv-groups per
+    shard)."""
+    if mesh is None:
+        return False
+    m = mesh_axis_size(mesh, MODEL_AXIS)
+    return m > 1 and num_kv_heads % m == 0 and num_heads % m == 0
+
+
+# --------------------------------------------------------------------------
+# placements: the rank loop's tensors
+# --------------------------------------------------------------------------
+
+class Shards:
+    """One tensor split along ``dim`` (kept negative, so a stacked group
+    dim in front changes nothing) over the model ranks: ``parts[r]`` lives
+    on rank r's device.  Indexing a leading dim (``x[g]``, ``x[:, slot]``)
+    indexes every part."""
+
+    __slots__ = ("parts", "dim")
+
+    def __init__(self, parts, dim: int):
+        self.parts = tuple(parts)
+        self.dim = dim if dim < 0 else dim - self.parts[0].dim()
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        return tuple(p.device for p in self.parts)
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts[0].device
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.parts[0].shape)
+        s[self.dim] = sum(p.shape[self.dim] for p in self.parts)
+        return torch.Size(s)
+
+    def __getitem__(self, idx):
+        return Shards([p[_on(idx, p.device)] for p in self.parts], self.dim)
+
+    @property
+    def T(self):
+        return Shards([p.T for p in self.parts], -3 - self.dim)
+
+
+class Whole:
+    """A column leaf kept whole on the lead device: `on_ranks` runs its
+    product there and splits the output along ``dim`` over ``devices``."""
+
+    __slots__ = ("tensor", "dim", "devices")
+
+    def __init__(self, tensor, dim: int, devices):
+        self.tensor = tensor
+        self.dim = dim if dim < 0 else dim - tensor.dim()
+        self.devices = tuple(devices)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tensor.device
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.tensor.shape
+
+    def __getitem__(self, idx):
+        return Whole(self.tensor[idx], self.dim, self.devices)
+
+    @property
+    def T(self):
+        return Whole(self.tensor.T, -3 - self.dim, self.devices)
+
+
+def _on(x, dev):
+    """``x`` (a tensor, or tensors in tuples and lists) on ``dev``;
+    anything else as it is.  Moving to the device a tensor is on is free."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_on(v, dev) for v in x)
+    return x
+
+
+def parts(x) -> tuple:
+    """The tensors behind ``x``: a `Shards`' parts, or ``x`` alone."""
+    if isinstance(x, Shards):
+        return x.parts
+    if isinstance(x, Whole):
+        return (x.tensor,)
+    return (x,)
+
+
+def gather(x):
+    """``x`` whole on the lead device: a `Shards`' parts concatenated in
+    rank order (the reference's ``constrain_replicated``), a `Whole`'s
+    tensor; a tensor as it is."""
+    if isinstance(x, Shards):
+        lead = x.parts[0].device
+        return torch.cat([p.to(lead) for p in x.parts], dim=x.dim)
+    if isinstance(x, Whole):
+        return x.tensor
+    return x
+
+
+def split(x, like):
+    """``x`` split as ``like`` (a `Shards` or a `Whole`) is: along its
+    dim, one part per rank on the rank's device.  A `Shards` stays as it
+    is; anything else is ``x`` itself (the rank loop is not running)."""
+    if isinstance(x, Shards) or not isinstance(like, (Shards, Whole)):
+        return x
+    devs = like.devices
+    return Shards([c.to(d) for c, d in zip(torch.chunk(x, len(devs), like.dim),
+                                           devs)], like.dim)
+
+
+def on_ranks(fn, *args, dim: int):
+    """The rank loop.  With no `Shards` or `Whole` among ``args``, just
+    ``fn(*args)``.  With a `Whole`, ``fn`` runs once on the lead device
+    (a `Shards` argument gathered first) and its output is split along
+    ``dim`` over the ranks.  Otherwise ``fn`` runs once per rank on each
+    `Shards`' part and every other tensor moved to the rank's device; the
+    outputs make a `Shards` along ``dim`` (a tuple of outputs, one
+    `Shards` each, all along ``dim``)."""
+    split_by = next((a for a in args if isinstance(a, (Shards, Whole))), None)
+    if split_by is None:
+        return fn(*args)
+    if any(isinstance(a, Whole) for a in args):
+        devs = next(a for a in args if isinstance(a, Whole)).devices
+        out = fn(*(gather(a) for a in args))
+        if isinstance(out, tuple):
+            return tuple(split(o, Whole(o, dim, devs)) for o in out)
+        return split(out, Whole(out, dim, devs))
+    outs = [fn(*(a.parts[r] if isinstance(a, Shards) else _on(a, d)
+                 for a in args))
+            for r, d in enumerate(split_by.devices)]
+    if isinstance(outs[0], tuple):
+        return tuple(Shards(o, dim) for o in zip(*outs))
+    return Shards(outs, dim)
+
+
+def stack(xs):
+    """``torch.stack(xs)`` of tensors, or of `Shards` part by part."""
+    if isinstance(xs[0], Shards):
+        return Shards([torch.stack(ps) for ps in zip(*(x.parts for x in xs))],
+                      xs[0].dim)
+    return torch.stack(xs)
+
+
+def pairs(dst, src):
+    """(destination part, source part on its device) per rank, for writing
+    ``src`` into ``dst`` in place: a split destination takes ``src`` split
+    as it is, a whole one takes it whole."""
+    if isinstance(dst, Shards):
+        return list(zip(dst.parts, split(src, dst).parts))
+    return [(dst, gather(src))]
+
+
+# --------------------------------------------------------------------------
+# placing parameters and state
+# --------------------------------------------------------------------------
+
+class ShardedParams:
+    """An `LMParams` placed on a mesh by `serve_param_shardings`: split
+    column leaves are `Shards` (or `Whole`), every other leaf one tensor on
+    the lead device.  The serve paths read it as they read `LMParams`
+    (``embed``, ``head``, ``final_norm``, ``group(g)``, ``n_groups``)."""
+
+    def __init__(self, tree: dict, mesh: DeviceMesh):
+        self.mesh = mesh
+        self.whole_leaves: tuple[str, ...] = ()
+        self._tree = tree
+        self.embed = tree["embed"]
+        self.head = tree.get("head")
+        self.final_norm = tree["final_norm"]
+        layers = tree["layers"]
+        self.n_groups = next(iter(layers[0]["mixer"].values())).shape[0]
+
+        def take(t, i):
+            if isinstance(t, dict):
+                return {k: take(v, i) for k, v in t.items()}
+            return t[i]
+        self._views = [[take(s, g) for s in layers]
+                       for g in range(self.n_groups)]
+
+    def group(self, g: int) -> list[dict]:
+        return self._views[g]
+
+    def tree(self) -> dict:
+        return self._tree
+
+
+def _place(t, dim, mesh: DeviceMesh):
+    devs = mesh.model_devices
+    if dim is None:
+        return t.to(mesh.lead)
+    return Shards([c.contiguous().to(d)
+                   for c, d in zip(torch.chunk(t, len(devs), dim), devs)], dim)
+
+
+def check_serve_mesh(mesh: DeviceMesh):
+    """Raise unless the port serves on ``mesh``: its data axis must be 1."""
+    if mesh.spec.axis_size("data") > 1:
+        raise NotImplementedError(
+            f"mesh {mesh.spec.shape}: a data axis above 1 (replicas of the "
+            "whole engine on more devices) is not in the port; it is "
+            "ROADMAP.md Queue 1 item 8's remainder")
+
+
+def _column_matrix(name: str, t):
+    """The (K, N) matrix a column leaf multiplies by: a layer leaf's group
+    0, a projection's heads flattened; the embedding as the tied head."""
+    if name == "embed":
+        return t.T
+    if t.dim() == 4 or (t.dim() == 3 and name in ("up", "gate")):
+        t = t[0]
+    return t.reshape(t.shape[0], -1)
+
+
+def slices_exact(name: str, t, parts, rows) -> bool:
+    """True iff, at every row count M in ``rows``, each part's product
+    ``x @ part`` (on its device) is bitwise the columns of ``x @ t`` (on
+    ``t``'s) it stands for, for a random bf16 ``x`` of M rows.  The
+    library's choice of algorithm depends on the shapes, not the values."""
+    w = _column_matrix(name, t)
+    ps = [_column_matrix(name, p) for p in parts]
+    gen = torch.Generator(device=w.device)
+    gen.manual_seed(0)
+    for m in rows:
+        x = torch.randn((m, w.shape[0]), generator=gen,
+                        device=w.device).to(w.dtype)
+        full = x @ w
+        lo = 0
+        for p in ps:
+            n = p.shape[1]
+            if not torch.equal(x.to(p.device) @ p,
+                               full[:, lo:lo + n].to(p.device)):
+                return False
+            lo += n
+    return True
+
+
+def shard_params(params, mesh: DeviceMesh, *, rows=(), whole=()):
+    """``params`` (`LMParams`) placed on ``mesh``: each rank's slice of a
+    split leaf on its device, replicated leaves once on the lead device.
+    A split leaf named in ``whole``, or whose slices are not exact
+    (`slices_exact`) at some row count in ``rows``, stays whole on the
+    lead (`Whole`); the result's ``whole_leaves`` names those leaves."""
+    check_serve_mesh(mesh)
+    tree = params.tree()
+    dims = serve_param_shardings(tree, mesh)
+    # an embedding with a head of its own is only looked up (exact split
+    # or whole); a tied one is also the head's product
+    looked_up = {"embed"} if "head" in tree else set()
+    kept = {}
+
+    def place(path, t):
+        name = _leaf_name(path)
+        out = _place(t, _get(dims, path), mesh)
+        if isinstance(out, Shards):
+            key = (name, tuple(t.shape))
+            if key not in kept:
+                kept[key] = name in whole or (
+                    name not in looked_up
+                    and not slices_exact(name, t, out.parts, rows))
+            if kept[key]:
+                return Whole(t.to(mesh.lead), out.dim, out.devices)
+        return out
+    sp = ShardedParams(map_with_path(place, tree), mesh)
+    sp.whole_leaves = tuple(sorted({n for (n, _), w in kept.items() if w}))
+    return sp
+
+
+def shard_state(tree, mesh: DeviceMesh):
+    """A ZERO decode state ``tree`` (its leaves may live on the meta
+    device: only their shapes and dtypes are read) made on ``mesh``: each
+    split leaf's zero parts on the ranks' devices, every other leaf zeros
+    on the lead device."""
+    check_serve_mesh(mesh)
+    dims = serve_state_shardings(tree, mesh)
+    devs = mesh.model_devices
+
+    def make(path, t):
+        dim = _get(dims, path)
+        if dim is None:
+            return torch.zeros(t.shape, dtype=t.dtype, device=mesh.lead)
+        shape = list(t.shape)
+        shape[dim] //= len(devs)
+        return Shards([torch.zeros(shape, dtype=t.dtype, device=d)
+                       for d in devs], dim)
+    return map_with_path(make, tree)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree

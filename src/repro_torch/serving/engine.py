@@ -1,8 +1,8 @@
 """Batched serving engine: continuous batching over a paged (or dense) KV
 cache, with optional draft-and-verify speculative decoding.
 
-Port of ``repro.serving.engine`` for the unified-role, single-device
-path.  With ``kv="paged"`` (the default) the engine owns one
+Port of ``repro.serving.engine``.  With ``kv="paged"`` (the default) the
+engine owns one
 block pool per attention slot — ``(n_groups, num_blocks, block_size,
 heads, dh)``, or MLA's latent pools ``(..., kv_lora_rank)`` and ``(...,
 qk_rope_head_dim)`` — plus a per-slot block table ``(slots, max_len //
@@ -72,8 +72,27 @@ it was given.  Construction, each step, the admission warm-up and a cancel
 hold `repro_torch.serving.graph.DEVICE_LOCK` (the device work of a
 prefetch on another thread waits for them, and they for it), and the
 engine counts the kernel launches it made under it (``launches`` in its
-stats).  Tensor parallelism is a later slice: asking for a mesh raises
-``NotImplementedError``.
+stats).
+
+* **tensor parallelism** (``mesh``, a
+  `repro_torch.runtime.mesh.DeviceMesh`) — the params are placed at
+  construction by the serve rules (`repro_torch.runtime.sharding`: column
+  leaves split over the model ranks, the rest one copy on the lead
+  device) and so are the pools (split on their head or latent dim); each
+  layer loops over the ranks, and the kernels run once a rank at its
+  head count.  The block allocator, the prefix cache, the block tables,
+  ``token``, ``pos``, ``active`` and ``budget`` stay one, on the lead
+  device, so the packed transfer stays one ``.cpu()`` a step.  Streams
+  are bitwise the single-device engine's (each product that contracts a
+  split dim runs whole after a gather).  With every rank on one device
+  the ``spec="off"`` step is captured as one graph, as without a mesh;
+  across devices it runs eagerly.  One-shot and chunked admission, wave
+  admission, both layouts and speculation run under a mesh; the split
+  roles and the MoE, SSM and encoder-decoder families raise
+  ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 8's remainder).
+  Prefix-shared blocks need no copy-on-write (only full prompt blocks
+  are shared, and decode never writes below its frontier), so there is
+  nothing to copy in any rank's pool.
 
 * **disaggregated roles** (``role="prefill"`` / ``"decode"``, paged only)
   — a prefill-role engine admits, exports the slot's prompt blocks as a
@@ -100,6 +119,7 @@ import torch
 
 from repro_torch.models.api import (
     build_model, default_num_blocks, init_decode_state, resolve_device)
+from repro_torch.runtime.sharding import pairs, parts, shard_params
 from repro_torch.serving.blockpool import (
     BlockAllocator, KVHandoff, PrefixCache)
 from repro_torch.serving.graph import DEVICE_LOCK, StepGraph, launch_counts
@@ -335,10 +355,27 @@ def _on_device(method):
     return run
 
 
-def _later(what: str, value, slice_name: str):
-    raise NotImplementedError(
-        f"{what}={value!r} is not in this slice of the port; it comes with "
-        f"the {slice_name}")
+def _mesh_reason(cfg, role: str, mesh, device):
+    """Raise unless an engine of ``cfg`` in ``role`` can serve on
+    ``mesh``: the rank loop covers decoder LMs with GQA or MLA attention
+    and a dense FFN in the unified role; the other families and the split
+    roles are ``ROADMAP.md`` Queue 1 item 8's remainder."""
+    what = None
+    if cfg.moe is not None:
+        what = "an MoE FFN"
+    elif cfg.ssm is not None or cfg.is_attention_free:
+        what = "SSM mixers"
+    elif cfg.is_encdec:
+        what = "an encoder-decoder"
+    elif role != "unified":
+        what = f"role={role!r}"
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving of {what} is not in the "
+            "port yet (ROADMAP.md Queue 1 item 8's remainder)")
+    if mesh.lead != device:
+        raise ValueError(f"the mesh's lead device is {mesh.lead}, the "
+                         f"engine's {device}")
 
 
 class ServeEngine:
@@ -374,8 +411,9 @@ class ServeEngine:
       ``bundle.prefill``, ``bundle.prefill_chunk``, `make_draft_step`,
       `make_verify_step`, the draft bundle's prefill); None builds the
       engine's own.
-
-    This slice serves ``mesh=None``."""
+    * ``mesh`` — None (one device), or a
+      `repro_torch.runtime.mesh.DeviceMesh` whose lead device is
+      ``device``: params and pools are placed on its ranks."""
 
     @_on_device
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
@@ -415,15 +453,30 @@ class ServeEngine:
                 f"{cfg.name}: enc-dec archs do not run the decoder-only serve "
                 "path; their prefill needs frames (run the bundle's prefill "
                 "and decode, or the prefill and decode images)")
-        if mesh is not None:
-            _later("mesh", mesh, "tensor-parallel serving slice "
-                   "(ROADMAP.md Queue 1 item 8)")
         if spec not in ("off", "draft"):
             raise ValueError(f"spec must be 'off' or 'draft', got {spec!r}")
         self.device = resolve_device(device)
         if params.embed.device != self.device:
             raise ValueError(f"params live on {params.embed.device}, the "
                              f"engine on {self.device}")
+        # tensor-parallel serving: params by the serve TP rules, KV pools
+        # on their head or latent dim, everything else one copy on the
+        # lead device; every step runs the rank loop over the mesh
+        self.mesh = mesh
+        self.mesh_devices = 1
+        if mesh is not None:
+            _mesh_reason(cfg, role, mesh, self.device)
+            self.mesh_devices = int(mesh.devices.size)
+            # every row count a column product of this engine takes: the
+            # heads' and the logits' at admission (the bucket, and 1), the
+            # step's, the verify burst's and the chunks'
+            rows = {1, slots, slots * (int(spec_k) + 1),
+                    *admit_buckets(max_len)}
+            if prefill == "chunked":
+                rows |= set(prefill_chunk_shapes(max_len, block_size,
+                                                 int(prefill_chunk)))
+            self._gemm_rows = sorted(rows)
+            params = shard_params(params, mesh, rows=self._gemm_rows)
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -456,14 +509,14 @@ class ServeEngine:
             self.state = init_decode_state(cfg, slots, max_len, kv="paged",
                                            num_blocks=nb,
                                            block_size=block_size,
-                                           device=self.device)
+                                           device=self.device, mesh=mesh)
             self.max_blocks_per_slot = max_len // block_size
         else:
             self._num_blocks = 0
             self.allocator = None
             self.prefix = None
             self.state = init_decode_state(cfg, slots, max_len, kv="dense",
-                                           device=self.device)
+                                           device=self.device, mesh=mesh)
             self.max_blocks_per_slot = 0
         self.budget = torch.zeros((slots,), dtype=torch.int32,
                                   device=self.device)
@@ -547,7 +600,7 @@ class ServeEngine:
             if draft_params is not None:
                 self.draft_params = draft_params
             elif draft_cfg is None:
-                self.draft_params = params
+                self.draft_params = self.params
             else:
                 # a fixed seed: every engine builds the same draft weights
                 self.draft_params = self.draft_bundle.init(
@@ -556,13 +609,17 @@ class ServeEngine:
                 raise ValueError(f"draft params live on "
                                  f"{self.draft_params.embed.device}, the "
                                  f"engine on {self.device}")
+            if mesh is not None and self.draft_params is not self.params:
+                _mesh_reason(self.draft_cfg, role, mesh, self.device)
+                self.draft_params = shard_params(self.draft_params, mesh,
+                                                 rows=self._gemm_rows)
             # the draft's pools shadow the target's: same num_blocks and
             # block_size, addressed through the SAME block-table ids, so
             # admission/eviction bookkeeping covers both caches at once
             self._draft_cache = init_decode_state(
                 self.draft_cfg, slots, max_len, kv="paged",
                 num_blocks=self._num_blocks, block_size=block_size,
-                device=self.device)["cache"]
+                device=self.device, mesh=mesh)["cache"]
             self._draft_fn = draft_fn or make_draft_step(
                 self.draft_bundle, self.spec_k, max_len)
             self._verify_fn = verify_fn or make_verify_step(
@@ -571,9 +628,16 @@ class ServeEngine:
                                    or self.draft_bundle.prefill)
 
         # ---- the decode step as one captured CUDA graph ----
+        # (under a mesh only when every rank is on one device: across
+        # devices the step runs eager)
+        one_device = mesh is None or len(set(mesh.devices.flat)) == 1
         if step_graph is None:
             step_graph = (self.device.type == "cuda" and self.spec == "off"
-                          and role != "prefill")
+                          and role != "prefill" and one_device)
+        if step_graph and not one_device:
+            raise ValueError("step_graph=True needs every rank of the mesh "
+                             "on one device; across devices the step runs "
+                             "eagerly")
         if step_graph and role == "prefill":
             raise ValueError("step_graph=True needs a decode step; a "
                              "prefill-role engine has none")
@@ -957,15 +1021,16 @@ class ServeEngine:
         (`_restore_rows`)."""
         idx = torch.as_tensor(sorted({job.si for job in self._jobs}),
                               device=self.device)
-        snap = [(v, v[:, idx]) for leaf in self.state["cache"]
-                for k, v in leaf.items() if k not in _PAGED_KEYS]
+        snap = [(t, t[:, idx.to(t.device)]) for leaf in self.state["cache"]
+                for k, v in leaf.items() if k not in _PAGED_KEYS
+                for t in parts(v)]
         return (idx, snap) if snap else None
 
     @staticmethod
     def _restore_rows(guard):
         idx, snap = guard
         for dst, rows in snap:
-            dst[:, idx] = rows
+            dst[:, idx.to(dst.device)] = rows
 
     def _evict_slot(self, si: int):
         # Frontier truncation doubles as the speculative rollback: a cancel
@@ -1222,9 +1287,18 @@ class ServeEngine:
             self.prefix.evict_unreferenced(self.allocator.capacity_blocks)
         return self.allocator.allocated_blocks
 
-    def kv_pool_bytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for leaf in self.state["cache"] for t in leaf.values())
+    def kv_pool_bytes(self) -> dict:
+        """KV cache memory: the logical total and one rank's footprint
+        (rank 0's parts of the split leaves, the replicated leaves whole).
+        On a 1xN mesh the head-split pools put ~1/N of the pool bytes on
+        each rank — the capacity headroom tensor parallelism buys."""
+        total = local = 0
+        for leaf in self.state["cache"]:
+            for t in leaf.values():
+                ps = parts(t)
+                total += sum(p.numel() * p.element_size() for p in ps)
+                local += ps[0].numel() * ps[0].element_size()
+        return {"kv_pool_bytes": total, "kv_pool_bytes_per_device": local}
 
     def _live_tokens(self) -> int:
         return sum(self._host_pos[si]
@@ -1243,7 +1317,11 @@ class ServeEngine:
             "kv_live_tokens": live,
             "kv_peak_live_tokens": self.kv_peak_live_tokens,
             "kv_capacity_tokens": self.kv_capacity_tokens,
+            # a mesh-bound server is ONE unit of `slots` capacity however
+            # many devices back it (the pools are split, not replicated)
             "slots": self.slots,
+            "mesh_devices": self.mesh_devices,
+            "mesh_shape": self._mesh_shape(),
             "prefix_hit_rate": (self.prefix_hit_tokens
                                 / self.prompt_tokens_total
                                 if self.prompt_tokens_total else 0.0),
@@ -1252,6 +1330,10 @@ class ServeEngine:
             "tokens_per_step": (self.tokens_emitted / self.steps
                                 if self.steps else 0.0),
         }
+
+    def _mesh_shape(self):
+        return (tuple(self.mesh.devices.shape) if self.mesh is not None
+                else None)
 
     def _allocated_tokens(self) -> int:
         if self.kv == "paged":
@@ -1306,7 +1388,6 @@ class ServeEngine:
         return self._stats(decoded, time.monotonic() - t0)
 
     def _stats(self, decoded: int, wall: float) -> dict:
-        pool_bytes = self.kv_pool_bytes()
         denom = self.steps * self.slots
         util = (denom - self.idle_slot_steps) / denom if self.steps else 0.0
         ttfts = [r.first_token_s for r in self.done.values()
@@ -1356,12 +1437,15 @@ class ServeEngine:
                                 if self.spec_drafted else 0.0),
             "tokens_per_step": decoded / self.steps if self.steps else 0.0,
             "draft_overhead_s": self.draft_time_s,
-            # the reference's single-device, unified values
-            "mesh_shape": None,
-            "mesh_devices": 1,
+            # tensor-parallel footprint: shape None == single device
+            "mesh_shape": self._mesh_shape(),
+            "mesh_devices": self.mesh_devices,
+            # the port's own: the column leaves kept whole on the lead
+            # device (their slices were not bitwise the whole product's)
+            "mesh_whole_leaves": (list(self.params.whole_leaves)
+                                  if self.mesh is not None else []),
             "slots": self.slots,
-            "kv_pool_bytes": pool_bytes,
-            "kv_pool_bytes_per_device": pool_bytes,
+            **self.kv_pool_bytes(),
             "prefills_exported": self.prefills_exported,
             "handoffs_imported": self.handoffs_imported,
             # the port's own: each handoff's host ms and wire bytes
@@ -1384,7 +1468,8 @@ def _install_slot(state, prefill_cache, slot: int, plen: int,
     then the slot's token and position are set."""
     for st_leaf, pf_leaf in zip(state["cache"], prefill_cache):
         for key, dst in st_leaf.items():
-            _merge_row(dst, pf_leaf[key], slot, ring=key in _RING_KEYS)
+            for d, src in pairs(dst, pf_leaf[key]):
+                _merge_row(d, src, slot, ring=key in _RING_KEYS)
     state["token"][slot, 0] = next_token
     state["pos"][slot] = plen
     return state
@@ -1416,11 +1501,11 @@ def _install_slot_paged(state, prefill_cache, slot: int, plen: int,
     and block-table row."""
     for st_leaf, pf_leaf in zip(state["cache"], prefill_cache):
         for key, dst in st_leaf.items():
-            if key in _PAGED_KEYS:
-                _scatter_blocks(dst, pf_leaf[_PAGED_KEYS[key]], row, nhit,
-                                block_size)
-            else:
-                _merge_row(dst, pf_leaf[key], slot, ring=key in _RING_KEYS)
+            for d, src in pairs(dst, pf_leaf[_PAGED_KEYS.get(key, key)]):
+                if key in _PAGED_KEYS:
+                    _scatter_blocks(d, src, row, nhit, block_size)
+                else:
+                    _merge_row(d, src, slot, ring=key in _RING_KEYS)
     mb = state["block_tables"].shape[1]
     row_arr = np.zeros((mb,), np.int32)
     row_arr[:len(row)] = row
@@ -1437,8 +1522,8 @@ def _install_draft_paged(cache, prefill_cache, row: list, nhit: int,
     blocks untouched).  Spec eligibility makes every draft leaf paged."""
     for st_leaf, pf_leaf in zip(cache, prefill_cache):
         for key, pool in st_leaf.items():
-            _scatter_blocks(pool, pf_leaf[_PAGED_KEYS[key]], row, nhit,
-                            block_size)
+            for d, src in pairs(pool, pf_leaf[_PAGED_KEYS[key]]):
+                _scatter_blocks(d, src, row, nhit, block_size)
     return cache
 
 

@@ -12,7 +12,10 @@ write only tensors that live as long as the graph: the engine's caches,
 written in place by the step (``engine.make_engine_step``) and by the
 host between steps (admission, eviction, block-table rows).  Its one
 output, the packed ``(2, slots)`` tensor, is a static tensor the host
-copies once per step.
+copies once per step.  A tensor-parallel engine whose ranks all live on
+one device captures its step the same way: each rank's pools are written
+in place, and the gathers between the ranks' parts allocate from the
+graph's pool.  Across devices the step runs eagerly.
 
 The kernel wrappers count their launches in Python (``<wrapper>.launches``)
 and a replay runs no Python, so `StepGraph` records each wrapper's count

@@ -47,12 +47,20 @@ COPIES = {
          15: "the port's docstring: no reference test named"},
         [(1, 9), (11, 229)]),
     "runtime/elastic.py": ({}, None),
-    # MeshSpec alone: a docstring of its own; the reference's imports of
-    # jax and typing.Sequence, MeshSpec.build and everything after
-    # MeshSpec build JAX meshes (ROADMAP.md Queue 1 item 8)
+    # the port's mesh: a docstring of its own, numpy and torch in place of
+    # the reference's jax imports, DeviceMesh in place of MeshSpec.build
+    # and make_mesh (a JAX Mesh), its own serve_mesh (devices one per
+    # rank, never wrapped onto fewer cards), and DeviceMesh in the
+    # helpers' annotations
     "runtime/mesh.py": (
-        {n: "the port's docstring: MeshSpec alone" for n in range(1, 9)},
-        [(9, 12), (17, 52)]),
+        {**{n: "the port's docstring" for n in range(1, 8)},
+         **{n: "numpy and torch, not jax" for n in (16, 17)},
+         **{n: "DeviceMesh, not MeshSpec.build/make_mesh"
+            for n in range(55, 101)},
+         **{n: "the port's serve_mesh" for n in range(138, 162)},
+         **{n: "DeviceMesh in an annotation" for n in (164, 171, 176, 183)}},
+        [(7, 14), (17, 53), (65, 101), (105, 106), (108, 113), (115, 118),
+         (120, 125), (127, 127)]),
 }
 
 

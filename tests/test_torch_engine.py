@@ -285,10 +285,13 @@ def test_step_graph_true_without_a_card_raises(model, kw):
     assert _engine(model, **kw)._graph is None      # the CPU default
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=((2, 1), ("cpu", "cpu")))])
 def test_later_slices_raise(model, kw):
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        _engine(model, **kw)
+    """A mesh whose data axis is above 1 is ROADMAP.md Queue 1 item 8's
+    remainder (a (1, 2) mesh serves: tests/test_torch_tp.py)."""
+    from repro_torch.runtime.mesh import serve_mesh
+    with pytest.raises(NotImplementedError, match="item 8"):
+        _engine(model, mesh=serve_mesh(*kw["mesh"]))
 
 
 def test_engine_rejects_params_on_another_device(model):

@@ -474,10 +474,11 @@ def test_unified_engine_rejects_a_handoff_through_the_pool():
 
 
 def test_fleet_mesh_raises_naming_item_8():
-    """A fleet of tensor-parallel servers is a later slice: asking for one
-    raises before any pilot starts."""
+    """A fleet of servers on a mesh whose data axis is above 1 is Queue 1
+    item 8's remainder: asking for one raises before any pilot starts (a
+    (1, 2) fleet serves: tests/test_torch_tp.py)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        serve_fleet(ARCH, N, 2, mesh_shape=(1, 2), **FLEET)
+        serve_fleet(ARCH, N, 2, mesh_shape=(2, 1), **FLEET)
 
 
 def test_fleet_cli_serves_and_kills(capsys):

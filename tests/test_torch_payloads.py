@@ -45,6 +45,7 @@ from repro_torch.core.images import ExecutableRegistry, PayloadImage
 from repro_torch.core.proctable import PAYLOAD_UID, ProcessTable
 from repro_torch.core.wrapper import _SERVE_STAT_KEYS, run_wrapper
 from repro_torch.launch.serve import make_trace
+from repro_torch.runtime.mesh import serve_mesh
 
 ARCH = "smollm-360m"
 FLAGS = (("attn_impl", "pallas"), ("norm_impl", "pallas"))
@@ -260,12 +261,16 @@ def test_train_image_raises_naming_item_4(tmp_path):
 
 
 @pytest.mark.parametrize("image_kw, spec_kw, item", [
-    (dict(mesh_shape=(1, 2)), {}, "item 8"),
-    ({}, dict(mesh_shape=[1, 2]), "item 8"),
+    (dict(mesh_shape=(2, 1)), {}, "item 8"),
+    ({}, dict(mesh_shape=[2, 1]), "item 8"),
 ], ids=["image_mesh", "spec_mesh"])
 def test_later_serve_slices_raise(tmp_path, image_kw, spec_kw, item):
+    """A mesh with a data axis above 1 (whole-engine replicas) is ROADMAP.md
+    Queue 1 item 8's remainder: an image or a startup spec asking for one
+    on a slice that holds two CPU ranks raises, naming it (a (1, 2) mesh
+    serves: tests/test_torch_tp.py)."""
     img = PayloadImage(ARCH, "smoke", "serve", **image_kw)
-    exe = ExecutableRegistry().pull(img, CPU)
+    exe = ExecutableRegistry().pull(img, serve_mesh((2, 1), (CPU, CPU)))
     if image_kw:
         with pytest.raises(NotImplementedError, match=item):
             exe.fn(exe.make_inputs(0))
@@ -280,9 +285,20 @@ def test_later_serve_slices_raise(tmp_path, image_kw, spec_kw, item):
 
 
 def test_build_mesh_raises_naming_item_8():
+    """`build_mesh` places the image's mesh on the slice's devices (none
+    for an image of one device); serving on a mesh whose data axis is
+    above 1 raises, naming Queue 1 item 8's remainder."""
+    from repro_torch.runtime.sharding import shard_params
     assert PayloadImage(ARCH, "smoke", "serve").build_mesh() is None
+    mesh = PayloadImage(ARCH, "smoke", "serve",
+                        mesh_shape=(1, 2)).build_mesh((CPU, CPU))
+    assert mesh.shape == {"data": 1, "model": 2}
+    wide = PayloadImage(ARCH, "smoke", "serve",
+                        mesh_shape=(2, 1)).build_mesh((CPU, CPU))
+    params = ExecutableRegistry().pull(
+        PayloadImage(ARCH, "smoke", "serve"), CPU).make_inputs(0)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        PayloadImage(ARCH, "smoke", "serve", mesh_shape=(1, 2)).build_mesh()
+        shard_params(params, wide)
 
 
 # ---------------------------------------------------------------------------
