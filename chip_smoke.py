@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. kernels  — each hand-written kernel against its plain PyTorch version on
               the card, in bf16, at the main path's shapes (ragged lengths
               1 and mb*bs, a scratch-block row, S = 1023, verify offsets
-              past the table's reach), within the elementwise tolerances
+              past the table's reach) and at the examples' (2 rows over 64
+              positions and 16-token admissions, smollm-360m's and
+              gemma-2b's heads), within the elementwise tolerances
               of tests/test_kernels.py and, for attention, a per-row
               relative error norm (``ROW_REL_TOL``); the verify kernel
               bitwise equal to the paged decode kernel per query, the
@@ -321,6 +323,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
               its telemetry, the gates, memory back within 64 MiB.
               Every tp phase prints tokens/s, ITL p50 and per-rank KV bytes
               of both runs beside nvidia-smi's name and power limit.
+   example_* — the paper's five examples (``examples/torch/``), each
+              ``main`` called in-process at full width on the card, after
+              the training phases: ``fixed_sequence`` (one decode image
+              through a bare pod), ``late_binding_serve`` (smollm-360m,
+              then gemma-2b, engines on 2 slots, the second image
+              prefetched), ``quickstart`` (10 direct train steps, then
+              three payloads through one pilot), ``dynamic_pilot`` (three
+              payloads of three models through one pilot; then 200 train
+              steps checkpointed every 10, the node killed once one is on
+              disk, the payload resumed by a replacement pilot; that half
+              at 8 of 32 layers, the example's own ``FAIL_LAYERS``) and
+              ``elastic_train`` (four train payloads across a fleet
+              scaled 2 -> 1 -> 3).  Gates: ``main`` returns 0 and prints
+              its OK line last; every payload exits 0; the resumed
+              payload's ``resumed_from`` is the killed payload's last
+              checkpoint; the plans equal ``plan_remesh``'s; no engine
+              leaks a block; each image bound again is a cache hit; the
+              kernels of ``EXAMPLES`` launched and no other; memory back
+              within 64 MiB.  Each prints its lines, wall seconds, cold
+              and cached bind ms, tokens/s, train ms a step, checkpoint
+              seconds and launches.
 10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
               admission (the kernel path's own activations), its output
               with the SSD-scan kernel against the same mixer on the
@@ -408,8 +431,10 @@ name and power limit; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import re
 import shutil
@@ -703,7 +728,8 @@ def bf16_on(gen, shape, dev, scale=1.0):
 # phase 2: kernels
 # --------------------------------------------------------------------------
 
-def paged_inputs(rng, dev, B, H, K, Dh, bs, mb, lens, scratch_row, S=None):
+def paged_inputs(rng, dev, B, H, K, Dh, bs, mb, lens, scratch_row=None,
+                 S=None):
     """Pools with NaN in every row no valid position reads: the kernel must
     skip them, as free slots decode over stale scratch rows.  ``lens`` are
     cache lengths, or with ``S`` the offsets of S verify queries (q is then
@@ -713,7 +739,8 @@ def paged_inputs(rng, dev, B, H, K, Dh, bs, mb, lens, scratch_row, S=None):
     kp = bf16(rng, (nb, bs, K, Dh), dev)
     vp = bf16(rng, (nb, bs, K, Dh), dev)
     perm = rng.permutation(np.arange(1, nb)).reshape(B, mb).astype(np.int32)
-    perm[scratch_row] = 0
+    if scratch_row is not None:
+        perm[scratch_row] = 0
     lens = np.asarray(lens, np.int32)
     reach = lens if S is None else np.minimum(lens + S, mb * bs)
     read = np.zeros((nb, bs), bool)
@@ -860,6 +887,12 @@ def check_paged(rng, dev, times):
                                           1023, 5 * W - 1]),
         "smoke": dict(B=3, H=3, K=1, Dh=20, bs=16, mb=4, lens=[1, 64, 19],
                       scratch_row=2),
+        # late_binding_serve's engines (2 slots, max_len 64): an 8-token
+        # prompt's admission, then 6 steps
+        "example_smollm": dict(B=2, H=15, K=5, Dh=64, bs=16, mb=4,
+                               lens=[9, 14]),
+        "example_gemma": dict(B=2, H=8, K=1, Dh=256, bs=16, mb=4,
+                              lens=[14, 9]),
     }
     errs = {}
     for name, c in cases.items():
@@ -965,6 +998,13 @@ def check_dense(rng, dev, times):
                                 [W + 1, W - 1, 1, W, 1024, 2 * W, 1023,
                                  5 * W - 1]),
         "smoke": (3, 64, 3, 1, 20, [1, 64, 19]),
+        # the examples' decode images (shape "smoke": 2 rows, T 64) at
+        # full width: the payloads' 3-4 steps from an empty cache, and
+        # fuller rings
+        "example_smollm": (2, 64, 15, 5, 64, [4, 1]),
+        "example_smollm_ring": (2, 64, 15, 5, 64, [64, 37]),
+        "example_gemma": (2, 64, 8, 1, 256, [4, 1]),
+        "example_gemma_ring": (2, 64, 8, 1, 256, [37, 64]),
     }
     errs = {}
     for name, (B, T, H, K, Dh, lens) in cases.items():
@@ -1107,6 +1147,9 @@ def check_flash(rng, dev, ptxas):
         "window_offset": (2, 48, 112, 4, 2, 32, True, 40, 64),
         "noncausal_T100": (1, 48, 100, 6, 2, 32, False, None, 0),
         "smoke": (1, 37, 37, 3, 1, 20, True, None, 0),
+        # late_binding_serve's gemma-2b admission: an 8-token prompt at
+        # the 16 bucket (smollm-360m's is "S16")
+        "gemma_S16": (1, 16, 16, 8, 1, 256, True, None, 0),
     }
     errs = {}
     for name, (B, S, T, H, K, Dh, causal, window, off) in cases.items():
@@ -2411,11 +2454,12 @@ def pilot_train_phase(wrappers):
     _zero(wrappers)
     t0 = time.monotonic()
     try:
-        out = train_via_pilots(
-            DENSE_ARCH, False, n, ckpt=ckpt, seq=PILOT_TRAIN["seq"],
-            batch=PILOT_TRAIN["batch"], device="cuda",
-            ckpt_every=PILOT_TRAIN["ckpt_every"],
-            fail_after_ckpt=PILOT_TRAIN["ckpt_every"])
+        with timed_checkpoints() as ckpt_s:
+            out = train_via_pilots(
+                DENSE_ARCH, False, n, ckpt=ckpt, seq=PILOT_TRAIN["seq"],
+                batch=PILOT_TRAIN["batch"], device="cuda",
+                ckpt_every=PILOT_TRAIN["ckpt_every"],
+                fail_after_ckpt=PILOT_TRAIN["ckpt_every"])
         wall = time.monotonic() - t0
         ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt).rglob("*")
                          if f.is_file())
@@ -2456,12 +2500,233 @@ def pilot_train_phase(wrappers):
          "abs_diff": abs(tel["last_loss"] - whole), "tol": RESUME_LOSS_TOL,
          "step_ms_last16": [t * 1e3 for t in tel["step_times"]],
          "uninterrupted_s": whole_s, "ckpt_bytes_at_end": ckpt_bytes,
+         "checkpoint_s": ckpt_s,
          "disk_free": disk_free, "launches": launches,
          "memory_allocated": {"before": mem_before, "after": mem_after,
                               "slack": PILOT_MEMORY_SLACK}})
     assert abs(tel["last_loss"] - whole) <= RESUME_LOSS_TOL, (
         tel["last_loss"], whole)
     assert not any(launches.values()), launches
+    assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
+        mem_before, mem_after)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# the paper's examples (examples/torch/), each in-process at full width
+# --------------------------------------------------------------------------
+
+_DECODE_ONLY = ("decode_attention", "rmsnorm_fused")
+def load_example(name):
+    """``examples/torch/<name>.py`` as a module (nothing runs at import)."""
+    import importlib.util
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """While entered, time each checkpoint's device->host snapshot and
+    its write (``repro_torch.ckpt.checkpoint.snapshot`` and ``save``, as
+    the train payload calls them); yields the seconds of each call."""
+    from repro_torch.ckpt import checkpoint as ck
+    seconds = {"snapshot": [], "save": []}
+    orig = {k: getattr(ck, k) for k in seconds}
+
+    def timed(k):
+        def run(*args, **kw):
+            t0 = time.monotonic()
+            try:
+                return orig[k](*args, **kw)
+            finally:
+                seconds[k].append(time.monotonic() - t0)
+        return run
+
+    for k in seconds:
+        setattr(ck, k, timed(k))
+    try:
+        yield seconds
+    finally:
+        for k, f in orig.items():
+            setattr(ck, k, f)
+
+
+def payload_rows(repo, history):
+    """Each payload of a pilot's ``history``: its image, exit code, bind
+    ms (cold or cached), its last 16 steps' ms from its result's
+    telemetry and, for a decode payload, its rows' tokens/s."""
+    out = []
+    for h in history:
+        img = h["image"]
+        res = repo.result(h["task_id"])
+        tel = res.telemetry if res is not None else {}
+        step_ms = [t * 1e3 for t in tel.get("step_times", [])]
+        row = {"arch": img.arch, "mode": img.mode,
+               "exitcode": h.get("exitcode"),
+               "bind_ms": h["bind_seconds"] * 1e3,
+               "bind_cached": h["bind_cached"], "steps": tel.get("steps"),
+               "step_ms": step_ms}
+        if img.mode == "decode" and step_ms:
+            row["tok_per_s"] = (img.shape_spec().global_batch * len(step_ms)
+                                / (sum(step_ms) / 1e3))
+        out.append(row)
+    return out
+
+
+def _fixed_sequence_gates(rec):
+    ex = rec["exit"]
+    tel = ex["telemetry"]
+    assert ex["exitcode"] == 0 and tel["steps"] == 3, ex
+    assert rec["bind"][1] is False, rec["bind"]
+    step_ms = [t * 1e3 for t in tel["step_times"]]
+    rows = rec["images"][0].shape_spec().global_batch
+    return {"exitcode": ex["exitcode"], "cold_bind_ms": rec["bind"][0] * 1e3,
+            "step_ms": step_ms,
+            "tok_per_s": rows * len(step_ms) / (sum(step_ms) / 1e3)}
+
+
+def _late_binding_serve_gates(rec):
+    rows = []
+    for n, r in enumerate(rec["runs"]):
+        st = r["stats"]
+        assert st["completed"] == 4, (r["arch"], st["completed"])
+        # the admission's token and a budget of 6 (max_len 64)
+        assert all(len(t) == 7 for t in r["tokens"].values()), r["tokens"]
+        assert st["d2h_transfers"] == st["decode_steps"] > 0, st
+        assert st["step_graph"], f"{r['arch']}: the eager step ran"
+        assert r["block_leaks"] == 0, (r["arch"], r["block_leaks"])
+        assert r["bind_cached"] is (n > 0), (r["arch"], r["bind_cached"])
+        rows.append({"arch": r["arch"], "bind_ms": r["bind_ms"],
+                     "bind_cached": r["bind_cached"],
+                     "tok_per_s": st["tok_per_s"],
+                     "itl_p50_s": st["itl_p50_s"],
+                     "slot_utilization": st["slot_utilization"],
+                     "block_leaks": r["block_leaks"],
+                     "launches": st["launches"]})
+    return {"serves": rows}
+
+
+def _quickstart_gates(rec):
+    assert all(np.isfinite(rec["losses"])), rec["losses"]
+    rows = payload_rows(rec["sim"].repo, rec["pilot"].history)
+    assert [(r["arch"], r["mode"]) for r in rows] == [
+        (i.arch, i.mode) for i in rec["images"]], rows
+    assert all(r["exitcode"] == 0 for r in rows), rows
+    stats = rec["sim"].repo.stats()
+    assert stats["done"] == 3 and stats["failed"] == 0, stats
+    return {"direct_train_ms": [t * 1e3 for t in rec["step_s"]],
+            "direct_losses": rec["losses"], "payloads": rows, "repo": stats}
+
+
+def _dynamic_pilot_gates(rec):
+    rows = payload_rows(rec["sim"].repo, rec["pilot"].history)
+    assert [(r["arch"], r["mode"]) for r in rows] == [
+        (i.arch, i.mode) for i in rec["images"]], rows
+    assert all(r["exitcode"] == 0 for r in rows), rows
+    res, p1, p2 = rec["result"], rec["p1"], rec["p2"]
+    tel = res.telemetry
+    assert p1.state == "failed", p1.state
+    assert res.exitcode == 0 and res.pilot_id == p2.pilot_id, (
+        res.exitcode, res.pilot_id, tel.get("error"))
+    assert rec["killed_at"] is not None and rec["killed_at"] >= 10
+    assert tel["resumed_from"] == rec["killed_at"], (tel, rec["killed_at"])
+    assert tel["steps"] == 200 - tel["resumed_from"], tel
+    assert p2.history[0]["bind_cached"] is True, p2.history[0]
+    return {"payloads": rows, "killed_at": rec["killed_at"],
+            "resumed_from": tel["resumed_from"], "steps_run": tel["steps"],
+            "resumed_bind_ms": p2.history[0]["bind_seconds"] * 1e3,
+            "resumed_step_ms_last16": [t * 1e3 for t in tel["step_times"]],
+            "resumed_last_loss": tel["last_loss"],
+            "fail_image_flags": list(rec["train"].flags)}
+
+
+def _elastic_train_gates(rec):
+    from repro_torch.runtime.elastic import plan_remesh
+    plans, want, old = [], [], None
+    for n_live, got in zip((2, 1, 3), rec["plans"]):
+        w = plan_remesh(old, n_live, 16, 256)
+        old = w.new_mesh
+        plans.append((got.new_mesh.shape, got.new_per_data, got.actions))
+        want.append((w.new_mesh.shape, w.new_per_data, w.actions))
+    assert plans == want, (plans, want)
+    repo = rec["sim"].repo
+    exits = [repo.result(t).exitcode for t in rec["tids"]]
+    assert exits == [0] * 4, exits
+    train_ms = [t * 1e3 for tid in rec["tids"]
+                for t in repo.result(tid).telemetry["step_times"]]
+    return {"plans": [{"mesh": list(p[0]), "per_slice_batch": p[1],
+                       "actions": list(p[2])} for p in plans],
+            "exitcodes": exits, "train_ms": train_ms,
+            "registry": dict(rec["registry"].stats)}
+
+
+# example -> its last line, the kernels its run must launch, and its own
+# gates.  No other kernel may launch: no example speculates or serves an
+# MoE, mamba2's decode image steps its recurrence in plain PyTorch, a
+# decode image's payload neither prefills nor pages, and a train payload
+# runs the plain paths.  late_binding_serve's engines admit through flash
+# and decode paged; its prefetch warms gemma-2b's decode image by one
+# dense step.
+EXAMPLES = {
+    "fixed_sequence": ("fixed-sequence PoC OK", _DECODE_ONLY,
+                       _fixed_sequence_gates),
+    "late_binding_serve": ("late-binding serve OK",
+                           ("flash_attention", "paged_decode_attention",
+                            "decode_attention", "rmsnorm_fused"),
+                           _late_binding_serve_gates),
+    "quickstart": ("quickstart OK", _DECODE_ONLY, _quickstart_gates),
+    "dynamic_pilot": ("dynamic PoC OK", _DECODE_ONLY, _dynamic_pilot_gates),
+    "elastic_train": ("elastic demo OK", (), _elastic_train_gates),
+}
+
+
+def example_phase(wrappers, name):
+    """``examples/torch/<name>.py``'s ``main`` in-process on the card at
+    full width, with every launch count set to 0 just before it and read
+    just after.  Gates: it returns 0 and ends with its OK line; its own
+    gates (every payload exits 0; the resumed payload's ``resumed_from``
+    is the killed payload's last checkpoint; the plans are
+    ``plan_remesh``'s; no engine leaks a block); each image bound again
+    is a cache hit; the kernels of ``EXAMPLES`` launched and no other;
+    memory back within ``PILOT_MEMORY_SLACK`` once its objects are gone.
+    Prints its lines, wall seconds, cold and cached bind ms, serve
+    tokens/s, train ms a step, checkpoint seconds and launches; returns
+    the launches."""
+    ok_line, launched, gates = EXAMPLES[name]
+    mod = load_example(name)
+    mem_before = allocated_bytes()
+    rec, out = {}, io.StringIO()
+    _zero(wrappers)
+    t0 = time.monotonic()
+    with timed_checkpoints() as ckpt_s, contextlib.redirect_stdout(out):
+        rc = mod.main([], record=rec)
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    launches = _launches(wrappers)
+    lines = out.getvalue().splitlines()
+    assert rc == 0 and lines and lines[-1] == ok_line, (rc, lines[-3:])
+    report = gates(rec)
+    cached = []
+    for img in rec["images"]:
+        t1 = time.monotonic()
+        exe = rec["registry"].pull(img, rec["device"])
+        cached.append({"image": f"{img.arch}/{img.mode}",
+                       "cached_bind_ms": (time.monotonic() - t1) * 1e3})
+        assert exe.cached, img
+    rec.clear()
+    mem_after = allocated_bytes()
+    say({"phase": f"example_{name}", "wall_s": wall,
+         "lines": lines, **report, "rebind": cached,
+         "checkpoint_s": ckpt_s, "launches": launches,
+         "memory_allocated": {"before": mem_before, "after": mem_after,
+                              "slack": PILOT_MEMORY_SLACK}})
+    for w in launched:
+        assert launches[w] > 0, (name, w, launches)
+    for w in set(launches) - set(launched):
+        assert launches[w] == 0, (name, w, launches)
     assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
         mem_before, mem_after)
     return launches
@@ -4327,6 +4592,13 @@ def main(argv):
     runs["train_mamba"] = train_mamba_phase(wrappers)
     runs["pilot_train"] = pilot_train_phase(wrappers)
     say({"phase": "train_all", "seconds": time.monotonic() - t0})
+    ex_seconds = {}
+    for name in EXAMPLES:
+        t0 = time.monotonic()
+        runs[f"example_{name}"] = example_phase(wrappers, name)
+        ex_seconds[f"example_{name}"] = time.monotonic() - t0
+    say({"phase": "examples_all", "seconds": ex_seconds,
+         "total_seconds": sum(ex_seconds.values())})
     # a kernel's launches: the runs of the path that carries it
     paths = {"paged_verify_attention": ("spec_self", "spec_cold"),
              "decode_attention": ("dense",),

@@ -28,17 +28,18 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 import torch
+
+from repro_torch.analysis.locks import make_lock
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
-_lock = threading.Lock()
+_lock = make_lock("kernels.build")
 _libs: dict[str, ctypes.CDLL] = {}
 
 

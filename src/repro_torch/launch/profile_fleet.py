@@ -25,9 +25,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import threading
 import time
 
+from repro_torch.analysis.locks import make_lock
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.launch.serve import make_trace, serve_fleet
 from repro_torch.serving.dispatch import FleetDispatcher
@@ -44,7 +44,7 @@ class _LeaseGaps:
     announced itself (``announced``)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("profile_fleet.gaps")
         self._last: dict[tuple, tuple[str, float]] = {}
         self.by_server: dict[str, dict] = {}
         self.renew_times: dict[str, list[float]] = {}

@@ -185,7 +185,7 @@ def serve_mesh_for(mesh_shape, mesh_devices=None, device="cuda"):
 
 def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
                  seed: int = 0, num_blocks: int | None = None,
-                 block_size: int = 16,
+                 block_size: int = 16, dup_rate: float = 0.0,
                  prompt_len: tuple[int, int] | None = None,
                  max_new_tokens: int | None = None, kv: str | None = None,
                  spec: str = "off", spec_k: int = 4, draft_cfg=None,
@@ -209,7 +209,8 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
                        mesh=serve_mesh_for(mesh_shape, mesh_devices, device))
     if trace is None:
         trace = make_trace(cfg.vocab_size, n_requests, max_len=max_len,
-                           seed=seed, prompt_len=prompt_len,
+                           seed=seed, dup_rate=dup_rate,
+                           prompt_len=prompt_len,
                            max_new_tokens=max_new_tokens)
     stats = eng.run_trace(trace)
     stats["streams"] = {rid: list(r.tokens)
@@ -820,6 +821,10 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="tokens per chunk of a chunked admission (a "
                          "multiple of the block size, 16, when paged)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="paged pool size (default: dense-equivalent)")
+    ap.add_argument("--dup-rate", type=float, default=0.0,
+                    help="fraction of repeated prompts (prefix-cache hits)")
     ap.add_argument("--eager", action="store_true",
                     help="run the decode step eagerly, not as a CUDA graph")
     ap.add_argument("--wave", action="store_true",
@@ -909,7 +914,8 @@ def main(argv=None):
         return 0 if all(p["exitcode"] == 0 for p in out["payloads"]) else 1
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     stats = serve_direct(cfg, args.requests, args.slots, args.max_len,
-                         seed=args.seed, kv=args.kv, spec=args.spec,
+                         seed=args.seed, num_blocks=args.num_blocks,
+                         dup_rate=args.dup_rate, kv=args.kv, spec=args.spec,
                          spec_k=args.spec_k, prefill=args.prefill,
                          prefill_chunk=args.prefill_chunk,
                          step_graph=False if args.eager else None,

@@ -131,6 +131,7 @@ def test_paged_decode_kernel_matches_plain(card, H, K, Dh):
     (1, 200, 200, 8, 1, 256, None, True),     # Dh = 256, MQA (gemma)
     (1, 130, 130, 8, 1, 256, 50, True),       # Dh = 256 with a window
     (1, 1023, 1023, 8, 1, 256, None, True),   # gemma-2b's 1023 admission
+    (1, 16, 16, 8, 1, 256, None, True),       # gemma-2b's 16-bucket one
     (1, 1023, 1023, 24, 2, 128, None, True),  # starcoder2-3b's
     (1, 8191, 8191, 32, 8, 128, 4096, True),  # mixtral-8x7b's, window 4096
     (1, 1023, 1023, 40, 40, 96, None, True),  # minicpm3-4b's: G = 1, Dh 96
@@ -307,6 +308,37 @@ def test_decode_attention_kernel_matches_plain_and_paged(card, H, K, Dh):
     vc[past] = float("nan")
     q = _bf16(rng, (B, H, Dh), card)
     ln = torch.from_numpy(lens).to(card)
+    before = decode_attention.launches
+    out = decode_attention(q, kc, vc, ln)
+    assert decode_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), decode_attention_plain(q, kc, vc, ln).float(), **ATTN_TOL)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb)).reshape(
+        B, mb).astype(np.int32)).to(card)
+    pools = []
+    for c in (kc, vc):
+        pool = torch.zeros((nb, bs, K, Dh), dtype=torch.bfloat16, device=card)
+        pool[tables.reshape(-1).long()] = c.reshape(B * mb, bs, K, Dh)
+        pools.append(pool)
+    assert torch.equal(out, paged_decode_attention(q, *pools, tables, ln))
+
+
+@pytest.mark.parametrize("lens", [(4, 1), (64, 37)])
+@pytest.mark.parametrize("H,K,Dh", [(15, 5, 64), (8, 1, 256)])
+def test_decode_attention_kernel_at_the_examples_shapes(card, H, K, Dh, lens):
+    """The examples' decode images (2 rows over 64 positions) at
+    smollm-360m's and gemma-2b's heads: within tolerance of the plain
+    version, and bitwise the paged decode kernel over the same rows."""
+    rng = np.random.default_rng(5)
+    B, T, bs = 2, 64, 16
+    mb, nb = T // bs, B * T // bs + 1
+    ln = torch.tensor(lens, dtype=torch.int32, device=card)
+    kc, vc = _bf16(rng, (B, T, K, Dh), card), _bf16(rng, (B, T, K, Dh), card)
+    past = torch.arange(T, device=card)[None] >= ln[:, None]
+    kc[past] = float("nan")
+    vc[past] = float("nan")
+    q = _bf16(rng, (B, H, Dh), card)
     before = decode_attention.launches
     out = decode_attention(q, kc, vc, ln)
     assert decode_attention.launches == before + 1

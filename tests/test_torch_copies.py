@@ -24,6 +24,13 @@ PORT = ROOT / "src" / "repro_torch"
 # reference's kept lines as 1-based inclusive ranges, or None for all)
 COPIES = {
     "analysis/locks.py": ({}, None),
+    # the port's docstring names no change of the reference's history
+    "analysis/fuzz.py": ({16: "the port's docstring"},
+                         [(1, 15), (17, 305)]),
+    # the exempt path of bare-lock names the port's own analysis package (a
+    # slash path, which the copy rule does not rewrite)
+    "analysis/lint.py": ({288: "the port's package in the exempt path"},
+                         [(1, 287), (289, 340)]),
     "configs/gemma_2b.py": ({}, None),
     "configs/jamba_v01_52b.py": ({}, None),
     "configs/llava_next_mistral_7b.py": ({}, None),

@@ -1,7 +1,8 @@
 """Import hygiene of the port and its CUDA-by-default entry points.
 
-The port (``src/repro_torch/``) and ``chip_smoke.py`` import neither JAX
-nor anything of the JAX package ``repro``: every module is parsed with
+The port (``src/repro_torch/``), its examples (``examples/torch/``) and
+``chip_smoke.py`` import neither JAX nor anything of the JAX package
+``repro``: every module is parsed with
 ``ast`` and its imports checked.  No file of the port names Triton: every
 kernel is CUDA C++ built by ``kernels/_build.py``.  The entry points default to
 ``device="cuda"`` and raise without a card (reached here by making
@@ -17,8 +18,9 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + EXAMPLES
 SOURCES = sorted((ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob(
     "*.cu*"))
 
@@ -64,11 +66,19 @@ def test_forbidden_names_are_caught():
 
 
 def test_entry_points_default_to_cuda():
+    import importlib.util
     from repro_torch.launch.serve import serve_direct
     from repro_torch.models.api import init_decode_state
     from repro_torch.serving.engine import ServeEngine
     for fn in (ServeEngine.__init__, serve_direct, init_decode_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert len(EXAMPLES) == 5
+    for path in EXAMPLES:               # the examples' --device
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        args = mod.parse_args([])
+        assert args.device == "cuda" and not args.smoke, path.name
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

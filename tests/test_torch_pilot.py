@@ -403,6 +403,7 @@ def test_engine_step_waits_for_the_device_lock():
     def holder():
         with DEVICE_LOCK:
             held.set()
+            # lint: allow[blocking-under-lock] -- the fixture: a thread parked while it holds the device lock is the prefetch this test stands in for
             release.wait(10.0)
 
     t = threading.Thread(target=holder)
