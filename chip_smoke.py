@@ -323,6 +323,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               its telemetry, the gates, memory back within 64 MiB.
               Every tp phase prints tokens/s, ITL p50 and per-rank KV bytes
               of both runs beside nvidia-smi's name and power limit.
+   dryrun_serve_tp — the dry run's serve accounting
+              (``launch/dryrun.py: run_serve_cell`` at the engine's bf16
+              layout) against tp_serve's mesh engine: its parameter and
+              KV pool bytes per model rank equal the prediction, the
+              column leaves it keeps whole on the lead device predicted
+              as held (``whole_leaves``; the reference's convention, which
+              splits them, printed beside); the rise of
+              ``memory_allocated`` over the build beside the prediction.
+   dryrun_serve — the same for a one-device engine of serve's smollm-360m
+              configuration (8 slots, max_len 1024), built for it.
+   dryrun_step — one eager decode step of that engine's model with the
+              kernels, its 8 slots prefilled with serve's prompts,
+              counted under ``launch/op_cost.py: step_cost`` on the card:
+              FLOPs, fused bytes and the kernel launches (counted zero),
+              then timed (median of 10 after warm-up) beside its roofline
+              bound from ``launch/hw.py``.  Gates: counts positive, paged
+              decode and RMSNorm launched, the measured time at or above
+              the bound.
+   dryrun_cli — ``python -m repro_torch.launch.dryrun --arch mamba2-370m
+              --shape decode_32k`` in a subprocess: exit 0, its record
+              (``results/dryrun_torch/pod16x16/``) with positive compute
+              and memory terms and a boolean ``fits_hbm``.
    example_* — the paper's five examples (``examples/torch/``), each
               ``main`` called in-process at full width on the card, after
               the training phases: ``fixed_sequence`` (one decode image
@@ -436,6 +458,7 @@ import dataclasses
 import gc
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -450,10 +473,9 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
-# flop/s, f32 non-tensor flop/s
-HBM_BPS = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+# flop/s, f32 non-tensor flop/s; `load_peaks` sets them from
+# repro_torch.launch.hw, the constants the dry run's roofline reads
+HBM_BPS = BF16_FLOPS = F32_FLOPS = None
 
 ATTN_TOL = dict(rtol=5e-2, atol=2e-2)     # tests/test_kernels.py:54
 NORM_TOL = dict(rtol=5e-2, atol=5e-2)     # tests/test_kernels.py:193
@@ -1481,6 +1503,12 @@ def ssd_heads_per_cta(rng, dev):
                 lambda h=h: ops._launch(*args, 256, heads=h))
                for h in (1, 2)}}
     return out
+
+
+def load_peaks():
+    global HBM_BPS, BF16_FLOPS, F32_FLOPS
+    from repro_torch.launch import hw
+    HBM_BPS, BF16_FLOPS, F32_FLOPS = hw.HBM_BW, hw.PEAK_FLOPS, hw.F32_FLOPS
 
 
 def bound(nbytes, flops, peak_flops):
@@ -3873,8 +3901,11 @@ def tp_run(phase, wrappers, arch, mesh, trace, load=SERVE, churn=False,
     for w in wrappers:
         w.launches = 0
     with kernel_shapes() as shapes:
+        before = torch.cuda.memory_allocated()
         eng = build_engine(cfg, load["slots"], load["max_len"],
                            seed=load["seed"], device="cuda", mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        built_bytes = torch.cuda.memory_allocated() - before
         stats = eng.run_trace(trace)
         for e in extra:
             eng.submit(Request(rid=e["rid"],
@@ -3902,6 +3933,7 @@ def tp_run(phase, wrappers, arch, mesh, trace, load=SERVE, churn=False,
                "decode_steps", "step_graph", "spec", "acceptance_rate",
                "mesh_shape", "mesh_devices", "mesh_whole_leaves")}}
     rec["engine"] = eng
+    rec["built_bytes"] = built_bytes
     return rec
 
 
@@ -4003,6 +4035,8 @@ def tp_phases(wrappers):
     keep("tp_serve_single", single)
     sharded = tp_run("tp_serve", wrappers, CODE_ARCH, mesh, trace,
                      churn=True)
+    dryrun_serve_check("dryrun_serve_tp", sharded["engine"], CODE_ARCH,
+                       SERVE, (1, 2), sharded["built_bytes"], smi)
     keep("tp_serve", sharded)
     say({"phase": "tp_gemm_diagnostic", "arch": CODE_ARCH, "leaves": diag,
          "differ": sorted(k for k, v in diag.items()
@@ -4131,6 +4165,186 @@ def tp_pilot_phase(wrappers, mesh, trace, direct, smi):
          "streams_equal_tp_serve_single": len(direct), "launches": launches,
          "memory_allocated": {"before": mem_before, "after": mem_after},
          "card": smi})
+    return launches
+
+
+# --------------------------------------------------------------------------
+# the dry run held against the card
+# --------------------------------------------------------------------------
+
+KV_LEAVES = frozenset({"kp", "vp", "ckvp", "kropep", "k", "v", "ckv",
+                       "krope"})
+DRYRUN_STEP_REPS = 10
+
+
+def held_bytes(tree, msz, only=None):
+    """The bytes of ``tree``'s tensors per model rank, lead first, as an
+    engine holds them: a `Shards`' part r on rank r, a `Whole` or a plain
+    tensor once on the lead; ``only``: the leaves of those names alone."""
+    from repro_torch.runtime import sharding
+    per_rank = [0] * msz
+
+    def one(path, leaf):
+        if only is not None and sharding._leaf_name(path) not in only:
+            return
+        if isinstance(leaf, sharding.Shards):
+            for r, p in enumerate(leaf.parts):
+                per_rank[r] += p.numel() * p.element_size()
+        elif isinstance(leaf, (sharding.Whole, torch.Tensor)):
+            t = sharding.parts(leaf)[0]
+            per_rank[0] += t.numel() * t.element_size()
+    sharding.map_with_path(one, tree)
+    return per_rank
+
+
+def dryrun_serve_check(phase, eng, arch, load, mesh_shape, built_bytes, smi):
+    """`run_serve_cell`'s prediction for the engine ``eng`` (``arch`` on
+    ``load``'s slots and max_len, a ``mesh_shape`` mesh) against the
+    tensors it holds: its parameter and KV pool bytes, in total and per
+    model rank, equal.  A column leaf the engine keeps whole on the lead
+    device (`sharding.Whole`) is predicted as held (``whole``); the
+    reference's convention, which splits it, is printed beside.  So is
+    the rise of ``torch.cuda.memory_allocated()`` over the build, with its
+    gap to the predicted params + state."""
+    from repro_torch.launch.dryrun import run_serve_cell
+    msz = mesh_shape[1]
+    whole = tuple(getattr(eng.params, "whole_leaves", ()))
+    kw = dict(mesh_shape=mesh_shape, slots=load["slots"],
+              max_len=load["max_len"], param_dtype=torch.bfloat16)
+    pred = run_serve_cell(arch, whole=whole, **kw)
+    ref_conv = run_serve_cell(arch, **kw)
+    held = {"params": held_bytes(eng.params.tree(), msz),
+            "state": held_bytes(eng.state, msz),
+            "kv_pool": held_bytes(eng.state["cache"], msz, KV_LEAVES)}
+    predicted_total = pred["params_bytes"] + pred["state_bytes"]
+    say({"phase": phase, "arch": arch, "mesh_shape": list(mesh_shape),
+         "slots": load["slots"], "max_len": load["max_len"],
+         "whole_leaves": pred["whole_leaves"],
+         **{f"{k}_bytes_per_rank": {"predicted": pred[f"{k}_bytes_per_rank"],
+                                    "held": held[k]}
+            for k in held},
+         "params_bytes_per_device_reference_convention":
+             ref_conv["params_bytes_per_device"],
+         "kept_whole_bytes": (pred["params_bytes_per_device"]
+                              - ref_conv["params_bytes_per_device"]),
+         "predicted_params_plus_state": predicted_total,
+         "memory_allocated_rise_over_build": built_bytes,
+         "build_gap_bytes": built_bytes - predicted_total,
+         "decode_memory_s": pred["decode_memory_s"], "card": smi})
+    for k in ("params", "kv_pool"):
+        assert pred[f"{k}_bytes_per_rank"] == held[k], (phase, k, pred, held)
+        assert pred[f"{k}_bytes"] == sum(held[k]), (phase, k)
+
+
+def dryrun_step_phase(eng, smi):
+    """One eager decode step of the engine's model (its kernel flags) over
+    its slots, each prefilled with one of serve's prompts, counted under
+    `op_cost.step_cost` on the card; then timed (median of
+    DRYRUN_STEP_REPS after warm-up) beside its roofline bound from
+    `repro_torch.launch.hw`.  Gates: counts positive, the paged decode and
+    RMSNorm kernels launched, the measured time at or above the bound
+    (under it, a count would be wrong).  Returns the kernel launches of
+    the counted step."""
+    from repro_torch.launch import hw
+    from repro_torch.launch.op_cost import step_cost
+    from repro_torch.launch.steps import make_serve_step
+    dev = eng.device
+    trace = serve_trace(DENSE_ARCH)[:SERVE["slots"]]
+    prompts = [np.asarray(e["prompt"], np.int32) for e in trace]
+    state, _ = prefilled_state(eng.bundle, eng.params, eng.cfg, prompts, dev,
+                               max_len=SERVE["max_len"])
+    step = make_serve_step(eng.cfg)
+    for _ in range(3):
+        step(eng.params, state)
+    torch.cuda.synchronize()
+    _, cost = step_cost(step, eng.params, state)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DRYRUN_STEP_REPS):
+        t0 = time.perf_counter()
+        step(eng.params, state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.median(times))
+    compute_s = cost.flops / hw.PEAK_FLOPS
+    memory_s = cost.bytes_fused / hw.HBM_BW
+    roofline_s = max(compute_s, memory_s)
+    say({"phase": "dryrun_step", "arch": DENSE_ARCH, "slots": SERVE["slots"],
+         "prompt_lens": [len(p) for p in prompts],
+         "flops": cost.flops, "bytes_fused": cost.bytes_fused,
+         "bytes_unfused": cost.bytes, "transcendentals": cost.transcendentals,
+         "contraction_flops": cost.contraction_flops,
+         "kernel_launches": cost.kernel_launches,
+         "aten_ops": sum(cost.op_counts.values()),
+         "compute_s": compute_s, "memory_s": memory_s,
+         "roofline_step_s": roofline_s, "measured_step_s": step_s,
+         "measured_step_s_all": times,
+         "roofline_fraction_of_measured": roofline_s / step_s,
+         "note": "kernel launches count zero FLOPs and bytes (the "
+                 "reference's custom-call convention)", "card": smi})
+    assert cost.flops > 0 and cost.bytes_fused > 0, cost
+    for w in ("paged_decode_attention", "rmsnorm_fused"):
+        assert cost.kernel_launches.get(w, 0) > 0, cost.kernel_launches
+    assert step_s >= roofline_s, (step_s, roofline_s)
+    return cost.kernel_launches
+
+
+def dryrun_cli_phase(smi):
+    """``python -m repro_torch.launch.dryrun --arch mamba2-370m --shape
+    decode_32k`` in a subprocess (the reference's own slow test's cell):
+    exit 0 and a record with positive compute and memory terms and a
+    boolean fit."""
+    path = (ROOT / "results" / "dryrun_torch" / "pod16x16"
+            / f"{SSM_ARCH}__decode_32k.json")
+    path.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", SSM_ARCH, "--shape", "decode_32k"],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=str(ROOT), env=env)
+    seconds = time.monotonic() - t0
+    assert r.returncode == 0, r.stderr[-2000:]
+    rec = json.loads(path.read_text())
+    t = rec["roofline"]
+    say({"phase": "dryrun_cli", "cell": f"{SSM_ARCH} x decode_32k",
+         "seconds": seconds, "record": str(path.relative_to(ROOT)),
+         "roofline": t, "memory": rec["memory"], "fits_hbm": rec["fits_hbm"],
+         "flops_per_device": rec["hlo_cost"]["flops"],
+         "bytes_fused_per_device": rec["hlo_cost"]["bytes_fused"],
+         "run_seconds": rec["run_seconds"], "card": smi})
+    assert t["compute_s"] > 0 and t["memory_s"] > 0, t
+    assert isinstance(rec["fits_hbm"], bool), rec["fits_hbm"]
+
+
+def dryrun_phases(smi):
+    """dryrun_serve (serve's smollm-360m engine against `run_serve_cell`),
+    dryrun_step on that engine, and dryrun_cli.  Returns the counted
+    step's kernel launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import build_engine
+    seconds = {}
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng = build_engine(get_config(DENSE_ARCH), SERVE["slots"],
+                       SERVE["max_len"], seed=SERVE["seed"], device="cuda")
+    torch.cuda.synchronize()
+    dryrun_serve_check("dryrun_serve", eng, DENSE_ARCH, SERVE, (1, 1),
+                       torch.cuda.memory_allocated() - before, smi)
+    seconds["dryrun_serve"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    launches = dryrun_step_phase(eng, smi)
+    seconds["dryrun_step"] = time.monotonic() - t0
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    dryrun_cli_phase(smi)
+    seconds["dryrun_cli"] = time.monotonic() - t0
+    say({"phase": "dryrun_all", "seconds": seconds,
+         "total_seconds": sum(seconds.values())})
     return launches
 
 
@@ -4417,6 +4631,7 @@ def main(argv):
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    load_peaks()
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -4586,6 +4801,13 @@ def main(argv):
          "total_seconds": sum(fam_seconds.values())})
     tp_runs, tp_shapes = tp_phases(wrappers)
     runs.update(tp_runs)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    counted = dryrun_phases(smi)
+    runs["dryrun_step"] = {w.__name__: counted.get(w.__name__, 0)
+                           for w in wrappers}
     t0 = time.monotonic()
     runs["train"] = train_phase(wrappers)
     train_parity_phase()

@@ -141,7 +141,12 @@ def build_model(cfg: ArchConfig, compute=COMPUTE) -> ModelBundle:
 
 
 def _seeded(device, seed: int):
+    """The device and a generator seeded on it.  On the meta device (shape
+    stand-ins, `repro_torch.launch.specs`) there are no numbers to draw and
+    no generator: the init functions then allocate nothing."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return dev, None
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return dev, gen

@@ -168,9 +168,13 @@ def mesh_axis_size(mesh: DeviceMesh, name: str) -> int:
     ).get(name, 1)
 
 
-def batch_axes(mesh: DeviceMesh) -> tuple[str, ...]:
-    """Physical axes the global batch is sharded over (pod+data)."""
-    return tuple(a for a in (POD_AXIS, DATA_AXIS) if a in mesh.axis_names)
+def batch_axes(mesh: DeviceMesh, layout: str = "2d") -> tuple[str, ...]:
+    """Physical axes the global batch is sharded over (pod+data); under
+    the train rules' "fsdp" layout the model axis too (no tensor
+    parallelism).  ``mesh`` may also be a `MeshSpec`."""
+    names = mesh.axes if isinstance(mesh, MeshSpec) else mesh.axis_names
+    pool = ALL_AXES if layout == "fsdp" else (POD_AXIS, DATA_AXIS)
+    return tuple(a for a in pool if a in names)
 
 
 def batch_parallelism(mesh: DeviceMesh) -> int:

@@ -33,15 +33,37 @@ the row counts its engine multiplies by (`slices_exact`) and keeps a leaf
 that differs whole on the lead device, as a `Whole`: `on_ranks` runs its
 product there and splits the output over the ranks.
 
-The train and FSDP rules (``param_spec``, ``train_state_shardings``,
-``batch_shardings``, ``constrain``) are not ported (``ROADMAP.md``).
+The train half (``param_spec``, ``param_shardings``, ``batch_shardings``,
+``decode_state_shardings``, ``train_state_shardings``, ``constrain``) is
+the reference's rules over a `MeshSpec` (or a `DeviceMesh`, or any object
+with ``axis_names`` and ``devices.shape``, as a JAX mesh has): TP on the
+model axis plus FSDP (ZeRO-3) over the batch axes for params and moments
+in "train" mode, TP only in "serve" mode, batch over ("pod", "data"), and
+under the "fsdp" layout the model axis folded into the batch.  A spec is
+a plain tuple with one entry per dim (None, an axis name, or a tuple of
+names) where the reference builds a ``PartitionSpec``; an unruled leaf's
+is ``()``, as ``P()``.  No process runs them on devices: the dry run
+(`repro_torch.launch.dryrun`) divides each leaf's bytes by
+`spec_shard_factor` of its spec.  `constrain` resolves an activation's
+spec as the reference does and returns the tensor itself: the port places
+tensors explicitly and has no partitioner to hand a constraint to.
+
+The rank loop's transfers (`gather`, `split`, the per-rank moves of
+`on_ranks`) are reported to `repro_torch.launch.op_stats` as they happen,
+so a step counted by `repro_torch.launch.op_cost` counts them as
+collectives.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+
 import torch
 
-from repro_torch.runtime.mesh import MODEL_AXIS, DeviceMesh, mesh_axis_size
+from repro_torch.launch import op_stats
+from repro_torch.runtime.mesh import (
+    DATA_AXIS, MODEL_AXIS, DeviceMesh, MeshSpec, batch_axes, mesh_axis_size)
 
 
 # --------------------------------------------------------------------------
@@ -72,6 +94,8 @@ _PARAM_RULES: dict[str, tuple[int | None, int | None]] = {
 _SERVE_TP_SAFE = frozenset(
     {"embed", "head", "wq", "wk", "wv", "wq_b", "wkv_b", "up", "gate"})
 
+_MOE_NAMES = ("up", "gate", "down")
+
 
 def _leaf_name(path) -> str:
     """The leaf's name: the last dict key on its path (a path is a tuple
@@ -80,6 +104,295 @@ def _leaf_name(path) -> str:
         if isinstance(k, str):
             return k
     return ""
+
+
+# --------------------------------------------------------------------------
+# the train half: helpers over a mesh's axis names and sizes
+# --------------------------------------------------------------------------
+
+def _sizes(mesh) -> dict[str, int]:
+    if isinstance(mesh, MeshSpec):
+        return dict(zip(mesh.axes, mesh.shape))
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def axis_size(mesh, name) -> int:
+    """The size of axis ``name`` (a tuple: the product of its axes'); 1
+    for an axis the mesh does not have."""
+    if isinstance(name, tuple):
+        out = 1
+        for n in name:
+            out *= axis_size(mesh, n)
+        return out
+    return _sizes(mesh).get(name, 1)
+
+
+def _fsdp_candidates(mesh, layout: str = "2d"):
+    cands = []
+    ba = batch_axes(mesh, layout)
+    if ba:
+        cands.append(ba)
+        if len(ba) > 2:
+            cands.append(ba[:2])
+            cands.append(ba[1:])
+        for a in ba:
+            cands.append((a,))
+    return cands
+
+
+def _choose_fsdp(mesh, dim_size: int, layout: str = "2d"):
+    for cand in _fsdp_candidates(mesh, layout):
+        if dim_size % axis_size(mesh, cand) == 0:
+            return cand if len(cand) > 1 else cand[0]
+    return None
+
+
+def _maybe(mesh, axis, dim_size: int):
+    return axis if (axis in _sizes(mesh)
+                    and dim_size % axis_size(mesh, axis) == 0) else None
+
+
+def _is_moe_leaf(path, ndim: int, name: str) -> bool:
+    # MoE up/gate/down are 3-D (+1 stacked group dim = 4-D); dense are 2/3-D
+    if name not in _MOE_NAMES:
+        return False
+    return ndim == (4 if _stacked(path) else 3)
+
+
+def _stacked(path) -> bool:
+    """True if the leaf lives under the stacked layer groups."""
+    return any(isinstance(k, str) and k in ("layers", "enc_layers",
+                                            "dec_layers") for k in path)
+
+
+def spec_shard_factor(spec, mesh) -> int:
+    """How many parts ``spec`` splits a leaf into on ``mesh``: the product
+    of the sizes of the axes it names."""
+    out = 1
+    for s in spec:
+        if s is not None:
+            out *= axis_size(mesh, s)
+    return out
+
+
+def param_spec(path, shape, mesh, mode: str, *, moe_partition: str = "tp",
+               layout: str = "2d") -> tuple:
+    """The spec of the parameter leaf at ``path``: TP on the model axis
+    (MoE experts over data or model under ``moe_partition="ep"``; none
+    under the "fsdp" layout) and, in "train" mode, FSDP over the batch
+    axes on the rule's other dim.  Each axis only where it divides."""
+    name = _leaf_name(path)
+    ndim = len(shape)
+    if name not in _PARAM_RULES or ndim == 0:
+        return ()
+    tp_dim, fsdp_dim = _PARAM_RULES[name]
+    spec: list = [None] * ndim
+
+    def put(dim, axis):
+        if dim is None or axis is None:
+            return
+        if -dim > ndim:
+            return
+        if spec[dim % ndim] is None:
+            spec[dim % ndim] = axis
+
+    if layout != "fsdp":
+        if moe_partition == "ep" and _is_moe_leaf(path, ndim, name):
+            e_dim = -3
+            if mode == "serve":
+                # decode weight streaming: experts over the (idle) data
+                # axis AND expert hidden over model — combined E*F sharding
+                if shape[e_dim % ndim] % axis_size(mesh, DATA_AXIS) == 0:
+                    put(e_dim, DATA_AXIS)
+                if tp_dim is not None and -tp_dim <= ndim:
+                    put(tp_dim, _maybe(mesh, MODEL_AXIS, shape[tp_dim % ndim]))
+            # train: experts over the model axis (token all-to-all dispatch)
+            elif shape[e_dim % ndim] % axis_size(mesh, MODEL_AXIS) == 0:
+                put(e_dim, MODEL_AXIS)
+        else:
+            if tp_dim is not None and -tp_dim <= ndim:
+                put(tp_dim, _maybe(mesh, MODEL_AXIS, shape[tp_dim % ndim]))
+    if mode == "train" and fsdp_dim is not None and -fsdp_dim <= ndim:
+        if spec[fsdp_dim % ndim] is None:
+            put(fsdp_dim, _choose_fsdp(mesh, shape[fsdp_dim % ndim], layout))
+    return tuple(spec)
+
+
+def as_tree(x):
+    """``x`` with every params object in it (`LMParams`, `EncDecParams`,
+    `ShardedParams`) replaced by its tree."""
+    if hasattr(x, "tree") and callable(x.tree):
+        return x.tree()
+    if isinstance(x, dict):
+        return {k: as_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(as_tree(v) for v in x)
+    return x
+
+
+def param_shardings(tree, mesh, mode: str, *, moe_partition: str = "tp",
+                    layout: str = "2d"):
+    """``tree`` (a params object or tree; tensors, meta ones too) with each
+    leaf replaced by its `param_spec`."""
+    return map_with_path(
+        lambda path, leaf: param_spec(path, tuple(leaf.shape), mesh, mode,
+                                      moe_partition=moe_partition,
+                                      layout=layout), as_tree(tree))
+
+
+def _batch_dim_axis(mesh, b: int, layout: str = "2d"):
+    ba = batch_axes(mesh, layout)
+    if not ba:
+        return None
+    if b % axis_size(mesh, ba) == 0:
+        return ba if len(ba) > 1 else ba[0]
+    if len(ba) > 2:
+        for cand in (ba[:2], ba[1:]):
+            if b % axis_size(mesh, cand) == 0:
+                return cand
+    for a in ba:
+        if b % axis_size(mesh, a) == 0:
+            return a
+    return None
+
+
+def batch_shardings(batch_specs, mesh, layout: str = "2d"):
+    """tokens/targets (B,S) -> batch over (pod,data); frontend (B,F,D) same."""
+    def one(path, leaf):
+        spec = [None] * len(leaf.shape)
+        spec[0] = _batch_dim_axis(mesh, leaf.shape[0], layout)
+        return tuple(spec)
+    return map_with_path(one, batch_specs)
+
+
+def _stacked_cache(path) -> bool:
+    """Cache trees: a list of per-slot dicts whose leaves carry the group
+    dim first (decoder caches), or dicts under "self"/"cross" (encdec,
+    leading layer dim)."""
+    return any(isinstance(k, int) or k in ("self", "cross") for k in path)
+
+
+def decode_state_shardings(state_specs, mesh):
+    """Decode caches: batch dim over (pod,data); the long sequence dim (self-
+    attn KV / MLA latent) over "model" (split-K); SSM state heads over
+    "model".  Leaf kinds are identified structurally by name."""
+    def one(path, leaf):
+        name = _leaf_name(path)
+        shape = leaf.shape
+        ndim = len(shape)
+        spec: list = [None] * ndim
+        if name == "pos":
+            return ()
+        if name == "token":
+            spec[0] = _batch_dim_axis(mesh, shape[0])
+            return tuple(spec)
+        bdim = 1 if _stacked_cache(path) else 0
+        if ndim > bdim:
+            spec[bdim] = _batch_dim_axis(mesh, shape[bdim])
+        if name in ("k", "v", "ckv", "krope"):
+            tdim = bdim + 1
+            if ndim > tdim and shape[tdim] % axis_size(mesh, MODEL_AXIS) == 0:
+                spec[tdim] = MODEL_AXIS
+        elif name == "ssd":                      # (..., B, H, N, P)
+            hdim = bdim + 1
+            if ndim > hdim and shape[hdim] % axis_size(mesh, MODEL_AXIS) == 0:
+                spec[hdim] = MODEL_AXIS
+        elif name == "conv":                     # (..., B, W-1, conv_dim)
+            cdim = bdim + 2
+            if ndim > cdim and shape[cdim] % axis_size(mesh, MODEL_AXIS) == 0:
+                spec[cdim] = MODEL_AXIS
+        return tuple(spec)
+    return map_with_path(one, state_specs)
+
+
+def replicated(tree, mesh):
+    return map_with_path(lambda path, leaf: (), as_tree(tree))
+
+
+def train_state_shardings(param_specs_tree, mesh, *,
+                          moe_partition: str = "tp", layout: str = "2d"):
+    ps = param_shardings(param_specs_tree, mesh, "train",
+                         moe_partition=moe_partition, layout=layout)
+    return {"params": ps, "opt": {"m": ps, "v": ps, "step": ()}}
+
+
+# --------------------------------------------------------------------------
+# activation sharding constraints
+# --------------------------------------------------------------------------
+# The reference pins activations inside its layer scan with
+# with_sharding_constraint so that XLA keeps the batch axis sharded in the
+# backward loop.  The port has no partitioner: `constrain` resolves the
+# same spec (`activation_spec`) and returns the tensor as it is.
+
+_ACT = threading.local()
+
+
+@contextmanager
+def activation_sharding(mesh, layout: str = "2d"):
+    prev = getattr(_ACT, "ctx", None)
+    _ACT.ctx = (mesh, layout)
+    try:
+        yield
+    finally:
+        _ACT.ctx = prev
+
+
+def active_mesh():
+    """The mesh of the enclosing :func:`activation_sharding` context, or
+    None."""
+    ctx = getattr(_ACT, "ctx", None)
+    return ctx[0] if ctx is not None else None
+
+
+def constrain_replicated(x):
+    """``x`` whole: under a "serve" layout context a `Shards` is gathered
+    onto the lead device (`gather`, the rank loop's counterpart of the
+    reference's constraint); anything else comes back as it is."""
+    ctx = getattr(_ACT, "ctx", None)
+    if ctx is None or ctx[1] != "serve":
+        return x
+    return gather(x)
+
+
+def activation_spec(shape, dims: str, mesh, layout: str = "2d"):
+    """The spec the reference's ``constrain`` would pin an activation of
+    ``shape`` to, or None where it skips (two dims want one axis).
+
+    ``dims`` has one char per dim:
+      'b' -> batch axes (pod+data, +model under the "fsdp" layout)
+      'm' -> model axis (tensor-parallel dim; skipped under "fsdp")
+      'd' -> data axis (serve-mode expert parallelism)
+      '.' -> unconstrained
+    Axes are applied only when they divide the dim size."""
+    if len(dims) != len(shape):
+        raise ValueError(f"dims {dims!r} for a shape of {len(shape)} dims")
+    spec = []
+    for ch, size in zip(dims, shape):
+        if ch == "b":
+            spec.append(_batch_dim_axis(mesh, size, layout))
+        elif ch == "m" and layout != "fsdp":
+            spec.append(_maybe(mesh, MODEL_AXIS, size))
+        elif ch == "d":
+            spec.append(_maybe(mesh, DATA_AXIS, size))
+        else:
+            spec.append(None)
+    flat = []
+    for s in spec:
+        if s is not None:
+            flat.extend(s if isinstance(s, tuple) else (s,))
+    if len(flat) != len(set(flat)):     # conflicting axes -> skip
+        return None
+    return tuple(spec)
+
+
+def constrain(x, dims: str):
+    """``x`` itself.  Under an :func:`activation_sharding` context the
+    spec is resolved as the reference resolves it (a ``dims`` of the wrong
+    length raises); without one nothing is read."""
+    ctx = getattr(_ACT, "ctx", None)
+    if ctx is not None:
+        activation_spec(tuple(x.shape), dims, *ctx)
+    return x
 
 
 def serve_param_shard_factor(path, shape, model_axis_size: int) -> int:
@@ -273,6 +586,16 @@ def _on(x, dev):
     return x
 
 
+def _sent(x):
+    """Report ``x``'s tensors (in tuples and lists too) as sent from the
+    lead device to another rank: a collective-permute each."""
+    if isinstance(x, torch.Tensor):
+        op_stats.transfer("collective-permute", x)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            _sent(v)
+
+
 def parts(x) -> tuple:
     """The tensors behind ``x``: a `Shards`' parts, or ``x`` alone."""
     if isinstance(x, Shards):
@@ -288,7 +611,9 @@ def gather(x):
     tensor; a tensor as it is."""
     if isinstance(x, Shards):
         lead = x.parts[0].device
-        return torch.cat([p.to(lead) for p in x.parts], dim=x.dim)
+        out = torch.cat([p.to(lead) for p in x.parts], dim=x.dim)
+        op_stats.transfer("all-gather", out)
+        return out
     if isinstance(x, Whole):
         return x.tensor
     return x
@@ -301,8 +626,9 @@ def split(x, like):
     if isinstance(x, Shards) or not isinstance(like, (Shards, Whole)):
         return x
     devs = like.devices
-    return Shards([c.to(d) for c, d in zip(torch.chunk(x, len(devs), like.dim),
-                                           devs)], like.dim)
+    chunks = torch.chunk(x, len(devs), like.dim)
+    _sent(chunks[1:])
+    return Shards([c.to(d) for c, d in zip(chunks, devs)], like.dim)
 
 
 def on_ranks(fn, *args, dim: int):
@@ -322,9 +648,12 @@ def on_ranks(fn, *args, dim: int):
         if isinstance(out, tuple):
             return tuple(split(o, Whole(o, dim, devs)) for o in out)
         return split(out, Whole(out, dim, devs))
-    outs = [fn(*(a.parts[r] if isinstance(a, Shards) else _on(a, d)
-                 for a in args))
-            for r, d in enumerate(split_by.devices)]
+    outs = []
+    for r, d in enumerate(split_by.devices):
+        if r:
+            _sent([a for a in args if not isinstance(a, Shards)])
+        outs.append(fn(*(a.parts[r] if isinstance(a, Shards) else _on(a, d)
+                         for a in args)))
     if isinstance(outs[0], tuple):
         return tuple(Shards(o, dim) for o in zip(*outs))
     return Shards(outs, dim)

@@ -994,3 +994,24 @@ def test_pilot_train_payload_resumes_on_the_card(card, tmp_path):
     assert res.telemetry["resumed_from"] == fail["ckpt_step"] >= 2
     assert res.telemetry["steps"] == 6 - fail["ckpt_step"]
     assert np.isfinite(res.telemetry["last_loss"])
+
+
+def test_serve_cell_bytes_match_an_engine_on_the_card(card):
+    """The dry run's serve accounting (`run_serve_cell` at the engine's
+    bf16 layout) against the parameter and KV pool tensors a smoke
+    smollm-360m engine holds on the card: equal bytes."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.dryrun import run_serve_cell
+    from repro_torch.launch.serve import build_engine
+    eng = build_engine(get_smoke_config("smollm-360m"), 2, 64, seed=0,
+                       device=card)
+    pred = run_serve_cell("smollm-360m", smoke=True, slots=2, max_len=64,
+                          param_dtype=torch.bfloat16, whole=())
+    params = tree.leaves(eng.params.tree())
+    pools = [t for leaf in eng.state["cache"] for t in leaf.values()]
+    assert all(t.is_cuda for t in params + pools)
+    assert sum(t.numel() * t.element_size() for t in params) == (
+        pred["params_bytes"]) == pred["params_bytes_per_rank"][0]
+    assert sum(t.numel() * t.element_size() for t in pools) == (
+        pred["kv_pool_bytes"])

@@ -65,8 +65,11 @@ COPIES = {
          **{n: "DeviceMesh, not MeshSpec.build/make_mesh"
             for n in range(55, 101)},
          **{n: "the port's serve_mesh" for n in range(138, 162)},
-         **{n: "DeviceMesh in an annotation" for n in (164, 171, 176, 183)}},
-        [(7, 14), (17, 53), (65, 101), (105, 106), (108, 113), (115, 118),
+         **{n: "DeviceMesh in an annotation" for n in (164, 180, 187)},
+         # one batch_axes for the serve mesh and the train rules: it takes
+         # the layout of the reference's sharding.batch_axes and a MeshSpec
+         **{n: "batch_axes with a layout" for n in range(171, 178)}},
+        [(7, 14), (17, 53), (65, 101), (105, 106), (108, 113), (117, 118),
          (120, 125), (127, 127)]),
 }
 
