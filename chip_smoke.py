@@ -321,6 +321,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
               starcoder2-3b serve image and answers serve's trace: exit
               0, streams bitwise tp_serve's one-device run's, the mesh in
               its telemetry, the gates, memory back within 64 MiB.
+   tp_rank_kernels — before any mesh engine, the kernels a rank runs at
+              a rank's shapes: the grouped matmul on each half of up's
+              columns at granite's (40,256,1536)x(40,1536,256) and jamba's
+              (16,160,4096)x(16,4096,7168) buckets, flash at granite's
+              1023-token admission and paged decode at its 8 slots, each
+              at 12 of 24 heads (4 of 8 kv heads): the two halves bitwise
+              the whole call, each against its plain version, timed
+              beside its bound and its library call.
+   tp_moe   — granite-moe-3b-a800m, 32 layers, the trace's first 8
+              requests, graphed: tp_serve's gates at 12 of 24 heads,
+              RMSNorm as often as one device's, the grouped matmul 5/3 of
+              one device's (up and gate once a rank, down once on the
+              lead; a leaf kept whole once), its diagnostic with the
+              grouped kernel's and torch.matmul's per-rank exactness.
+   tp_ssm   — mamba2-370m, 48 layers, the first 8 requests: streams
+              bitwise, the SSD scan and RMSNorm as often as one device's
+              (SSM leaves and state replicate), no attention kernel; the
+              state bytes per rank.
+   tp_hybrid — jamba-v0.1-52b at full width, 8 of 32 layers (reduced, as
+              hybrid_serve), the first 8 requests, the one-device engine
+              freed first: flash and paged decode per rank at 16 of 32
+              heads, the grouped matmul 5/3 on the MoE layers, the SSD
+              scan as often as one device's.
+   tp_disagg — starcoder2-3b, prefill role and decode role, (1, 2) ->
+              (1, 2), (1, 2) -> one device, one device -> (1, 2): streams
+              bitwise tp_serve's unified one-device run's, every export's
+              wire bytes the one-device export's bit for bit, one host
+              pull an export, flash per rank in the mesh prefill role and
+              paged decode per rank in the mesh decode role, the decode
+              engines graphed, no leaked block; export and import p50.
+   tp_data  — granite on a (2, 2) mesh of four ranks on the card, the first
+              8 requests: streams bitwise tp_moe's one-device run's, the
+              parameter and KV pool bytes on each of the four devices
+              those `run_serve_cell(mesh_shape=(2, 2), whole=...)`
+              predicts (``dryrun_serve_data``), per-device KV share at
+              most ``TP_KV_SHARE``; each data row computing its slice of
+              the experts in decode where the slices are bitwise.
               Every tp phase prints tokens/s, ITL p50 and per-rank KV bytes
               of both runs beside nvidia-smi's name and power limit.
    dryrun_serve_tp — the dry run's serve accounting
@@ -642,6 +679,15 @@ TP_KV_SHARE = 0.6
 TP_CHURN = 6
 TP_SPEC_REQUESTS = 8
 TP_MLA_REQUESTS = 8
+# tp_moe, tp_ssm, tp_hybrid and tp_data: the trace's first 8 requests;
+# tp_data's (2, 2) mesh puts its four ranks on the card
+TP_FAMILY_REQUESTS = 8
+TP_DATA_DEVICES = ("cuda:0",) * 4
+# tp_rank_kernels: (E, C, D, F) of the whole up call, a rank takes F/2
+TP_RANK_GMM = {"granite_rank (40,256,1536)x(40,1536,256)": (40, 256, 1536,
+                                                            512),
+               "jamba_rank (16,160,4096)x(16,4096,7168)": (16, 160, 4096,
+                                                           14336)}
 # fleet serve: serve's trace over 3 pilots of 8 slots each, leasing from
 # one pool.  A server renews its leases once a tick, and its first tick
 # waits for the other servers' first ticks at the device lock (8
@@ -3886,17 +3932,21 @@ def tp_churn(vocab):
 
 
 def tp_run(phase, wrappers, arch, mesh, trace, load=SERVE, churn=False,
-           **kw):
+           cfg=None, **kw):
     """``serve_direct``'s engine (`build_engine`, weights from seed 0) of
-    ``arch`` on ``mesh`` (None: one device) answering ``trace``, then the
-    churn when asked, with every launch count set to 0 just before and
-    read just after and each kernel's call shapes recorded.  Gates: every
+    ``arch`` (or ``cfg``) on ``mesh`` (None: one device) answering
+    ``trace``, then the churn when asked, with every launch count set to 0
+    just before and read just after (and right after the build:
+    ``build_launches``, the construction's own, its column checks
+    included) and each kernel's call shapes recorded.  Gates: every
     request's full token count, one device->host copy a step, no leaked
-    block.  Returns a record: streams, launches, shapes, stats."""
+    block.  Returns a record: streams, launches, shapes, stats, the bytes
+    on each device of the mesh, the placement of an MoE slot's up/gate."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import build_engine, expected_tokens
+    from repro_torch.runtime import sharding
     from repro_torch.serving.engine import Request
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     extra = tp_churn(cfg.vocab_size) if churn else []
     for w in wrappers:
         w.launches = 0
@@ -3906,6 +3956,7 @@ def tp_run(phase, wrappers, arch, mesh, trace, load=SERVE, churn=False,
                            seed=load["seed"], device="cuda", mesh=mesh, **kw)
         torch.cuda.synchronize()
         built_bytes = torch.cuda.memory_allocated() - before
+        build_launches = {w.__name__: w.launches for w in wrappers}
         stats = eng.run_trace(trace)
         for e in extra:
             eng.submit(Request(rid=e["rid"],
@@ -3922,8 +3973,18 @@ def tp_run(phase, wrappers, arch, mesh, trace, load=SERVE, churn=False,
     leaks = eng.block_leaks()
     assert leaks == 0, (phase, leaks)
     kvb = eng.kv_pool_bytes()
+    held = eng.device_bytes()
+    pools = held["kv_pool"][0]
+    moe = next((sl["ffn"] for sl in eng.params.group(0)
+                if "router" in sl.get("ffn", {})), {})
     rec = {"phase": phase, "arch": arch, "streams": streams,
-           "launches": launches,
+           "launches": launches, "build_launches": build_launches,
+           "device_bytes": held,
+           # the KV pools' share on the lead device (None: no pool)
+           "pool_share": pools[0] / sum(pools) if sum(pools) else None,
+           "moe_placement": {k: type(v).__name__ for k, v in moe.items()
+                             if k in ("up", "gate")},
+           "expert_rows": getattr(eng.params, "expert_rows", 1),
            "shapes": {k: sorted(v) for k, v in shapes.items()},
            "steps": eng.steps, "d2h_transfers": eng.d2h_transfers,
            "prefix_hit_tokens": eng.prefix_hit_tokens,
@@ -3937,13 +3998,18 @@ def tp_run(phase, wrappers, arch, mesh, trace, load=SERVE, churn=False,
     return rec
 
 
-def engine_rows(load=SERVE, spec_k=4):
+def engine_rows(load=SERVE, spec_k=4, cfg=None):
     """The row counts a one-shot engine of ``load`` multiplies its column
     leaves by (`ServeEngine`'s own list): 1 (the admission's logits), the
-    slots (a step), slots x (spec_k + 1) (a verify burst), every bucket."""
+    slots (a step), slots x (spec_k + 1) (a verify burst), every bucket,
+    and an MoE ``cfg``'s capacity at every bucket."""
+    from repro_torch.models import moe
     from repro_torch.serving.engine import admit_buckets
+    buckets = admit_buckets(load["max_len"])
+    caps = ({moe._capacity(cfg, b) for b in buckets}
+            if cfg is not None and cfg.moe is not None else set())
     return sorted({1, load["slots"], load["slots"] * (spec_k + 1),
-                   *admit_buckets(load["max_len"])})
+                   *buckets, *caps})
 
 
 def gemm_diagnostic(params, mesh, rows):
@@ -3967,15 +4033,40 @@ def gemm_diagnostic(params, mesh, rows):
                     "M=1023": sharding.slices_exact(name, t, parts, (1023,)),
                     "engine_rows": sharding.slices_exact(name, t, parts,
                                                          rows)}
+        if name in ("up", "gate") and t.dim() == 4:
+            # an MoE leaf: each product the engine runs on its own
+            for label, fn in (("grouped_matmul", sharding._bucket_product),
+                              ("torch.matmul", sharding._decode_product)):
+                out[key][label] = product_exact(fn, t[0],
+                                                [p[0] for p in parts], rows)
     sharding.map_with_path(visit, tree)
     return out
 
 
+def product_exact(fn, w, parts, rows):
+    """Whether ``fn(x, part)`` on each column part of ``w`` (E, D, F) is
+    bitwise ``fn(x, w)``'s columns, for a random bf16 x (1, M, D) at every
+    M in ``rows``."""
+    gen = torch.Generator(device=w.device)
+    gen.manual_seed(0)
+    for m in rows:
+        x = torch.randn((1, m, w.shape[1]), generator=gen,
+                        device=w.device).to(w.dtype)
+        full, lo = fn(x, w), 0
+        for p in parts:
+            n = p.shape[-1]
+            if not torch.equal(fn(x, p), full[..., lo:lo + n]):
+                return False
+            lo += n
+    return True
+
+
 def tp_compare(phase, single, sharded, per_rank, replicated, heads,
-               smi):
+               smi, mesh_shape=(1, 2)):
     """The gates of a tensor-parallel phase against its single-device run
-    on the same card: streams bitwise, per-rank KV bytes at most
-    ``TP_KV_SHARE`` of the total, each kernel in ``per_rank`` launched
+    on the same card: streams bitwise, the KV pools' bytes on each device
+    at most ``TP_KV_SHARE`` of theirs in total (where there are pools: an
+    SSM slot's state replicates), each kernel in ``per_rank`` launched
     twice as often (once a rank) at per-rank shapes (``heads``: {kernel:
     (single-device heads, per-rank heads)} at q's third-from-last dim) and
     each in ``replicated`` as often (the lead device's).  Prints both
@@ -3983,8 +4074,9 @@ def tp_compare(phase, single, sharded, per_rank, replicated, heads,
     differ = [rid for rid, t in single["streams"].items()
               if sharded["streams"].get(rid) != t]
     assert not differ, f"{phase}: streams differ: {differ}"
-    assert sharded["kv_share"] <= TP_KV_SHARE, sharded["kv_share"]
-    assert sharded["mesh_shape"] == (1, 2), sharded["mesh_shape"]
+    if sharded["pool_share"] is not None:
+        assert sharded["pool_share"] <= TP_KV_SHARE, sharded["pool_share"]
+    assert sharded["mesh_shape"] == mesh_shape, sharded["mesh_shape"]
     for w in per_rank:
         n1, n2 = single["launches"][w], sharded["launches"][w]
         assert n1 > 0 and n2 == 2 * n1, (phase, w, n1, n2)
@@ -3998,23 +4090,51 @@ def tp_compare(phase, single, sharded, per_rank, replicated, heads,
             assert got == {h}, (phase, w, run["phase"], run["shapes"][w])
     keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
             "decode_steps", "kv_pool_bytes", "kv_pool_bytes_per_device",
-            "kv_share", "step_graph", "acceptance_rate", "launches",
-            "shapes", "mesh_whole_leaves", "prefix_hit_tokens")
-    say({"phase": phase, "arch": sharded["arch"], "mesh": "1x2 cuda:0,cuda:0",
+            "kv_share", "pool_share", "step_graph", "acceptance_rate",
+            "launches", "build_launches", "shapes", "mesh_whole_leaves",
+            "prefix_hit_tokens", "device_bytes", "moe_placement",
+            "expert_rows")
+    say({"phase": phase, "arch": sharded["arch"],
+         "mesh": "x".join(map(str, mesh_shape)) + " ranks on cuda:0",
          "streams_equal": len(single["streams"]), "card": smi,
          "sharded": {k: sharded[k] for k in keys},
          "single": {k: single[k] for k in keys}})
 
 
-def tp_phases(wrappers):
-    """tp_serve, tp_spec, tp_mla and tp_pilot (module docstring).  Returns
-    {run: launches} and {run: {kernel: shapes}}."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.runtime.mesh import serve_mesh
-    smi = subprocess.run(
+def smi_line():
+    """nvidia-smi's name and power limit of the card, one line."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def tp_gmm_gate(phase, single, sharded):
+    """The grouped matmul's launches in a mesh run's serving (its build's
+    column checks taken off): per MoE layer and admission, ``down`` once
+    on the lead device and ``up``/``gate`` once a model rank (once on the
+    lead when the engine kept the leaf whole), against the one-device
+    run's three."""
+    w = "grouped_matmul"
+    msz = sharded["mesh_shape"][1]
+    per = 1 + sum(1 if kind == "Whole" else msz
+                  for kind in sharded["moe_placement"].values())
+    n1 = single["launches"][w] - single["build_launches"][w]
+    n2 = sharded["launches"][w] - sharded["build_launches"][w]
+    assert n1 > 0 and n1 % 3 == 0, (phase, n1)
+    assert n2 == n1 // 3 * per, (phase, n1, n2, per,
+                                 sharded["moe_placement"])
+    return {"single": n1, "sharded": n2, "per_layer_admission": per,
+            "build_checks": sharded["build_launches"][w]}
+
+
+def tp_phases(wrappers):
+    """tp_serve, tp_spec, tp_mla, tp_pilot, tp_moe, tp_ssm, tp_hybrid,
+    tp_disagg and tp_data (module docstring).  Returns {run: launches}
+    and {run: {kernel: shapes}}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.runtime.mesh import serve_mesh
+    smi = smi_line()
     mesh = serve_mesh((1, 2), TP_DEVICES)
     runs, shapes, seconds = {}, {}, {}
 
@@ -4102,9 +4222,312 @@ def tp_phases(wrappers):
     runs["tp_pilot"] = tp_pilot_phase(wrappers, mesh, trace, serve_streams,
                                       smi)
     seconds["tp_pilot"] = time.monotonic() - t0
+
+    # tp_moe: granite-moe-3b-a800m, 32 layers, the first 8 requests
+    t0 = time.monotonic()
+    load = dict(SERVE, n_requests=TP_FAMILY_REQUESTS)
+    moe_cfg = get_config(MOE_ARCH)
+    moe_trace = serve_trace(MOE_ARCH)[:TP_FAMILY_REQUESTS]
+    moe_single = tp_run("tp_moe_single", wrappers, MOE_ARCH, None,
+                        moe_trace, load=load)
+    moe_diag = gemm_diagnostic(moe_single["engine"].params, mesh,
+                               engine_rows(load, cfg=moe_cfg))
+    keep("tp_moe_single", moe_single)
+    sharded = tp_run("tp_moe", wrappers, MOE_ARCH, mesh, moe_trace,
+                     load=load)
+    keep("tp_moe", sharded)
+    say({"phase": "tp_gemm_diagnostic", "arch": MOE_ARCH,
+         "leaves": moe_diag,
+         "differ": sorted(k for k, v in moe_diag.items()
+                          if not all(v.values())),
+         "kept_whole_by_engine": sharded["mesh_whole_leaves"], "card": smi})
+    assert sharded["step_graph"] and moe_single["step_graph"]
+    h = moe_cfg.num_heads
+    tp_compare("tp_moe", moe_single, sharded,
+               ("paged_decode_attention", "flash_attention"),
+               ("rmsnorm_fused",),
+               {"paged_decode_attention": (h, h // 2),
+                "flash_attention": (h, h // 2)}, smi)
+    say({"phase": "tp_moe_grouped_matmul",
+         **tp_gmm_gate("tp_moe", moe_single, sharded), "card": smi})
+    for w in ("paged_verify_attention", "decode_attention", "ssd_scan"):
+        assert sharded["launches"][w] == 0, (w, sharded["launches"])
+    seconds["tp_moe"] = time.monotonic() - t0
+
+    # tp_ssm: mamba2-370m, 48 layers, the first 8 requests
+    t0 = time.monotonic()
+    ssm_trace = serve_trace(SSM_ARCH)[:TP_FAMILY_REQUESTS]
+    single = tp_run("tp_ssm_single", wrappers, SSM_ARCH, None, ssm_trace,
+                    load=load)
+    keep("tp_ssm_single", single)
+    sharded = tp_run("tp_ssm", wrappers, SSM_ARCH, mesh, ssm_trace,
+                     load=load)
+    keep("tp_ssm", sharded)
+    tp_compare("tp_ssm", single, sharded, (), ("ssd_scan", "rmsnorm_fused"),
+               {}, smi)
+    for w in ("flash_attention", "paged_decode_attention",
+              "paged_verify_attention", "decode_attention",
+              "grouped_matmul"):
+        assert sharded["launches"][w] == 0, (w, sharded["launches"])
+    say({"phase": "tp_ssm_state", "arch": SSM_ARCH,
+         "state_bytes_by_device": sharded["device_bytes"]["state"],
+         "params_bytes_by_device": sharded["device_bytes"]["params"],
+         "kept_whole_by_engine": sharded["mesh_whole_leaves"], "card": smi})
+    seconds["tp_ssm"] = time.monotonic() - t0
+
+    # tp_hybrid: jamba at full width, 8 of 32 layers, the first 8
+    # requests; the one-device engine is freed before the mesh one is made
+    t0 = time.monotonic()
+    hcfg = hybrid_config()
+    h_trace = serve_trace(HYBRID_ARCH)[:TP_FAMILY_REQUESTS]
+    single = tp_run("tp_hybrid_single", wrappers, HYBRID_ARCH, None,
+                    h_trace, load=load, cfg=hcfg)
+    keep("tp_hybrid_single", single)
+    sharded = tp_run("tp_hybrid", wrappers, HYBRID_ARCH, mesh, h_trace,
+                     load=load, cfg=hcfg)
+    keep("tp_hybrid", sharded)
+    h = hcfg.num_heads
+    tp_compare("tp_hybrid", single, sharded,
+               ("paged_decode_attention", "flash_attention"),
+               ("ssd_scan", "rmsnorm_fused"),
+               {"paged_decode_attention": (h, h // 2),
+                "flash_attention": (h, h // 2)}, smi)
+    say({"phase": "tp_hybrid_grouped_matmul", "reduced": "8 of 32 layers",
+         **tp_gmm_gate("tp_hybrid", single, sharded),
+         "kept_whole_by_engine": sharded["mesh_whole_leaves"], "card": smi})
+    seconds["tp_hybrid"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    runs.update(tp_disagg_phase(wrappers, mesh, trace, serve_streams, smi))
+    seconds["tp_disagg"] = time.monotonic() - t0
+
+    # tp_data: granite on a (2, 2) mesh of four ranks on the card
+    t0 = time.monotonic()
+    mesh4 = serve_mesh((2, 2), TP_DATA_DEVICES)
+    sharded = tp_run("tp_data", wrappers, MOE_ARCH, mesh4, moe_trace,
+                     load=load)
+    dryrun_serve_check("dryrun_serve_data", sharded["engine"], MOE_ARCH,
+                       load, (2, 2), sharded["built_bytes"], smi)
+    keep("tp_data", sharded)
+    h = moe_cfg.num_heads
+    tp_compare("tp_data", moe_single, sharded,
+               ("paged_decode_attention", "flash_attention"),
+               ("rmsnorm_fused",),
+               {"paged_decode_attention": (h, h // 2),
+                "flash_attention": (h, h // 2)}, smi, mesh_shape=(2, 2))
+    say({"phase": "tp_data_grouped_matmul",
+         **tp_gmm_gate("tp_data", moe_single, sharded),
+         "expert_rows": sharded["expert_rows"], "card": smi})
+    seconds["tp_data"] = time.monotonic() - t0
     say({"phase": "tp_all", "seconds": seconds,
          "total_seconds": sum(seconds.values())})
     return runs, shapes
+
+
+def tp_disagg_phase(wrappers, mesh, trace, unified, smi):
+    """starcoder2-3b's split roles on the mesh and on one device: a
+    prefill-role engine of each answers serve's trace and exports every
+    request's handoff (one host pull each, counted), then decode-role
+    engines resume them in the pairings (1, 2) -> (1, 2), (1, 2) -> one
+    device and one device -> (1, 2).  Gates: every stream bitwise
+    ``unified`` (tp_serve's unified one-device run), the mesh export's
+    wire buffers the one-device export's bit for bit, flash per rank in
+    the mesh prefill role (twice the one-device count) and no decode
+    kernel there, paged decode per rank in the mesh decode role and no
+    flash there, the decode engines graphed, no leaked block.  Prints
+    each side's export and import ms (p50).  Returns {run: launches}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.serving.engine import Request
+    cfg = get_config(CODE_ARCH)
+    kw = dict(seed=SERVE["seed"], device="cuda")
+    runs, rec = {}, {}
+
+    def counted(fn):
+        for w in wrappers:
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {w.__name__: w.launches for w in wrappers}
+
+    def export(m):
+        eng = build_engine(cfg, SERVE["slots"], SERVE["max_len"],
+                           role="prefill", mesh=m, **kw)
+        for e in trace:
+            eng.submit(Request(rid=e["rid"],
+                               prompt=np.asarray(e["prompt"], np.int32),
+                               max_new_tokens=e["max_new_tokens"]))
+        real, pulls = torch.Tensor.cpu, []
+
+        def counting(self, *a, **k):
+            pulls.append(tuple(self.shape))
+            return real(self, *a, **k)
+        torch.Tensor.cpu = counting
+        try:
+            stats = eng.run()
+        finally:
+            torch.Tensor.cpu = real
+        assert len(pulls) == len(trace), ("tp_disagg", len(pulls))
+        assert eng.block_leaks() == 0
+        return {rid: r.handoff for rid, r in eng.done.items()}, stats
+
+    def resume(m, handoffs):
+        eng = build_engine(cfg, SERVE["slots"], SERVE["max_len"],
+                           role="decode", mesh=m, **kw)
+        for e in trace:
+            eng.submit(Request(rid=e["rid"],
+                               prompt=np.asarray(e["prompt"], np.int32),
+                               max_new_tokens=e["max_new_tokens"],
+                               handoff=handoffs[e["rid"]]))
+        stats = eng.run()
+        assert stats["step_graph"], "tp_disagg: the decode role ran eagerly"
+        assert eng.block_leaks() == 0
+        assert eng.d2h_transfers == eng.steps > 0
+        streams = {rid: list(r.tokens) for rid, r in eng.done.items()}
+        return streams, stats
+
+    (one_h, one_st), one_l = counted(lambda: export(None))
+    (mesh_h, mesh_st), mesh_l = counted(lambda: export(mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["tp_disagg_prefill_single"], runs["tp_disagg_prefill"] = (one_l,
+                                                                  mesh_l)
+    for rid, h in mesh_h.items():
+        h1 = one_h[rid]
+        assert h.nbytes == h1.nbytes, (rid, h.nbytes, h1.nbytes)
+        for a, b in zip(h.blocks, h1.blocks):
+            assert all(np.array_equal(a[k], b[k]) for k in b), rid
+    assert one_l["flash_attention"] > 0
+    assert mesh_l["flash_attention"] == 2 * one_l["flash_attention"], (
+        one_l, mesh_l)
+    for w in ("paged_decode_attention", "paged_verify_attention"):
+        assert mesh_l[w] == one_l[w] == 0, (w, mesh_l)
+    p50 = lambda v: float(np.median(v)) if v else None  # noqa: E731
+    rec["export_ms_p50"] = {"single": p50(one_st["handoff_export_ms"]),
+                            "mesh": p50(mesh_st["handoff_export_ms"])}
+    rec["handoff_bytes_total"] = int(sum(one_st["handoff_bytes"]))
+    rec["import_ms_p50"] = {}
+    decode = {}
+    for name, m, handoffs in (("mesh_to_mesh", mesh, mesh_h),
+                              ("mesh_to_one", None, mesh_h),
+                              ("one_to_mesh", mesh, one_h)):
+        (streams, st), launches = counted(lambda: resume(m, handoffs))
+        gc.collect()
+        torch.cuda.empty_cache()
+        differ = [rid for rid, t in unified.items() if streams.get(rid) != t]
+        assert not differ, f"tp_disagg {name}: streams differ: {differ}"
+        assert launches["flash_attention"] == 0, (name, launches)
+        decode[name] = launches
+        runs[f"tp_disagg_{name}"] = launches
+        rec["import_ms_p50"][name] = p50(st["handoff_import_ms"])
+        rec[f"{name}_tok_per_s"] = st["tok_per_s"]
+    n1 = decode["mesh_to_one"]["paged_decode_attention"]
+    for name in ("mesh_to_mesh", "one_to_mesh"):
+        n2 = decode[name]["paged_decode_attention"]
+        assert n1 > 0 and n2 == 2 * n1, (name, n1, n2)
+    say({"phase": "tp_disagg", "arch": CODE_ARCH, "mesh": "1x2 ranks on "
+         "cuda:0", "streams_equal_unified": len(unified),
+         "exports_bitwise_single": len(mesh_h), "host_pulls_per_export": 1,
+         **rec, "launches": runs, "card": smi})
+    return runs
+
+
+def tp_rank_kernels(rng, dev):
+    """Each kernel a tensor-parallel rank runs, at a rank's shapes, before
+    any mesh engine is made: the grouped matmul on each half of up's
+    columns (``TP_RANK_GMM``), flash at granite's 1023-token admission and
+    paged decode at its 8 slots, at 12 of its 24 heads (4 of 8 kv heads).
+    Gates: the two halves' outputs bitwise the whole call's, each rank's
+    output within the tolerance of its plain version.  Each rank's call
+    timed as its kernel's entry is (``ms`` back to back, ``device_ms``
+    from a graph of 50 calls) beside its plain version, its bound and its
+    library call.  Returns {kernel: {case: record}}."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.grouped_matmul.ops import (
+        bucket_matmul, grouped_matmul_plain)
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, paged_decode_attention_plain)
+    smi = smi_line()
+    out = {"grouped_matmul": {}, "flash_attention": {},
+           "paged_decode_attention": {}}
+    for name, (E, C, D, F_) in TP_RANK_GMM.items():
+        b = bf16(rng, (E, C, D), dev)
+        w = bf16(rng, (E, D, F_), dev, scale=D ** -0.5)
+        halves = [c.contiguous() for c in torch.chunk(w, 2, dim=-1)]
+        whole = bucket_matmul(b, w)
+        got = [bucket_matmul(b, h) for h in halves]
+        exact = torch.equal(torch.cat(got, dim=-1), whole)
+        assert exact, f"tp_rank_kernels {name}: halves differ from the whole"
+        h, T, Fh = halves[0], E * C, F_ // 2
+        err = check_close(f"tp_gmm/{name}", got[0], grouped_matmul_plain(
+            b.reshape(T, D), h, [C] * E).reshape(E, C, Fh), GMM_TOL)
+
+        def bmm_f32(b=b, h=h):
+            return torch.bmm(b, h, out_dtype=torch.float32)
+        out["grouped_matmul"][name] = {
+            "halves_bitwise_whole": exact, "max_abs_err": err,
+            "ms": time_ms(lambda: bucket_matmul(b, h), n=20),
+            "device_ms": graph_ms(lambda: bucket_matmul(b, h)),
+            "whole_call_device_ms": graph_ms(lambda: bucket_matmul(b, w)),
+            "plain_ms": time_ms(lambda: grouped_matmul_plain(
+                b.reshape(T, D), h, [C] * E), n=3),
+            "library_ms": time_ms(bmm_f32, n=20),
+            "library_device_ms": graph_ms(bmm_f32),
+            **bound(T * D * 2 + E * D * Fh * 2 + T * Fh * 4,
+                    2 * T * D * Fh, BF16_FLOPS), "card": smi}
+        del b, w, halves, whole, got
+    H, K, Dh, S = 24, 8, 64, 1023
+    q, k, v = _attn_case(rng, dev, 1, S, H, K, Dh)
+    whole = flash_attention(q, k, v)
+    ranks = [(q[:, :, r * H // 2:(r + 1) * H // 2].contiguous(),
+              k[:, :, r * K // 2:(r + 1) * K // 2].contiguous(),
+              v[:, :, r * K // 2:(r + 1) * K // 2].contiguous())
+             for r in range(2)]
+    got = [flash_attention(*a) for a in ranks]
+    assert torch.equal(torch.cat(got, dim=2), whole), "tp_rank flash"
+    rq, rk, rv = ranks[0]
+    qt, kt, vt = (t.transpose(1, 2) for t in ranks[0])
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    nbytes, flops = flash_work(1, S, H // 2, K // 2, Dh)
+    out["flash_attention"]["granite_rank (1,1023,12/4,64)"] = {
+        "ranks_bitwise_whole": True,
+        "max_abs_err": check_close("tp_flash/granite_rank", got[0],
+                                   flash_attention_plain(rq, rk, rv),
+                                   ATTN_TOL, ROW_REL_TOL),
+        "ms": time_ms(lambda: flash_attention(rq, rk, rv), n=20),
+        "device_ms": graph_ms(lambda: flash_attention(rq, rk, rv)),
+        "plain_ms": time_ms(lambda: flash_attention_plain(rq, rk, rv), n=20),
+        "library_ms": time_ms(sdpa, n=20), "library_device_ms": graph_ms(sdpa),
+        **bound(nbytes, flops, BF16_FLOPS), "card": smi}
+    c = dict(PAGED_MAIN, H=H, K=K)
+    q, kp, vp, tables, lens = paged_inputs(rng, dev, **c)
+    whole = paged_decode_attention(q, kp, vp, tables, lens)
+    ranks = [(q[:, r * H // 2:(r + 1) * H // 2].contiguous(),
+              kp[:, :, r * K // 2:(r + 1) * K // 2].contiguous(),
+              vp[:, :, r * K // 2:(r + 1) * K // 2].contiguous(), tables, lens)
+             for r in range(2)]
+    got = [paged_decode_attention(*a) for a in ranks]
+    assert torch.equal(torch.cat(got, dim=1), whole), "tp_rank paged"
+    live = sum(c["lens"])
+    blocks_read = sum(-(-n // c["bs"]) for n in c["lens"])
+    nbytes = (live * K // 2 * Dh * 2 * 2 + 2 * c["B"] * H // 2 * Dh * 2
+              + blocks_read * 4 + c["B"] * 4)
+    out["paged_decode_attention"]["granite_rank (8,12/4,64)"] = {
+        "ranks_bitwise_whole": True,
+        "max_abs_err": check_close(
+            "tp_paged/granite_rank", got[0],
+            paged_decode_attention_plain(*ranks[0]), ATTN_TOL, ROW_REL_TOL),
+        "ms": time_ms(lambda: paged_decode_attention(*ranks[0])),
+        "device_ms": graph_ms(lambda: paged_decode_attention(*ranks[0])),
+        "plain_ms": time_ms(lambda: paged_decode_attention_plain(*ranks[0])),
+        "library_ms": None,
+        **bound(nbytes, 4 * live * H // 2 * Dh, BF16_FLOPS), "card": smi}
+    say({"phase": "tp_rank_kernels", **out})
+    return out
 
 
 def tp_pilot_phase(wrappers, mesh, trace, direct, smi):
@@ -4177,36 +4600,17 @@ KV_LEAVES = frozenset({"kp", "vp", "ckvp", "kropep", "k", "v", "ckv",
 DRYRUN_STEP_REPS = 10
 
 
-def held_bytes(tree, msz, only=None):
-    """The bytes of ``tree``'s tensors per model rank, lead first, as an
-    engine holds them: a `Shards`' part r on rank r, a `Whole` or a plain
-    tensor once on the lead; ``only``: the leaves of those names alone."""
-    from repro_torch.runtime import sharding
-    per_rank = [0] * msz
-
-    def one(path, leaf):
-        if only is not None and sharding._leaf_name(path) not in only:
-            return
-        if isinstance(leaf, sharding.Shards):
-            for r, p in enumerate(leaf.parts):
-                per_rank[r] += p.numel() * p.element_size()
-        elif isinstance(leaf, (sharding.Whole, torch.Tensor)):
-            t = sharding.parts(leaf)[0]
-            per_rank[0] += t.numel() * t.element_size()
-    sharding.map_with_path(one, tree)
-    return per_rank
-
-
 def dryrun_serve_check(phase, eng, arch, load, mesh_shape, built_bytes, smi):
     """`run_serve_cell`'s prediction for the engine ``eng`` (``arch`` on
     ``load``'s slots and max_len, a ``mesh_shape`` mesh) against the
-    tensors it holds: its parameter and KV pool bytes, in total and per
-    model rank, equal.  A column leaf the engine keeps whole on the lead
+    tensors it holds: its parameter and KV pool bytes, in total, per
+    model rank and on each device of the mesh (every data row), equal.  A column leaf the engine keeps whole on the lead
     device (`sharding.Whole`) is predicted as held (``whole``); the
     reference's convention, which splits it, is printed beside.  So is
     the rise of ``torch.cuda.memory_allocated()`` over the build, with its
     gap to the predicted params + state."""
     from repro_torch.launch.dryrun import run_serve_cell
+    from repro_torch.runtime.sharding import rank_bytes as held_bytes
     msz = mesh_shape[1]
     whole = tuple(getattr(eng.params, "whole_leaves", ()))
     kw = dict(mesh_shape=mesh_shape, slots=load["slots"],
@@ -4217,6 +4621,9 @@ def dryrun_serve_check(phase, eng, arch, load, mesh_shape, built_bytes, smi):
             "state": held_bytes(eng.state, msz),
             "kv_pool": held_bytes(eng.state["cache"], msz, KV_LEAVES)}
     predicted_total = pred["params_bytes"] + pred["state_bytes"]
+    by_device = eng.device_bytes()
+    all_devices = sum(map(sum, pred["params_bytes_by_device"]
+                          + pred["state_bytes_by_device"]))
     say({"phase": phase, "arch": arch, "mesh_shape": list(mesh_shape),
          "slots": load["slots"], "max_len": load["max_len"],
          "whole_leaves": pred["whole_leaves"],
@@ -4227,13 +4634,19 @@ def dryrun_serve_check(phase, eng, arch, load, mesh_shape, built_bytes, smi):
              ref_conv["params_bytes_per_device"],
          "kept_whole_bytes": (pred["params_bytes_per_device"]
                               - ref_conv["params_bytes_per_device"]),
+         **{f"{k}_bytes_by_device": {
+             "predicted": pred[f"{k}_bytes_by_device"], "held": by_device[k]}
+            for k in by_device},
          "predicted_params_plus_state": predicted_total,
+         "predicted_on_all_devices": all_devices,
          "memory_allocated_rise_over_build": built_bytes,
-         "build_gap_bytes": built_bytes - predicted_total,
+         "build_gap_bytes": built_bytes - all_devices,
          "decode_memory_s": pred["decode_memory_s"], "card": smi})
     for k in ("params", "kv_pool"):
         assert pred[f"{k}_bytes_per_rank"] == held[k], (phase, k, pred, held)
         assert pred[f"{k}_bytes"] == sum(held[k]), (phase, k)
+        assert pred[f"{k}_bytes_by_device"] == by_device[k], (
+            phase, k, pred[f"{k}_bytes_by_device"], by_device[k])
 
 
 def dryrun_step_phase(eng, smi):
@@ -4670,6 +5083,12 @@ def main(argv):
         if k["name"] in shapes:
             k["arch_shapes"] = shapes[k["name"]]
     say({"phase": "arch_kernel_shapes", "seconds": time.monotonic() - t0})
+    t0 = time.monotonic()
+    rank = tp_rank_kernels(rng, dev)
+    for k in kernels:
+        if k["name"] in rank:
+            k["tp_rank_shapes"] = rank[k["name"]]
+    say({"phase": "tp_rank_kernels_all", "seconds": time.monotonic() - t0})
     wrappers = [paged_decode_attention, flash_attention, rmsnorm_fused,
                 paged_verify_attention, decode_attention, grouped_matmul,
                 ssd_scan]
@@ -4801,10 +5220,7 @@ def main(argv):
          "total_seconds": sum(fam_seconds.values())})
     tp_runs, tp_shapes = tp_phases(wrappers)
     runs.update(tp_runs)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     counted = dryrun_phases(smi)
     runs["dryrun_step"] = {w.__name__: counted.get(w.__name__, 0)
                            for w in wrappers}

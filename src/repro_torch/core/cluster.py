@@ -238,8 +238,12 @@ class Fleet:
         :class:`~repro_torch.serving.dispatch.FleetDispatcher` pool — the fleet
         analog of one trace-carrying serve task.  ``spec`` merges extra
         engine geometry (``slots``/``max_len``/``kv``/...) into the startup
-        spec."""
+        spec.  A labelled fleet's servers require its labels (unless the
+        caller sets ``require_labels``), so they run on its own pilots and
+        never on another fleet's drawing from the same repo."""
         n = n if n is not None else max(1, self.size())
+        if self.labels:
+            task_kw.setdefault("require_labels", dict(self.labels))
         return [self.sim.repo.submit(
             image, n_steps=n_steps, max_wall=max_wall,
             payload_spec={"dispatch": pool_name, **(spec or {})}, **task_kw)

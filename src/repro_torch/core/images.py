@@ -11,7 +11,7 @@ here the key holds the slice's device, or its mesh when the slice holds
 one (a `repro_torch.runtime.mesh.DeviceMesh`): a serve image of a
 ``mesh_shape`` builds its engines on that shape over the slice's mesh
 devices, so a pilot late-binds a tensor-parallel image onto a slice it
-already holds.
+already holds, for every decoder arch and in every role.
 
 An encoder-decoder (whisper) runs through its "prefill" image (frames and
 a prompt) and its "decode" image (a dense decode state); its "serve"

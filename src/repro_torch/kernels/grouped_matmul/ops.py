@@ -19,7 +19,12 @@ a CPU tensor runs the plain version.
 
 Groups may outnumber experts: group ``g`` uses expert ``g % E``, so the
 capacity buckets of a batch, ``(B, E, C, D)``, are ``B * E`` groups of
-``C`` rows in one launch.
+``C`` rows in one launch.  Under a serve mesh each model rank passes its
+contiguous ``(E, D, F/m)`` part of ``up`` or ``gate`` as ``w``, unchanged:
+the kernel walks fixed 128 x 128 output tiles and reduces each over the
+whole of D, so a part whose width is a whole number of tiles gives the
+whole call's columns bitwise (the serve engine checks it at construction,
+`repro_torch.runtime.sharding.slices_exact`).
 
 `grouped_matmul` and `bucket_matmul` launch the kernel for CUDA tensors
 (every launch counts in ``grouped_matmul.launches``) and run

@@ -284,7 +284,10 @@ def run_serve_cell(arch: str, *, mesh_shape: tuple = (1, 1),
     (`sharding.Whole`), replicated leaves once on the lead; the record
     then also has ``whole_leaves`` and, per model rank, lead first,
     ``params_bytes_per_rank``, ``state_bytes_per_rank`` and
-    ``kv_pool_bytes_per_rank``."""
+    ``kv_pool_bytes_per_rank``; and the same per device of the mesh,
+    ``[data row][model rank]`` (``params_bytes_by_device``, ...): every
+    data row holds a copy of row 0's placement, MoE leaves kept whole
+    included."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     msz = int(mesh_shape[1])
     n_dev = int(mesh_shape[0]) * msz
@@ -346,6 +349,9 @@ def run_serve_cell(arch: str, *, mesh_shape: tuple = (1, 1),
         rec["params_bytes_per_rank"] = p[2:]
         rec["state_bytes_per_rank"] = s[2:]
         rec["kv_pool_bytes_per_rank"] = k[2:]
+        for name, acc in (("params", p), ("state", s), ("kv_pool", k)):
+            rec[f"{name}_bytes_by_device"] = [list(acc[2:])
+                                              for _ in range(mesh_shape[0])]
     return rec
 
 

@@ -81,7 +81,6 @@ from repro_torch.core.pilot import PilotConfig
 from repro_torch.models.api import build_model, resolve_device
 from repro_torch.runtime.mesh import (
     parse_mesh_shape, serve_mesh, serve_mesh_spec)
-from repro_torch.runtime.sharding import check_serve_mesh
 from repro_torch.serving.dispatch import FleetDispatcher
 from repro_torch.serving.engine import ServeEngine, admit_length
 
@@ -300,7 +299,8 @@ def _server_rows(sim, tids) -> list[dict]:
         if r is None:
             continue
         tel = r.telemetry
-        rows.append({"task_id": tid, "exitcode": r.exitcode,
+        rows.append({"task_id": tid, "pilot": r.pilot_id,
+                     "exitcode": r.exitcode,
                      "error": tel.get("error"),
                      "serve": tel.get("serve", {}),
                      "engine": tel.get("engine", {})})
@@ -346,8 +346,6 @@ def serve_fleet(arch: str, n_requests: int, n_pilots: int, *,
     from repro_torch.core.chaos import ChaosController
 
     mesh = serve_mesh_for(mesh_shape, mesh_devices, device)
-    if mesh is not None:
-        check_serve_mesh(mesh)            # before any pilot starts
     img = _fleet_image(arch, max_len, slots, smoke, draft,
                        mesh_shape=mesh_shape)
     sim = ClusterSim(registry=registry, device=device)
@@ -486,6 +484,9 @@ def serve_disagg(arch: str, n_requests: int, *, prefill_pilots: int = 2,
     role (weights from seed 0); ``trace`` defaults to a ``make_trace``
     trace from ``seed``.
 
+    Each role's fleet is labelled with its pool, so its pilots run only
+    that role's servers (the reference's fleets share one task repo
+    unlabelled, and a pilot of one may serve the other role).
     ``fail_prefill_at`` / ``fail_decode_at`` hard-kill a lease-holding
     pilot of that stage once K requests have settled there: a dead prefill
     pilot's prompts replay from the PROMPT on survivors; a dead decode
@@ -495,8 +496,9 @@ def serve_disagg(arch: str, n_requests: int, *, prefill_pilots: int = 2,
     Returns the run's stats (TTFT at the prefill export, the resume time
     at the decode import, goodput, leaks, exports and imports) and, the
     port's own, each handoff's export and import milliseconds and wire
-    bytes over the servers that ended gracefully, and ``servers``: each
-    pool's server rows (exit code, serve telemetry, engine stats)."""
+    bytes over the servers that ended gracefully, ``servers``: each
+    pool's server rows (pilot, exit code, serve telemetry, engine stats),
+    and ``pilots``: each role's fleet."""
     from repro_torch.serving.dispatch import DisaggRouter
 
     sim = ClusterSim(registry=registry, device=device)
@@ -507,7 +509,8 @@ def serve_disagg(arch: str, n_requests: int, *, prefill_pilots: int = 2,
                            max_len=max_len, seed=seed)
     counts = {"prefill": prefill_pilots, "decode": decode_pilots}
     fleets = {role: sim.spawn_fleet(n, PilotConfig(max_payloads=2,
-                                                   idle_grace=0.3))
+                                                   idle_grace=0.3),
+                                    labels={"pool": role})
               for role, n in counts.items()}
     tids = {role: fleets[role].submit_servers(
                 imgs[role], pools[role].name, n=counts[role],
@@ -522,6 +525,8 @@ def serve_disagg(arch: str, n_requests: int, *, prefill_pilots: int = 2,
             raise RuntimeError(
                 f"only {len(pools[role].servers)}/{n} {role} servers came "
                 f"up within 300s: {_server_rows(sim, tids[role])}")
+    pilots = {role: [p.pilot_id for p in f.members]
+              for role, f in fleets.items()}
     t0 = time.monotonic()
     router.submit_trace(trace)
     router.seal()
@@ -572,6 +577,7 @@ def serve_disagg(arch: str, n_requests: int, *, prefill_pilots: int = 2,
         "resume_p50_s": _pct(resumes, 50),
         "resume_p99_s": _pct(resumes, 99),
         "failed_pilots": failed,
+        "pilots": pilots,
         "pilot_seconds": sum(f.pilot_seconds() for f in fleets.values()),
         "results": router.results(),
         "leaked_blocks": leaked,
@@ -601,8 +607,9 @@ def serve_disagg_schedule(arch: str, schedule: list[tuple[float, dict]], *,
     """Disaggregated fleets on ``device`` under TWO independent autoscalers,
     one per role pool, each reading its own label's ``pool_pressure()``
     slice: a prefill-bound trace grows only the prefill fleet, a
-    decode-bound one only the decode fleet.  A pool whose policy is None
-    keeps its ``initial_pilots``."""
+    decode-bound one only the decode fleet (each fleet labelled with its
+    pool, so its pilots, joiners included, run only its role's servers).
+    A pool whose policy is None keeps its ``initial_pilots``."""
     from repro_torch.core.autoscaler import FleetAutoscaler
     from repro_torch.serving.dispatch import DisaggRouter
 
@@ -612,7 +619,8 @@ def serve_disagg_schedule(arch: str, schedule: list[tuple[float, dict]], *,
     policies = {"prefill": prefill_policy, "decode": decode_policy}
     fleets = {role: sim.spawn_fleet(initial_pilots,
                                     PilotConfig(max_payloads=4,
-                                                idle_grace=idle_grace))
+                                                idle_grace=idle_grace),
+                                    labels={"pool": role})
               for role in policies}
     scalers = {}
     out: dict = {}
@@ -834,7 +842,9 @@ def main(argv=None):
     ap.add_argument("--mesh", type=parse_mesh_shape, default=None,
                     help="serve over a device mesh, 'AxB' = (data, model): "
                          "'1x2' splits params and KV pools on the head axis "
-                         "over 2 ranks (direct and fleet modes)")
+                         "over 2 ranks; a data axis above 1 replicates them "
+                         "(MoE decode splits its experts over it); every "
+                         "decoder arch (direct and fleet modes)")
     ap.add_argument("--mesh-devices", default=None,
                     help="comma-separated devices of the mesh's ranks, e.g. "
                          "'cuda:0,cuda:0' for two ranks on one card "

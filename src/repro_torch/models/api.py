@@ -100,8 +100,11 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int, *,
     its ranks by the serve tensor-parallel rules
     (`repro_torch.runtime.sharding.serve_state_shardings`): KV pools and
     rings split on their head or latent dim, each rank's part on its
-    device; block tables, ``token`` and ``pos`` one copy on the lead
-    device.  ``device`` is then not read."""
+    device; SSM ``ssd``/``conv`` state, block tables, ``token`` and
+    ``pos`` one copy on the lead device (a hybrid's attention pools split,
+    its SSM rows not).  This is data row 0's state; the engine makes the
+    other data rows' copies (`sharding.state_replicas`).  ``device`` is
+    then not read."""
     if kv not in ("paged", "dense"):
         raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
     if cfg.is_encdec and kv == "paged":

@@ -25,17 +25,32 @@ engine's left-padded prompts the pad rows come first in the cumsum and
 take their experts' capacity before any real token does, as in the
 reference.  The sharding constraints of the reference are identity
 without a mesh and are dropped.
+
+Under a serve mesh (`repro_torch.runtime.sharding.ShardedParams`) the
+router and the dispatch run once, in f32, on the lead device; ``up`` and
+``gate`` are column leaves split on F over the model ranks, so each rank
+runs its ``(E, D, F/m)`` part through the same product (the grouped-matmul
+kernel in ``gmm`` mode) and ``act(g) * up`` on its columns; the result is
+gathered along F onto the lead device (the reference's
+``constrain_replicated(h)``), where ``down`` (row-parallel, replicated)
+and the combine run whole, in the one-device order.  In decode, with a
+data axis above 1, each data row computes its slice of the experts from
+its own copy of the weights (the reference's ``constrain(h, "..dm")``):
+the slices are gathered onto the lead device before ``down``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.grouped_matmul.ops import bucket_matmul
+from repro_torch.launch import op_stats
 from repro_torch.models.layers import COMPUTE, act_fn, dense_init
+from repro_torch.runtime.sharding import gather, on_ranks, parts
 
 
 def init_moe(gen, cfg, dtype=COMPUTE, device="cpu"):
@@ -154,24 +169,58 @@ def apply_moe(x, p, cfg, compute=COMPUTE):
 
     buckets, meta = _dispatch(x, idx, E, C)                    # (B,E,C,D)
     act = act_fn(cfg.activation)
-    if cfg.moe_impl == "gmm":
-        up = _bucket_gmm(buckets, p["up"].to(compute))
-        if cfg.mlp_gated:
-            g = _bucket_gmm(buckets, p["gate"].to(compute))
-            h = (act(g) * up).to(compute)
-        else:
-            h = act(up).to(compute)
+    gmm = cfg.moe_impl == "gmm"
+
+    def hidden(b, up, gate):
+        """One rank's columns of ``act(g) * up``: its part of ``up`` and
+        ``gate`` (E, D, F/m), every bucket."""
+        if gmm:
+            u = _bucket_gmm(b, up.to(compute))
+            if gate is None:
+                return act(u).to(compute)
+            return (act(_bucket_gmm(b, gate.to(compute))) * u).to(compute)
+        u = torch.einsum("becd,edf->becf", b, up.to(compute))
+        if gate is None:
+            return act(u)
+        return act(torch.einsum("becd,edf->becf", b,
+                                gate.to(compute))) * u
+
+    h = gather(on_ranks(hidden, buckets, p["up"], p.get("gate"), dim=-1))
+    if gmm:
         y = _bucket_gmm(h, p["down"].to(compute)).to(compute)
     else:
-        up = torch.einsum("becd,edf->becf", buckets, p["up"].to(compute))
-        if cfg.mlp_gated:
-            g = torch.einsum("becd,edf->becf", buckets,
-                             p["gate"].to(compute))
-            h = act(g) * up
-        else:
-            h = act(up)
         y = torch.einsum("becf,efd->becd", h, p["down"].to(compute))
     return _combine(y, meta, wts, compute), aux
+
+
+def _dense_hidden(xt, up, gate, act, compute):
+    """``act(xt @ gate) * (xt @ up)`` over every expert of ``up``/``gate``
+    (E, D, F): (E, M, F)."""
+    u = torch.matmul(xt, up.to(compute))
+    if gate is None:
+        return act(u)
+    return act(torch.matmul(xt, gate.to(compute))) * u
+
+
+def _expert_rows(xt, rows, act, compute):
+    """The decode hidden of every expert, each data row computing its
+    slice of the experts from its own copy of ``up``/``gate`` (``rows``,
+    row 0 first), over its model ranks; gathered onto ``xt``'s device in
+    expert order."""
+    out = []
+    E = rows[0]["up"].shape[0]
+    n = E // len(rows)
+    for r, p in enumerate(rows):
+        sl = slice(r * n, (r + 1) * n)
+        gate = p.get("gate")
+        x = xt.to(parts(p["up"])[0].device)
+        h = gather(on_ranks(
+            functools.partial(_dense_hidden, act=act, compute=compute), x,
+            p["up"][sl], None if gate is None else gate[sl], dim=-1))
+        out.append(h.to(xt.device))
+    h = torch.cat(out, dim=0)
+    op_stats.transfer("all-gather", h)
+    return h
 
 
 def apply_moe_dense(x, p, cfg, compute=COMPUTE):
@@ -185,11 +234,13 @@ def apply_moe_dense(x, p, cfg, compute=COMPUTE):
 
     act = act_fn(cfg.activation)
     xt = x.reshape(1, B * S, D)                                # every expert
-    up = torch.matmul(xt, p["up"].to(compute))                 # (E,BS,F)
-    if cfg.mlp_gated:
-        h = act(torch.matmul(xt, p["gate"].to(compute))) * up
+    rows = getattr(p, "rows", ())
+    if len(rows) > 1:
+        h = _expert_rows(xt, rows, act, compute)               # (E,BS,F)
     else:
-        h = act(up)
+        h = gather(on_ranks(
+            functools.partial(_dense_hidden, act=act, compute=compute), xt,
+            p["up"], p.get("gate"), dim=-1))
     y = torch.matmul(h, p["down"].to(compute))                 # (E,BS,D)
     out = torch.bmm(gates.reshape(B * S, 1, -1).to(compute),
                     y.transpose(0, 1))                         # (BS,1,D)

@@ -15,6 +15,13 @@ returns new arrays and its engine donates the old ones.  Chunked admission
 (``ssm_prefill_chunk_row``) runs a chunk's tokens one at a time through
 ``ssm_decode`` from one row's cached state, as the reference scans them.
 
+Under a serve mesh every SSM leaf (``in_proj``, ``out_proj``, ``conv_w``,
+``conv_b``) and the ``ssd``/``conv`` state are replicated by the serve
+rules: one tensor on the lead device, so the mixer and the SSD-scan
+kernel run once there.  The reference's ``constrain(xh, "b.m.")`` is a
+placement hint to its partitioner; the port places tensors itself and
+needs none.
+
 Rounding points follow the reference: the depthwise causal conv is a chain
 of bf16 multiplies and adds in a fixed order, the decode conv one bf16
 contraction (f32 sums, one rounding), ``silu`` is ``x / (1 + exp(-x))``

@@ -10,6 +10,9 @@ groups is a Python loop here.  Its ``constrain*`` calls are identity
 without a mesh; under one the serve paths take
 `repro_torch.runtime.sharding.ShardedParams`, whose split leaves run each
 rank's slice, and gather before each product that contracts a split dim.
+Each slot of a group reads its own leaves, so a hybrid group's attention
+slot runs its heads per rank, its MoE slot its columns per rank, and its
+SSM slots (replicated leaves) once on the lead device.
 Caches are stacked the same way: one pool per slot with a leading
 ``n_groups`` dim.  An MoE slot runs the capacity
 dispatch (``moe.apply_moe``) in prefill and the dense-gated MoE

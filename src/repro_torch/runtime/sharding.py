@@ -29,9 +29,21 @@ order, and the tokens stay bitwise the single-device engine's.
 A column slice of a product is not always bitwise the whole product's
 slice: the library may pick another algorithm (another split of the
 contraction) for another width.  `shard_params` checks each column leaf at
-the row counts its engine multiplies by (`slices_exact`) and keeps a leaf
-that differs whole on the lead device, as a `Whole`: `on_ranks` runs its
-product there and splits the output over the ranks.
+the row counts its engine multiplies by (`slices_exact`; for an MoE
+``up``/``gate``, the decode product and the capacity-bucket products the
+engine runs) and keeps a leaf that differs whole on the lead device, as a
+`Whole`: `on_ranks` runs its product there and splits the output over the
+ranks.
+
+The data axis of a serve mesh is the reference's replication headroom:
+slots are not batch-sharded.  The rank loop runs on data row 0; every
+other data row holds a copy of row 0's placement of the params
+(`replicate`, `ShardedParams.replicas`) and of the decode state
+(`state_replicas`), so each device holds the bytes the dry run predicts.
+The one thing the reference computes over the data axis is MoE decode
+expert parallelism (its ``constrain(h, "..dm")``): each data row computes
+its slice of the experts from its own copy (`Experts`), where the slices
+are bitwise (`experts_exact`).
 
 The train half (``param_spec``, ``param_shardings``, ``batch_shardings``,
 ``decode_state_shardings``, ``train_state_shardings``, ``constrain``) is
@@ -536,6 +548,10 @@ class Shards:
         return self.parts[0].device
 
     @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    @property
     def shape(self) -> torch.Size:
         s = list(self.parts[0].shape)
         s[self.dim] = sum(p.shape[self.dim] for p in self.parts)
@@ -563,6 +579,10 @@ class Whole:
     @property
     def device(self) -> torch.device:
         return self.tensor.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.tensor.dtype
 
     @property
     def shape(self) -> torch.Size:
@@ -680,27 +700,53 @@ def pairs(dst, src):
 # placing parameters and state
 # --------------------------------------------------------------------------
 
+class Experts(dict):
+    """An MoE slot's parameters on data row 0 (read as any slot's dict)
+    that also carries ``rows``: the same slot's parameters on every data
+    row, row 0 first.  `repro_torch.models.moe.apply_moe_dense` computes
+    each row's slice of the experts from that row's own copy: the
+    reference's serve-mode expert parallelism over the data axis."""
+
+    def __init__(self, p: dict, rows: tuple):
+        super().__init__(p)
+        self.rows = rows
+
+
 class ShardedParams:
     """An `LMParams` placed on a mesh by `serve_param_shardings`: split
     column leaves are `Shards` (or `Whole`), every other leaf one tensor on
     the lead device.  The serve paths read it as they read `LMParams`
-    (``embed``, ``head``, ``final_norm``, ``group(g)``, ``n_groups``)."""
+    (``embed``, ``head``, ``final_norm``, ``group(g)``, ``n_groups``).
+    ``replicas`` are the copies of that placement on data rows 1, 2, ...
+    of the mesh; with ``expert_rows`` above 1 each MoE slot's view is an
+    `Experts` holding every row's copy."""
 
-    def __init__(self, tree: dict, mesh: DeviceMesh):
+    def __init__(self, tree: dict, mesh: DeviceMesh, replicas=(),
+                 expert_rows: int = 1):
         self.mesh = mesh
         self.whole_leaves: tuple[str, ...] = ()
+        self.replicas = tuple(replicas)
+        self.expert_rows = expert_rows
         self._tree = tree
         self.embed = tree["embed"]
         self.head = tree.get("head")
         self.final_norm = tree["final_norm"]
         layers = tree["layers"]
         self.n_groups = next(iter(layers[0]["mixer"].values())).shape[0]
+        rows = ((tree,) + self.replicas)[:expert_rows]
 
         def take(t, i):
             if isinstance(t, dict):
                 return {k: take(v, i) for k, v in t.items()}
             return t[i]
-        self._views = [[take(s, g) for s in layers]
+
+        def view(s, g):
+            v = take(layers[s], g)
+            if len(rows) > 1 and "router" in v.get("ffn", {}):
+                v["ffn"] = Experts(v["ffn"], tuple(
+                    take(r["layers"][s]["ffn"], g) for r in rows))
+            return v
+        self._views = [[view(s, g) for s in range(len(layers))]
                        for g in range(self.n_groups)]
 
     def group(self, g: int) -> list[dict]:
@@ -710,93 +756,199 @@ class ShardedParams:
         return self._tree
 
 
-def _place(t, dim, mesh: DeviceMesh):
-    devs = mesh.model_devices
+def data_rows(mesh: DeviceMesh) -> tuple[tuple[torch.device, ...], ...]:
+    """The model ranks' devices of each data row of ``mesh``, row 0 (its
+    `DeviceMesh.model_devices`) first."""
+    flat = mesh.devices.reshape(-1, mesh.spec.axis_size(MODEL_AXIS))
+    return tuple(tuple(r) for r in flat)
+
+
+def _place(t, dim, devs):
     if dim is None:
-        return t.to(mesh.lead)
+        return t.to(devs[0])
     return Shards([c.contiguous().to(d)
                    for c, d in zip(torch.chunk(t, len(devs), dim), devs)], dim)
 
 
-def check_serve_mesh(mesh: DeviceMesh):
-    """Raise unless the port serves on ``mesh``: its data axis must be 1."""
-    if mesh.spec.axis_size("data") > 1:
-        raise NotImplementedError(
-            f"mesh {mesh.spec.shape}: a data axis above 1 (replicas of the "
-            "whole engine on more devices) is not in the port; it is "
-            "ROADMAP.md Queue 1 item 8's remainder")
+def replicate(tree, devs):
+    """A copy of ``tree``'s placement on the model ranks ``devs`` of
+    another data row: a `Shards`' part r on ``devs[r]``, a `Whole` or a
+    tensor on ``devs[0]``.  Always a copy, also onto the device a tensor
+    is on, so every data row holds its own bytes."""
+    def one(path, x):
+        if isinstance(x, Shards):
+            return Shards([p.to(d, copy=True) for p, d in zip(x.parts, devs)],
+                          x.dim)
+        if isinstance(x, Whole):
+            return Whole(x.tensor.to(devs[0], copy=True), x.dim, devs)
+        return x.to(devs[0], copy=True)
+    return map_with_path(one, tree)
 
 
-def _column_matrix(name: str, t):
-    """The (K, N) matrix a column leaf multiplies by: a layer leaf's group
-    0, a projection's heads flattened; the embedding as the tied head."""
+def rank_bytes(tree, msz: int, only=None) -> list[int]:
+    """The bytes of ``tree``'s tensors on each of ``msz`` model ranks,
+    lead first, as the serve path places them: a `Shards`' part r on rank
+    r, a `Whole` or a tensor on the lead; ``only``: the leaves of those
+    names alone."""
+    per_rank = [0] * msz
+
+    def one(path, leaf):
+        if only is not None and _leaf_name(path) not in only:
+            return
+        ps = parts(leaf)
+        for r, p in enumerate(ps if isinstance(leaf, Shards) else ps[:1]):
+            per_rank[r] += p.numel() * p.element_size()
+    map_with_path(one, tree)
+    return per_rank
+
+
+def _decode_product(x, w):
+    """`moe.apply_moe_dense`'s product: x (1, M, D) @ w (E, D, F)."""
+    return torch.matmul(x, w)
+
+
+def _bucket_product(x, w):
+    """`moe._bucket_gmm`'s product of one row's capacity buckets, E
+    buckets of M rows: the grouped-matmul kernel on a CUDA tensor, its
+    plain version on the CPU."""
+    from repro_torch.kernels.grouped_matmul.ops import bucket_matmul
+    E, _, _ = w.shape
+    return bucket_matmul(x.expand(E, -1, -1).contiguous(), w)
+
+
+def _einsum_product(x, w):
+    """`moe.apply_moe`'s einsum path on the same buckets."""
+    return torch.einsum("ecd,edf->ecf", x.expand(w.shape[0], -1, -1), w)
+
+
+def _column_products(name: str, t):
+    """The products the engine runs with column leaf ``t``, each as
+    (the weight it multiplies by, fn(x, weight), the shape of x at M
+    rows).  A stacked MoE ``up``/``gate`` (G, E, D, F) is group 0's (E, D,
+    F) in the decode product and the bucket products; any other leaf is
+    the (K, N) matrix of ``x @ w`` (a layer leaf's group 0, a projection's
+    heads flattened; the embedding as the tied head)."""
+    if name in ("up", "gate") and t.dim() == 4:
+        w = t[0]
+        return [(w, fn, lambda m, w=w: (1, m, w.shape[1]))
+                for fn in (_decode_product, _bucket_product,
+                           _einsum_product)]
     if name == "embed":
-        return t.T
-    if t.dim() == 4 or (t.dim() == 3 and name in ("up", "gate")):
-        t = t[0]
-    return t.reshape(t.shape[0], -1)
+        w = t.T
+    else:
+        w = t[0] if t.dim() == 4 or (t.dim() == 3 and name in (
+            "up", "gate")) else t
+        w = w.reshape(w.shape[0], -1)
+    return [(w, torch.matmul, lambda m, w=w: (m, w.shape[0]))]
+
+
+def _exact(want, got, lo, n, dim):
+    return torch.equal(got, want.narrow(dim, lo, n).to(got.device))
 
 
 def slices_exact(name: str, t, parts, rows) -> bool:
-    """True iff, at every row count M in ``rows``, each part's product
-    ``x @ part`` (on its device) is bitwise the columns of ``x @ t`` (on
-    ``t``'s) it stands for, for a random bf16 ``x`` of M rows.  The
-    library's choice of algorithm depends on the shapes, not the values."""
-    w = _column_matrix(name, t)
-    ps = [_column_matrix(name, p) for p in parts]
-    gen = torch.Generator(device=w.device)
+    """True iff, at every row count M in ``rows``, each part's products
+    (on its device) are bitwise the columns of ``t``'s products (on
+    ``t``'s) they stand for, for a random bf16 ``x`` of M rows: ``x @
+    part`` for a dense leaf; for a stacked MoE ``up``/``gate``, the decode
+    product and the capacity-bucket products (`_column_products`).  The
+    library's choice of algorithm depends on the shapes, not the
+    values."""
+    gen = torch.Generator(device=t.device)
     gen.manual_seed(0)
-    for m in rows:
-        x = torch.randn((m, w.shape[0]), generator=gen,
-                        device=w.device).to(w.dtype)
-        full = x @ w
-        lo = 0
-        for p in ps:
-            n = p.shape[1]
-            if not torch.equal(x.to(p.device) @ p,
-                               full[:, lo:lo + n].to(p.device)):
-                return False
-            lo += n
+    for (w, fn, shape), *ps in zip(_column_products(name, t),
+                                   *(_column_products(name, p)
+                                     for p in parts)):
+        for m in rows:
+            x = torch.randn(shape(m), generator=gen,
+                            device=w.device).to(w.dtype)
+            full = fn(x, w)
+            lo = 0
+            for pw, _, _ in ps:
+                n = pw.shape[-1]
+                if not _exact(full, fn(x.to(pw.device), pw), lo, n, -1):
+                    return False
+                lo += n
     return True
 
 
-def shard_params(params, mesh: DeviceMesh, *, rows=(), whole=()):
+def experts_exact(t, parts, rows, n: int) -> bool:
+    """True iff the experts of a stacked MoE ``up``/``gate`` split into
+    ``n`` equal slices (one a data row) keep the decode product bitwise:
+    at every M in ``rows``, each slice's product by each of ``parts``
+    (the model ranks' parts, or the whole leaf) is that part's whole
+    product's slice.  False where ``n`` does not divide the experts."""
+    E = t.shape[1]
+    if E % n:
+        return False
+    gen = torch.Generator(device=t.device)
+    gen.manual_seed(0)
+    for m in rows:
+        x = torch.randn((1, m, t.shape[2]), generator=gen,
+                        device=t.device).to(t.dtype)
+        for p in parts:
+            w = p[0]
+            xp = x.to(w.device)
+            full = _decode_product(xp, w)
+            for lo in range(0, E, E // n):
+                if not _exact(full, _decode_product(xp, w[lo:lo + E // n]),
+                              lo, E // n, 0):
+                    return False
+    return True
+
+
+def shard_params(params, mesh: DeviceMesh, *, rows=(), whole=(),
+                 decode_rows=None):
     """``params`` (`LMParams`) placed on ``mesh``: each rank's slice of a
     split leaf on its device, replicated leaves once on the lead device.
     A split leaf named in ``whole``, or whose slices are not exact
     (`slices_exact`) at some row count in ``rows``, stays whole on the
-    lead (`Whole`); the result's ``whole_leaves`` names those leaves."""
-    check_serve_mesh(mesh)
+    lead (`Whole`); the result's ``whole_leaves`` names those leaves.
+    Each further data row of the mesh holds a copy of that placement
+    (`replicate`).  There, when the mesh has MoE slots and their experts'
+    slices are exact (`experts_exact`) at the decode product's row counts
+    (``decode_rows``; None: ``rows``), every data row computes its slice
+    of the experts in decode (``expert_rows``); otherwise row 0 computes
+    them all."""
     tree = params.tree()
     dims = serve_param_shardings(tree, mesh)
+    n_data = len(data_rows(mesh))
     # an embedding with a head of its own is only looked up (exact split
     # or whole); a tied one is also the head's product
     looked_up = {"embed"} if "head" in tree else set()
-    kept = {}
+    kept, experts = {}, {}
 
     def place(path, t):
         name = _leaf_name(path)
-        out = _place(t, _get(dims, path), mesh)
+        out = _place(t, _get(dims, path), mesh.model_devices)
+        key = (name, tuple(t.shape))
         if isinstance(out, Shards):
-            key = (name, tuple(t.shape))
             if key not in kept:
                 kept[key] = name in whole or (
                     name not in looked_up
                     and not slices_exact(name, t, out.parts, rows))
             if kept[key]:
-                return Whole(t.to(mesh.lead), out.dim, out.devices)
+                out = Whole(t.to(mesh.lead), out.dim, out.devices)
+        if (n_data > 1 and name in ("up", "gate") and t.dim() == 4
+                and key not in experts):
+            ps = out.parts if isinstance(out, Shards) else (t,)
+            experts[key] = experts_exact(
+                t, ps, rows if decode_rows is None else decode_rows, n_data)
         return out
-    sp = ShardedParams(map_with_path(place, tree), mesh)
+    main = map_with_path(place, tree)
+    ep = n_data if experts and all(experts.values()) else 1
+    sp = ShardedParams(main, mesh, [replicate(main, devs)
+                                    for devs in data_rows(mesh)[1:]], ep)
     sp.whole_leaves = tuple(sorted({n for (n, _), w in kept.items() if w}))
     return sp
 
 
 def shard_state(tree, mesh: DeviceMesh):
     """A ZERO decode state ``tree`` (its leaves may live on the meta
-    device: only their shapes and dtypes are read) made on ``mesh``: each
-    split leaf's zero parts on the ranks' devices, every other leaf zeros
-    on the lead device."""
-    check_serve_mesh(mesh)
+    device: only their shapes and dtypes are read) made on ``mesh``'s
+    data row 0: each split leaf's zero parts on the ranks' devices, every
+    other leaf zeros on the lead device (`state_replicas` makes the other
+    data rows' copies)."""
     dims = serve_state_shardings(tree, mesh)
     devs = mesh.model_devices
 
@@ -809,6 +961,15 @@ def shard_state(tree, mesh: DeviceMesh):
         return Shards([torch.zeros(shape, dtype=t.dtype, device=d)
                        for d in devs], dim)
     return map_with_path(make, tree)
+
+
+def state_replicas(state, mesh: DeviceMesh) -> list:
+    """The copies of a placed decode ``state`` on data rows 1, 2, ... of
+    ``mesh`` (`replicate`): the bytes every device of a data row holds
+    where the reference replicates the state over the data axis.  The
+    rank loop reads and writes row 0's state alone, so these copies stay
+    as they were made."""
+    return [replicate(state, devs) for devs in data_rows(mesh)[1:]]
 
 
 def _get(tree, path):

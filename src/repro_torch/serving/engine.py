@@ -86,10 +86,18 @@ stats).
   are bitwise the single-device engine's (each product that contracts a
   split dim runs whole after a gather).  With every rank on one device
   the ``spec="off"`` step is captured as one graph, as without a mesh;
-  across devices it runs eagerly.  One-shot and chunked admission, wave
-  admission, both layouts and speculation run under a mesh; the split
-  roles and the MoE, SSM and encoder-decoder families raise
-  ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 8's remainder).
+  across devices it runs eagerly.  Every decoder family the engine
+  serves runs under a mesh (GQA, MLA, MoE, SSM and hybrid stacks), in
+  every role, with one-shot, chunked and wave admission, both layouts and
+  speculation: an MoE FFN runs its router and dispatch on the lead device
+  and ``up``/``gate`` on each rank's columns; SSM mixers and their state
+  are replicated by the rules, so they run once on the lead device.  A
+  split role's handoff carries the one-device wire layout (each rank's
+  blocks concatenated on its pool's split dim), so mesh and one-device
+  engines take each other's handoffs.  A data axis above 1 is the
+  reference's replication: each further data row holds a copy of the
+  params and the state, the rank loop runs on row 0, and an MoE decode
+  step computes each row's slice of the experts on that row.
   Prefix-shared blocks need no copy-on-write (only full prompt blocks
   are shared, and decode never writes below its frontier), so there is
   nothing to copy in any rank's pool.
@@ -117,9 +125,11 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.models import moe
 from repro_torch.models.api import (
     build_model, default_num_blocks, init_decode_state, resolve_device)
-from repro_torch.runtime.sharding import pairs, parts, shard_params
+from repro_torch.runtime.sharding import (
+    Shards, pairs, parts, rank_bytes, shard_params, state_replicas)
 from repro_torch.serving.blockpool import (
     BlockAllocator, KVHandoff, PrefixCache)
 from repro_torch.serving.graph import DEVICE_LOCK, StepGraph, launch_counts
@@ -355,29 +365,6 @@ def _on_device(method):
     return run
 
 
-def _mesh_reason(cfg, role: str, mesh, device):
-    """Raise unless an engine of ``cfg`` in ``role`` can serve on
-    ``mesh``: the rank loop covers decoder LMs with GQA or MLA attention
-    and a dense FFN in the unified role; the other families and the split
-    roles are ``ROADMAP.md`` Queue 1 item 8's remainder."""
-    what = None
-    if cfg.moe is not None:
-        what = "an MoE FFN"
-    elif cfg.ssm is not None or cfg.is_attention_free:
-        what = "SSM mixers"
-    elif cfg.is_encdec:
-        what = "an encoder-decoder"
-    elif role != "unified":
-        what = f"role={role!r}"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving of {what} is not in the "
-            "port yet (ROADMAP.md Queue 1 item 8's remainder)")
-    if mesh.lead != device:
-        raise ValueError(f"the mesh's lead device is {mesh.lead}, the "
-                         f"engine's {device}")
-
-
 class ServeEngine:
     """Continuous-batching engine on ``device`` ("cuda" by default; a
     missing card raises).  ``params`` is the port's :class:`LMParams` on
@@ -465,18 +452,29 @@ class ServeEngine:
         self.mesh = mesh
         self.mesh_devices = 1
         if mesh is not None:
-            _mesh_reason(cfg, role, mesh, self.device)
+            # the block tables, the replicated leaves and the gathers
+            # live on the lead device
+            if mesh.lead != self.device:
+                raise ValueError(f"the mesh's lead device is {mesh.lead}, "
+                                 f"the engine's {self.device}")
             self.mesh_devices = int(mesh.devices.size)
             # every row count a column product of this engine takes: the
-            # heads' and the logits' at admission (the bucket, and 1), the
-            # step's, the verify burst's and the chunks'
-            rows = {1, slots, slots * (int(spec_k) + 1),
-                    *admit_buckets(max_len)}
+            # decode rows (the step's, the verify burst's and the chunks':
+            # the MoE decode product's, whose experts a data axis splits),
+            # the heads' and the logits' at admission (the bucket, and 1)
+            # and an MoE FFN's capacity at each bucket
+            decode = {slots, slots * (int(spec_k) + 1)}
             if prefill == "chunked":
-                rows |= set(prefill_chunk_shapes(max_len, block_size,
-                                                 int(prefill_chunk)))
+                decode |= set(prefill_chunk_shapes(max_len, block_size,
+                                                   int(prefill_chunk)))
+            rows = {1, *decode, *admit_buckets(max_len)}
+            if cfg.moe is not None:
+                rows |= {moe._capacity(cfg, b)
+                         for b in admit_buckets(max_len)}
             self._gemm_rows = sorted(rows)
-            params = shard_params(params, mesh, rows=self._gemm_rows)
+            self._decode_rows = sorted(decode)
+            params = shard_params(params, mesh, rows=self._gemm_rows,
+                                  decode_rows=self._decode_rows)
         self.cfg = cfg
         self.params = params
         self.slots = slots
@@ -518,6 +516,11 @@ class ServeEngine:
             self.state = init_decode_state(cfg, slots, max_len, kv="dense",
                                            device=self.device, mesh=mesh)
             self.max_blocks_per_slot = 0
+        # a data axis above 1: every further data row holds a copy of the
+        # state's placement, as the reference replicates it (the rank loop
+        # runs on row 0)
+        self.state_replicas = ([] if mesh is None
+                               else state_replicas(self.state, mesh))
         self.budget = torch.zeros((slots,), dtype=torch.int32,
                                   device=self.device)
         self.active = torch.zeros((slots,), dtype=torch.bool,
@@ -610,9 +613,9 @@ class ServeEngine:
                                  f"{self.draft_params.embed.device}, the "
                                  f"engine on {self.device}")
             if mesh is not None and self.draft_params is not self.params:
-                _mesh_reason(self.draft_cfg, role, mesh, self.device)
-                self.draft_params = shard_params(self.draft_params, mesh,
-                                                 rows=self._gemm_rows)
+                self.draft_params = shard_params(
+                    self.draft_params, mesh, rows=self._gemm_rows,
+                    decode_rows=self._decode_rows)
             # the draft's pools shadow the target's: same num_blocks and
             # block_size, addressed through the SAME block-table ids, so
             # admission/eviction bookkeeping covers both caches at once
@@ -1301,6 +1304,22 @@ class ServeEngine:
                 local += ps[0].numel() * ps[0].element_size()
         return {"kv_pool_bytes": total, "kv_pool_bytes_per_device": local}
 
+    def device_bytes(self) -> dict:
+        """The parameter, decode-state and KV-pool bytes held on each
+        device of the engine's mesh, ``[data row][model rank]`` (a
+        one-device engine: ``[[n]]``), as `launch.dryrun.run_serve_cell`
+        predicts them with ``whole=`` the leaves kept whole."""
+        msz = (1 if self.mesh is None
+               else len(self.mesh.model_devices))
+        params = (self.params.tree(),) + tuple(
+            getattr(self.params, "replicas", ()))
+        states = (self.state,) + tuple(self.state_replicas)
+        kv = (*_PAGED_KEYS, *_RING_KEYS)
+        return {
+            "params": [rank_bytes(t, msz) for t in params],
+            "state": [rank_bytes(t, msz) for t in states],
+            "kv_pool": [rank_bytes(t["cache"], msz, kv) for t in states]}
+
     def _live_tokens(self) -> int:
         return sum(self._host_pos[si]
                    for si, m in enumerate(self.slot_meta) if m.active)
@@ -1558,25 +1577,42 @@ def _wire_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def _ids_on(ids: np.ndarray):
+    """``device -> ids`` as a tensor there, each device's copied once (one
+    host-to-device copy a rank, not one a pool)."""
+    on = {}
+
+    def get(device: torch.device) -> torch.Tensor:
+        if device not in on:
+            on[device] = torch.as_tensor(ids, device=device)
+        return on[device]
+    return get
+
+
 def _gather_blocks(cache, row: list, device: torch.device) -> list:
     """The export half of the KV handoff: gather a slot's block chain out
-    of every layer's paged pools on the device (``index_select``), pack
+    of every layer's paged pools on the device (``index_select``; a pool
+    split over a mesh's ranks gathers on each rank and concatenates the
+    parts on ``device`` along its split dim, the one-device layout), pack
     every gathered leaf's bytes into ONE device buffer and pull it to the
     host once.  Returns one dict per layer of host buffers ``(groups,
     n_pb, bs, ...)`` in their wire dtype (`_wire_dtype`)."""
-    leaves, parts = [], []
-    ids = torch.as_tensor(np.asarray(row, np.int64), device=device)
+    leaves, chunks = [], []
+    ids = _ids_on(np.asarray(row, np.int64))
     for li, leaf in enumerate(cache):
         for k, pool in leaf.items():
             if k not in _PAGED_KEYS:
                 continue
-            blocks = pool.index_select(1, ids)
+            got = [p.index_select(1, ids(p.device)).to(device)
+                   for p in parts(pool)]
+            blocks = (torch.cat(got, dim=pool.dim)
+                      if isinstance(pool, Shards) else got[0])
             leaves.append((li, k, tuple(blocks.shape), pool.dtype))
-            parts.append(blocks.reshape(-1).view(torch.uint8))
-    host = torch.cat(parts).cpu().numpy()               # THE one host pull
+            chunks.append(blocks.reshape(-1).view(torch.uint8))
+    host = torch.cat(chunks).cpu().numpy()              # THE one host pull
     out = [{} for _ in cache]
     off = 0
-    for (li, k, shape, dtype), part in zip(leaves, parts):
+    for (li, k, shape, dtype), part in zip(leaves, chunks):
         n = part.numel()
         out[li][k] = host[off:off + n].view(_wire_dtype(dtype)).reshape(shape)
         off += n
@@ -1590,20 +1626,22 @@ def _import_blocks_paged(state, bufs: list, slot: int, plen: int,
     buffer (per layer, ``(groups, n_pb, bs, ...)`` in its wire dtype) to
     the device, view it as its pool's dtype and scatter it into blocks
     ``row[nhit:n_pb]`` (``index_copy_``; prefix-hit blocks already hold
-    bit-identical content), then write the slot's block-table row, token
-    and position.  Nothing in ``state`` is rebound: a captured decode
-    step replays its fixed addresses."""
+    bit-identical content); a pool split over a mesh's ranks takes each
+    rank's slice of the buffer into its part (`pairs`).  Then write the
+    slot's block-table row, token and position.  Nothing in ``state`` is
+    rebound: a captured decode step replays its fixed addresses."""
     n_pb = -(-plen // block_size)
     dev = state["token"].device
-    ids = torch.as_tensor(np.asarray(row[nhit:n_pb], np.int64), device=dev)
+    ids = _ids_on(np.asarray(row[nhit:n_pb], np.int64))
     for st_leaf, hb in zip(state["cache"], bufs if nhit < n_pb else ()):
         for key, buf in hb.items():
             pool = st_leaf[key]
             buf = np.ascontiguousarray(buf[:, nhit:])
             if not buf.flags.writeable:    # torch takes no read-only array
                 buf = buf.copy()
-            src = torch.from_numpy(buf)
-            pool.index_copy_(1, ids, src.to(dev).view(pool.dtype))
+            src = torch.from_numpy(buf).to(dev).view(pool.dtype)
+            for d, s in pairs(pool, src):
+                d.index_copy_(1, ids(d.device), s)
     mb = state["block_tables"].shape[1]
     row_arr = np.zeros((mb,), np.int32)
     row_arr[:len(row)] = row

@@ -58,6 +58,20 @@ CPU = "cpu"
 _MODELS: dict = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_per_op():
+    """The fleets here run four engines on pilot threads in this process,
+    beside the test run's other workers: at smoke widths an op gains
+    nothing from intra-op threads, and four servers x every core
+    oversubscribe the CPU into ticks longer than the 0.5 s lease (a
+    replacement server's warm-up beside them most of all), so leases
+    expire until a request's attempt budget runs out."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg_params(arch):
     """The port's smoke config on the kernel flags and its seed-0 params
     (cached per arch: engines never write their params)."""
@@ -632,6 +646,28 @@ def test_fleet_disagg_kill_replay_bitwise(arch):
                 assert row["exitcode"] == 0 and row["serve"]["role"] == role
     assert {rid: list(t) for rid, t in out["results"].items()} == \
         _fleet_reference(arch, trace)
+
+
+def test_disagg_fleets_serve_their_own_role():
+    """Each role's fleet is labelled with its pool, so its pilots run only
+    that role's servers (a killed server's task replays on its own
+    fleet), and each stage's kill takes one pilot of that stage's fleet.
+    Unlabelled, a decode-fleet pilot could run a prefill server, and the
+    prefill kill found no lease holder in the prefill fleet."""
+    arch = ARCHS[0]
+    cfg, _ = _cfg_params(arch)
+    trace = make_trace(cfg.vocab_size, 10, max_len=64, seed=3)
+    out = serve_disagg(arch, 10, prefill_pilots=2, decode_pilots=2,
+                       slots=2, max_len=64, lease_ttl=0.5,
+                       fail_prefill_at=2, fail_decode_at=4, trace=trace,
+                       smoke=True, device=CPU)
+    assert out["drained"] and len(out["results"]) == 10
+    for role in ("prefill", "decode"):
+        mine = set(out["pilots"][role])
+        assert len(mine) == 2
+        assert len(out["failed_pilots"][role]) == 1
+        assert set(out["failed_pilots"][role]) <= mine
+        assert {r["pilot"] for r in out["servers"][role]} <= mine
 
 
 def test_disagg_schedule_two_autoscalers():

@@ -287,11 +287,15 @@ def test_step_graph_true_without_a_card_raises(model, kw):
 
 @pytest.mark.parametrize("kw", [dict(mesh=((2, 1), ("cpu", "cpu")))])
 def test_later_slices_raise(model, kw):
-    """A mesh whose data axis is above 1 is ROADMAP.md Queue 1 item 8's
-    remainder (a (1, 2) mesh serves: tests/test_torch_tp.py)."""
+    """A mesh whose data axis is above 1 serves: the engine holds a copy
+    of its params and state on the second data row (more paths:
+    tests/test_torch_tp.py)."""
     from repro_torch.runtime.mesh import serve_mesh
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _engine(model, mesh=serve_mesh(*kw["mesh"]))
+    eng = _engine(model, mesh=serve_mesh(*kw["mesh"]))
+    held = eng.device_bytes()
+    assert held["params"][0] == held["params"][1]
+    assert held["state"][0] == held["state"][1]
+    assert len(eng.params.replicas) == len(eng.state_replicas) == 1
 
 
 def test_engine_rejects_params_on_another_device(model):

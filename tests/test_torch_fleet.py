@@ -474,11 +474,19 @@ def test_unified_engine_rejects_a_handoff_through_the_pool():
 
 
 def test_fleet_mesh_raises_naming_item_8():
-    """A fleet of servers on a mesh whose data axis is above 1 is Queue 1
-    item 8's remainder: asking for one raises before any pilot starts (a
-    (1, 2) fleet serves: tests/test_torch_tp.py)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        serve_fleet(ARCH, N, 2, mesh_shape=(2, 1), **FLEET)
+    """A fleet of servers on a mesh whose data axis is above 1 serves:
+    each pilot's slice holds the (2, 1) mesh, every request is answered
+    once, bitwise ``serve_direct``'s on one device (a (1, 2) fleet:
+    tests/test_torch_tp.py)."""
+    trace = make_trace(get_smoke_config(ARCH).vocab_size, 4, max_len=MAX_LEN,
+                       seed=0)
+    out = serve_fleet(ARCH, 4, 2, mesh_shape=(2, 1), trace=trace, **FLEET)
+    direct = serve_direct(get_smoke_config(ARCH), 4, SLOTS, MAX_LEN,
+                          trace=trace, device=CPU)
+    assert out["drained"] and out["completed"] == 4
+    assert out["results"] == direct["streams"]
+    served = [s for s in out["servers"] if s["serve"].get("fleet")]
+    assert served and all(s["serve"]["mesh_devices"] == 2 for s in served)
 
 
 def test_fleet_cli_serves_and_kills(capsys):

@@ -260,34 +260,36 @@ def test_train_image_raises_naming_item_4(tmp_path):
                                                flags=FLAGS), CPU)
 
 
-@pytest.mark.parametrize("image_kw, spec_kw, item", [
-    (dict(mesh_shape=(2, 1)), {}, "item 8"),
-    ({}, dict(mesh_shape=[2, 1]), "item 8"),
+@pytest.mark.parametrize("image_kw, spec_kw, shape", [
+    (dict(mesh_shape=(2, 1)), {}, [2, 1]),
+    ({}, dict(mesh_shape=[2, 1]), [2, 1]),
 ], ids=["image_mesh", "spec_mesh"])
-def test_later_serve_slices_raise(tmp_path, image_kw, spec_kw, item):
-    """A mesh with a data axis above 1 (whole-engine replicas) is ROADMAP.md
-    Queue 1 item 8's remainder: an image or a startup spec asking for one
-    on a slice that holds two CPU ranks raises, naming it (a (1, 2) mesh
-    serves: tests/test_torch_tp.py)."""
-    img = PayloadImage(ARCH, "smoke", "serve", **image_kw)
-    exe = ExecutableRegistry().pull(img, serve_mesh((2, 1), (CPU, CPU)))
-    if image_kw:
-        with pytest.raises(NotImplementedError, match=item):
-            exe.fn(exe.make_inputs(0))
-    # the wrapper turns the error into exit code 1
-    arena = SharedArena(str(tmp_path / "a"))
-    code = run_wrapper(arena, ProcessTable(), exe,
-                       {"trace": make_trace(512, 1, max_len=64),
-                        "max_len": 64, **spec_kw})
-    tel = arena.read_exit()["telemetry"]
-    assert code == 1 and "NotImplementedError" in tel["error"]
-    assert item in tel["error"]
+def test_later_serve_slices_raise(tmp_path, image_kw, spec_kw, shape):
+    """A mesh with a data axis above 1 (a copy of the engine's placement
+    on each data row) serves: an image or a startup spec asking for one on
+    a slice that holds two CPU ranks runs to exit code 0, its telemetry
+    naming the mesh, its streams those of the one-device image."""
+    trace = make_trace(512, 2, max_len=64)
+    runs = []
+    for kw, where, spec in ((image_kw, serve_mesh((2, 1), (CPU, CPU)),
+                             spec_kw), ({}, CPU, {})):
+        exe = ExecutableRegistry().pull(
+            PayloadImage(ARCH, "smoke", "serve", **kw), where)
+        arena = SharedArena(str(tmp_path / f"a{len(runs)}"))
+        code = run_wrapper(arena, ProcessTable(), exe,
+                           {"trace": trace, "max_len": 64, **spec})
+        runs.append((code, arena.read_exit()["telemetry"]))
+    (code, tel), (code1, tel1) = runs
+    assert code == code1 == 0, tel.get("error")
+    assert list(tel["serve"]["mesh_shape"]) == shape
+    assert tel["serve"]["mesh_devices"] == 2
+    assert tel["tokens"] == tel1["tokens"]
 
 
 def test_build_mesh_raises_naming_item_8():
     """`build_mesh` places the image's mesh on the slice's devices (none
-    for an image of one device); serving on a mesh whose data axis is
-    above 1 raises, naming Queue 1 item 8's remainder."""
+    for an image of one device); on a mesh whose data axis is above 1 the
+    params are placed on data row 0 with a copy on every other row."""
     from repro_torch.runtime.sharding import shard_params
     assert PayloadImage(ARCH, "smoke", "serve").build_mesh() is None
     mesh = PayloadImage(ARCH, "smoke", "serve",
@@ -297,8 +299,11 @@ def test_build_mesh_raises_naming_item_8():
                         mesh_shape=(2, 1)).build_mesh((CPU, CPU))
     params = ExecutableRegistry().pull(
         PayloadImage(ARCH, "smoke", "serve"), CPU).make_inputs(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        shard_params(params, wide)
+    sp = shard_params(params, wide)
+    (copy,) = sp.replicas
+    assert torch.equal(copy["embed"], sp.embed)
+    assert copy["embed"].data_ptr() != sp.embed.data_ptr()
+    assert sp.expert_rows == 1                 # smollm has no experts
 
 
 # ---------------------------------------------------------------------------

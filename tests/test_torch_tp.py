@@ -14,9 +14,12 @@ bitwise the single-device engine's, one device->host copy a step,
 per-rank KV bytes at most 0.6 of the total (1.0 where a rule falls back
 to replication), no leaked block, prefix hits on the shared prompts.  The
 paths the rank loop also runs (dense rings, chunked admission, wave
-admission, MLA speculation), a column leaf kept whole, the pilot's late
-binding of a mesh image and a mesh fleet are held to the single-device
-engine the same way.
+admission, MLA speculation; the MoE, SSM and hybrid families; (2, 1) and
+(2, 2) meshes, whose data rows split the MoE decode experts; the split
+roles between mesh and one-device engines), a column leaf kept whole, the
+pilot's late binding of a mesh image and a mesh fleet are held to the
+single-device engine the same way; granite's and jamba's sharded prefill
+also to JAX's, and a (2, 2) mesh's bytes on each device to the dry run.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from repro.models.api import init_decode_state as jax_init_state
 from repro.runtime import mesh as jax_mesh
 from repro.runtime import sharding as jax_sharding
 from repro.serving.engine import ServeEngine as JaxEngine
-from repro_torch.bridge import params_from_numpy
+from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.configs.base import get_smoke_config, list_archs
 from repro_torch.core.autoscaler import AutoscalePolicy, FleetAutoscaler
 from repro_torch.core.cluster import ClusterSim
@@ -373,8 +376,13 @@ def _run(cfg, mesh, **kw):
 
 
 PALLAS = {"attn_impl": "pallas"}
+KERNELS = dict(KERNEL_FLAGS)
+MOE_ARCH = "granite-moe-3b-a800m"
 BATTERY = {
     "gqa": ("starcoder2-3b", PALLAS, {}, True),
+    # the router and dispatch on the lead device, up/gate per rank through
+    # the grouped matmul's plain version, down whole after the gather
+    "moe": (MOE_ARCH, KERNELS, {}, True),
     "gqa_spec": ("starcoder2-3b", PALLAS, {"spec": "draft", "spec_k": 3},
                  True),
     "mla": ("minicpm3-4b", {}, {}, True),
@@ -417,21 +425,45 @@ MORE_PATHS = {
     "mla_spec": ("minicpm3-4b", {}, {"spec": "draft", "spec_k": 3}),
     "wave": ("starcoder2-3b", PALLAS, {"admission": "wave"}),
     "plain_attention": ("starcoder2-3b", {}, {}),
+    "moe_spec": (MOE_ARCH, KERNELS, {"spec": "draft", "spec_k": 3}),
+    "moe_chunked": (MOE_ARCH, KERNELS,
+                    {"prefill": "chunked", "prefill_chunk": 16}),
+    # SSM mixers and their state replicate: they run once on the lead
+    # device; only the tied embedding (the head) splits
+    "ssm": ("mamba2-370m", KERNELS, {}),
+    # jamba: attention and MoE columns split, SSM slots on the lead
+    "hybrid": ("jamba-v0.1-52b", KERNELS, {}),
+    # a data axis: every data row a copy, each computing its slice of the
+    # experts in decode
+    "data_2x1": (MOE_ARCH, KERNELS, {}, (2, 1)),
+    "data_2x2": (MOE_ARCH, KERNELS, {}, (2, 2)),
 }
+
+
+def _cpu_mesh(shape):
+    return serve_mesh(shape, devices=(CPU,) * (shape[0] * shape[1]))
 
 
 @pytest.mark.parametrize("name", sorted(MORE_PATHS))
 def test_mesh_paths_bitwise(name):
     """The other paths the rank loop runs, each bitwise its single-device
-    run, with the battery's gates."""
-    arch, flags, kw = MORE_PATHS[name]
+    run, with the battery's gates; on a data axis above 1 every data row
+    computes its slice of the experts."""
+    arch, flags, kw, *shape = MORE_PATHS[name]
+    shape = shape[0] if shape else (1, 2)
     cfg = dataclasses.replace(get_smoke_config(arch), **flags)
     e1, t1 = _run(cfg, None, **kw)
-    e2, t2 = _run(cfg, MESH, **kw)
+    e2, t2 = _run(cfg, _cpu_mesh(shape), **kw)
     assert t1 == t2
     assert e2.d2h_transfers == e2.steps and e2.block_leaks() == 0
-    kvb = e2.kv_pool_bytes()
-    assert kvb["kv_pool_bytes_per_device"] * 2 == kvb["kv_pool_bytes"]
+    # the KV pools (not an SSM slot's replicated state) split evenly
+    kv = e2.device_bytes()["kv_pool"]
+    assert kv == [[kv[0][0]] * shape[1]] * shape[0]
+    assert e2.params.whole_leaves == ()
+    assert e2.params.expert_rows == shape[0]
+    assert len(e2.state_replicas) == shape[0] - 1
+    if kw.get("spec"):
+        assert e2.spec == "draft" and e2.spec_accepted > 0
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "minicpm3-4b",
@@ -494,26 +526,180 @@ def test_slice_check_keeps_a_differing_leaf_whole():
     assert sp.whole_leaves == () and isinstance(sp.embed, sharding.Shards)
 
 
+def test_moe_column_check_runs_the_engines_products(monkeypatch):
+    """A stacked MoE ``up`` (G, E, D, F) is checked on the products the
+    engine runs with group 0's (E, D, F): the decode product (1, M, D) @
+    (E, D, F) and the capacity-bucket product through `bucket_matmul`
+    (the grouped matmul's plain version on the CPU), at every row count;
+    a part-swapped ``up`` is caught."""
+    from repro_torch.kernels.grouped_matmul import ops as gops
+    params = build_model(get_smoke_config(MOE_ARCH)).init(0, device=CPU)
+    up = params.tree()["layers"][0]["ffn"]["up"]
+    G, E, D, F = up.shape
+    parts = [c.contiguous() for c in torch.chunk(up, 2, dim=-1)]
+    seen = {"decode": [], "bucket": []}
+    decode, bucket = sharding._decode_product, gops.bucket_matmul
+
+    def spy_decode(x, w):
+        seen["decode"].append((tuple(x.shape), tuple(w.shape)))
+        return decode(x, w)
+
+    def spy_bucket(x, w):
+        seen["bucket"].append((tuple(x.shape), tuple(w.shape)))
+        return bucket(x, w)
+    monkeypatch.setattr(sharding, "_decode_product", spy_decode)
+    monkeypatch.setattr(gops, "bucket_matmul", spy_bucket)
+    assert sharding.slices_exact("up", up, parts, rows=(2, 24))
+    for m in (2, 24):
+        for w in ((E, D, F), (E, D, F // 2)):
+            assert ((1, m, D), w) in seen["decode"]
+            assert ((E, m, D), w) in seen["bucket"]
+    assert not sharding.slices_exact("up", up, parts[::-1], rows=(2,))
+    assert not sharding.experts_exact(up, [up], rows=(2,), n=3)
+
+
 def test_mesh_remainder_raises_naming_item_8():
-    """What the rank loop does not run raises, naming Queue 1 item 8's
-    remainder: the MoE and SSM families, the split roles, and a data axis
-    above 1."""
-    cases = [("granite-moe-3b-a800m", {}, MESH),
-             ("mamba2-370m", {}, MESH),
-             ("starcoder2-3b", {"role": "prefill"}, MESH),
-             ("starcoder2-3b", {"role": "decode"}, MESH),
-             ("starcoder2-3b", {}, serve_mesh((2, 1), devices=(CPU, CPU)))]
-    for arch, kw, mesh in cases:
-        cfg = get_smoke_config(arch)
-        params = build_model(cfg).init(0, device=CPU)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ServeEngine(cfg, params, slots=2, max_len=64, mesh=mesh,
-                        device=CPU, **kw)
+    """Every decoder family and role now serves on a mesh (the battery and
+    the paths above); what an engine still refuses is a mesh whose lead
+    device is not its own."""
     cfg = get_smoke_config("starcoder2-3b")
     with pytest.raises(ValueError, match="lead device"):
         ServeEngine(cfg, build_model(cfg).init(0, device=CPU), slots=2,
                     max_len=64, device=CPU,
                     mesh=serve_mesh((1, 2), devices=("meta", "meta")))
+
+
+# ---------------------------------------------------------------------------
+# the split roles on a mesh: handoffs in the one-device wire layout
+# ---------------------------------------------------------------------------
+
+ROLE_PAIRINGS = {"roles_mesh_to_mesh": (MESH, MESH),
+                 "roles_mesh_to_one": (MESH, None),
+                 "roles_one_to_mesh": (None, MESH)}
+
+
+def _role_reqs(vocab, n=4, seed=3):
+    """Prompts of 4-27 tokens (bucket <= 32, so bucket + budget fits
+    max_len 64 and each stream runs its whole budget)."""
+    rng = np.random.default_rng(seed)
+    return [(i, rng.integers(0, vocab, size=int(rng.integers(4, 28)))
+             .astype(np.int32), int(rng.integers(5, 10))) for i in range(n)]
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "minicpm3-4b"])
+@pytest.mark.parametrize("pairing", sorted(ROLE_PAIRINGS))
+def test_mesh_roles_bitwise(pairing, arch, monkeypatch):
+    """A prefill-role engine and a decode-role engine, each on the mesh or
+    on one device: the streams are the unified one-device engine's
+    bitwise; each export is the one-device prefill engine's handoff
+    byte for byte (the same wire layout) in one host pull; the import
+    writes every rank's pool part in place; no block leaks."""
+    pf_mesh, dc_mesh = ROLE_PAIRINGS[pairing]
+    cfg = dataclasses.replace(get_smoke_config(arch), **PALLAS)
+    params = build_model(cfg).init(0, device=CPU)
+
+    def engine(mesh, **kw):
+        return ServeEngine(cfg, params, slots=2, max_len=64, mesh=mesh,
+                           device=CPU, **kw)
+
+    def serve(eng, reqs, handoffs=None):
+        for rid, prompt, mnt in reqs:
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=mnt,
+                               handoff=(handoffs or {}).get(rid)))
+        eng.run()
+        return {rid: eng.done[rid] for rid, _, _ in reqs}
+
+    reqs = _role_reqs(cfg.vocab_size)
+    want = {rid: r.tokens for rid, r in serve(engine(None), reqs).items()}
+    one = serve(engine(None, role="prefill"), reqs)
+    pf = engine(pf_mesh, role="prefill")
+    real, pulls = torch.Tensor.cpu, []
+
+    def counting(self, *a, **kw):
+        pulls.append(tuple(self.shape))
+        return real(self, *a, **kw)
+    monkeypatch.setattr(torch.Tensor, "cpu", counting)
+    exported = serve(pf, reqs)
+    monkeypatch.undo()
+    assert len(pulls) == len(reqs)                    # one pull an export
+    for rid, _, _ in reqs:
+        h, h1 = exported[rid].handoff, one[rid].handoff
+        assert h.nbytes == h1.nbytes
+        for a, b in zip(h.blocks, h1.blocks):
+            assert a.keys() == b.keys()
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+    dc = engine(dc_mesh, role="decode")
+    pools = [p for leaf in dc.state["cache"] for t in leaf.values()
+             for p in sharding.parts(t)]
+    ptrs = [p.data_ptr() for p in pools]
+    got = serve(dc, reqs, {rid: r.handoff for rid, r in exported.items()})
+    assert {rid: r.tokens for rid, r in got.items()} == want
+    assert [p.data_ptr() for p in pools] == ptrs
+    assert pf.block_leaks() == 0 and dc.block_leaks() == 0
+    assert dc.handoffs_imported == len(reqs) and dc.d2h_transfers == dc.steps
+
+
+# ---------------------------------------------------------------------------
+# the MoE and hybrid families on the mesh against JAX
+# ---------------------------------------------------------------------------
+
+# the tolerances of tests/test_torch_moe.py (granite, 1e-2) and
+# tests/test_torch_hybrid.py (jamba, 5e-2); JAX runs its plain paths (its
+# Pallas kernels in interpret mode take seconds here)
+JAX_PLAIN = {"attn_impl": "chunked", "norm_impl": "jnp",
+             "ssm_impl": "chunked", "moe_impl": "einsum"}
+JAX_HOLD = {MOE_ARCH: dict(rtol=1e-2, atol=1e-2),
+            "jamba-v0.1-52b": dict(rtol=5e-2, atol=5e-2)}
+
+
+@pytest.mark.parametrize("arch", sorted(JAX_HOLD))
+def test_sharded_prefill_holds_to_jax(arch):
+    """``bundle.prefill`` on `shard_params` of bridged weights (seeded,
+    as numpy) is the one-device prefill bitwise, logits and cache, and
+    within the family's tolerance of JAX's on the same weights."""
+    tol = JAX_HOLD[arch]
+    cfg = dataclasses.replace(get_smoke_config(arch), **KERNELS)
+    jcfg = dataclasses.replace(jax_smoke(arch), **JAX_PLAIN)
+    tree = params_to_numpy(build_model(cfg).init(0, device=CPU))
+    params = params_from_numpy(tree, cfg, device=CPU)
+    toks = np.zeros((1, 32), np.int32)
+    toks[0, -23:] = np.random.default_rng(0).integers(0, cfg.vocab_size, 23)
+    sp = sharding.shard_params(params, MESH, rows=(1, 16, 32))
+    bundle = build_model(cfg)
+    (l1, c1), (l2, c2) = (bundle.prefill(p, {"tokens": torch.from_numpy(
+        toks)}) for p in (params, sp))
+    assert torch.equal(l1, l2)
+    for a, b in zip(c1, c2):
+        for k in a:
+            assert torch.equal(a[k], sharding.gather(b[k])), k
+    jl, _ = jax.jit(jax_build(jcfg).prefill)(
+        jax.tree.map(jax.numpy.asarray, tree), {"tokens": toks})
+    np.testing.assert_allclose(l2.float().numpy(),
+                               np.asarray(jl, np.float32), **tol)
+
+
+# ---------------------------------------------------------------------------
+# a (2, 2) mesh: what each of the four devices holds
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv", ["paged", "dense"])
+def test_data_mesh_device_bytes_match_the_dry_run(kv):
+    """On a (2, 2) mesh of four CPU ranks the bytes of parameters, state
+    and KV pools the engine places on each device equal `run_serve_cell`'s
+    prediction with the leaves the engine kept whole: each data row holds
+    row 0's placement, the model ranks their parts."""
+    from repro_torch.launch.dryrun import run_serve_cell
+    cfg = dataclasses.replace(get_smoke_config(MOE_ARCH), **KERNELS)
+    eng = ServeEngine(cfg, build_model(cfg).init(0, device=CPU), slots=2,
+                      max_len=64, kv=kv, mesh=_cpu_mesh((2, 2)), device=CPU)
+    pred = run_serve_cell(MOE_ARCH, mesh_shape=(2, 2), slots=2, max_len=64,
+                          kv=kv, smoke=True, param_dtype=torch.bfloat16,
+                          whole=eng.params.whole_leaves)
+    held = eng.device_bytes()
+    for k in ("params", "state", "kv_pool"):
+        assert held[k] == pred[f"{k}_bytes_by_device"], k
+        assert held[k][0] == pred[f"{k}_bytes_per_rank"], k
+    assert held["kv_pool"][0][0] * 2 == pred["kv_pool_bytes"] > 0
 
 
 # ---------------------------------------------------------------------------
