@@ -32,7 +32,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
               leaked block, and every kernel of the path was launched.
               The decode step is the engine's captured CUDA graph (a
               replay a step; the launch counts add what each replay
-              launches), as in every spec="off" run below.
+              launches), as in every spec="off" run below; so is every
+              other function the reference compiles: the one-shot
+              admission of each bucket (target and draft), the chunk
+              function of each chunk length, the draft chain and the
+              verify step.  Every one-device serve run on the card
+              reports which of them it replayed (``decode_graph``,
+              ``spec_graph``, ``prefill_graph``, ``draft_prefill_graph``,
+              ``chunk_graph``) and the memory its captures hold
+              (``graph_pool_bytes``), gated by ``graph_gate``; its
+              ``*_eager`` counterpart (``step_graph=False``) replays none,
+              and its streams, acceptance and launches (net of the
+              graphs' warm-up steps) are the graphed run's.  The script
+              prints its wall time (``total``) before the result lines.
    serve_eager — the same trace on the eager step: every stream bitwise
               equal to serve's, and the same launches once the graph's
               warm-up steps are taken off serve's; both runs' tokens/s,
@@ -43,7 +55,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               gates, the verify kernel launched, self-draft acceptance
               above 0.5; whether each stream equals the serve phase's is
               reported (the projections run at other row counts, where
-              cuBLAS may round differently).
+              cuBLAS may round differently).  Each runs its spec pair as
+              graphs and again eagerly (``spec_self_eager``,
+              ``spec_cold_eager``): streams, acceptance and steps equal.
 5. dense    — the same trace with ``kv="dense"``: the same gates, the
               dense decode kernel launched, every stream equal to the
               serve phase's (the dense kernel is the paged one's body).
@@ -57,7 +71,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    chunked_logits — full smollm-360m, ``prefill_chunk`` chained over
               128-token chunks into a fresh state against the one-shot
               prefill, last-position logits at buckets 64, 512 and 1023,
-              within LOGIT_TOL.
+              within LOGIT_TOL; the same chain replayed through one CUDA
+              graph per chunk length (slot and offset as device scalars)
+              bitwise the eager chain.
 6. model    — the same model teacher-forced for 8 paged decode steps with
               the kernels and with the plain path; logits compared.  Then
               one verify forward of [pending, 4 forced tokens] against the
@@ -624,10 +640,10 @@ ARCH_NORM = {"gemma_decode (8,2048)": (8, 2048),
 MLA_ARCH = "minicpm3-4b"
 MLA_GATED_LAYERS = 62
 MLA_DEPTHS = (31, 16, 8)
-# mla_spec runs the first 8 of serve's 16 requests (one wave of the 8
-# slots): its eager draft-and-verify step takes ~1 s at 62 layers, and
-# the 16 took 30 s of the phases' time
-MLA_SPEC_REQUESTS = 8
+# mla_spec (graphed) and mla_spec_eager run all of serve's 16 requests:
+# the eager draft-and-verify step takes ~1 s at 62 layers (the 16 took
+# 30 s of the phases' time), which had cut mla_spec to the first 8
+MLA_SPEC_REQUESTS = 16
 # the last families: jamba-v0.1-52b (hybrid: seven Mamba-2 SSM slots and
 # one attention slot a group of 8, MoE on every other slot, 16 experts top
 # 2) at full width and one period, 8 of its 32 layers (13.27 B parameters,
@@ -672,13 +688,13 @@ PILOT_MEMORY_SLACK = 64 << 20
 # tensor-parallel serving: a (1, 2) mesh whose two ranks share the card;
 # per-rank KV bytes at most this share of the total; tp_serve's churn
 # (the reference battery's: requests sharing a 40-token prompt); tp_spec
-# and tp_mla take the trace's first 8 requests (one wave of the 8 slots),
-# as mla_spec does
+# and tp_mla take the whole trace, as mla_spec does (tp_spec_eager, the
+# eager one-device spec run, on the same requests)
 TP_DEVICES = ("cuda:0", "cuda:0")
 TP_KV_SHARE = 0.6
 TP_CHURN = 6
-TP_SPEC_REQUESTS = 8
-TP_MLA_REQUESTS = 8
+TP_SPEC_REQUESTS = 16
+TP_MLA_REQUESTS = 16
 # tp_moe, tp_ssm, tp_hybrid and tp_data: the trace's first 8 requests;
 # tp_data's (2, 2) mesh puts its four ranks on the card
 TP_FAMILY_REQUESTS = 8
@@ -690,12 +706,14 @@ TP_RANK_GMM = {"granite_rank (40,256,1536)x(40,1536,256)": (40, 256, 1536,
                                                            14336)}
 # fleet serve: serve's trace over 3 pilots of 8 slots each, leasing from
 # one pool.  A server renews its leases once a tick, and its first tick
-# waits for the other servers' first ticks at the device lock (8
-# admissions each): for the second of 2 self-drafting servers that gap
-# reached 0.9-1.1 s, and it lost leases it was serving in every run at
-# the reference's 0.5 s TTL and in some at 1 s (launch/profile_fleet.py,
-# PERF.md §6).  The TTL is 3 s, and no run may lose a lease; a dead
-# server's requests come back after it.  fleet_requeue kills the pilot
+# waits for the other servers' first ticks at the device lock.  With the
+# eager admissions and spec pair the second of 2 self-drafting servers
+# waited 0.9-1.1 s and lost leases at the reference's 0.5 s TTL; with
+# them graphed no profile_fleet.py run loses one at 0.5 s or 1 s, but a
+# live server waits 1.38 s for a joiner's warm-up, whose
+# warm_admission captures the admission graphs (fleet_join; PERF.md
+# §6).  The TTL is 3 s, and no run may lose a lease; a dead server's
+# requests come back after it.  fleet_requeue kills the pilot
 # holding the most leases once 4 requests have settled; fleet_autoscale
 # serves a 24-request trace of serve's shape in 2 bursts of 2 s, 4 s
 # apart, under the autoscaler, from 1 pilot, at most 3
@@ -711,11 +729,11 @@ JOIN_REQUESTS = 64
 # disaggregated serve: serve's trace through 1 prefill + 1 decode pilot
 # (disagg_serve) and 2 + 2 with one pilot of each stage killed
 # (disagg_requeue, after 2 settled prefills and 4 settled streams), at
-# fleet serve's TTL; minicpm3-4b's run takes the trace's first 8 requests
-# (one wave of the 8 slots), as mla_spec does
+# fleet serve's TTL; minicpm3-4b's run takes the whole trace, as mla_spec
+# does
 DISAGG_FAIL_PREFILL_AT = 2
 DISAGG_FAIL_DECODE_AT = 4
-DISAGG_MLA_REQUESTS = 8
+DISAGG_MLA_REQUESTS = 16
 # training: full-width smollm-360m (train, pilot_train) and mamba2-370m
 TRAIN = dict(batch=8, seq=512, steps=30)
 TRAIN_MAMBA = dict(batch=4, seq=512, steps=5)
@@ -925,11 +943,30 @@ def mamba_admission_ms(dev, reps=5):
         return bundle.prefill(params, {"tokens": tokens})
     ms = time_ms(admit, n=reps, warm=2)
     busy = _busy_ms(device_events(admit))
-    del params
+    # the same admission as a CUDA graph, as the engine replays it (built
+    # here with torch alone: ``--times-of`` runs this on a parent's
+    # package): its wall time per replay beside its device time
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = admit()[0].clone()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = admit()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want), "graphed admission != eager"
+    g_ms = time_ms(graph.replay, n=reps, warm=2)
+    g_busy = _busy_ms(device_events(graph.replay))
+    del params, graph, out
     torch.cuda.empty_cache()
     return {"ms": ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / ms), "tokens": 1023,
-            "layers": cfg.num_layers}
+            "layers": cfg.num_layers,
+            "graph": {"ms": g_ms, "device_busy_ms": g_busy,
+                      "device_idle_share": max(0.0, 1.0 - g_busy / g_ms),
+                      "logits_bitwise_eager": True}}
 
 
 def decode_split():
@@ -1599,7 +1636,7 @@ def serve_run(phase, wrappers, arch=DENSE_ARCH, load=SERVE, cfg=None,
         "kv_pool_bytes", "block_leaks", "spec", "spec_k",
         "spec_fallback_reason", "acceptance_rate", "tokens_per_step",
         "draft_overhead_s", "step_graph", "graph_warm_launches", "prefill",
-        "prefill_chunks")}
+        "prefill_chunks", "run_peak_bytes", *GRAPH_KEYS)}
     out["launches"] = launches
     out["prompt_lens"] = [len(e["prompt"]) for e in trace]
     out["tokens_per_request"] = [stats["tokens_per_request"][e["rid"]]
@@ -1609,7 +1646,65 @@ def serve_run(phase, wrappers, arch=DENSE_ARCH, load=SERVE, cfg=None,
     assert stats["tokens_per_request"] == want, (stats["tokens_per_request"], want)
     assert stats["d2h_transfers"] == stats["decode_steps"] > 0
     assert stats["block_leaks"] == 0
+    graph_gate(phase, stats)
     return stats, launches
+
+
+# which of an engine's functions ran as replayed CUDA graphs, and the
+# memory their captures hold (`ServeEngine._stats`)
+GRAPH_KEYS = ("decode_graph", "spec_graph", "prefill_graph",
+              "draft_prefill_graph", "chunk_graph", "graph_pool_bytes")
+
+
+def graph_gate(phase, st):
+    """A one-device unified engine's graphs: with ``step_graph`` on, every
+    function the reference compiles that this run called was a graph (the
+    decode step or the spec pair, the one-shot admission of each bucket it
+    admitted at, target and draft, or the chunk function of each chunk
+    length); with it off, none was."""
+    if not st["step_graph"]:
+        assert not any(st[k] for k in GRAPH_KEYS), (phase, st)
+        return
+    spec = st["spec"] == "draft"
+    assert st["spec_graph"] == spec, (phase, st["spec_graph"])
+    assert st["decode_graph"] == (not spec), phase
+    chunked = st["prefill"] == "chunked"
+    assert bool(st["chunk_graph"]) == chunked, (phase, st["chunk_graph"])
+    assert bool(st["prefill_graph"]) != chunked, (phase, st["prefill_graph"])
+    assert bool(st["draft_prefill_graph"]) == spec, (
+        phase, st["draft_prefill_graph"])
+    assert st["graph_pool_bytes"] > 0, (phase, st["graph_pool_bytes"])
+
+
+# The bound on what a graphed engine's captures hold, stated before its
+# first chip run: each pool (the admission graphs' one, the decode step's,
+# the draft chain's and the verify step's) holds at most one working set
+# of the eager engine, i.e. the most its eager twin allocated above its
+# built engine in the same run (`serve_direct`'s ``run_peak_bytes``: the
+# one-shot admission of the largest bucket, its prefill cache included,
+# which the smaller buckets' graphs share), and GRAPH_POOL_ROUNDING more
+# for the allocator's segments.
+GRAPH_POOL_ROUNDING = 64 << 20
+
+
+def graph_memory_gate(phase, graphed, eager):
+    """``graphed``'s ``graph_pool_bytes`` within the bound above, reckoned
+    from ``eager``'s ``run_peak_bytes``; prints both."""
+    pools = (1 + graphed["decode_graph"] + 2 * graphed["spec_graph"])
+    bound = pools * (eager["run_peak_bytes"] + GRAPH_POOL_ROUNDING)
+    held = graphed["graph_pool_bytes"]
+    say({"phase": f"{phase}_graph_memory", "graph_pool_bytes": held,
+         "eager_run_peak_bytes": eager["run_peak_bytes"],
+         "graphed_run_peak_bytes": graphed["run_peak_bytes"],
+         "pools": pools, "bound": bound, "share_of_bound": held / bound})
+    assert 0 < held <= bound, (phase, held, bound)
+
+
+def net_launches(stats, launches):
+    """A graphed run's launches less its graphs' throwaway warm-up steps
+    (the decode step's, the spec pair's)."""
+    warm = stats["graph_warm_launches"]
+    return {w: n - warm.get(w, 0) for w, n in launches.items()}
 
 
 def serve_phase(wrappers):
@@ -1635,6 +1730,7 @@ def serve_eager_phase(wrappers, graphed, graphed_launches):
     warm = graphed["graph_warm_launches"]
     replayed = {w: n - warm.get(w, 0) for w, n in graphed_launches.items()}
     assert replayed == launches, (replayed, launches)
+    graph_memory_gate("serve", graphed, stats)
     keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
             "ttft_p99_s", "wall_s", "decode_steps")
     say({"phase": "graph_vs_eager", "arch": DENSE_ARCH,
@@ -1740,15 +1836,51 @@ def chunked_logits_phase(dev, arch=DENSE_ARCH, phase="chunked_logits"):
             off += C
         chunked.append(logits)
         buckets.append(plen)
+        g = graphed_chunks(bundle, params, cfg, toks, row, plen, max_len, dev)
+        assert torch.equal(g, logits), f"{phase}: graphed chunks != eager"
     got, want = torch.cat(chunked).float(), torch.cat(oneshot).float()
     del params, state
     torch.cuda.empty_cache()
     err = check_close(phase, got, want, LOGIT_TOL)
     say({"phase": phase, "arch": cfg.name, "buckets": buckets,
          "chunk": CHUNK, "max_abs_err": err, "tol": LOGIT_TOL,
+         "graphed_bitwise_eager": len(buckets),
          "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
                                    .float().mean()),
          "max_abs_logit": float(want.abs().max())})
+
+
+def graphed_chunks(bundle, params, cfg, toks, row, plen, max_len, dev):
+    """The chunk chain of ``toks`` (1, plen) into a fresh one-row paged
+    state through CUDA graphs, one per chunk length (the engine's
+    `CallGraph`s: tokens, table row, slot and offset copied into static
+    buffers, the last two 0-d int32 on the card), each captured at offset
+    0 before the chain (its warm-up writes the prompt's own first rows,
+    which the chain's first chunk writes again) and replayed for every
+    chunk.  Returns the last chunk's logits."""
+    from repro_torch.models.api import init_decode_state
+    from repro_torch.serving.graph import CallGraph
+    state = init_decode_state(cfg, 1, max_len, device=dev)
+    sizes, off = [], 0
+    while off < plen:
+        sizes.append(min(CHUNK - off % CHUNK, plen - off))
+        off += sizes[-1]
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32)
+
+    def chunk(t, r, s, o):
+        return bundle.prefill_chunk(params, state, t, r, s, o)[0]
+    graphs = {C: CallGraph.first_call(chunk, (toks[:, :C], row, i32(0),
+                                              i32(0)), dev)[0]
+              for C in sorted(set(sizes))}
+    off = 0
+    for C in sizes:
+        logits = graphs[C](toks[:, off:off + C], row, i32(0), i32(off))
+        off += C
+    out = logits.clone()
+    del graphs, state
+    return out
 
 
 def mamba_serve_phase(wrappers):
@@ -1951,11 +2083,15 @@ def disagg_run(phase, wrappers, direct, arch, n_pilots, trace, expect,
             assert sv["fleet"]["leaked_blocks"] == 0 == eng["block_leaks"]
             n = {w.__name__: eng["launches"].get(w.__name__, 0)
                  for w in wrappers}
+            # a prefill server's admissions are graphs (no decode step);
+            # a decode server's step is (no prefill)
+            assert eng["step_graph"], f"{phase}: eager {role} server"
             if role == "prefill":
-                assert sv["decode_steps"] == 0 and not eng["step_graph"], sv
+                assert sv["decode_steps"] == 0 and not eng["decode_graph"]
+                assert eng["prefill_graph"], eng
                 assert sv["prefills_exported"] == sv["fleet"]["completed_here"]
             else:
-                assert eng["step_graph"], f"{phase}: eager decode server"
+                assert eng["decode_graph"] and not eng["prefill_graph"], eng
                 assert sv["d2h_transfers"] == sv["decode_steps"] > 0, sv
             launched, unlaunched = expect[role]
             assert all(n[w] > 0 for w in launched), (phase, role, n)
@@ -2086,7 +2222,12 @@ def fleet_servers(out):
         assert s["exitcode"] == 0, (s["exitcode"], s["error"])
         assert sv["d2h_transfers"] == sv["decode_steps"], sv
         assert sv["fleet"]["leaked_blocks"] == 0 == eng["block_leaks"], sv
-        assert eng["step_graph"] == (sv["spec"] == "off"), eng
+        # every function the reference compiles is a graph: the decode
+        # step or the spec pair, and each admission bucket (warm_admission
+        # captured them all before the first lease)
+        assert eng["step_graph"] and eng["prefill_graph"], eng
+        assert eng["spec_graph"] == (sv["spec"] == "draft") \
+            != eng["decode_graph"], eng
         rows.append({"server": sv["fleet"]["server_id"],
                      "fetched": sv["fleet"]["fetched"],
                      "completed_here": sv["fleet"]["completed_here"],
@@ -2097,6 +2238,7 @@ def fleet_servers(out):
                      "itl_max_s": eng["itl_max_s"],
                      "acceptance_rate": sv["acceptance_rate"],
                      "prefix_hit_rate": sv["prefix_hit_rate"],
+                     "graph_pool_bytes": eng["graph_pool_bytes"],
                      "launches": eng["launches"]})
     assert rows, out["servers"]
     return rows
@@ -2170,12 +2312,18 @@ def fleet_requeue_phase(wrappers, direct, plain):
     return launches
 
 
-def fleet_spec_phase(wrappers, direct):
-    """2 self-drafting pilots, one killed: the survivor replays the dead
-    server's requests; every stream is the direct (spec-off) run's, the
-    verify kernel is launched and self-draft acceptance is above 0.5."""
+def fleet_spec_phase(wrappers, direct, eager_acceptance):
+    """2 self-drafting pilots, their spec pairs graphed, one killed: the
+    survivor replays the dead server's requests; every stream is the
+    direct (spec-off) run's, which the eager spec run's equal, the verify
+    kernel is launched and self-draft acceptance is above 0.5 (printed
+    beside the eager ``spec_self_eager``'s: the replays draft again, so
+    the two need not be equal)."""
     out, launches = fleet_run("fleet_spec", wrappers, direct, 2,
                               draft="self", fail_at=FLEET_FAIL_AT)
+    say({"phase": "fleet_spec_acceptance",
+         "fleet": out["acceptance_rate"],
+         "spec_self_eager": eager_acceptance, "replays": out["replays"]})
     assert len(out["failed_pilots"]) == 1, out["failed_pilots"]
     assert out["replays"] >= 1, out["replays"]
     assert out["spec_servers"] >= 1, out["servers"]
@@ -2654,11 +2802,13 @@ def _fixed_sequence_gates(rec):
     ex = rec["exit"]
     tel = ex["telemetry"]
     assert ex["exitcode"] == 0 and tel["steps"] == 3, ex
+    # the decode image's step replayed the payload state's graph
+    assert tel["step_graph"], tel
     assert rec["bind"][1] is False, rec["bind"]
     step_ms = [t * 1e3 for t in tel["step_times"]]
     rows = rec["images"][0].shape_spec().global_batch
     return {"exitcode": ex["exitcode"], "cold_bind_ms": rec["bind"][0] * 1e3,
-            "step_ms": step_ms,
+            "step_ms": step_ms, "step_graph": tel["step_graph"],
             "tok_per_s": rows * len(step_ms) / (sum(step_ms) / 1e3)}
 
 
@@ -2818,29 +2968,60 @@ def moe_serve_phase(wrappers):
 
 
 def spec_phase(wrappers, off_streams):
-    """Draft-and-verify on the paged path: self-draft and a cold draft."""
+    """Draft-and-verify on the paged path: self-draft and a cold draft,
+    each with its draft chain and verify step replayed as CUDA graphs
+    (``spec_self``, ``spec_cold``) and eagerly (``*_eager``): streams,
+    acceptance and steps equal, launches equal once the graphs' warm-up
+    steps are taken off.  Returns ({run: launches}, spec_self_eager's
+    acceptance)."""
     from repro_torch.configs.base import get_config
     cold = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2)
-    runs = {}
+    runs, stats = {}, {}
     for phase, kw in (("spec_self", {}),
-                      ("spec_cold", dict(draft_cfg=cold, draft_seed=1))):
-        stats, launches = serve_run(phase, wrappers, spec="draft", spec_k=4,
-                                    **kw)
-        assert stats["spec"] == "draft", stats["spec_fallback_reason"]
-        assert not stats["step_graph"], "the spec pair runs eagerly"
+                      ("spec_self_eager", dict(step_graph=False)),
+                      ("spec_cold", dict(draft_cfg=cold, draft_seed=1)),
+                      ("spec_cold_eager", dict(draft_cfg=cold, draft_seed=1,
+                                               step_graph=False))):
+        st, launches = serve_run(phase, wrappers, spec="draft", spec_k=4,
+                                 **kw)
+        assert st["spec"] == "draft", st["spec_fallback_reason"]
+        assert st["spec_graph"] == (not phase.endswith("_eager")), phase
         for w in ("paged_verify_attention", "paged_decode_attention",
                   "flash_attention", "rmsnorm_fused"):
             assert launches[w] > 0, (phase, launches)
-        if phase == "spec_self":
-            assert stats["acceptance_rate"] > 0.5, stats["acceptance_rate"]
-            assert stats["tokens_per_step"] > 1, stats["tokens_per_step"]
-        same = {rid: stats["streams"][rid] == t
+        if phase.startswith("spec_self"):
+            assert st["acceptance_rate"] > 0.5, st["acceptance_rate"]
+            assert st["tokens_per_step"] > 1, st["tokens_per_step"]
+        same = {rid: st["streams"][rid] == t
                 for rid, t in off_streams.items()}
         say({"phase": phase, "streams_equal_spec_off": sum(same.values()),
              "of": len(same),
              "differ": [rid for rid, ok in same.items() if not ok]})
-        runs[phase] = launches
-    return runs
+        runs[phase], stats[phase] = launches, st
+    for phase in ("spec_self", "spec_cold"):
+        spec_vs_eager(phase, stats[phase], runs[phase],
+                      stats[phase + "_eager"], runs[phase + "_eager"])
+    return runs, stats["spec_self_eager"]["acceptance_rate"]
+
+
+def spec_vs_eager(phase, graphed, g_launches, eager, e_launches):
+    """A graphed spec run against its eager run on the same requests:
+    streams bitwise, the same acceptance and steps, launches equal net of
+    the graphs' warm-up steps; both runs' times printed."""
+    _same_streams(phase, eager["streams"], graphed["streams"])
+    assert graphed["acceptance_rate"] == eager["acceptance_rate"], phase
+    assert graphed["decode_steps"] == eager["decode_steps"], phase
+    replayed = net_launches(graphed, g_launches)
+    assert replayed == e_launches, (phase, replayed, e_launches)
+    graph_memory_gate(phase, graphed, eager)
+    keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
+            "ttft_p99_s", "wall_s", "decode_steps", "acceptance_rate",
+            "tokens_per_step", "draft_overhead_s")
+    say({"phase": f"{phase}_graph_vs_eager",
+         "streams_equal": len(graphed["streams"]),
+         "acceptance_equal": True, "launches_equal": True,
+         "graph": {k: graphed[k] for k in keys},
+         "eager": {k: eager[k] for k in keys}})
 
 
 def dense_phase(wrappers, paged_streams):
@@ -3167,6 +3348,7 @@ def swa_serve_phase(wrappers):
     warm = graphed["graph_warm_launches"]
     replayed = {w: n - warm.get(w, 0) for w, n in g_launches.items()}
     assert replayed == e_launches, (replayed, e_launches)
+    graph_memory_gate("swa_serve", graphed, eager)
     keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
             "ttft_p99_s", "wall_s", "decode_steps")
     say({"phase": "swa_graph_vs_eager", "arch": cfg.name,
@@ -3310,8 +3492,9 @@ def _same_streams(phase, got, want):
 def mla_serve_phases(wrappers, serve):
     """serve's trace on full-width, full-depth minicpm3-4b: paged and
     graphed (``mla_serve``), on the eager step (``mla_serve_eager``), dense
-    (``mla_dense``) and self-drafting (``mla_spec``, the trace's first
-    ``MLA_SPEC_REQUESTS``).  Gates: those of
+    (``mla_dense``) and self-drafting (``mla_spec``, its spec pair graphed,
+    and ``mla_spec_eager``, the trace's first ``MLA_SPEC_REQUESTS``: streams,
+    acceptance and launches net of warm-up equal).  Gates: those of
     every run; flash once a layer per admission (twice with the draft's
     prefill) and RMSNorm launched, no other kernel; eager and dense
     streams bitwise mla_serve's, eager launches equal to the graph's once
@@ -3329,11 +3512,15 @@ def mla_serve_phases(wrappers, serve):
                       ("mla_dense", dict(kv="dense")),
                       ("mla_spec", dict(spec="draft", spec_k=4,
                                         load=spec_load,
-                                        trace=trace[:MLA_SPEC_REQUESTS]))):
+                                        trace=trace[:MLA_SPEC_REQUESTS])),
+                      ("mla_spec_eager", dict(spec="draft", spec_k=4,
+                                              load=spec_load,
+                                              trace=trace[:MLA_SPEC_REQUESTS],
+                                              step_graph=False))):
         st, launches = serve_run(phase, wrappers, arch=MLA_ARCH, **kw)
         assert st["kv"] == ("dense" if phase == "mla_dense" else "paged")
-        assert st["step_graph"] == (phase in ("mla_serve", "mla_dense"))
-        prefills = 2 if phase == "mla_spec" else 1
+        assert st["step_graph"] == (not phase.endswith("_eager")), phase
+        prefills = 2 if phase.startswith("mla_spec") else 1
         assert launches["flash_attention"] == \
             prefills * layers * st["completed"], launches
         assert launches["rmsnorm_fused"] > 0, launches
@@ -3343,12 +3530,15 @@ def mla_serve_phases(wrappers, serve):
     graphed = stats["mla_serve"]
     eager, dense, spec = (stats[p] for p in ("mla_serve_eager", "mla_dense",
                                              "mla_spec"))
+    spec_vs_eager("mla_spec", spec, runs["mla_spec"],
+                  stats["mla_spec_eager"], runs["mla_spec_eager"])
     _same_streams("mla_serve_eager", eager["streams"], graphed["streams"])
     _same_streams("mla_dense", dense["streams"], graphed["streams"])
     warm = graphed["graph_warm_launches"]
     replayed = {w: c - warm.get(w, 0) for w, c in runs["mla_serve"].items()}
     assert replayed == runs["mla_serve_eager"], (replayed,
                                                  runs["mla_serve_eager"])
+    graph_memory_gate("mla_serve", graphed, eager)
     assert spec["spec"] == "draft", spec["spec_fallback_reason"]
     assert spec["acceptance_rate"] > 0.5, spec["acceptance_rate"]
     same = {rid: graphed["streams"][rid] == t
@@ -3367,6 +3557,7 @@ def mla_serve_phases(wrappers, serve):
          "mla_serve_eager": {k: eager[k] for k in keys},
          "mla_dense": {k: dense[k] for k in keys},
          "mla_spec": {k: spec[k] for k in keys},
+         "mla_spec_eager": {k: stats["mla_spec_eager"][k] for k in keys},
          "serve_smollm": {k: serve[k] for k in keys}})
     torch.cuda.empty_cache()
     return graphed, runs
@@ -3471,6 +3662,7 @@ def hybrid_serve_phases(wrappers):
     replayed = {w: c - warm.get(w, 0) for w, c in runs["hybrid_serve"].items()}
     assert replayed == runs["hybrid_serve_eager"], (
         replayed, runs["hybrid_serve_eager"])
+    graph_memory_gate("hybrid_serve", graphed, stats["hybrid_serve_eager"])
     keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
             "ttft_p99_s", "wall_s", "decode_steps")
     say({"phase": "hybrid_summary", "arch": cfg.name,
@@ -3615,6 +3807,7 @@ def vlm_serve_phases(wrappers):
     replayed = {w: c - warm.get(w, 0) for w, c in runs["vlm_serve"].items()}
     assert replayed == runs["vlm_serve_eager"], (replayed,
                                                  runs["vlm_serve_eager"])
+    graph_memory_gate("vlm_serve", graphed, eager)
     keys = ("tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
             "ttft_p99_s", "wall_s", "decode_steps")
     say({"phase": "vlm_graph_vs_eager", "arch": VLM_ARCH, "layers": layers,
@@ -3834,7 +4027,10 @@ def pilot_families_phase(wrappers, vlm_streams):
                        "bind_cached": h.get("bind_cached"),
                        "prefetch_started": h.get("prefetch_started"),
                        "steps": tel.get("steps"),
-                       "step_times": tel.get("step_times")})
+                       "step_times": tel.get("step_times"),
+                       "step_graph": tel.get("step_graph")})
+    # the decode image's steps replayed its payload state's graph
+    assert report[1]["step_graph"] is True, report[1]
     serve_tel = sim.repo.result(tids[2]).telemetry
     sv, eng = serve_tel["serve"], serve_tel["engine"]
     got = {int(rid): t for rid, t in serve_tel["tokens"].items()}
@@ -3842,6 +4038,7 @@ def pilot_families_phase(wrappers, vlm_streams):
     assert {rid: len(t) for rid, t in got.items()} == want
     assert sv["d2h_transfers"] == sv["decode_steps"] > 0
     assert eng["block_leaks"] == 0 and eng["step_graph"]
+    assert eng["decode_graph"] and eng["prefill_graph"], eng
     _same_streams("pilot_families", got, vlm_streams)
     assert pilot.history[2]["bind_cached"] is True, pilot.history[2]
     launches = {w.__name__: eng["launches"].get(w.__name__, 0)
@@ -3992,7 +4189,8 @@ def tp_run(phase, wrappers, arch, mesh, trace, load=SERVE, churn=False,
            **kvb, **{k: stats[k] for k in (
                "tok_per_s", "itl_p50_s", "itl_p99_s", "ttft_p50_s",
                "decode_steps", "step_graph", "spec", "acceptance_rate",
-               "mesh_shape", "mesh_devices", "mesh_whole_leaves")}}
+               "mesh_shape", "mesh_devices", "mesh_whole_leaves",
+               "graph_warm_launches", *GRAPH_KEYS)}}
     rec["engine"] = eng
     rec["built_bytes"] = built_bytes
     return rec
@@ -4188,10 +4386,31 @@ def tp_phases(wrappers):
                      trace[:TP_SPEC_REQUESTS], load=load, **spec)
     keep("tp_spec", sharded)
     assert sharded["spec"] == "draft", sharded["spec"]
+    assert sharded["spec_graph"] and single["spec_graph"]
     tp_compare("tp_spec", single, sharded,
                ("paged_decode_attention", "paged_verify_attention",
                 "flash_attention"), (),
                {"paged_verify_attention": (h, h // 2)}, smi)
+    # the one-device spec run on the eager spec pair, the same requests:
+    # streams, acceptance, steps and launches (net of warm-up) the graphed
+    # one-device run's
+    eager = tp_run("tp_spec_eager", wrappers, CODE_ARCH, None,
+                   trace[:TP_SPEC_REQUESTS], load=load, step_graph=False,
+                   **spec)
+    keep("tp_spec_eager", eager)
+    assert not eager["spec_graph"]
+    _same_streams("tp_spec_eager", eager["streams"], single["streams"])
+    assert eager["acceptance_rate"] == single["acceptance_rate"]
+    assert eager["decode_steps"] == single["decode_steps"]
+    assert net_launches(single, single["launches"]) == eager["launches"]
+    say({"phase": "tp_spec_graph_vs_eager", "arch": CODE_ARCH,
+         "streams_equal": len(eager["streams"]), "acceptance_equal": True,
+         "launches_equal": True, "card": smi,
+         **{r["phase"]: {k: r[k] for k in ("tok_per_s", "itl_p50_s",
+                                           "itl_p99_s", "ttft_p50_s",
+                                           "decode_steps",
+                                           "acceptance_rate")}
+            for r in (single, eager)}})
     seconds["tp_spec"] = time.monotonic() - t0
 
     # tp_mla: minicpm3-4b, 62 layers, the first 8 requests, graphed
@@ -4636,7 +4855,7 @@ def dryrun_serve_check(phase, eng, arch, load, mesh_shape, built_bytes, smi):
                               - ref_conv["params_bytes_per_device"]),
          **{f"{k}_bytes_by_device": {
              "predicted": pred[f"{k}_bytes_by_device"], "held": by_device[k]}
-            for k in by_device},
+            for k in held},
          "predicted_params_plus_state": predicted_total,
          "predicted_on_all_devices": all_devices,
          "memory_allocated_rise_over_build": built_bytes,
@@ -4656,8 +4875,10 @@ def dryrun_step_phase(eng, smi):
     DRYRUN_STEP_REPS after warm-up) beside its roofline bound from
     `repro_torch.launch.hw`.  Gates: counts positive, the paged decode and
     RMSNorm kernels launched, the measured time at or above the bound
-    (under it, a count would be wrong).  Returns the kernel launches of
-    the counted step."""
+    (under it, a count would be wrong).  The same step captured as the
+    decode image captures it (`make_serve_step`'s default on the card) is
+    timed too (``graphed_step_s``, its logits bitwise the eager step's).
+    Returns the kernel launches of the counted step."""
     from repro_torch.launch import hw
     from repro_torch.launch.op_cost import step_cost
     from repro_torch.launch.steps import make_serve_step
@@ -4666,7 +4887,7 @@ def dryrun_step_phase(eng, smi):
     prompts = [np.asarray(e["prompt"], np.int32) for e in trace]
     state, _ = prefilled_state(eng.bundle, eng.params, eng.cfg, prompts, dev,
                                max_len=SERVE["max_len"])
-    step = make_serve_step(eng.cfg)
+    step = make_serve_step(eng.cfg, step_graph=False)
     for _ in range(3):
         step(eng.params, state)
     torch.cuda.synchronize()
@@ -4679,6 +4900,23 @@ def dryrun_step_phase(eng, smi):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_s = float(np.median(times))
+    # the graphed step on a copy of the state, from the same position
+    twin = {**state, "token": state["token"].clone(),
+            "pos": state["pos"].clone(),
+            "cache": [{k: v.clone() for k, v in leaf.items()}
+                      for leaf in state["cache"]]}
+    graphed = make_serve_step(eng.cfg)
+    for _ in range(2):        # the capture's warm-up, then a replay
+        want, _ = step(eng.params, state)
+        got, _ = graphed(eng.params, twin)
+        assert torch.equal(got, want), "dryrun_step: graphed != eager"
+    g_times = []
+    for _ in range(DRYRUN_STEP_REPS):
+        t0 = time.perf_counter()
+        graphed(eng.params, twin)
+        torch.cuda.synchronize()
+        g_times.append(time.perf_counter() - t0)
+    del twin
     compute_s = cost.flops / hw.PEAK_FLOPS
     memory_s = cost.bytes_fused / hw.HBM_BW
     roofline_s = max(compute_s, memory_s)
@@ -4692,6 +4930,8 @@ def dryrun_step_phase(eng, smi):
          "compute_s": compute_s, "memory_s": memory_s,
          "roofline_step_s": roofline_s, "measured_step_s": step_s,
          "measured_step_s_all": times,
+         "graphed_step_s": float(np.median(g_times)),
+         "graphed_step_s_all": g_times,
          "roofline_fraction_of_measured": roofline_s / step_s,
          "note": "kernel launches count zero FLOPs and bytes (the "
                  "reference's custom-call convention)", "card": smi})
@@ -5054,6 +5294,7 @@ def main(argv):
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
+    t_start = time.monotonic()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5095,10 +5336,10 @@ def main(argv):
     t0 = time.monotonic()
     serve, runs = serve_phase(wrappers)
     streams = serve["streams"]
+    spec_runs, spec_acceptance = spec_phase(wrappers, streams)
     runs = {"serve": runs,
             "serve_eager": serve_eager_phase(wrappers, serve, runs),
-            **spec_phase(wrappers, streams),
-            "dense": dense_phase(wrappers, streams)}
+            **spec_runs, "dense": dense_phase(wrappers, streams)}
     say({"phase": "serve_all", "seconds": time.monotonic() - t0})
     t0 = time.monotonic()
     runs["chunked_serve"] = chunked_serve_phase(wrappers, serve)
@@ -5127,7 +5368,7 @@ def main(argv):
     t0 = time.monotonic()
     fleet, runs["fleet_serve"] = fleet_serve_phase(wrappers, streams)
     runs["fleet_requeue"] = fleet_requeue_phase(wrappers, streams, fleet)
-    runs["fleet_spec"] = fleet_spec_phase(wrappers, streams)
+    runs["fleet_spec"] = fleet_spec_phase(wrappers, streams, spec_acceptance)
     runs["fleet_autoscale"] = fleet_autoscale_phase(wrappers, streams)
     runs["fleet_join"] = fleet_join_phase(wrappers, streams)
     say({"phase": "fleet_all", "seconds": time.monotonic() - t0})
@@ -5269,6 +5510,7 @@ def main(argv):
     hybrid_model_phase(dev)
     vlm_model_phase(dev)
     say({"phase": "family_model_all", "seconds": time.monotonic() - t0})
+    say({"phase": "total", "seconds": time.monotonic() - t_start})
     say({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

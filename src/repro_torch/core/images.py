@@ -303,6 +303,8 @@ class ExecutableRegistry:
                       image.role)
 
         if image.mode == "prefill":
+            # eager: its payload makes one call, which a capture would
+            # cost more than (`make_prefill_step`)
             fn = make_prefill_step(cfg)
 
             def make_inputs(seed):
@@ -312,13 +314,20 @@ class ExecutableRegistry:
 
             def warm():
                 with DEVICE_LOCK:
-                    fn(*make_inputs(0))
+                    warm_step(*make_inputs(0))
                     sync(dev)
         elif image.mode == "serve":
             fn, make_inputs, warm = _serve_factory(image, cfg, shape, bundle,
                                                    draft_cfg, dev, mesh)
         else:                            # decode
+            # on the card each payload's state captures its own graph of
+            # the step at its first call (`make_serve_step`); the warm-up
+            # below runs the step eagerly on a throwaway state, as a serve
+            # image's does: it stages the kernel builds and library
+            # handles, and a graph of that state would replay nothing the
+            # payload's state can use
             fn = make_serve_step(cfg)
+            warm_step = make_serve_step(cfg, step_graph=False)
 
             def make_inputs(seed):
                 from repro_torch.models.api import init_decode_state
@@ -330,7 +339,7 @@ class ExecutableRegistry:
 
             def warm():
                 with DEVICE_LOCK:
-                    fn(*make_inputs(0))
+                    warm_step(*make_inputs(0))
                     sync(dev)
 
         return Executable(image, fn, make_inputs, time.monotonic() - t0,
@@ -378,10 +387,11 @@ def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev,
     prefill and chunk functions, and one draft model (weights from seed 0)
     — so a fleet's servers draft and replay bitwise alike; params come from
     the image's seed.  A captured CUDA graph replays one engine's own
-    tensors, so each engine captures its own at construction.  The image's
-    role picks the half it stages: a prefill image wires no step function
-    (its engines capture no graph), a decode image no prefill or chunk
-    function (its engines admit through the import scatter).  An image
+    tensors, so each engine captures its own (`ServeEngine`'s
+    ``step_graph``).  The image's role picks the half it stages: a prefill
+    image wires no step function (its engines capture their admission
+    graphs only), a decode image no prefill or chunk function (its engines
+    admit through the import scatter and capture their decode step).  An image
     with a ``mesh_shape`` (or a startup spec's ``mesh_shape``, which
     overrides it) builds each engine on that mesh over the slice's mesh
     devices (``slice_mesh``; without one, ``cuda:0..N-1``).
@@ -458,9 +468,15 @@ def _serve_factory(image, cfg, shape, bundle, draft_cfg, dev,
         draft-and-verify step): kernel first launches, library handles and
         the allocator's blocks land before a live request.  Nothing of it
         outlives the call: the engine, its state and its params are its
-        own.  Its step is eager — a graph is captured per engine, over that
-        engine's tensors — and its admission one-shot: the port has no
-        per-shape compile for a chunked warm-up to stage.  It holds the
+        own.  It runs eagerly (``step_graph=False``), as a decode image's
+        warm-up does: a graph replays one engine's tensors, so the
+        throwaway engine's captures would stage nothing the bound engine
+        could replay (it captures its own, its decode step and spec pair at
+        construction, its admission buckets and chunk shapes at first use
+        or in `ServeEngine.warm_admission`), and a capture would
+        synchronize the device and empty the allocator's cache while
+        another payload may be serving.
+        Its admission is one-shot.  It holds the
         device lock throughout: a payload serving meanwhile waits for it
         once, at one tick (taking the lock piece by piece spread the wait
         over several ticks, with no gain in tokens/s).  A prefill image's

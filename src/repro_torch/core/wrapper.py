@@ -44,7 +44,7 @@ from repro_torch.core.arena import SharedArena
 from repro_torch.core.images import sync
 from repro_torch.core.proctable import PAYLOAD_UID, ProcessTable
 from repro_torch.data.synthetic import to_device
-from repro_torch.launch.steps import load_train_state, state_tree
+from repro_torch.launch.steps import GRAPH_KEY, load_train_state, state_tree
 from repro_torch.serving import dispatch as fleet_dispatch
 from repro_torch.serving.engine import Request
 from repro_torch.serving.graph import DEVICE_LOCK
@@ -113,6 +113,8 @@ def run_wrapper(arena: SharedArena, proctable: ProcessTable, exe, spec: dict):
                 proctable.heartbeat(entry.pid, dt)
                 telemetry["steps"] = i + 1
                 telemetry["step_times"].append(dt)
+            # the port's own: the steps replayed the state's captured graph
+            telemetry["step_graph"] = GRAPH_KEY in state
     except Exception as e:                               # noqa: BLE001
         exitcode = 1
         telemetry["error"] = f"{type(e).__name__}: {e}"
@@ -457,6 +459,8 @@ _SERVE_STAT_KEYS = (
     "role", "prefills_exported", "handoffs_imported")
 
 _ENGINE_STAT_KEYS = ("itl_p50_s", "itl_p99_s", "itl_max_s", "step_graph",
+                     "decode_graph", "spec_graph", "prefill_graph",
+                     "draft_prefill_graph", "chunk_graph", "graph_pool_bytes",
                      "graph_warm_launches", "launches", "device",
                      "handoff_export_ms", "handoff_import_ms",
                      "handoff_bytes")

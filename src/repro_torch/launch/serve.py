@@ -24,9 +24,11 @@ tensor-parallel over a ``(data, model)`` mesh (`serve_mesh_for`): params
 and KV pools split over the model ranks, streams bitwise the single-device
 engine's.
 Admission is one-shot or chunked (``prefill="chunked"``), continuous or in
-waves (``admission="wave"``, ``--wave``: the baseline); on the card a
-``spec="off"`` engine replays its decode step as a captured CUDA graph
-(``step_graph=False``, ``--eager``: the eager step).
+waves (``admission="wave"``, ``--wave``: the baseline); on the card an
+engine replays CUDA graphs of what the reference compiles: its decode
+step or spec pair, its admission prefill per bucket and its chunk
+function per chunk length (``step_graph=False``, ``--eager``: all
+eager).
 
 ``--via-pilots`` (`serve_via_pilots`, port of the reference's) submits
 each arch of ``--archs`` as a ``serve`` payload image and lets ONE pilot,
@@ -73,6 +75,7 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import get_config, get_smoke_config, list_archs
 from repro_torch.core.cluster import ClusterSim
@@ -196,8 +199,11 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
     """Build the model from ``seed`` and an engine over it
     (`build_engine`), answer ``trace`` (default: a ``make_trace`` trace of
     ``n_requests``), and return the engine's stats plus ``streams`` ({rid:
-    tokens}), ``tokens_per_request`` ({rid: count}) and ``block_leaks``.
-    ``mesh_shape`` serves tensor-parallel over `serve_mesh_for`'s mesh."""
+    tokens}), ``tokens_per_request`` ({rid: count}) and ``block_leaks``;
+    on a card also ``run_peak_bytes``, the most device memory the run
+    allocated above what the built engine held (it resets the device's
+    peak-memory counter).  ``mesh_shape`` serves tensor-parallel over
+    `serve_mesh_for`'s mesh."""
     eng = build_engine(cfg, slots, max_len, seed=seed, num_blocks=num_blocks,
                        block_size=block_size, kv=kv, spec=spec,
                        spec_k=spec_k, draft_cfg=draft_cfg,
@@ -211,7 +217,15 @@ def serve_direct(cfg, n_requests: int, slots: int, max_len: int,
                            seed=seed, dup_rate=dup_rate,
                            prompt_len=prompt_len,
                            max_new_tokens=max_new_tokens)
+    cuda = eng.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(eng.device)
+        torch.cuda.reset_peak_memory_stats(eng.device)
+        base = torch.cuda.memory_allocated(eng.device)
     stats = eng.run_trace(trace)
+    if cuda:
+        stats["run_peak_bytes"] = (torch.cuda.max_memory_allocated(eng.device)
+                                   - base)
     stats["streams"] = {rid: list(r.tokens)
                         for rid, r in sorted(eng.done.items())}
     stats["tokens_per_request"] = {rid: len(t)
@@ -834,7 +848,9 @@ def main(argv=None):
     ap.add_argument("--dup-rate", type=float, default=0.0,
                     help="fraction of repeated prompts (prefix-cache hits)")
     ap.add_argument("--eager", action="store_true",
-                    help="run the decode step eagerly, not as a CUDA graph")
+                    help="run every function eagerly (the decode step or "
+                         "spec pair, admissions, chunks), not as CUDA "
+                         "graphs")
     ap.add_argument("--wave", action="store_true",
                     help="wave admission: refill slots only once all are "
                          "free (the static-batching baseline)")

@@ -6,7 +6,8 @@ late-binding analogy: a (cfg x shape x device x step-kind) tuple keys the
 `PayloadExecutor.bind()` installs the built artifact on an already-held
 slice.  The reference jits them; here they are plain functions of the
 port's model bundle, whose kernels are built and loaded when the image is
-pulled.
+pulled, and the decode step replays a CUDA graph on the card
+(`make_serve_step`).
 
 The train step is ``jax.value_and_grad`` of the bundle's loss turned into
 autograd: the loss's ``backward()`` fills each parameter's ``.grad``, and
@@ -53,6 +54,10 @@ def make_train_step(cfg, oc: OptimConfig | None = None,
 
 
 def make_prefill_step(cfg):
+    """One prefill: (params, batch) -> (last logits, cache).  It stays
+    eager where the reference jits it: a prefill image's payload makes one
+    call, so capturing a CUDA graph would cost more than the call it
+    replaces."""
     bundle = build_model(cfg)
 
     def prefill_step(params, batch):
@@ -61,12 +66,47 @@ def make_prefill_step(cfg):
     return prefill_step
 
 
-def make_serve_step(cfg):
-    """One decode step: (params, state) -> (logits, state)."""
+GRAPH_KEY = "step_graph"
+
+
+def make_serve_step(cfg, step_graph: bool = True):
+    """One decode step: (params, state) -> (logits, state).
+
+    The reference jits it with the state donated; here the step writes
+    ``token`` and ``pos`` into the state in place (the caches are written
+    in place by the decode itself) and returns the state it was given.
+    With ``step_graph`` on a state on a CUDA device, the first call for a
+    given state runs the step eagerly, as the warm-up of a CUDA graph it
+    then captures (`repro_torch.serving.graph.StepGraph`), and every later
+    call with that state and those params replays it; its logits are the
+    graph's static output, overwritten by the next replay.  The graph
+    replays the state's own tensors, so it belongs to the state: it is
+    kept in the state under ``GRAPH_KEY`` (never in the function, which a
+    cached image shares among payloads) and goes with it.
+    ``step_graph=False``, or a state on the CPU, runs the step eagerly."""
     bundle = build_model(cfg)
 
+    def step(params, state):
+        logits, new = bundle.decode(params, state)
+        state["token"].copy_(new["token"])
+        state["pos"].copy_(new["pos"])
+        return logits
+
     def serve_step(params, state):
-        return bundle.decode(params, state)
+        if not step_graph or state["token"].device.type != "cuda":
+            return step(params, state), state
+        held = state.get(GRAPH_KEY)
+        if held is not None and held[0] is params:
+            return held[1].replay(), state
+        # the graph holds the state's tensors, not the dict that holds it
+        tensors = {k: v for k, v in state.items() if k != GRAPH_KEY}
+        # (imported here: the serving package imports this module)
+        from repro_torch.serving.graph import StepGraph
+        graph = StepGraph(lambda: step(params, tensors),
+                          state["token"].device)
+        logits, graph.first = graph.first, None
+        state[GRAPH_KEY] = (params, graph)
+        return logits, state
 
     return serve_step
 

@@ -11,7 +11,8 @@ Port of ``repro.models.api``.  A decoder LM's bundle:
 * ``verify(params, tokens, state)`` -> (logits (B,S,V), new state)
 * ``prefill_chunk(params, state, tokens, table_row, slot, q_offset)``
   -> (last logits (1,V), state): one chunk of a chunked admission into
-  row ``slot`` of a paged or dense decode state
+  row ``slot`` of a paged or dense decode state (``slot`` and ``q_offset``
+  ints, or 0-d int32 device tensors as a captured chunk passes them)
 
 ``decode`` runs on a paged state (``init_decode_state(..., kv="paged")``,
 with ``block_tables``) or a dense one (``kv="dense"``); ``verify`` on a

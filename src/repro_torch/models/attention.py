@@ -51,7 +51,8 @@ import torch
 
 from repro_torch.kernels.paged_attention.ops import gather_kv
 from repro_torch.models.layers import (
-    COMPUTE, apply_rope, dense_init, rmsnorm, rope_table)
+    COMPUTE, apply_rope, dense_init, read_row, rmsnorm, rope_table,
+    write_row)
 from repro_torch.runtime.sharding import (
     Shards, gather, on_ranks, pairs, split)
 
@@ -237,7 +238,7 @@ def decode_attend(q, k_cache, v_cache, cache_len, *, window=None):
     qg = q.reshape(B, K, G, Dh).to(torch.bfloat16).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg,
                      k_cache.to(torch.bfloat16).float()) * (1.0 / Dh ** 0.5)
-    cl = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device).expand(B)
+    cl = _row_positions(cache_len, B, q.device)
     valid = torch.arange(T, device=q.device)[None, :] < cl[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -328,8 +329,13 @@ def attention_prefill(x, p, cfg, rope, cache, *, window=None,
 # agree bit for bit.
 
 def _row_positions(pos, batch: int, device):
-    """Scalar or (B,) decode position(s) -> (B,) int32."""
-    return torch.as_tensor(pos, dtype=torch.int32, device=device).expand(batch)
+    """Scalar or (B,) decode position(s) (or count) -> (B,) int32.  An int
+    is filled on the device: a copy from pageable host memory cannot be
+    captured in a CUDA graph (whisper's decode step attends its frames'
+    count, an int)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32).expand(batch)
+    return torch.full((batch,), pos, dtype=torch.int32, device=device)
 
 
 def _paged_write_index(block_tables, pos, block_size: int):
@@ -605,11 +611,12 @@ def _chunk_attend(q, k, v, q_pos, t_pos=None, window=None):
     return out.reshape(B, C, H, Dh).to(q.dtype)
 
 
-def _ring_write_chunk_row(row, chunk, q_offset: int):
+def _ring_write_chunk_row(row, chunk, q_offset):
     """A ring row (W, ...) after writing a chunk (C, ...) at absolute
-    positions ``q_offset..q_offset+C-1``: each ring slot keeps the LATEST
-    position <= q_offset+C-1 that maps to it (the gather form of the
-    rolling write, right for any ratio of C to W).  Returns a new row."""
+    positions ``q_offset..q_offset+C-1`` (``q_offset`` an int or a 0-d
+    device tensor): each ring slot keeps the LATEST position <=
+    q_offset+C-1 that maps to it (the gather form of the rolling write,
+    right for any ratio of C to W).  Returns a new row."""
     W, C = row.shape[0], chunk.shape[0]
     r = torch.arange(W, device=row.device)
     last = q_offset + C - 1
@@ -620,15 +627,18 @@ def _ring_write_chunk_row(row, chunk, q_offset: int):
                        src.to(row.dtype), row)
 
 
-def attention_prefill_chunk(x, p, cfg, cache, table_row, slot: int,
-                            q_offset: int, *, window=None, compute=COMPUTE):
+def attention_prefill_chunk(x, p, cfg, cache, table_row, slot, q_offset, *,
+                            window=None, compute=COMPUTE):
     """One prefill chunk of ONE batch row.  x: (1,C,D); cache: the layer's
     engine cache, paged pools {"kp","vp"} (nb,bs,K,Dh) or dense rings
     {"k","v"} (B,T,K,Dh), written IN PLACE; table_row: (mb,) int32 block
     ids of the admitted row (passed explicitly: the engine installs the row
     into the shared block table only when the last chunk lands, so free-slot
     writes keep hitting the scratch block meanwhile); slot: the batch row;
-    q_offset: absolute position of x[:,0].  Returns (out (1,C,D), cache).
+    q_offset: absolute position of x[:,0].  ``slot`` and ``q_offset`` are
+    ints, or 0-d int32 tensors on the device (a captured chunk's static
+    inputs, the reference's traced scalars): nothing branches on their
+    values.  Returns (out (1,C,D), cache).
     An MLA layer runs `_mla_prefill_chunk` (paged latent pools only)."""
     if cfg.mla is not None:
         return _mla_prefill_chunk(x, p, cfg, cache, table_row, q_offset,
@@ -657,8 +667,8 @@ def _chunk_heads(q, k, v, kc, vc, table_row, positions, *, paged, slot,
         kg = _paged_gather(kc, table_row[None])              # (1,T,K,Dh)
         vg = _paged_gather(vc, table_row[None])
         return _chunk_attend(q, kg, vg, positions)
-    # dense ring row of W slots
-    k_row, v_row = kc[slot], vc[slot]
+    # dense ring row of W slots (a copy, written back)
+    k_row, v_row = read_row(kc, slot)[0], read_row(vc, slot)[0]
     W = k_row.shape[0]
     # the last W cached positions in order, read BEFORE the chunk writes
     # over them (ring slot of position p is p mod W)
@@ -668,8 +678,8 @@ def _chunk_heads(q, k, v, kc, vc, table_row, positions, *, paged, slot,
     v_all = torch.cat([v_row[slots_prev][None], v], dim=1)
     out = _chunk_attend(q, k_all, v_all, positions,
                         t_pos=torch.cat([p_prev, positions]), window=window)
-    k_row.copy_(_ring_write_chunk_row(k_row, k[0], q_offset))
-    v_row.copy_(_ring_write_chunk_row(v_row, v[0], q_offset))
+    write_row(kc, slot, _ring_write_chunk_row(k_row, k[0], q_offset)[None])
+    write_row(vc, slot, _ring_write_chunk_row(v_row, v[0], q_offset)[None])
     return out
 
 

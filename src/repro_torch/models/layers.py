@@ -23,6 +23,33 @@ COMPUTE = torch.bfloat16
 
 
 # --------------------------------------------------------------------------
+# One batch row of a cache leaf
+# --------------------------------------------------------------------------
+
+def _row_index(slot, device):
+    """``slot`` as a (1,) long index on ``device``: an int is filled there
+    (a host-to-device copy could not be captured), a 0-d integer tensor
+    (a captured chunk's, the reference's traced scalar) reshaped."""
+    if isinstance(slot, torch.Tensor):
+        return slot.reshape(1).to(device, torch.long)
+    return torch.full((1,), slot, dtype=torch.long, device=device)
+
+
+def read_row(t, slot):
+    """A copy of row ``slot`` of ``t`` (B, ...) as a (1, ...) tensor
+    (``index_select``: a tensor index cannot give a view); what is written
+    into it goes back through `write_row`."""
+    return t.index_select(0, _row_index(slot, t.device))
+
+
+def write_row(t, slot, row):
+    """Write ``row`` (1, ...) into row ``slot`` of ``t`` in place
+    (``index_copy_``)."""
+    t.index_copy_(0, _row_index(slot, t.device), row)
+    return t
+
+
+# --------------------------------------------------------------------------
 # Init
 # --------------------------------------------------------------------------
 

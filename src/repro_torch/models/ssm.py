@@ -34,7 +34,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import COMPUTE, dense_init, rmsnorm
+from repro_torch.models.layers import (
+    COMPUTE, dense_init, read_row, rmsnorm, write_row)
 
 
 def _dims(cfg):
@@ -252,13 +253,17 @@ def ssm_decode(x, p, cfg, cache, compute=COMPUTE):
     return out, cache
 
 
-def ssm_prefill_chunk_row(x, p, cfg, cache, slot: int, compute=COMPUTE):
+def ssm_prefill_chunk_row(x, p, cfg, cache, slot, compute=COMPUTE):
     """Chunked-prefill step for ONE batch row of an SSM layer: the chunk's
     tokens through `ssm_decode` one at a time, starting from row ``slot``'s
     cached state (zeroed by the engine before a request's first chunk),
     which they advance IN PLACE.  x: (1,C,D); cache: the layer's full-batch
-    {conv, ssd}.  Returns (out (1,C,D), cache)."""
-    row = {k: v[slot:slot + 1] for k, v in cache.items()}     # views
+    {conv, ssd}; ``slot`` an int or a 0-d device tensor (a captured
+    chunk's).  Returns (out (1,C,D), cache)."""
+    # copies of the row, written back after
+    row = {k: read_row(v, slot) for k, v in cache.items()}
     outs = [ssm_decode(x[:, t:t + 1], p, cfg, row, compute=compute)[0]
             for t in range(x.shape[1])]
+    for k, v in cache.items():
+        write_row(v, slot, row[k])
     return torch.cat(outs, dim=1), cache

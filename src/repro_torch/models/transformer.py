@@ -489,11 +489,13 @@ def lm_verify(params: LMParams, cfg, tokens, cache, pos, *, block_tables,
 
 
 def lm_prefill_chunk(params: LMParams, cfg, tokens, cache, table_row,
-                     slot: int, q_offset: int, *, compute=COMPUTE):
+                     slot, q_offset, *, compute=COMPUTE):
     """One CHUNK of an admission prefill into ONE batch row of the engine's
     decode cache.  tokens: (1,C) int; table_row: (mb,) int32 the admitted
     row's block ids (a dummy for a dense cache); slot: the batch row;
-    q_offset: absolute position of tokens[:,0].  Only row ``slot``'s state
+    q_offset: absolute position of tokens[:,0]; each of the two an int or
+    a 0-d int32 device tensor (a captured chunk's static inputs, as the
+    reference's are traced scalars).  Only row ``slot``'s state
     (its blocks, ring row or SSM row) is written, in place; the other rows
     keep decoding bitwise as before between chunks.  Returns
     (last-position logits (1,V) f32, cache)."""

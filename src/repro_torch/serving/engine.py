@@ -59,12 +59,21 @@ construction: its prefill needs frames, and it runs through its bundle.
 The JAX engine jits the step and donates the decode state.  Here the step
 writes everything in place: the caches (``index_put_``) and the engine's
 own ``token``, ``pos``, ``active`` and ``budget`` (``copy_``), which the
-engine never rebinds.  On a CUDA device a ``spec="off"`` engine captures
-the step once as a CUDA graph (`repro_torch.serving.graph.StepGraph`)
-while every slot is free and replays it every tick; ``step_graph=False``
-keeps the eager step (the comparison), and the CPU always runs eagerly.
-The draft chain, verify, the admission prefill and the chunk function
-stay eager.  As the reference's does, the engine takes its step, prefill,
+engine never rebinds.  On a CUDA device the engine replays CUDA graphs
+(`repro_torch.serving.graph`) where the reference calls a jitted function:
+the decode step, and the draft chain and the verify step of a
+``spec="draft"`` engine, each captured once while every slot is free; the
+one-shot admission prefill (target and draft) once per admit bucket, and
+the chunk function once per chunk shape, each captured at its first use
+(that call runs eagerly and is the capture's warm-up, as a jit compiles on
+its first call) or ahead of traffic by `ServeEngine.warm_admission`.  The
+admission graphs share one memory pool, and the one-shot ones of each
+model one output (`repro_torch.serving.graph.SharedOutput`: each replay's
+outputs are read before another of them replays), so their captures hold
+one admission's working set and one prefill cache, the largest bucket's;
+the decode step and the spec pair keep pools of their own.  ``step_graph=False`` keeps every one of them eager (the
+comparison), and the CPU always runs eagerly.  As the reference's does,
+the engine takes its step, prefill,
 chunk, draft, verify and draft-prefill functions from the caller
 (``step_fn`` ... ``draft_prefill_fn``; None builds its own), so the
 engines of one serve image share them; the graph captures whichever step
@@ -132,7 +141,9 @@ from repro_torch.runtime.sharding import (
     Shards, pairs, parts, rank_bytes, shard_params, state_replicas)
 from repro_torch.serving.blockpool import (
     BlockAllocator, KVHandoff, PrefixCache)
-from repro_torch.serving.graph import DEVICE_LOCK, StepGraph, launch_counts
+from repro_torch.serving.graph import (
+    DEVICE_LOCK, CallGraph, SharedOutput, StepGraph, launch_counts,
+    pool_bytes)
 
 
 @dataclasses.dataclass
@@ -345,6 +356,8 @@ def handoff_ineligible_reason(cfg, kv: str) -> str | None:
 _PAGED_KEYS = {"kp": "k", "vp": "v", "ckvp": "ckv", "kropep": "krope"}
 # the dense per-row leaves that are rings of positions (K/V, MLA's latent)
 _RING_KEYS = ("k", "v", "ckv", "krope")
+# the kinds of admission graph an engine captures at first use
+_ADMIT_GRAPHS = ("prefill", "draft_prefill", "chunk")
 
 
 def _on_device(method):
@@ -382,10 +395,13 @@ class ServeEngine:
       (``prefill_chunk``-token chunks, at most one a tick, interleaved with
       decode; a multiple of ``block_size`` on the paged layout; a dense MLA
       engine admits one-shot, as the reference's).
-    * ``step_graph`` — None: the decode step is a captured CUDA graph on a
-      CUDA device with ``spec="off"`` (and a role that decodes), eager
-      otherwise; False: always eager; True: the graph, raising where there
-      can be none (the CPU, ``spec="draft"``, ``role="prefill"``).
+    * ``step_graph`` — the one switch over every function the reference
+      compiles (the decode step, the draft chain and verify step, the
+      admission prefill of each bucket, target and draft, and the chunk
+      function of each chunk shape).  None: CUDA graphs on a CUDA device
+      when every rank of the mesh is on it, eager otherwise; False: all
+      eager; True: the graphs, raising where there can be none (the CPU,
+      a mesh across devices).  A capture that fails raises.
     * ``role`` — "unified", or a disaggregated "prefill" (admits and
       exports handoffs; no step function) or "decode" (imports handoffs;
       no prefill or chunk function, one-shot); a split role forces
@@ -630,27 +646,37 @@ class ServeEngine:
             self._draft_prefill = (draft_prefill_fn
                                    or self.draft_bundle.prefill)
 
-        # ---- the decode step as one captured CUDA graph ----
+        # ---- the reference's jit boundaries as captured CUDA graphs ----
         # (under a mesh only when every rank is on one device: across
-        # devices the step runs eager)
+        # devices everything runs eager)
         one_device = mesh is None or len(set(mesh.devices.flat)) == 1
         if step_graph is None:
-            step_graph = (self.device.type == "cuda" and self.spec == "off"
-                          and role != "prefill" and one_device)
+            step_graph = self.device.type == "cuda" and one_device
         if step_graph and not one_device:
             raise ValueError("step_graph=True needs every rank of the mesh "
-                             "on one device; across devices the step runs "
-                             "eagerly")
-        if step_graph and role == "prefill":
-            raise ValueError("step_graph=True needs a decode step; a "
-                             "prefill-role engine has none")
+                             "on one device; across devices the engine "
+                             "runs eagerly")
         if step_graph and self.device.type != "cuda":
             raise ValueError("step_graph=True needs a CUDA device; the CPU "
-                             "runs the eager step")
-        if step_graph and self.spec != "off":
-            raise ValueError("step_graph=True needs spec='off': the draft "
-                             "chain and verify run eagerly")
-        self._graph = self._capture_step() if step_graph else None
+                             "runs eagerly")
+        self.step_graph = bool(step_graph)
+        # the admission graphs of each kind, keyed by bucket (target,
+        # draft) and by chunk length, captured at first use into one
+        # shared pool; the one-shot ones of each model share one output
+        self._admit_pool = (torch.cuda.graph_pool_handle() if step_graph
+                            else None)
+        self._admit_out = {k: SharedOutput()
+                           for k in ("prefill", "draft_prefill")}
+        self._admit_graphs: dict[str, dict[int, CallGraph]] = {
+            k: {} for k in _ADMIT_GRAPHS}
+        # every key each kind ran as a graph (a dropped graph's too)
+        self._admit_ran: dict[str, set[int]] = {k: set()
+                                                for k in _ADMIT_GRAPHS}
+        decodes = step_graph and role != "prefill"
+        self._graph = (self._capture_step()
+                       if decodes and self.spec == "off" else None)
+        self._spec_graphs = (self._capture_spec()
+                             if decodes and self.spec == "draft" else None)
 
     def _capture_step(self) -> StepGraph:
         """Capture the decode step while every slot is free.  The warm-up
@@ -667,6 +693,95 @@ class ServeEngine:
 
         return StepGraph(lambda: step(params, state, active, budget),
                          self.device, reset)
+
+    def _capture_spec(self) -> tuple[StepGraph, StepGraph]:
+        """Capture the draft chain and the verify step, in that order,
+        while every slot is free (`_capture_step`'s reasoning: free slots
+        write only the scratch block).  The draft graph's static output,
+        the drafts, is the verify graph's input; it is zeroed before the
+        verify warm-up reads it (a capture computes nothing)."""
+        draft, verify = self._draft_fn, self._verify_fn
+        dparams, dcache = self.draft_params, self._draft_cache
+        params, state = self.params, self.state
+        active, budget = self.active, self.budget
+
+        def reset():
+            for t in (state["token"], state["pos"], active, budget):
+                t.zero_()
+
+        dg = StepGraph(lambda: draft(dparams, dcache, state["token"],
+                                     state["pos"], state["block_tables"])[0],
+                       self.device, reset)
+        drafts = dg.out
+        drafts.zero_()
+        vg = StepGraph(lambda: verify(params, state, active, budget, drafts),
+                       self.device, reset)
+        return dg, vg
+
+    def _graphs(self) -> list:
+        """Every graph the engine holds (each a `StepGraph`)."""
+        out = [self._graph] if self._graph is not None else []
+        out += list(self._spec_graphs or ())
+        for graphs in self._admit_graphs.values():
+            out += [g.step for g in graphs.values()]
+        return out
+
+    def graph_bytes(self) -> int:
+        """The device memory the engine's captures hold: their pools'
+        segments (their shared outputs included)."""
+        return pool_bytes(self._graphs())
+
+    def _graphed(self, kind: str, key: int, fn, args):
+        """``fn(*args)`` as the replay of the ``kind`` graph of ``key``
+        (an admission bucket or chunk length), captured into the admission
+        pool by this call when it has none yet (this call then runs eagerly
+        as its warm-up).  A capture whose output became its kind's shared
+        one (`SharedOutput`) drops the graphs that write into the old one:
+        each is captured again at its next use."""
+        graphs = self._admit_graphs[kind]
+        self._admit_ran[kind].add(key)
+        g = graphs.get(key)
+        if g is not None:
+            return g(*args)
+        shared = self._admit_out.get(kind)
+        gen = shared.generation if shared is not None else 0
+        g, out = CallGraph.first_call(fn, args, self.device,
+                                      pool=self._admit_pool)
+        if shared is not None and shared.generation != gen:
+            graphs.clear()
+        graphs[key] = g
+        return out
+
+    def _run_prefill(self, kind: str, fn, params, tokens):
+        """The one-shot admission prefill of ``tokens`` (1, bucket):
+        ``(logits, prefill cache)``.  On a graphed engine it is the replay
+        of the ``kind`` ("prefill" or "draft_prefill") graph of its bucket,
+        its output a view of the kind's shared one, read before the next
+        admission graph replays.  The closure holds the function, the
+        params and the shared output, not the engine."""
+        if self._admit_pool is None:
+            return fn(params, {"tokens": tokens})
+        shared = self._admit_out[kind]
+        return self._graphed(
+            kind, tokens.shape[1],
+            lambda t: shared.place(fn(params, {"tokens": t})), (tokens,))
+
+    def _run_chunk(self, toks, row_t, si: int, off: int):
+        """One chunk's last-position logits (1, V): the chunk function with
+        ``slot`` and ``q_offset`` as ints, or on a graphed engine the
+        replay of the chunk length's graph, whose tokens, table row, slot
+        and offset (0-d int32, the reference's traced scalars) are static
+        buffers copied in before it."""
+        if self._admit_pool is None:
+            return self._chunk_fn(self.params, self.state, toks, row_t, si,
+                                  off)[0]
+        chunk, params, state = self._chunk_fn, self.params, self.state
+        scalars = (torch.tensor(si, dtype=torch.int32),
+                   torch.tensor(off, dtype=torch.int32))
+        return self._graphed(
+            "chunk", toks.shape[1],
+            lambda t, r, s, o: chunk(params, state, t, r, s, o)[0],
+            (toks, row_t, *scalars))
 
     # ------------------------------------------------------------------
 
@@ -788,7 +903,8 @@ class ServeEngine:
             return True
 
         tokens = torch.as_tensor(padded[None], device=self.device)
-        logits, cache = self._prefill(self.params, {"tokens": tokens})
+        logits, cache = self._run_prefill("prefill", self._prefill,
+                                          self.params, tokens)
         nxt = int(torch.argmax(logits[0, -1]))                # admission-time
         if self.kv == "paged":
             _install_slot_paged(self.state, cache, si, plen, nxt, row, nhit,
@@ -955,7 +1071,8 @@ class ServeEngine:
         again would write a shared block twice."""
         if self.spec != "draft":
             return
-        _, dcache = self._draft_prefill(self.draft_params, {"tokens": tokens})
+        _, dcache = self._run_prefill("draft_prefill", self._draft_prefill,
+                                      self.draft_params, tokens)
         _install_draft_paged(self._draft_cache, dcache, row, nhit,
                              self.block_size)
 
@@ -988,8 +1105,7 @@ class ServeEngine:
         row_arr = np.zeros((max(self.max_blocks_per_slot, 1),), np.int32)
         row_arr[:len(job.row)] = job.row
         row_t = torch.as_tensor(row_arr, device=self.device)
-        logits, _ = self._chunk_fn(self.params, self.state, toks, row_t,
-                                   job.si, job.off)
+        logits = self._run_chunk(toks, row_t, job.si, job.off)
         self.prefill_chunks += 1
         job.off += C
         if job.off < job.plen:
@@ -1157,12 +1273,14 @@ class ServeEngine:
         return emitted
 
     def _spec_step(self):
-        """The draft chain, then the verify step; returns the packed
-        (k+3, slots) tensor.  The drafts stay on the device and feed verify
-        directly; nothing is read back here.  On a card the chain's time is
-        taken with CUDA events, read after the step's one copy (which
-        waits for the device); on the CPU every op is synchronous and the
-        host clock measures it."""
+        """The draft chain, then the verify step (their graphs' replays on
+        a graphed engine); returns the packed (k+3, slots) tensor.  The
+        drafts stay on the device and feed verify directly; nothing is read
+        back here, and the draft cache is written in place.  On a card the
+        chain's time is taken with CUDA events around its replay (or its
+        eager run), read after the step's one copy (which waits for the
+        device); on the CPU every op is synchronous and the host clock
+        measures it."""
         cuda = self.device.type == "cuda"
         if cuda:
             self._draft_events = (torch.cuda.Event(enable_timing=True),
@@ -1170,43 +1288,62 @@ class ServeEngine:
             self._draft_events[0].record()
         else:
             t0 = time.monotonic()
-        drafts, self._draft_cache = self._draft_fn(
-            self.draft_params, self._draft_cache, self.state["token"],
-            self.state["pos"], self.state["block_tables"])
+        if self._spec_graphs is not None:
+            drafts = self._spec_graphs[0].replay()
+        else:
+            drafts, _ = self._draft_fn(
+                self.draft_params, self._draft_cache, self.state["token"],
+                self.state["pos"], self.state["block_tables"])
         if cuda:
             self._draft_events[1].record()
         else:
             self.draft_time_s += time.monotonic() - t0
+        if self._spec_graphs is not None:
+            return self._spec_graphs[1].replay()
         return self._verify_fn(self.params, self.state, self.active,
                                self.budget, drafts)
 
-    @_on_device
     def warm_admission(self):
         """Run one prefill per admit-length bucket ahead of the first
         request, and (chunked mode) one chunk per chunk shape, so first-use
-        costs (kernel compiles, library handles) do not land on a live
-        request.  The chunks target an all-scratch table row in slot 0
-        (paged: their writes land in the scratch block); SSM rows they
-        advance are zeroed after."""
+        costs (kernel compiles, library handles, and on a graphed engine
+        each bucket's and chunk shape's capture) do not land on a live
+        request.  Each bucket and each chunk shape takes the device lock
+        on its own: a fleet's joiner warms up while its peers serve, and
+        they renew their leases between its captures.  The chunks target
+        an all-scratch table row in slot 0 (paged: their writes land in
+        the scratch block); the SSM rows they advance are zeroed after."""
         if self._live or self._jobs:
             raise RuntimeError("warm_admission needs an idle engine")
         if self.role == "decode":
             return                     # no prefill to warm
-        for pb in admit_buckets(self.max_len):
-            batch = {"tokens": torch.zeros((1, pb), dtype=torch.int32,
-                                           device=self.device)}
-            self._prefill(self.params, batch)
-            if self.spec == "draft":
-                self._draft_prefill(self.draft_params, batch)
+        # the largest bucket first: its output is the one the others share
+        for pb in reversed(admit_buckets(self.max_len)):
+            self._warm_bucket(pb)
         if self.prefill_mode == "chunked":
-            row = torch.zeros((max(self.max_blocks_per_slot, 1),),
-                              dtype=torch.int32, device=self.device)
             for C in prefill_chunk_shapes(self.max_len, self.block_size,
                                           self.prefill_chunk):
-                self._chunk_fn(self.params, self.state,
-                               torch.zeros((1, C), dtype=torch.int32,
-                                           device=self.device), row, 0, 0)
-            self._zero_ssm_rows(0)
+                self._warm_chunk(C)
+
+    @_on_device
+    def _warm_bucket(self, pb: int):
+        tokens = torch.zeros((1, pb), dtype=torch.int32, device=self.device)
+        self._run_prefill("prefill", self._prefill, self.params, tokens)
+        if self.spec == "draft":
+            self._run_prefill("draft_prefill", self._draft_prefill,
+                              self.draft_params, tokens)
+        self._sync()
+
+    @_on_device
+    def _warm_chunk(self, C: int):
+        row = torch.zeros((max(self.max_blocks_per_slot, 1),),
+                          dtype=torch.int32, device=self.device)
+        self._run_chunk(torch.zeros((1, C), dtype=torch.int32,
+                                    device=self.device), row, 0, 0)
+        self._zero_ssm_rows(0)
+        self._sync()
+
+    def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1308,7 +1445,10 @@ class ServeEngine:
         """The parameter, decode-state and KV-pool bytes held on each
         device of the engine's mesh, ``[data row][model rank]`` (a
         one-device engine: ``[[n]]``), as `launch.dryrun.run_serve_cell`
-        predicts them with ``whole=`` the leaves kept whole."""
+        predicts them with ``whole=`` the leaves kept whole; and
+        ``graphs``, the bytes its CUDA graphs hold on its one device
+        (`graph_bytes`; 0 when eager), which the dry run does not
+        predict."""
         msz = (1 if self.mesh is None
                else len(self.mesh.model_devices))
         params = (self.params.tree(),) + tuple(
@@ -1318,7 +1458,8 @@ class ServeEngine:
         return {
             "params": [rank_bytes(t, msz) for t in params],
             "state": [rank_bytes(t, msz) for t in states],
-            "kv_pool": [rank_bytes(t["cache"], msz, kv) for t in states]}
+            "kv_pool": [rank_bytes(t["cache"], msz, kv) for t in states],
+            "graphs": self.graph_bytes()}
 
     def _live_tokens(self) -> int:
         return sum(self._host_pos[si]
@@ -1350,6 +1491,13 @@ class ServeEngine:
             "tokens_per_step": (self.tokens_emitted / self.steps
                                 if self.steps else 0.0),
         }
+
+    def _warm_launches(self) -> dict:
+        out: dict = {}
+        for g in self._graphs():
+            for name, n in g.warm_launches.items():
+                out[name] = out.get(name, 0) + n
+        return out
 
     def _mesh_shape(self):
         return (tuple(self.mesh.devices.shape) if self.mesh is not None
@@ -1445,10 +1593,21 @@ class ServeEngine:
                                 if self.prompt_tokens_total else 0.0),
             "prefill": self.prefill_mode,
             "prefill_chunks": self.prefill_chunks,
-            "step_graph": self._graph is not None,
-            # launches of the warm-up steps run before the graph's capture
-            "graph_warm_launches": (dict(self._graph.warm_launches)
-                                    if self._graph is not None else {}),
+            # the one switch: every function the reference compiles is
+            # a replayed CUDA graph (step_graph), and which of them ran
+            "step_graph": self.step_graph,
+            "decode_graph": self._graph is not None,
+            "spec_graph": self._spec_graphs is not None,
+            "prefill_graph": sorted(self._admit_ran["prefill"]),
+            "draft_prefill_graph": sorted(self._admit_ran["draft_prefill"]),
+            "chunk_graph": sorted(self._admit_ran["chunk"]),
+            # the device memory the captures hold (`graph_bytes`)
+            "graph_pool_bytes": self.graph_bytes(),
+            # launches of the throwaway warm-up steps run before the
+            # decode step's and the spec pair's captures (a graph captured
+            # at first use warms up on that use, which an eager engine
+            # makes too)
+            "graph_warm_launches": self._warm_launches(),
             "blocked_admissions": self.blocked_admissions,
             "spec": self.spec,
             "spec_k": self.spec_k if self.spec != "off" else 0,

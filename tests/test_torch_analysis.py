@@ -322,28 +322,33 @@ def test_graph_rebind_only_where_a_class_captures():
 
 def test_engine_captures_what_it_must_and_draft_cache_is_pinned():
     """``ServeEngine._capture_step`` captures the step function, the
-    params, the state, ``active`` and ``budget``, which no method but
-    ``__init__`` rebinds.  ``_spec_step`` rebinds ``_draft_cache``, which
-    no capture reads today; the moment one does, that line is flagged."""
+    params, the state, ``active`` and ``budget``, and ``_capture_spec``
+    the draft chain's and verify's functions, params and the draft cache
+    besides; no method but ``__init__`` rebinds any of them.
+    ``_spec_step`` writes the draft cache in place; the moment it rebinds
+    it again (as it did before the spec pair was captured), that line is
+    flagged."""
     import ast
     src = ENGINE.read_text()
     tree = ast.parse(src)
-    (cap,) = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
-              and n.name == "_capture_step"]
-    assert torch_rules.captured_attrs(cap) == {
+    caps = {n.name: n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+            and n.name in ("_capture_step", "_capture_spec")}
+    assert torch_rules.captured_attrs(caps["_capture_step"]) == {
         "_step_fn", "params", "state", "active", "budget"}
+    # (and ``device``: the verify closure reads the draft graph's output,
+    # a local bound from a call the rule reads whole)
+    assert torch_rules.captured_attrs(caps["_capture_spec"]) == {
+        "_draft_fn", "_verify_fn", "draft_params", "_draft_cache", "params",
+        "state", "active", "budget", "device"}
     assert not _torch(src, ENGINE_PATH)
-    reads = src.replace(
-        "        active, budget = self.active, self.budget\n",
-        "        active, budget = self.active, self.budget\n"
-        "        cache = self._draft_cache\n", 1).replace(
-        "lambda: step(params, state, active, budget)",
-        "lambda: step(params, state, active, budget, cache)", 1)
-    assert reads != src
-    fs = [f for f in torch_rules.lint_source(reads, ENGINE_PATH)
+    rebinds = src.replace("            drafts, _ = self._draft_fn(\n",
+                          "            drafts, self._draft_cache = "
+                          "self._draft_fn(\n", 1)
+    assert rebinds != src
+    fs = [f for f in torch_rules.lint_source(rebinds, ENGINE_PATH)
           if not f.suppressed]
     assert [f.rule for f in fs] == ["graph-rebind"]
-    line = reads.splitlines()[fs[0].line - 1]
+    line = rebinds.splitlines()[fs[0].line - 1]
     assert "self._draft_cache = self._draft_fn(" in line, line
     assert "_spec_step rebinds self._draft_cache" in fs[0].message
 

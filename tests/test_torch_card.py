@@ -34,7 +34,10 @@ CUDA graph and replayed.  The serve engine's decode step, captured as a
 CUDA graph, is held bitwise to the eager step at smoke widths (paged,
 dense, mamba2, mixtral's rolling rings, minicpm3's latent pools and
 rings, jamba's paged and dense hybrid stacks, and llava text only), its replays to their launch counts, and a chunked
-admission beside a decoding slot to its idle-engine run; one pilot binds
+admission beside a decoding slot to its idle-engine run; so are the
+engine's other graphs (the admission prefill of each bucket, the chunk
+function of each chunk length, the draft chain and verify step) and the
+decode image's step, each against its eager run; one pilot binds
 two smoke serve images in turn, each bitwise its direct engine; three
 pilots serve one pool's requests, one killed, bitwise the direct engine; a
 decode-role engine imports prefill-role handoffs into its graphed step
@@ -820,6 +823,109 @@ def test_chunked_admission_on_card_matches_idle_engine(card, arch, kv):
     assert stats["step_graph"] and stats["d2h_transfers"] == stats["decode_steps"]
     assert eng.done[1].tokens == solo.done[1].tokens
     assert eng.block_leaks() == 0
+
+
+def _net_launches(eng):
+    """The engine's kernel launches less its graphs' throwaway warm-up
+    steps (the decode step's and the spec pair's)."""
+    warm = eng._stats(0, 0.0)["graph_warm_launches"]
+    net = {k: n - warm.get(k, 0) for k, n in eng.launches.items()}
+    return {k: n for k, n in net.items() if n}
+
+
+@pytest.mark.parametrize("arch,kv,prefill", [
+    ("smollm-360m", "paged", "oneshot"), ("smollm-360m", "paged", "chunked"),
+    ("smollm-360m", "dense", "chunked"), ("granite-moe-3b-a800m", "paged",
+                                          "oneshot"),
+    ("mamba2-370m", "dense", "oneshot"), ("mamba2-370m", "dense", "chunked"),
+    ("minicpm3-4b", "paged", "chunked"), ("mixtral-8x7b", None, "chunked"),
+    ("jamba-v0.1-52b", "paged", "chunked")])
+def test_graphed_admission_equals_eager(card, arch, kv, prefill):
+    """The admission prefill's graph of each bucket and the chunk
+    function's of each chunk length (slot and offset as device scalars)
+    replay the eager admission bitwise: `_drive`'s streams equal, the
+    graphs captured, and the same kernel launches once the decode step's
+    warm-up steps are taken off."""
+    kw = dict(prefill=prefill, prefill_chunk=16)
+    graphed = _smoke_engine(arch, kv, **kw)
+    eager = _smoke_engine(arch, kv, step_graph=False, **kw)
+    got, want = _drive(graphed), _drive(eager)
+    assert got == want and sorted(got) == [0, 1, 2]
+    st = graphed._stats(0, 0.0)
+    if graphed.prefill_mode == "chunked":
+        assert st["chunk_graph"] and not st["prefill_graph"], st
+    else:
+        assert st["prefill_graph"] and not st["chunk_graph"], st
+    assert st["graph_pool_bytes"] > 0, st["graph_pool_bytes"]
+    assert not any(eager._admit_graphs.values())
+    # the one-shot graphs write into one shared output
+    if graphed.prefill_mode != "chunked":
+        assert graphed._admit_out["prefill"].ref is not None
+    assert _net_launches(graphed) == _net_launches(eager)
+
+
+@pytest.mark.parametrize("draft", ["self", "cold"])
+def test_graphed_spec_pair_equals_eager(card, draft):
+    """The draft chain's and the verify step's graphs, captured at
+    construction, replay the eager spec step bitwise: streams, acceptance,
+    the same launches net of their warm-up steps; the draft cache keeps its
+    tensors."""
+    import dataclasses
+    from repro_torch.configs.base import get_smoke_config
+    cfg = get_smoke_config("smollm-360m")
+    kw = dict(spec="draft", spec_k=3,
+              draft_cfg=(None if draft == "self"
+                         else dataclasses.replace(cfg, num_layers=1)))
+    graphed = _smoke_engine("smollm-360m", "paged", **kw)
+    eager = _smoke_engine("smollm-360m", "paged", step_graph=False, **kw)
+    assert graphed._spec_graphs is not None and graphed._graph is None
+    ptrs = [t.data_ptr() for leaf in graphed._draft_cache
+            for t in leaf.values()]
+    got, want = _drive(graphed), _drive(eager)
+    assert got == want and sorted(got) == [0, 1, 2]
+    assert graphed.spec_accepted == eager.spec_accepted
+    assert graphed.spec_drafted == eager.spec_drafted > 0
+    assert (graphed.spec_accepted > 0) == (draft == "self")
+    assert ptrs == [t.data_ptr() for leaf in graphed._draft_cache
+                    for t in leaf.values()]
+    assert graphed.draft_time_s > 0
+    assert _net_launches(graphed) == _net_launches(eager)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "whisper-small"])
+def test_graphed_decode_image_step_equals_eager(card, arch):
+    """The decode image's step, captured per state at its first call:
+    six steps of two states from one function, interleaved, give the eager
+    step's logits and tokens bitwise, each state returned as given and
+    holding its own graph."""
+    import dataclasses
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.serve import KERNEL_FLAGS
+    from repro_torch.launch.steps import GRAPH_KEY, make_serve_step
+    from repro_torch.models.api import build_model, init_decode_state
+    cfg = dataclasses.replace(get_smoke_config(arch), **dict(KERNEL_FLAGS))
+    params = build_model(cfg).init(0, device="cuda")
+    graphed, eager = make_serve_step(cfg), make_serve_step(cfg, False)
+
+    def state(seed):
+        st = init_decode_state(cfg, 2, 64, kv="dense", device="cuda")
+        st["token"].copy_(torch.randint(0, 500, (2, 1), generator=(
+            torch.Generator("cuda").manual_seed(seed)), device="cuda",
+            dtype=torch.int32))
+        return st
+    runs = {k: [state(0), state(1)] for k in ("graphed", "eager")}
+    for _ in range(6):
+        for i in range(2):
+            g, gst = graphed(params, runs["graphed"][i])
+            e, est = eager(params, runs["eager"][i])
+            assert gst is runs["graphed"][i] and est is runs["eager"][i]
+            assert torch.equal(g, e)
+    for i in range(2):
+        assert torch.equal(runs["graphed"][i]["token"],
+                           runs["eager"][i]["token"])
+        assert GRAPH_KEY not in runs["eager"][i]
+    assert (runs["graphed"][0][GRAPH_KEY][1]
+            is not runs["graphed"][1][GRAPH_KEY][1])
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,13 @@ TOL = dict(rtol=1e-2, atol=1e-2)
 POOL_TOL = dict(rtol=2e-2, atol=2e-2)
 KERNELS = dict(attn_impl="pallas", norm_impl="pallas", ssm_impl="pallas")
 SMOLLM, GRANITE, MAMBA = "smollm-360m", "granite-moe-3b-a800m", "mamba2-370m"
+MLA, SWA, HYBRID = "minicpm3-4b", "mixtral-8x7b", "jamba-v0.1-52b"
+# a window the test's 45-token prompt wraps
+_ARCH_KW = {SWA: dict(sliding_window=16)}
+# jamba's chain runs at f32 compute and f32 matrices on both sides, as
+# tests/test_torch_hybrid.py holds its chunk chain's cache leaves: in bf16
+# its eight layers (seven SSM mixers, two MoE FFNs) round apart further
+_F32 = {HYBRID}
 
 
 def _f(x):
@@ -215,36 +222,77 @@ def test_ssm_prefill_chunk_row_matches_jax(C):
 # the model: lm_prefill_chunk chained over a prompt
 # ---------------------------------------------------------------------------
 
+def _chunks_int_and_tensor(chunk_fn, params, cfg, state, prompt, row, slot):
+    """The chunks (16, 16, 13) of ``prompt`` into row ``slot`` of ``state``
+    with ``slot`` and ``q_offset`` as ints, then into a copy of the state
+    as they started with both as 0-d int32 tensors (a captured chunk's
+    static inputs).  Asserts the two bitwise equal, chunk for chunk and
+    leaf for leaf; returns the int form's logits."""
+    twin = {**state, "cache": [{k: v.clone() for k, v in leaf.items()}
+                               for leaf in state["cache"]]}
+    got = {"int": [], "tensor": []}
+    for form, st in (("int", state), ("tensor", twin)):
+        off = 0
+        for C in (16, 16, 13):
+            toks = torch.from_numpy(prompt[None, off:off + C])
+            s, o = slot, off
+            if form == "tensor":
+                s = torch.tensor(slot, dtype=torch.int32)
+                o = torch.tensor(off, dtype=torch.int32)
+            logits, _ = chunk_fn(params, st, toks, torch.from_numpy(row),
+                                 s, o)
+            got[form].append(logits)
+            off += C
+    for a, b in zip(got["int"], got["tensor"]):
+        assert torch.equal(a, b)
+    for leaf, tleaf in zip(state["cache"], twin["cache"]):
+        for k, v in leaf.items():
+            assert torch.equal(v, tleaf[k]), k
+    return got["int"]
+
+
 @pytest.mark.parametrize("arch,kv", [(SMOLLM, "paged"), (SMOLLM, "dense"),
-                                     (GRANITE, "paged"), (MAMBA, "dense")])
+                                     (GRANITE, "paged"), (MAMBA, "dense"),
+                                     (MLA, "paged"), (SWA, "dense"),
+                                     (HYBRID, "paged")])
 def test_lm_prefill_chunk_chained_matches_jax(arch, kv):
     """Every chunk of a 45-token prompt (16, 16, 13) into row 1 of a
     2-slot state: each chunk's last-position logits and, after the last,
-    every cache leaf."""
-    cfg, jcfg, params, jparams = _model(arch)
+    every cache leaf.  ``slot`` and ``q_offset`` as 0-d int32 tensors give
+    the int form's logits and cache bitwise.  minicpm3-4b runs MLA's
+    latent pools, mixtral-8x7b its ring at a window of 16 (the prompt
+    wraps it twice), jamba its hybrid stack (SSM rows and a paged
+    attention slot, at f32 compute)."""
+    cfg, jcfg, params, jparams = _model(arch, **_ARCH_KW.get(arch, {}))
+    compute, jcompute = torch.bfloat16, jnp.bfloat16
+    if arch in _F32:
+        compute, jcompute = torch.float32, jnp.float32
+        params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                   device="cpu", matrix_dtype=compute)
     slots, max_len, bs, slot = 2, 64, 16, 1
     nb = slots * (max_len // bs) + 1
     kw = dict(num_blocks=nb, block_size=bs) if kv == "paged" else {}
-    state = init_decode_state(cfg, slots, max_len, kv=kv, device="cpu", **kw)
-    jstate = jax_state(jcfg, slots, max_len, kv=kv, **kw)
+    state = init_decode_state(cfg, slots, max_len, kv=kv, device="cpu",
+                              dtype=compute, **kw)
+    jstate = jax_state(jcfg, slots, max_len, kv=kv, dtype=jcompute, **kw)
     mb = max(max_len // bs, 1) if kv == "paged" else 1
     row = np.zeros((mb,), np.int32)
     if kv == "paged":
         row[:3] = [6, 2, 8]
     prompt = np.random.default_rng(7).integers(
         0, cfg.vocab_size, size=45).astype(np.int32)
-    chunk_fn = build_model(cfg).prefill_chunk
-    jchunk = jax.jit(jax_build(jcfg).prefill_chunk)
+    logits = _chunks_int_and_tensor(
+        build_model(cfg, compute=compute).prefill_chunk, params, cfg, state,
+        prompt, row, slot)
+    jchunk = jax.jit(jax_build(jcfg, compute=jcompute).prefill_chunk)
     off = 0
-    for C in (16, 16, 13):
+    for C, got in zip((16, 16, 13), logits):
         toks = prompt[None, off:off + C]
-        logits, _ = chunk_fn(params, state, torch.from_numpy(toks),
-                             torch.from_numpy(row), slot, off)
         jlogits, jstate = jchunk(jparams, jstate, jnp.asarray(toks),
                                  jnp.asarray(row), jnp.int32(slot),
                                  jnp.int32(off))
-        assert logits.shape == (1, cfg.vocab_size)
-        np.testing.assert_allclose(_f(logits), _f(jlogits), **TOL)
+        assert got.shape == (1, cfg.vocab_size)
+        np.testing.assert_allclose(_f(got), _f(jlogits), **TOL)
         off += C
     for leaf, jleaf in zip(state["cache"], jstate["cache"]):
         assert set(leaf) == set(jleaf)

@@ -277,12 +277,17 @@ def test_step_writes_its_state_in_place(model, kv):
 
 @pytest.mark.parametrize("kw", [dict(), dict(spec="draft")])
 def test_step_graph_true_without_a_card_raises(model, kw):
-    """A CUDA graph of the step needs a CUDA device (and spec="off"):
-    ``step_graph=True`` on the CPU raises, and nothing runs eagerly in its
-    place."""
-    with pytest.raises(ValueError, match="step_graph=True"):
+    """``step_graph`` covers every function the reference compiles, the
+    spec pair's draft chain and verify step included: a CUDA graph needs a
+    CUDA device, so ``step_graph=True`` on the CPU raises for a spec="off"
+    and a spec="draft" engine alike, and nothing runs eagerly in its
+    place.  The CPU default captures nothing."""
+    with pytest.raises(ValueError, match="step_graph=True needs a CUDA"):
         _engine(model, step_graph=True, **kw)
-    assert _engine(model, **kw)._graph is None      # the CPU default
+    eng = _engine(model, **kw)                      # the CPU default
+    assert not eng.step_graph and eng._admit_pool is None
+    assert eng._graph is None and eng._spec_graphs is None
+    assert eng.spec == kw.get("spec", "off")
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=((2, 1), ("cpu", "cpu")))])

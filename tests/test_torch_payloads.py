@@ -45,6 +45,7 @@ from repro_torch.core.images import ExecutableRegistry, PayloadImage
 from repro_torch.core.proctable import PAYLOAD_UID, ProcessTable
 from repro_torch.core.wrapper import _SERVE_STAT_KEYS, run_wrapper
 from repro_torch.launch.serve import make_trace
+from repro_torch.models.api import build_model
 from repro_torch.runtime.mesh import serve_mesh
 
 ARCH = "smollm-360m"
@@ -146,6 +147,28 @@ def test_decode_payload_logits_match_jax(tmp_path):
     assert len(pout) == len(jout) == 4
     for mine, ref in zip(pout, jout):
         np.testing.assert_allclose(mine, ref, **LOGIT_TOL)
+
+
+def test_decode_image_step_returns_the_state_it_was_given():
+    """The decode image's ``fn`` writes ``token`` and ``pos`` into the
+    state it was given and returns that state (on a card, the state its
+    captured graph replays); its logits are the bundle's functional decode
+    step's, chained."""
+    pexe = ExecutableRegistry().pull(_images("decode")[1], CPU)
+    params, state = pexe.make_inputs(0)
+    held = {k: state[k] for k in ("token", "pos", "cache")}
+    bundle = build_model(pexe.image.config())
+    ref = {**state, "token": state["token"].clone(),
+           "pos": state["pos"].clone(),
+           "cache": [{k: v.clone() for k, v in leaf.items()}
+                     for leaf in state["cache"]]}
+    for _ in range(3):
+        logits, out = pexe.fn(params, state)
+        want, ref = bundle.decode(params, ref)
+        assert out is state and torch.equal(logits, want)
+    assert all(state[k] is v for k, v in held.items())
+    assert torch.equal(state["token"], ref["token"])
+    assert state["pos"].tolist() == [3] * state["pos"].shape[0]
 
 
 def _jax_margins(jcfg, jparams, trace, max_len):

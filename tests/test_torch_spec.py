@@ -281,6 +281,30 @@ def test_spec_tokens_bitwise_equal_off(model, draft):
     assert eng.block_leaks() == 0
 
 
+def test_spec_step_writes_the_draft_cache_in_place(model):
+    """`_spec_step` writes the draft's shadow pools in place: the cache,
+    its layers' dicts and their tensors stay the objects (and the storage)
+    the spec pair's CUDA graphs are captured over, and the draft KV in them
+    changes."""
+    cfg = model[0]
+    eng = _engine(model, slots=2, spec="draft", spec_k=4,
+                  draft_cfg=dataclasses.replace(cfg, num_layers=1))
+    assert eng.spec == "draft", eng.spec_fallback_reason
+    cache = eng._draft_cache
+    held = [(leaf, k, t, t.data_ptr()) for leaf in cache
+            for k, t in leaf.items()]
+    for r in _reqs(2):
+        eng.submit(r)
+    eng.step()                             # admissions + the first step
+    after_admission = [t.clone() for _, _, t, _ in held]
+    eng.run()
+    assert eng._draft_cache is cache
+    assert all(leaf[k] is t and t.data_ptr() == ptr
+               for leaf, k, t, ptr in held)
+    assert any(not torch.equal(t, was)
+               for (_, _, t, _), was in zip(held, after_admission))
+
+
 def test_spec_one_transfer_per_step(model, monkeypatch):
     """The packed (k+3, slots) verify return is the ONLY device->host read
     of a speculative step: one .cpu(), and no .item()/.tolist()/int()/
