@@ -189,13 +189,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    train    — ``train_direct`` (launch/train.py) on full-width
               smollm-360m (random f32 weights from seed 0), batch 8, seq
               512, 30 steps on the synthetic data, ``OptimConfig`` as
-              train_direct builds it: every loss finite, the mean of the
-              last 5 below the mean of the first 5, and no kernel launched
-              (the train path is the plain one, as the reference's).
-              Reported: ms per step (median after step 3), tokens/s,
-              ``max_memory_allocated`` and the model-FLOP share of 989
-              TFLOP/s (6·N·tokens plus the attention term, its formula
-              printed).
+              train_direct builds it, the step a CUDA graph captured at
+              the first call and replayed from the second
+              (``step_graph``): every loss finite, the mean of the last 5
+              below the mean of the first 5, and no kernel launched (the
+              train path is the plain one, as the reference's).
+              Reported: ``step_graph``, the first call's seconds
+              (``capture_s``), ms per step (median of the steps after the
+              first), tokens/s, ``max_memory_allocated``,
+              ``graph_pool_bytes`` and the model-FLOP share of 989 TFLOP/s
+              (6·N·tokens plus the attention term, its formula printed).
+   train_eager — the same run with ``step_graph=False`` (the eager twin):
+              the same gates and reports.  ``train_graph_vs_eager``:
+              at every step the graphed loss within ``RESUME_LOSS_TOL``
+              of the twin's, and the memory gate: the graphed run's
+              ``max_memory_allocated`` at most the twin's + (the twin's
+              − the state's bytes: f32 parameters, gradients and two
+              moments) + ``PILOT_MEMORY_SLACK``, i.e. a graph adds at most
+              one eager working set.
+   train_graph_parity — decides that a replay is right, for
+              full-width smollm-360m (8 x 512), mamba2-370m (4 x 512) and
+              granite-moe-3b-a800m cut to 2 layers (8 x 512): from a start
+              state S, two eager steps (S -> S1 -> S2); a graphed state's
+              first call from S (step 0 and the capture), then S1 restored
+              into it in place (``load_train_state``) and one replay; the
+              eager step from S1 run a second time for its own spread.
+              The replay's loss is bitwise the eager step's wherever the
+              two eager runs agree bitwise (else within their gap); its
+              grad norm, every updated parameter and both moments no
+              farther from the first eager run than the second is, plus
+              f32 rounding (``GRAPH_PARITY_ATOL``).
    train_parity — one train step of full-width smollm-360m cut to 2
               layers, batch 2, seq 128, from the same seeded f32 weights
               on the card and on the CPU (the port's plain path, which
@@ -203,8 +226,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               every gradient leaf and every updated parameter within
               ``TRAIN_PARITY_TOL``.
    train_mamba — 5 steps of full-width mamba2-370m, batch 4, seq 512, the
-              plain SSD scan under autograd: finite losses, no kernel
-              launched; ms per step and peak memory reported.
+              plain SSD scan under autograd, graphed: finite losses, no
+              kernel launched; train's reports.  ``train_mamba_eager``,
+              its eager twin, and ``train_mamba_graph_vs_eager``, train's
+              twin and memory gates.
    pilot_train — ``train_via_pilots`` on the card: full-width
               smollm-360m, a ``custom:512x8`` train image, 40 steps,
               checkpoints every 10 steps into a directory under
@@ -217,7 +242,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (whether it is bitwise is reported: the embedding's backward
               accumulates with atomics on the card), no kernel launched,
               and ``memory_allocated`` back within ``PILOT_MEMORY_SLACK``
-              of its value before the bind.
+              of its value before the bind.  Every payload's step replays
+              its state's graph: the killed payload, the resumed one and
+              the uninterrupted run each report ``step_graph`` true.
    gemma_serve, starcoder_serve — serve's trace on full-width gemma-2b
               (MQA at head width 256, GeGLU, tied) and starcoder2-3b
               (LayerNorm, plain-gelu MLP), random weights from seed 0,
@@ -416,9 +443,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               checkpoint; the plans equal ``plan_remesh``'s; no engine
               leaks a block; each image bound again is a cache hit; the
               kernels of ``EXAMPLES`` launched and no other; memory back
-              within 64 MiB.  Each prints its lines, wall seconds, cold
-              and cached bind ms, tokens/s, train ms a step, checkpoint
-              seconds and launches.
+              within 64 MiB; every train step graphed (the quickstart's
+              direct steps, the dynamic pilot's resumed payload and the
+              elastic fleet's payloads report ``step_graph``).  Each
+              prints its lines, wall seconds, cold and cached bind ms,
+              tokens/s, train ms a step (graphed), checkpoint seconds and
+              launches.
 10. mamba_model — first each of mamba2-370m's 48 mixers on a 1023-token
               admission (the kernel path's own activations), its output
               with the SSD-scan kernel against the same mixer on the
@@ -755,6 +785,15 @@ TRAIN_PARITY_TOL = dict(loss_abs=2e-3, grad_norm_rtol=2e-2, grad_rel=5e-2,
 # and MoE backward), and the difference grows over 40 steps; a resume that
 # lost or swapped the optimizer state moves the loss far more.
 RESUME_LOSS_TOL = 2e-2
+# The graphed train step against its eager twin: the same tolerance at
+# every step, on the same ground (the card's backward is not bitwise
+# reproducible).  A replay from a restored state (train_graph_parity):
+# each leaf no farther from the first eager run than the second is, plus
+# f32 rounding; batch x seq of each arch (granite at 2 of its 32 layers).
+GRAPH_PARITY_ATOL = 1e-6
+GRAPH_PARITY = {DENSE_ARCH: (TRAIN["batch"], TRAIN["seq"], None),
+                SSM_ARCH: (TRAIN_MAMBA["batch"], TRAIN_MAMBA["seq"], None),
+                MOE_ARCH: (TRAIN["batch"], TRAIN["seq"], 2)}
 
 
 def say(obj):
@@ -2513,36 +2552,171 @@ def train_flops(cfg, n_params, batch, seq):
     return 6 * n_params * tokens + attn
 
 
-def train_phase(wrappers):
-    """``train_direct`` at full width on the card; returns its launches."""
+def train_run(phase, wrappers, arch, load, step_graph):
+    """``train_direct`` of full-width ``arch`` at ``load`` on the card,
+    graphed or eager; every launch count set to 0 just before it.  Gates:
+    ``step_graph`` as asked, every loss finite, no kernel launched.
+    Returns the printed record and the launches."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.train import train_direct
-    cfg = get_config(DENSE_ARCH)
+    cfg = get_config(arch)
     _zero(wrappers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    out = train_direct(cfg, TRAIN["steps"], TRAIN["batch"], TRAIN["seq"],
-                       device="cuda")
+    out = train_direct(cfg, load["steps"], load["batch"], load["seq"],
+                       device="cuda", step_graph=step_graph)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = _launches(wrappers)
     losses = out["losses"]
-    step_s = float(np.median(out["step_seconds"][3:]))
-    flops = train_flops(cfg, out["n_params"], TRAIN["batch"], TRAIN["seq"])
-    say({"phase": "train", "arch": cfg.name, **TRAIN, "wall_s": wall,
-         "ms_per_step": step_s * 1e3,
-         "step_ms": [t * 1e3 for t in out["step_seconds"]],
-         "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / step_s,
-         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-         "n_params": out["n_params"], "model_flops_per_step": flops,
-         "flops_formula": "6*N*tokens + 12*L*H*Dh*S*tokens",
-         "mfu_of_989_tflops": flops / step_s / BF16_FLOPS,
-         "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
-         "launches": launches})
+    step_s = float(np.median(out["step_seconds"][1:]))
+    flops = train_flops(cfg, out["n_params"], load["batch"], load["seq"])
+    rec = {"phase": phase, "arch": cfg.name, **load,
+           "step_graph": out["step_graph"], "wall_s": wall,
+           "capture_s": out["capture_s"], "ms_per_step": step_s * 1e3,
+           "step_ms": [t * 1e3 for t in out["step_seconds"]],
+           "tokens_per_s": load["batch"] * load["seq"] / step_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "graph_pool_bytes": out["graph_pool_bytes"],
+           # f32 parameters, gradients and the two AdamW moments
+           "state_bytes": 4 * 4 * out["n_params"],
+           "n_params": out["n_params"], "model_flops_per_step": flops,
+           "flops_formula": "6*N*tokens + 12*L*H*Dh*S*tokens",
+           "mfu_of_989_tflops": flops / step_s / BF16_FLOPS,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "launches": launches}
+    say(rec)
+    assert out["step_graph"] is step_graph, out["step_graph"]
     assert np.isfinite(losses).all(), losses
-    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
     assert not any(launches.values()), launches
-    return launches
+    return rec, launches
+
+
+def train_twin_gate(phase, graphed, eager):
+    """The graphed run against its eager twin: at every step the loss
+    within ``RESUME_LOSS_TOL``; the graphed peak at most the twin's +
+    (the twin's - the state's bytes) + ``PILOT_MEMORY_SLACK``."""
+    diffs = [abs(a - b) for a, b in zip(graphed["losses"], eager["losses"],
+                                        strict=True)]
+    peak, twin = graphed["max_memory_allocated"], eager["max_memory_allocated"]
+    working = twin - graphed["state_bytes"]
+    limit = twin + working + PILOT_MEMORY_SLACK
+    say({"phase": phase, "arch": graphed["arch"], "tol": RESUME_LOSS_TOL,
+         "max_loss_abs_diff": max(diffs), "loss_abs_diff": diffs,
+         "bitwise_steps": sum(d == 0 for d in diffs),
+         "ms_per_step": [graphed["ms_per_step"], eager["ms_per_step"]],
+         "speedup": eager["ms_per_step"] / graphed["ms_per_step"],
+         "tokens_per_s": [graphed["tokens_per_s"], eager["tokens_per_s"]],
+         "mfu_of_989_tflops": [graphed["mfu_of_989_tflops"],
+                               eager["mfu_of_989_tflops"]],
+         "capture_s": [graphed["capture_s"], eager["capture_s"]],
+         "graph_pool_bytes": graphed["graph_pool_bytes"],
+         "memory_gate": {"graphed_peak": peak, "eager_peak": twin,
+                         "state_bytes": graphed["state_bytes"],
+                         "eager_working_set": working, "limit": limit,
+                         "added_share_of_working_set": (peak - twin)
+                         / working}})
+    assert max(diffs) <= RESUME_LOSS_TOL, diffs
+    assert peak <= limit, (peak, limit)
+
+
+def train_phase(wrappers):
+    """``train_direct`` at full width on the card, graphed (``train``)
+    and its eager twin (``train_eager``); returns both runs' launches."""
+    graphed, launches = train_run("train", wrappers, DENSE_ARCH, TRAIN, True)
+    eager, eager_launches = train_run("train_eager", wrappers, DENSE_ARCH,
+                                      TRAIN, False)
+    for rec in (graphed, eager):
+        losses = rec["losses"]
+        assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+    train_twin_gate("train_graph_vs_eager", graphed, eager)
+    return launches, eager_launches
+
+
+def _train_leaves(state):
+    from repro_torch import tree
+    from repro_torch.launch.steps import state_tree
+    return [t.detach() for t in tree.leaves(state_tree(state))]
+
+
+def _spread(xs, ys):
+    """Per leaf, the largest absolute difference (f32)."""
+    return [float((x.float() - y.float()).abs().max())
+            for x, y in zip(xs, ys, strict=True)]
+
+
+def train_graph_parity_phase(arch):
+    """``train_graph_parity`` (phase list) for ``arch`` at full width
+    (cut to ``GRAPH_PARITY``'s layers where it names some)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
+    from repro_torch.launch.steps import (
+        GRAPH_KEY, init_train_state, load_train_state, make_train_step,
+        state_tree)
+    from repro_torch.optim.adamw import OptimConfig
+    batch, seq, layers = GRAPH_PARITY[arch]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    oc = OptimConfig(total_steps=TRAIN["steps"],
+                     warmup_steps=max(TRAIN["steps"] // 20, 5))
+    data = SyntheticLM(SyntheticConfig(cfg.vocab_size, seq, batch))
+    b0, b1 = (to_device(data.batch_at(i), "cuda") for i in (0, 1))
+
+    def restore(state, snap):
+        load_train_state(state, tree.unflatten(state_tree(state), snap))
+
+    def metrics(m):
+        return {k: float(v) for k, v in m.items()}
+    t0 = time.monotonic()
+    state = init_train_state(cfg, 0, "cuda")                   # S
+    eager = make_train_step(cfg, oc, step_graph=False)
+    eager(state, b0)
+    s1 = [t.clone() for t in _train_leaves(state)]             # S1
+    _, m = eager(state, b1)
+    a = metrics(m)
+    first = [t.clone() for t in _train_leaves(state)]
+    restore(state, s1)
+    _, m = eager(state, b1)
+    b = metrics(m)
+    spread = _spread(first, _train_leaves(state))
+    del state, eager
+    state = init_train_state(cfg, 0, "cuda")                   # S again
+    graphed = make_train_step(cfg, oc)
+    t1 = time.monotonic()
+    graphed(state, b0)                      # step 0, then the capture
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t1
+    assert GRAPH_KEY in state
+    restore(state, s1)                      # in place, after the capture
+    _, m = graphed(state, b1)               # the replay
+    got = metrics(m)
+    err = _spread(first, _train_leaves(state))
+    del state, graphed, s1, first
+    bad = [i for i, (e, sp) in enumerate(zip(err, spread))
+           if e > sp + GRAPH_PARITY_ATOL]
+    say({"phase": "train_graph_parity", "arch": cfg.name,
+         "layers": cfg.num_layers, "batch": batch, "seq": seq,
+         "loss": [got["loss"], a["loss"], b["loss"]],
+         "grad_norm": [got["grad_norm"], a["grad_norm"], b["grad_norm"]],
+         "eager_loss_bitwise": a["loss"] == b["loss"],
+         "replay_loss_bitwise": got["loss"] == a["loss"],
+         "leaves": len(err), "max_leaf_err": max(err),
+         "max_eager_spread": max(spread),
+         "bitwise_leaves": sum(e == 0 for e in err),
+         "eager_bitwise_leaves": sum(sp == 0 for sp in spread),
+         "leaves_past_spread": bad, "atol": GRAPH_PARITY_ATOL,
+         "capture_s": capture_s, "seconds": time.monotonic() - t0})
+    if a["loss"] == b["loss"]:
+        assert got["loss"] == a["loss"], (got, a)
+    else:
+        assert abs(got["loss"] - a["loss"]) <= abs(a["loss"] - b["loss"])
+    assert abs(got["grad_norm"] - a["grad_norm"]) <= (
+        abs(a["grad_norm"] - b["grad_norm"]) + 1e-6 * a["grad_norm"]), (
+        got, a, b)
+    assert got["lr"] == a["lr"], (got, a)
+    assert not bad, [(i, err[i], spread[i]) for i in bad]
 
 
 def train_parity_phase(arch=DENSE_ARCH, phase="train_parity",
@@ -2638,26 +2812,15 @@ def train_parity_phase(arch=DENSE_ARCH, phase="train_parity",
 
 
 def train_mamba_phase(wrappers):
-    """A few full-width mamba2-370m steps on the plain SSD scan."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.launch.train import train_direct
-    cfg = get_config(SSM_ARCH)
-    _zero(wrappers)
-    torch.cuda.reset_peak_memory_stats()
-    out = train_direct(cfg, TRAIN_MAMBA["steps"], TRAIN_MAMBA["batch"],
-                       TRAIN_MAMBA["seq"], device="cuda")
-    launches = _launches(wrappers)
-    step_s = float(np.median(out["step_seconds"][1:]))
-    say({"phase": "train_mamba", "arch": cfg.name, **TRAIN_MAMBA,
-         "ms_per_step": step_s * 1e3,
-         "step_ms": [t * 1e3 for t in out["step_seconds"]],
-         "tokens_per_s": TRAIN_MAMBA["batch"] * TRAIN_MAMBA["seq"] / step_s,
-         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-         "n_params": out["n_params"], "losses": out["losses"],
-         "launches": launches})
-    assert np.isfinite(out["losses"]).all(), out["losses"]
-    assert not any(launches.values()), launches
-    return launches
+    """A few full-width mamba2-370m steps on the plain SSD scan, graphed
+    (``train_mamba``) and eager (``train_mamba_eager``); returns both
+    runs' launches."""
+    graphed, launches = train_run("train_mamba", wrappers, SSM_ARCH,
+                                  TRAIN_MAMBA, True)
+    eager, eager_launches = train_run("train_mamba_eager", wrappers,
+                                      SSM_ARCH, TRAIN_MAMBA, False)
+    train_twin_gate("train_mamba_graph_vs_eager", graphed, eager)
+    return launches, eager_launches
 
 
 def pilot_train_phase(wrappers):
@@ -2667,6 +2830,7 @@ def pilot_train_phase(wrappers):
     import tempfile
     from repro_torch.core.images import PayloadImage
     from repro_torch.data.synthetic import to_device
+    from repro_torch.launch.steps import GRAPH_KEY
     from repro_torch.launch.train import train_via_pilots
     n = PILOT_TRAIN["steps"]
     build = ROOT / "build"
@@ -2709,11 +2873,15 @@ def pilot_train_phase(wrappers):
         whole = float(m["loss"])
     whole_s = time.monotonic() - t1
     launches = _launches(wrappers)
+    whole_graph = GRAPH_KEY in state
     del state, m, exe
     out.clear()
     mem_after = allocated_bytes()
     say({"phase": "pilot_train", "arch": DENSE_ARCH, **PILOT_TRAIN,
          "wall_s": wall, "failure": fail, "exitcode": res.exitcode,
+         "step_graph": {"killed": fail["step_graph"],
+                        "resumed": tel.get("step_graph"),
+                        "uninterrupted": whole_graph},
          "pilot": res.pilot_id, "resumed_from": tel["resumed_from"],
          "steps_after_resume": tel["steps"],
          "first_loss_after_resume": tel["first_loss"],
@@ -2728,6 +2896,9 @@ def pilot_train_phase(wrappers):
                               "slack": PILOT_MEMORY_SLACK}})
     assert abs(tel["last_loss"] - whole) <= RESUME_LOSS_TOL, (
         tel["last_loss"], whole)
+    assert fail["step_graph"] is True and tel["step_graph"] is True, (
+        fail, tel.get("step_graph"))
+    assert whole_graph
     assert not any(launches.values()), launches
     assert abs(mem_after - mem_before) <= PILOT_MEMORY_SLACK, (
         mem_before, mem_after)
@@ -2778,8 +2949,9 @@ def timed_checkpoints():
 
 def payload_rows(repo, history):
     """Each payload of a pilot's ``history``: its image, exit code, bind
-    ms (cold or cached), its last 16 steps' ms from its result's
-    telemetry and, for a decode payload, its rows' tokens/s."""
+    ms (cold or cached), whether its steps replayed a CUDA graph and its
+    last 16 steps' ms from its result's telemetry and, for a decode
+    payload, its rows' tokens/s."""
     out = []
     for h in history:
         img = h["image"]
@@ -2790,7 +2962,7 @@ def payload_rows(repo, history):
                "exitcode": h.get("exitcode"),
                "bind_ms": h["bind_seconds"] * 1e3,
                "bind_cached": h["bind_cached"], "steps": tel.get("steps"),
-               "step_ms": step_ms}
+               "step_graph": tel.get("step_graph"), "step_ms": step_ms}
         if img.mode == "decode" and step_ms:
             row["tok_per_s"] = (img.shape_spec().global_batch * len(step_ms)
                                 / (sum(step_ms) / 1e3))
@@ -2841,7 +3013,12 @@ def _quickstart_gates(rec):
     assert all(r["exitcode"] == 0 for r in rows), rows
     stats = rec["sim"].repo.stats()
     assert stats["done"] == 3 and stats["failed"] == 0, stats
+    assert rec["step_graph"] is True, rec["step_graph"]
+    assert all(r["step_graph"] is True for r in rows if r["mode"] == "train")
     return {"direct_train_ms": [t * 1e3 for t in rec["step_s"]],
+            "direct_train_ms_after_capture": float(
+                np.median(rec["step_s"][1:])) * 1e3,
+            "direct_step_graph": rec["step_graph"],
             "direct_losses": rec["losses"], "payloads": rows, "repo": stats}
 
 
@@ -2858,12 +3035,14 @@ def _dynamic_pilot_gates(rec):
     assert rec["killed_at"] is not None and rec["killed_at"] >= 10
     assert tel["resumed_from"] == rec["killed_at"], (tel, rec["killed_at"])
     assert tel["steps"] == 200 - tel["resumed_from"], tel
+    assert tel["step_graph"] is True, tel
     assert p2.history[0]["bind_cached"] is True, p2.history[0]
     return {"payloads": rows, "killed_at": rec["killed_at"],
             "resumed_from": tel["resumed_from"], "steps_run": tel["steps"],
             "resumed_bind_ms": p2.history[0]["bind_seconds"] * 1e3,
             "resumed_step_ms_last16": [t * 1e3 for t in tel["step_times"]],
             "resumed_last_loss": tel["last_loss"],
+            "resumed_step_graph": tel["step_graph"],
             "fail_image_flags": list(rec["train"].flags)}
 
 
@@ -2879,11 +3058,14 @@ def _elastic_train_gates(rec):
     repo = rec["sim"].repo
     exits = [repo.result(t).exitcode for t in rec["tids"]]
     assert exits == [0] * 4, exits
+    graphed = [repo.result(t).telemetry.get("step_graph")
+               for t in rec["tids"]]
+    assert graphed == [True] * 4, graphed
     train_ms = [t * 1e3 for tid in rec["tids"]
                 for t in repo.result(tid).telemetry["step_times"]]
     return {"plans": [{"mesh": list(p[0]), "per_slice_batch": p[1],
                        "actions": list(p[2])} for p in plans],
-            "exitcodes": exits, "train_ms": train_ms,
+            "exitcodes": exits, "step_graph": graphed, "train_ms": train_ms,
             "registry": dict(rec["registry"].stats)}
 
 
@@ -5465,12 +5647,26 @@ def main(argv):
     counted = dryrun_phases(smi)
     runs["dryrun_step"] = {w.__name__: counted.get(w.__name__, 0)
                            for w in wrappers}
+    train_seconds = {}
     t0 = time.monotonic()
-    runs["train"] = train_phase(wrappers)
+    runs["train"], runs["train_eager"] = train_phase(wrappers)
+    train_seconds["train"] = time.monotonic() - t0
+    t0 = time.monotonic()
     train_parity_phase()
-    runs["train_mamba"] = train_mamba_phase(wrappers)
+    train_seconds["train_parity"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    runs["train_mamba"], runs["train_mamba_eager"] = train_mamba_phase(
+        wrappers)
+    train_seconds["train_mamba"] = time.monotonic() - t0
+    for arch in GRAPH_PARITY:
+        t0 = time.monotonic()
+        train_graph_parity_phase(arch)
+        train_seconds[f"train_graph_parity_{arch}"] = time.monotonic() - t0
+    t0 = time.monotonic()
     runs["pilot_train"] = pilot_train_phase(wrappers)
-    say({"phase": "train_all", "seconds": time.monotonic() - t0})
+    train_seconds["pilot_train"] = time.monotonic() - t0
+    say({"phase": "train_all", "seconds": train_seconds,
+         "total_seconds": sum(train_seconds.values())})
     ex_seconds = {}
     for name in EXAMPLES:
         t0 = time.monotonic()

@@ -11,7 +11,8 @@ Port of ``examples/quickstart.py``, the same steps and lines:
    on a single resource claim — container late-binding end to end.
 
 On the card every model is at full width: training runs the plain paths
-(the kernels are forward only), the decode payloads the hand-written
+(the kernels are forward only) as a CUDA graph captured at the first step
+and replayed from the second, the decode payloads the hand-written
 kernels (`repro_torch.launch.serve.KERNEL_FLAGS`: dense decode attention,
 RMSNorm).  ``--smoke --device cpu`` runs the reference's smoke configs.
 """
@@ -25,7 +26,8 @@ from repro_torch.core.images import PayloadImage
 from repro_torch.core.pilot import PilotConfig
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
 from repro_torch.launch.serve import KERNEL_FLAGS
-from repro_torch.launch.steps import init_train_state, make_train_step
+from repro_torch.launch.steps import (
+    GRAPH_KEY, init_train_state, make_train_step)
 from repro_torch.models.api import resolve_device
 from repro_torch.optim.adamw import OptimConfig
 
@@ -44,7 +46,8 @@ def parse_args(argv=None):
 def main(argv=None, record=None):
     """Train directly, then run three payloads through one pilot; returns
     0.  ``record`` (a dict), when given, receives the direct losses and
-    step seconds, the sim, the pilot and the images, for callers that
+    step seconds, whether the direct steps replayed a CUDA graph
+    (``step_graph``), the sim, the pilot and the images, for callers that
     check the run's gates."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
@@ -66,6 +69,7 @@ def main(argv=None, record=None):
         step_s.append(time.monotonic() - t0)
         if i % 3 == 0:
             print(f"  step {i}: loss {losses[-1]:.4f}")
+    step_graph = GRAPH_KEY in state               # replayed a CUDA graph
     del state, metrics
 
     # ---- 2. the pilot system -----------------------------------------------
@@ -94,7 +98,8 @@ def main(argv=None, record=None):
     print(f"  repo: {sim.repo.stats()}")
     print("quickstart OK")
     if record is not None:
-        record.update(losses=losses, step_s=step_s, sim=sim, pilot=pilot,
+        record.update(losses=losses, step_s=step_s, step_graph=step_graph,
+                      sim=sim, pilot=pilot,
                       images=images, registry=sim.registry, device=dev)
     return 0
 

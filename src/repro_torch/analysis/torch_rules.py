@@ -34,6 +34,15 @@ an ``allow`` without a justification is itself a finding) and the same
     key) is flagged.  Writes in place are not: ``self.state["token"][si,
     0] = ...``, ``self.active[si] = ...``, ``.zero_()``, ``.copy_()``, and
     augmented assignments (a tensor's ``-=`` is in place).
+    A captured step built by a function, not a class (the train step,
+    whose whole body ``make_train_step`` captures, ``grad_transform``
+    included), holds its closure's tensors the same way: inside a
+    ``make_*step`` builder's nested functions, and inside a function
+    handed to a call as ``grad_transform=``, an assignment to a name
+    declared ``nonlocal`` or ``global`` (``residuals = new``), or to a
+    constant key of a dict the function does not bind itself
+    (``box["residuals"] = new``), is flagged: the capture runs it once and
+    every replay reads the old tensor.
 
 CLI::
 
@@ -261,6 +270,70 @@ def graph_rebind_findings(tree: ast.AST, path: str) -> List[Finding]:
     return out
 
 
+def _bound_names(fn: ast.AST) -> set:
+    """The names ``fn`` binds itself: its parameters and the names it
+    stores to (not those it declares ``nonlocal`` or ``global``)."""
+    a = fn.args
+    names = {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs}
+    names |= {x.arg for x in (a.vararg, a.kwarg) if x is not None}
+    names |= {n.id for n in ast.walk(fn)
+              if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store)}
+    return names - _declared(fn)
+
+
+def _declared(fn: ast.AST) -> set:
+    return {name for n in ast.walk(fn)
+            if isinstance(n, (ast.Nonlocal, ast.Global)) for name in n.names}
+
+
+def closure_rebinds(fn: ast.AST) -> list:
+    """``(target node, what)`` for each rebind of a tensor that ``fn``
+    holds from its closure: a name it declares ``nonlocal``/``global``, or
+    a constant key of a dict it does not bind itself."""
+    declared, bound = _declared(fn), _bound_names(fn)
+    out = []
+    for node in ast.walk(fn):
+        for t in _targets(node):
+            if isinstance(t, ast.Name) and t.id in declared:
+                out.append((t, t.id))
+            elif (isinstance(t, ast.Subscript)
+                  and isinstance(t.value, ast.Name)
+                  and t.value.id not in bound
+                  and isinstance(t.slice, ast.Constant)):
+                out.append((t, f"{t.value.id}[{t.slice.value!r}]"))
+    return out
+
+
+def closure_rebind_findings(tree: ast.AST, path: str) -> List[Finding]:
+    """The ``graph-rebind`` rule over the captured closures of function
+    builders: the nested functions of every ``make_*step`` builder, and
+    every function handed to a call as ``grad_transform=``."""
+    fns = [n for n in ast.walk(tree)
+           if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+    checked = {}
+    for b in fns:
+        if lint._STEP_BUILDER_RE.match(b.name):
+            for n in ast.walk(b):
+                if n is not b and isinstance(
+                        n, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    checked[id(n)] = (n, f"{b.name}'s captured step")
+    transforms = {k.value.id for n in ast.walk(tree) if isinstance(n, ast.Call)
+                  for k in n.keywords if k.arg == "grad_transform"
+                  and isinstance(k.value, ast.Name)}
+    for n in fns:
+        if n.name in transforms:
+            checked.setdefault(id(n), (n, "a captured grad_transform"))
+    out = []
+    for fn, where in checked.values():
+        for t, what in closure_rebinds(fn):
+            out.append(Finding(
+                path, t.lineno, "graph-rebind",
+                f"{fn.name} rebinds {what} in {where}: a CUDA graph runs "
+                f"the rebind once, at its capture, and every replay reads "
+                f"the old tensor; write it in place (copy_)"))
+    return out
+
+
 def torch_source(src: str, path: str = "<string>") -> List[Finding]:
     """The port's three rules over one source string; all findings,
     suppressed included."""
@@ -272,7 +345,8 @@ def torch_source(src: str, path: str = "<string>") -> List[Finding]:
                         f"syntax error: {e.msg}")]
     v = _StepVisitor(path, posix.endswith("serving/engine.py"))
     v.visit(tree)
-    found = v.findings + graph_rebind_findings(tree, path)
+    found = (v.findings + graph_rebind_findings(tree, path)
+             + closure_rebind_findings(tree, path))
     return _apply_suppressions(found, src.splitlines(), path)
 
 

@@ -351,7 +351,11 @@ def _train_factory(cfg, shape, dev):
     as the reference's image), ``make_inputs(seed)`` -> (train state from
     ``seed``, the synthetic data of the image's shape) and a warm-up of one
     step on batch 0 with a throwaway state.  It loads no kernel: the step
-    runs the plain paths, and flags that select a kernel raise here.
+    runs the plain paths, and flags that select a kernel raise here.  On
+    the card each payload's state captures its own CUDA graph of the step
+    at its first call (`make_train_step`, the graph kept in the state); the
+    warm-up runs the step eagerly, as a decode image's does: a graph of the
+    throwaway state would replay nothing a payload's state can use.
 
     Returns ``(fn, make_inputs, warm)``."""
     kernels = _kernel_sources(cfg)
@@ -361,6 +365,8 @@ def _train_factory(cfg, shape, dev):
             f"its flags select the {', '.join(kernels)} kernel(s), which are "
             "forward only: the JAX package defines no VJP for them")
     fn = make_train_step(cfg, OptimConfig(total_steps=1000))
+    warm_step = make_train_step(cfg, OptimConfig(total_steps=1000),
+                                step_graph=False)
 
     def make_inputs(seed):
         state = init_train_state(cfg, seed, dev)
@@ -371,7 +377,7 @@ def _train_factory(cfg, shape, dev):
     def warm():
         with DEVICE_LOCK:
             state, data = make_inputs(0)
-            fn(state, to_device(data.batch_at(0), dev))
+            warm_step(state, to_device(data.batch_at(0), dev))
             sync(dev)
             del state                    # freed before the lock is let go
 

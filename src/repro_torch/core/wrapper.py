@@ -400,7 +400,13 @@ def _train_loop(exe, seed, n_steps, entry, proctable, telemetry,
     step, saves every ``ckpt_every`` steps and at the end, and reports
     ``first_loss`` and ``last_loss``.  A stop from the pilot exits 143, a
     loss that is not finite 3.  Every device call holds the device lock;
-    a save copies to the host under it and writes to disk outside it."""
+    a save copies to the host under it and writes to disk outside it.  On
+    the card the step replays the state's CUDA graph from its second call
+    (the image's ``fn``, `repro_torch.launch.steps.make_train_step`); a
+    restore copies into the state in place, so a graph replays it, and
+    the graph goes with the state when the payload ends.  The port's
+    telemetry adds ``step_graph`` after each step: whether the state holds
+    a graph (so a stopped payload reports it too)."""
     with DEVICE_LOCK:
         state, data = exe.make_inputs(seed)
     start_step = 0
@@ -433,6 +439,7 @@ def _train_loop(exe, seed, n_steps, entry, proctable, telemetry,
         proctable.heartbeat(entry.pid, dt)
         telemetry["steps"] = i + 1 - start_step
         telemetry["step_times"].append(dt)
+        telemetry["step_graph"] = GRAPH_KEY in state
         losses.append(loss)
         if not math.isfinite(loss):
             return 3

@@ -10,8 +10,9 @@ Port of ``repro.launch.train``, with its flags and a ``--device`` flag
 plain paths of the model (the hand-written kernels are forward only, as
 the reference's are), so the configs are the registry's as they are.
 
-``--direct`` runs a plain loop, no pilot system.  Otherwise the run is a
-``train`` payload image that a pilot late-binds, checkpointing into
+``--direct`` runs a plain loop, no pilot system; on the card its step
+replays a captured CUDA graph from the second step on.  Otherwise the run
+is a ``train`` payload image that a pilot late-binds, checkpointing into
 ``--ckpt`` every tenth of the run; with ``--fail-at N`` a simulated node
 failure kills the first pilot N seconds in, the lease expires, and a
 replacement pilot picks the task up and resumes from the last checkpoint —
@@ -33,20 +34,28 @@ from repro_torch.core.images import PayloadImage
 from repro_torch.core.pilot import PilotConfig
 from repro_torch.core.taskrepo import TaskRepo
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
-from repro_torch.launch.steps import init_train_state, make_train_step
+from repro_torch.launch.steps import (
+    held_graph, init_train_state, make_train_step)
 from repro_torch.models.api import resolve_device
 from repro_torch.optim.adamw import OptimConfig
+from repro_torch.serving.graph import pool_bytes
 
 
 def train_direct(cfg, steps: int, batch: int, seq: int, *, log_every=10,
-                 device="cuda") -> dict:
+                 device="cuda", step_graph: bool = True) -> dict:
     """A plain loop of ``steps`` train steps on the synthetic data, from the
-    weights of seed 0.  Returns ``losses`` and ``step_seconds`` (each
-    step's wall time, ending in the loss's copy to the host), the
-    ``device`` and the model's ``n_params``."""
+    weights of seed 0.  On the card the step is captured as a CUDA graph at
+    its first call and replayed from the second (``step_graph``; False runs
+    it eagerly; `repro_torch.launch.steps.make_train_step`).  Returns
+    ``losses`` and ``step_seconds`` (each step's wall time, ending in the
+    loss's copy to the host), ``step_graph`` (whether the steps replayed a
+    graph), ``capture_s`` (the first call's seconds: the eager step 0 and,
+    graphed, the capture), ``graph_pool_bytes`` (what the graph's memory
+    pool holds; 0 eager), the ``device`` and the model's ``n_params``."""
     dev = resolve_device(device)
     step_fn = make_train_step(cfg, OptimConfig(
-        total_steps=steps, warmup_steps=max(steps // 20, 5)))
+        total_steps=steps, warmup_steps=max(steps // 20, 5)),
+        step_graph=step_graph)
     state = init_train_state(cfg, 0, dev)
     data = SyntheticLM(SyntheticConfig(cfg.vocab_size, seq, batch))
     losses, times = [], []
@@ -54,13 +63,17 @@ def train_direct(cfg, steps: int, batch: int, seq: int, *, log_every=10,
     for i in range(steps):
         t0 = time.monotonic()
         state, metrics = step_fn(state, to_device(data.batch_at(i), dev))
-        loss = float(metrics["loss"])
+        loss = float(metrics["loss"])   # before the next replay overwrites it
         times.append(time.monotonic() - t0)
         losses.append(loss)
         if i % log_every == 0 or i == steps - 1:
             dt = (time.monotonic() - t_start) / (i + 1)
             print(f"step {i:4d}  loss {loss:.4f}  ({dt*1e3:.0f} ms/step)")
+    graph = held_graph(state)
     return {"losses": losses, "step_seconds": times, "device": str(dev),
+            "step_graph": graph is not None,
+            "capture_s": times[0] if times else None,
+            "graph_pool_bytes": 0 if graph is None else pool_bytes([graph]),
             "n_params": sum(p.numel() for p in state["params"].parameters())}
 
 
@@ -77,8 +90,10 @@ def train_via_pilots(arch: str, smoke: bool, steps: int, *, ckpt: str | None,
     spawned and resumes the task after the lease expires.
 
     Returns ``drained``, the repo's stats, the task's ``result``, the
-    ``failure`` (the failed pilot and the latest checkpoint step once its
-    payload stopped; None without one), the ``sim`` and the ``pilots``."""
+    ``failure`` (the failed pilot, the latest checkpoint step once its
+    payload stopped and whether that payload's steps replayed a CUDA
+    graph, ``step_graph``; None without one), the ``sim`` and the
+    ``pilots``."""
     repo = TaskRepo(lease_ttl=5.0)
     sim = ClusterSim(repo=repo, device=device)
     every = ckpt_every or max(steps // 10, 1)
@@ -108,8 +123,10 @@ def train_via_pilots(arch: str, smoke: bool, steps: int, *, ckpt: str | None,
         ex = pilots[0].executor
         if ex is not None and ex.exit_event is not None:
             ex.exit_event.wait(600.0)        # the killed payload's last step
+        killed = (pilots[0].arena.read_exit() or {}).get("telemetry", {})
         failure = {"pilot": pilots[0].pilot_id,
-                   "ckpt_step": latest_step(ckpt) if ckpt else None}
+                   "ckpt_step": latest_step(ckpt) if ckpt else None,
+                   "step_graph": killed.get("step_graph")}
         # a replacement pilot takes over after the lease expires
         (s2,) = sim.provision(1)
         pilots.append(sim.spawn_pilot(s2, PilotConfig(max_payloads=4,

@@ -228,7 +228,9 @@ def softmax_cross_entropy_fused(h, head, targets, *, softcap=None, mask=None,
     ``torch.utils.checkpoint`` and recomputed in backward, so peak memory
     holds one chunk's logits instead of the whole sequence's.  The
     sequence is zero-padded to whole chunks with mask 0, as in the
-    reference.  ``S <= chunk`` takes the plain path.
+    reference.  ``S <= chunk`` takes the plain path.  The body draws no
+    random numbers, so the recompute keeps no generator state
+    (``preserve_rng_state=False``, as `transformer._remat`).
 
     h: (B,S,D) compute dtype; head: (D,V); targets: (B,S) int."""
     B, S, D = h.shape
@@ -253,5 +255,5 @@ def softmax_cross_entropy_fused(h, head, targets, *, softcap=None, mask=None,
     for lo in range(0, S + pad, chunk):
         sl = slice(lo, lo + chunk)
         tot = tot + checkpoint(body, h[:, sl], targets[:, sl], mask[:, sl],
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
     return tot / torch.clamp(torch.sum(mask), min=1.0)

@@ -257,14 +257,19 @@ def _save_matmuls(ctx, op, *args, **kwargs):
 def _remat(fn, cfg):
     """``cfg.remat`` on a group's forward: "full" recomputes it in backward
     (``torch.utils.checkpoint``), "dots" keeps its matmul outputs and
-    recomputes the rest (selective checkpoint), "none" keeps everything."""
+    recomputes the rest (selective checkpoint), "none" keeps everything.
+    The train forward draws no random numbers, so the recompute need not
+    save and restore the generators' state (``preserve_rng_state=False``,
+    exact): a captured CUDA graph of the step then holds no generator
+    state."""
     if cfg.remat == "none":
         return fn
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_matmuls)
-    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
 
 
 def _apply_slot(x, p, cfg, slot, rope, compute):

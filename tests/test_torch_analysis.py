@@ -320,6 +320,67 @@ def test_graph_rebind_only_where_a_class_captures():
     assert not torch_rules.lint_source(src, "x.py")
 
 
+TRANSFORM = """
+def build(cfg, params):
+    residuals = init_residuals(params)
+    box = {"residuals": residuals}
+
+    def transform(grads):
+        out, new = compress(grads, residuals)
+        BODY
+        return out
+
+    return make_train_step(cfg, grad_transform=transform)
+"""
+
+
+@pytest.mark.parametrize("body", [
+    "nonlocal residuals; residuals = new",
+    "box['residuals'] = new",
+    "global residuals; residuals, n = new, 1"])
+def test_graph_rebind_flags_a_grad_transform_that_rebinds(body):
+    """``make_train_step`` captures its ``grad_transform`` with the step:
+    a transform that rebinds its residuals (a ``nonlocal`` name, or a
+    key of a dict it closes over) is flagged, since every replay would
+    read the residuals of the capture."""
+    fs = torch_rules.lint_source(TRANSFORM.replace("BODY", body), "x.py")
+    assert [f.rule for f in fs] == ["graph-rebind"]
+    assert "transform rebinds" in fs[0].message
+    assert "grad_transform" in fs[0].message
+
+
+@pytest.mark.parametrize("body", [
+    "[r.copy_(n) for r, n in zip(residuals, new)]",
+    "box['residuals'][0].copy_(new[0])",
+    "mine = {}; mine['residuals'] = new",
+    "residuals_seen = new"])
+def test_graph_rebind_leaves_a_grad_transform_writing_in_place(body):
+    assert not torch_rules.lint_source(TRANSFORM.replace("BODY", body),
+                                       "x.py")
+
+
+def test_graph_rebind_flags_a_rebind_in_a_step_builders_closure():
+    """Inside a ``make_*step`` builder's nested functions: a ``nonlocal``
+    rebind is flagged; a write to the state the step is given (as the
+    train step's ``state[GRAPH_KEY] = ...``) and the same closure in a
+    function that builds no step are not."""
+    bad = ("def make_train_step(cfg):\n"
+           "    scale = zeros()\n"
+           "    def step(state, batch):\n"
+           "        nonlocal scale\n"
+           "        scale = state['params'].sum()\n"
+           "        state['held'] = scale\n"
+           "        return state\n"
+           "    return step\n")
+    fs = torch_rules.lint_source(bad, "x.py")
+    assert [f.rule for f in fs] == ["graph-rebind"]
+    assert "step rebinds scale in make_train_step's captured step" in (
+        fs[0].message)
+    assert fs[0].line == 5
+    assert not torch_rules.lint_source(
+        bad.replace("make_train_step", "run_steps"), "x.py")
+
+
 def test_engine_captures_what_it_must_and_draft_cache_is_pinned():
     """``ServeEngine._capture_step`` captures the step function, the
     params, the state, ``active`` and ``budget``, and ``_capture_spec``

@@ -44,7 +44,10 @@ decode-role engine imports prefill-role handoffs into its graphed step
 bitwise a unified engine, and a disaggregated fleet with one pilot of each
 stage killed replays bitwise the direct engine.
 The train step on the card is held to the same step on the CPU (loss,
-norm, every gradient leaf) with no kernel launched, every kernel wrapper
+norm, every gradient leaf) with no kernel launched, its captured CUDA
+graph to the eager step (smollm-360m under both remat policies,
+granite-moe-3b-a800m, mamba2-370m, a compression transform, a second
+batch shape, ``train_direct``), every kernel wrapper
 refuses a CUDA input that requires grad, and a pilot's train payload
 resumes from its checkpoint after a node failure.  The verify and dense
 decode kernels share the paged decode kernel's body and split plan, so
@@ -1072,6 +1075,177 @@ def test_train_step_on_the_card_matches_the_cpu(card, arch):
         assert float((g - c).norm() / c.norm().clamp_min(1e-30)) < 5e-2
 
 
+# The graphed train step against the eager one (``chip_smoke.py``'s
+# ``train_graph_parity`` rule, at smoke widths): from a state S1, two eager
+# steps on one batch give the eager step's own spread (the card's backward
+# accumulates with atomics); a state whose step was captured from S (its
+# first call) and then restored to S1 in place replays one step.  Its loss
+# is bitwise the eager step's wherever the two eager runs agree bitwise;
+# its grad norm and every leaf of the state after the update are no
+# farther from the first eager run than the second is, plus f32 rounding.
+GRAPH_PARITY_ATOL = 1e-6
+
+
+def _train_runs(cfg, compress=False):
+    """A function of ``graph`` -> (a fresh train state of seed 0 on the
+    card, the leaves it carries beside its state, its step).  With
+    ``compress`` the step's ``grad_transform`` is int8 compression whose
+    residuals the closure writes in place."""
+    from repro_torch import tree
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim.adamw import OptimConfig
+    from repro_torch.runtime import compression
+    oc = OptimConfig(warmup_steps=2, total_steps=20, peak_lr=1e-2)
+
+    def fresh(graph):
+        state = init_train_state(cfg, 0, "cuda")
+        transform, extra = None, []
+        if compress:
+            res = compression.init_residuals(state["params"].live())
+            extra = tree.leaves(res)
+
+            def transform(grads):
+                out, new = compression.compress(grads, res)
+                for r, n in zip(extra, tree.leaves(new), strict=True):
+                    r.copy_(n)
+                return out
+        return state, extra, make_train_step(
+            cfg, oc, grad_transform=transform, step_graph=graph)
+    return fresh
+
+
+def _snap(state, extra):
+    from repro_torch import tree
+    from repro_torch.launch.steps import state_tree
+    return [t.detach().clone().float()
+            for t in tree.leaves(state_tree(state)) + list(extra)]
+
+
+def _restore(state, extra, snap):
+    from repro_torch import tree
+    from repro_torch.launch.steps import load_train_state, state_tree
+    n = len(tree.leaves(state_tree(state)))
+    load_train_state(state, tree.unflatten(state_tree(state), snap[:n]))
+    with torch.no_grad():
+        for dst, src in zip(extra, snap[n:], strict=True):
+            dst.copy_(src)
+
+
+def _graph_parity(cfg, batches, compress=False):
+    """The rule above on ``batches`` (S -> S1 on the first, the compared
+    step on the second); returns the replay's metrics."""
+    from repro_torch.launch.steps import GRAPH_KEY
+    fresh = _train_runs(cfg, compress)
+    state, extra, eager = fresh(False)
+    eager(state, batches[0])
+    s1 = _snap(state, extra)
+    ms, snaps = [], []
+    for _ in range(2):
+        _restore(state, extra, s1)
+        _, m = eager(state, batches[1])
+        ms.append({k: float(v) for k, v in m.items()})
+        snaps.append(_snap(state, extra))
+    assert GRAPH_KEY not in state
+    del state, extra, eager
+    state, extra, graphed = fresh(True)
+    graphed(state, batches[0])                   # step 0, then the capture
+    assert GRAPH_KEY in state
+    _restore(state, extra, s1)
+    _, m = graphed(state, batches[1])            # a replay from S1
+    got = {k: float(v) for k, v in m.items()}
+    a, b = ms
+    if a["loss"] == b["loss"]:
+        assert got["loss"] == a["loss"]
+    else:
+        assert abs(got["loss"] - a["loss"]) <= abs(a["loss"] - b["loss"])
+    assert abs(got["grad_norm"] - a["grad_norm"]) <= (
+        abs(a["grad_norm"] - b["grad_norm"]) + 1e-6 * a["grad_norm"])
+    assert got["lr"] == a["lr"]
+    for g, x, y in zip(_snap(state, extra), snaps[0], snaps[1], strict=True):
+        spread = float((x - y).abs().max())
+        assert float((g - x).abs().max()) <= spread + GRAPH_PARITY_ATOL
+    return got
+
+
+def _smoke_batches(cfg, shapes=((2, 64), (2, 64))):
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
+    return [to_device(SyntheticLM(SyntheticConfig(cfg.vocab_size, s, b))
+                      .batch_at(i), "cuda")
+            for i, (b, s) in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("arch,remat", [
+    ("smollm-360m", "full"), ("smollm-360m", "dots"),
+    ("granite-moe-3b-a800m", "full"), ("mamba2-370m", "full")])
+def test_graphed_train_step_replays_the_eager_step(card, arch, remat):
+    """The train step captured as a CUDA graph (forward, backward under
+    ``remat``, AdamW) replays the eager step by the parity rule above, a
+    restore after the capture included, and launches no kernel."""
+    import dataclasses
+    from repro_torch.configs.base import get_smoke_config
+    cfg = dataclasses.replace(get_smoke_config(arch), remat=remat)
+    for w in _WRAPPERS:
+        w.launches = 0
+    got = _graph_parity(cfg, _smoke_batches(cfg))
+    assert np.isfinite(got["loss"])
+    assert all(w.launches == 0 for w in _WRAPPERS)
+
+
+def test_graphed_train_step_with_a_compression_transform(card):
+    """A ``grad_transform`` closure (int8 compression) that writes its
+    residuals in place replays, graphed, the eager step by the same rule,
+    the residuals among the compared leaves."""
+    from repro_torch.configs.base import get_smoke_config
+    cfg = get_smoke_config("smollm-360m")
+    _graph_parity(cfg, _smoke_batches(cfg), compress=True)
+
+
+def test_train_graph_captures_again_for_another_batch_shape(card):
+    """A batch of another shape captures again and replaces the state's
+    graph, as a jit compiles again; a batch of the held shape replays.
+    Each step starts from the eager run's state, restored in place, so
+    each loss (the forward before the update) is bitwise the eager
+    step's."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.steps import held_graph
+    cfg = get_smoke_config("smollm-360m")
+    shapes = [(2, 64), (2, 64), (4, 32), (4, 32), (4, 32), (2, 64), (2, 64)]
+    batches = _smoke_batches(cfg, shapes)
+    fresh = _train_runs(cfg)
+    (e, e_extra, eager), (g, g_extra, graphed) = fresh(False), fresh(True)
+    graphs = []
+    for batch in batches:
+        _restore(g, g_extra, _snap(e, e_extra))
+        _, mg = graphed(g, batch)
+        _, me = eager(e, batch)
+        assert float(mg["loss"]) == float(me["loss"])
+        graphs.append(held_graph(g))
+    assert all(x is not None for x in graphs)
+    same = [graphs[i] is graphs[i - 1] for i in range(1, len(graphs))]
+    assert same == [True, False, True, True, False, True]
+    assert graphs[5] is not graphs[0]
+
+
+def test_train_direct_replays_its_graph_on_the_card(card):
+    """``train_direct`` on the card captures its step at the first call,
+    reports ``step_graph`` and the graph's pool, and launches no kernel;
+    ``step_graph=False`` keeps the step eager."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.launch.train import train_direct
+    cfg = get_smoke_config("smollm-360m")
+    for w in _WRAPPERS:
+        w.launches = 0
+    out = train_direct(cfg, 4, 2, 64, device=card)
+    assert all(w.launches == 0 for w in _WRAPPERS)
+    assert out["step_graph"] is True and out["graph_pool_bytes"] > 0
+    assert out["capture_s"] == out["step_seconds"][0]
+    assert np.isfinite(out["losses"]).all()
+    eager = train_direct(cfg, 4, 2, 64, device=card, step_graph=False)
+    assert eager["step_graph"] is False and eager["graph_pool_bytes"] == 0
+    # step 0 is the eager step in both runs
+    assert out["losses"][0] == eager["losses"][0]
+
+
 def test_kernel_wrappers_refuse_grad_on_the_card(card):
     q = torch.zeros((1, 16, 4, 64), device=card, dtype=torch.bfloat16,
                     requires_grad=True)
@@ -1100,6 +1274,8 @@ def test_pilot_train_payload_resumes_on_the_card(card, tmp_path):
     assert res.telemetry["resumed_from"] == fail["ckpt_step"] >= 2
     assert res.telemetry["steps"] == 6 - fail["ckpt_step"]
     assert np.isfinite(res.telemetry["last_loss"])
+    # the killed payload and the resumed one each replayed a graph
+    assert fail["step_graph"] is True and res.telemetry["step_graph"] is True
 
 
 def test_serve_cell_bytes_match_an_engine_on_the_card(card):

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro.ckpt import checkpoint as jax_ck
 from repro.configs.base import get_smoke_config as jax_smoke
@@ -61,9 +62,11 @@ from repro_torch.core.taskrepo import TaskRepo
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM, to_device
 from repro_torch.launch.serve import KERNEL_FLAGS, serve_direct
 from repro_torch.launch.steps import (
-    init_train_state, load_train_state, make_train_step, state_tree)
+    GRAPH_KEY, init_train_state, load_train_state, make_train_step,
+    state_tree)
 from repro_torch.launch.train import train_direct, train_via_pilots
 from repro_torch.models import layers
+from repro_torch.models import transformer
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw
 from repro_torch.runtime import compression
@@ -237,6 +240,65 @@ def test_remat_modes_give_the_same_loss_and_gradients(arch):
     for remat in ("dots", "none"):
         for a, b in zip(out["full"], out[remat]):
             assert torch.equal(a, b), remat
+
+
+def _rng_spy(module, monkeypatch, force=None):
+    """Replace ``module.checkpoint`` by one that records the
+    ``preserve_rng_state`` each call asks for, and passes ``force`` in its
+    place when given; returns the list of recorded values."""
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(kw.get("preserve_rng_state", True))
+        if force is not None:
+            kw["preserve_rng_state"] = force
+        return checkpoint(*a, **kw)
+    monkeypatch.setattr(module, "checkpoint", spy)
+    return seen
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_without_rng_state_is_bitwise_the_rng_preserving_one(
+        arch, remat, monkeypatch):
+    """``_remat`` recomputes without saving the generators' state
+    (``preserve_rng_state=False``: the train forward draws no random
+    numbers, and a captured CUDA graph then holds no generator state):
+    bitwise the loss and every gradient of the same recompute with the
+    state saved and restored (torch's default)."""
+    cfg, _ = _cfgs(arch, remat=remat)
+    nb = _batch(cfg.vocab_size, seed=2)
+    out = {}
+    for force in (None, True):
+        seen = _rng_spy(transformer, monkeypatch, force)
+        params = _port_params(arch, cfg)
+        loss, _ = build_model(cfg).loss(params, _torch_batch(nb))
+        loss.backward()
+        assert seen and not any(seen)        # every group asks for False
+        out[force] = [loss.detach()] + [p.grad for p in
+                                        tree.leaves(params.live())]
+    for a, b in zip(out[None], out[True], strict=True):
+        assert torch.equal(a, b)
+
+
+def test_fused_ce_recompute_without_rng_state_is_bitwise(monkeypatch):
+    """The fused cross entropy's chunks recompute without the generators'
+    state too: over 4 chunks, bitwise the loss and gradients of the
+    recompute that saves it."""
+    rng = np.random.default_rng(4)
+    h0 = torch.from_numpy(rng.normal(size=(2, 64, 32)).astype(np.float32))
+    w0 = torch.from_numpy(rng.normal(size=(32, 50)).astype(np.float32))
+    tgt = torch.from_numpy(rng.integers(0, 50, (2, 64)))
+    out = {}
+    for force in (None, True):
+        seen = _rng_spy(layers, monkeypatch, force)
+        h, w = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+        loss = layers.softmax_cross_entropy_fused(h, w, tgt, chunk=16)
+        loss.backward()
+        assert len(seen) == 4 and not any(seen)
+        out[force] = (loss.detach(), h.grad, w.grad)
+    for a, b in zip(out[None], out[True]):
+        assert torch.equal(a, b)
 
 
 def test_serve_views_unchanged_and_train_reads_live_parameters():
@@ -440,6 +502,32 @@ def test_three_train_steps_match_jax(arch):
     assert int(back["opt"]["step"]) == 3
 
 
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-370m"])
+def test_step_graph_on_a_cpu_state_is_the_eager_step(arch):
+    """``step_graph`` (on by default) captures only a state on a CUDA
+    device: on the CPU three steps with it on are bitwise three with it
+    off (every metric and every leaf of the state), and no graph is kept
+    in the state.  (`test_three_train_steps_match_jax` holds that step to
+    JAX.)"""
+    cfg, _ = _cfgs(arch)
+    oc = adamw.OptimConfig(warmup_steps=2, total_steps=20, peak_lr=1e-2)
+    data = SyntheticLM(SyntheticConfig(cfg.vocab_size, S, B))
+    runs = {}
+    for graph in (True, False):
+        state = init_train_state(cfg, 0, CPU)
+        step = make_train_step(cfg, oc, step_graph=graph)
+        ms = [step(state, to_device(data.batch_at(i), CPU))[1]
+              for i in range(3)]
+        assert GRAPH_KEY not in state
+        runs[graph] = (ms, tree.leaves(state_tree(state)))
+    for a, b in zip(runs[True][0], runs[False][0]):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    for a, b in zip(runs[True][1], runs[False][1], strict=True):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("flag, arch", [
     ("attn_impl", "smollm-360m"), ("norm_impl", "smollm-360m"),
     ("moe_impl", "granite-moe-3b-a800m"), ("ssm_impl", "mamba2-370m")])
@@ -614,6 +702,29 @@ def test_checkpoint_leaf_order_is_jaxs(tmp_path):
     back = ck.restore(str(tmp_path), 1, t)
     for a, b in zip(tree.leaves(back), tree.leaves(t)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+    # a train state holding its step's graph (under GRAPH_KEY, on the
+    # card) checkpoints, restores and state_trees as one without it
+    cfg, jcfg = _cfgs("smollm-360m")
+    state = init_train_state(cfg, 0, CPU)
+    state[GRAPH_KEY] = held = ("a held graph",)
+    assert set(state_tree(state)) == {"params", "opt"}
+    leaves = tree.leaves(state_tree(state))
+    ck.save(str(tmp_path / "state"), 1, state_tree(state))
+    like = jax.eval_shape(lambda: _jax_state(jcfg))
+    jleaves = jax.tree.leaves(jax_ck.restore(str(tmp_path / "state"), 1,
+                                             like))
+    assert len(jleaves) == len(leaves)
+    for a, b in zip(jleaves, leaves):
+        np.testing.assert_array_equal(np.asarray(a), b.detach().numpy())
+    ref = [t.detach().clone() for t in leaves]
+    with torch.no_grad():
+        for t in leaves:
+            t.zero_()
+    load_train_state(state, ck.restore(str(tmp_path / "state"), 1,
+                                       state_tree(state)))
+    assert state[GRAPH_KEY] is held
+    for a, b in zip(tree.leaves(state_tree(state)), ref, strict=True):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -729,6 +840,7 @@ def test_checkpoint_resume_across_pilots(tmp_path):
     sim.join_all(30.0)
     first = repo.result(tid)
     assert first.exitcode == 0 and first.telemetry["steps"] == 4
+    assert first.telemetry["step_graph"] is False      # the CPU: eager
     assert np.isfinite(first.telemetry["last_loss"])
     assert ck.latest_step(ckd) == 4
     # the reference restores the port's payload checkpoint too
@@ -757,6 +869,7 @@ def test_node_failure_resumes_from_the_last_checkpoint(tmp_path):
     assert res.pilot_id != fail["pilot"] and fail["ckpt_step"] >= 2
     assert res.telemetry["resumed_from"] == fail["ckpt_step"]
     assert res.telemetry["steps"] == 6 - fail["ckpt_step"]
+    assert fail["step_graph"] is False and res.telemetry["step_graph"] is False
     whole = train_via_pilots("smollm-360m", True, 6,
                              ckpt=str(tmp_path / "ck2"), device=CPU)
     assert whole["result"].telemetry["last_loss"] == res.telemetry["last_loss"]
@@ -767,5 +880,7 @@ def test_train_direct_loss_falls():
     out = train_direct(cfg, 12, 2, 32, device=CPU)
     losses = out["losses"]
     assert len(losses) == len(out["step_seconds"]) == 12
+    assert out["step_graph"] is False                  # the CPU: eager
+    assert out["capture_s"] == out["step_seconds"][0]
     assert np.isfinite(losses).all()
     assert np.mean(losses[-3:]) < np.mean(losses[:3])
