@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt import checkpoint as ck
-from repro_torch.core import chaos
+from repro_torch.core import chaos, spans
 from repro_torch.core.arena import SharedArena
 from repro_torch.core.images import sync
 from repro_torch.core.proctable import PAYLOAD_UID, ProcessTable
@@ -58,9 +58,18 @@ class PayloadCapability:
     shared_dir: str
 
 
+# a serve payload's exit trace: ~100 s of a busy fleet server's spans on
+# one card (~7 a tick), ~2 MB of JSON at most (the pool keeps every result)
+TRACE_SPANS = 1 << 15
+
+
 def run_wrapper(arena: SharedArena, proctable: ProcessTable, exe, spec: dict):
     """Execute one payload under the payload uid.  Never raises: every
-    outcome becomes an exit code in the arena (the paper's relay)."""
+    outcome becomes an exit code in the arena (the paper's relay).  A
+    serve payload's telemetry carries ``trace``: the spans its thread
+    recorded since its start (`repro_torch.core.spans.export`; a fleet
+    server's leases are recorded in its own fetch), the newest
+    `TRACE_SPANS` of them at most."""
     # env arrives inside the startup spec (the pilot path) or, for direct
     # arena users, in the standalone env file on the shared volume (§3.5)
     env = spec.get("env")
@@ -96,8 +105,15 @@ def run_wrapper(arena: SharedArena, proctable: ProcessTable, exe, spec: dict):
             if not finite:
                 exitcode = 3
         elif exe.image.mode == "serve":
-            exitcode = _serve_loop(exe, seed, n_steps, entry, proctable,
-                                   telemetry, spec)
+            spans.reset_thread()
+            try:
+                exitcode = _serve_loop(exe, seed, n_steps, entry, proctable,
+                                       telemetry, spec)
+            finally:
+                if spans.enabled:
+                    telemetry["trace"] = spans.export(
+                        round(t_start * 1e9), thread=spans.thread_index(),
+                        limit=TRACE_SPANS)
         else:                                           # decode
             with DEVICE_LOCK:
                 params, state = exe.make_inputs(seed)
@@ -176,17 +192,14 @@ def _serve_loop(exe, seed, n_steps, entry, proctable, telemetry, spec) -> int:
         proctable.heartbeat(entry.pid, dt)
         telemetry["steps"] = tick
         telemetry["step_times"].append(dt)
-        # live cache-pressure sample rides every heartbeat, so the pilot's
-        # monitor sees KV pressure mid-run, not only at exit
-        telemetry["serve_live"] = eng.kv_pressure()
         return True
 
     stats = eng.run_trace(spec.get("trace") or [], max_ticks=n_steps,
                           on_tick=on_tick)
     if entry.stop.is_set():
         return 143
-    # cache pressure rides along: the pilot's heartbeat consumer sees how
-    # hot the slot-sized claim is running and what the prefix cache saves
+    # the serve stats carry cache pressure: how hot the slot-sized claim
+    # ran and what the prefix cache saved
     telemetry["serve"] = {k: stats[k] for k in _SERVE_STAT_KEYS}
     telemetry["tokens"] = {str(r.rid): r.tokens for r in eng.done.values()}
     telemetry["engine"] = {k: stats[k] for k in _ENGINE_STAT_KEYS}
@@ -220,6 +233,15 @@ def _fleet_serve_loop(eng, spec, n_steps, entry, proctable, telemetry) -> int:
     ``pool_pressure`` — kv_memory_utilization / blocked_admissions are
     scale-up signals a queue-depth-only policy would miss.
 
+    Each iteration is a ``fleet.tick`` span (`repro_torch.core.spans`;
+    its ``attr`` 1 when the engine held work, 0 for an idle poll) over
+    its host phases ``fleet.fetch``, ``fleet.complete``, ``fleet.renew``
+    (the leases renewed, the server's tag) and ``fleet.report``, with the
+    engine's ``engine.step`` between the first two (``fleet.complete``
+    starts at its end stamp, whose two stamps also give the heartbeat's
+    step time); ``fleet.announce`` marks the announce and ``fleet.lost``
+    each renewal the pool refused.
+
     Every device call is the engine's own and holds the device lock (its
     step, warm-ups and cancels), so on one card a server renews its leases
     only between its turns at the lock: a tick's wait for another server's
@@ -247,129 +269,161 @@ def _fleet_serve_loop(eng, spec, n_steps, entry, proctable, telemetry) -> int:
     # pool_pressure() can report per-label telemetry instead of blending
     # prefill TTFT with decode TPOT across a mixed fleet
     pool.announce(server_id, labels=labels)
+    tag = spans.intern(server_id)
+    if spans.enabled:
+        spans.event(spans.FLEET_ANNOUNCE, time.monotonic_ns(), tag=tag)
     inflight: dict[int, Request] = {}
     fetched = completed_here = released = 0
     decoded = tick = 0
     t_start = time.monotonic()
-    while tick < n_steps:
-        if entry.stop.is_set():
-            return 143                   # died mid-serve: leases just expire
-        if pool.closed.is_set():
-            break
-        if entry.drain.is_set():
-            break        # scale-down: wind down NOW — leased work is
-                         # released below, not left to wait out its TTL
-        # chaos drills (no-op dict probe when no controller is installed):
-        # a STALLED payload freezes — no fetch, no step, no completions —
-        # but its lease renewals keep flowing with frozen progress, which
-        # is exactly the gray failure only the progress watchdog can see
-        site = chaos.site(server_id)
-        stalled = site is not None and site.stalled()
-        cut = site is not None and site.partitioned()
-        if stalled:
-            if inflight:
-                pool.renew(server_id, {rid: len(r.tokens)
-                                       for rid, r in inflight.items()})
-            time.sleep(0.005)
-            tick += 1
-            continue
-        # _live already counts mid-admission (_jobs) requests, so this is
-        # every admitted-or-queued request exactly once
-        want = eng.slots - (len(eng._live) + len(eng.queue))
-        if want > 0 and not cut and not pool.finished():
-            idle = not any(m.active for m in eng.slot_meta) and not eng._jobs
-            for e in pool.fetch(server_id, max_n=want,
-                                timeout=0.05 if idle else 0.0,
-                                labels=labels, cancel=entry.stop.is_set):
-                if (site is not None and e.get("poison")
-                        and site.poison_lethal()):
-                    # poison request: detonates on fetch, killing this
-                    # pilot — the lease is never released; it expires and
-                    # the pool's blast-radius accounting takes over
-                    site.trip_poison(int(e["rid"]))
-                    return 143
-                req = Request(
-                    rid=int(e["rid"]),
-                    prompt=np.asarray(e["prompt"], np.int32),
-                    max_new_tokens=int(e.get("max_new_tokens", 16)),
-                    submitted=float(e.get("submitted_s", time.monotonic())),
-                    handoff=e.get("handoff"))
-                if req.rid in inflight:
-                    # the pool re-leased a rid this server still holds
-                    # locally: its lease expired mid-partition and looped
-                    # back before this tick's renew could reveal the loss.
-                    # Purge the stale copy — pairing the fresh Request
-                    # with the old engine result would commit truncated
-                    # tokens (and two live slots under one rid is worse)
-                    eng.cancel(req.rid)
-                    inflight.pop(req.rid, None)
-                eng.done.pop(req.rid, None)    # stale result of a lost lease
-                try:
-                    eng.submit(req)
-                except ValueError:
-                    pool.reject(server_id, req.rid)   # can NEVER fit here
-                    continue
-                inflight[req.rid] = req
-                fetched += 1
-        busy = bool(eng._live or eng.queue or eng._jobs)
-        t0 = time.monotonic()
-        decoded += eng.step()
-        dt = time.monotonic() - t0
-        if site is not None:
-            slow = site.slow_factor()
-            if slow > 1.0:               # straggler: inflate the step time
-                time.sleep(dt * (slow - 1.0))
-                dt = dt * slow
-        tick += 1
-        if busy:
-            # an idle poll is no step: metered, its ~0.1 ms would sit in the
-            # monitor's straggler EWMA and the fleet median beside the
-            # serving ticks, and a server whose traffic resumes after a
-            # quiet spell was killed as a straggler of its own idle ticks
-            proctable.heartbeat(entry.pid, dt)
-            telemetry["step_times"].append(dt)
-        telemetry["steps"] = tick
-        if cut:
-            # control-plane partition: the payload keeps computing but
-            # renewals, completions and telemetry cannot reach the pool.
-            # Leases expire and the work replays elsewhere; completions
-            # parked in eng.done are reported after the partition heals
-            # (first completion wins keeps it exactly once either way).
-            if pool.finished() and not inflight:
-                break
-            continue
-        for rid in [r for r in inflight if r in eng.done]:
-            req = inflight.pop(rid)
-            # a unified or decode-role engine completes with handoff=None;
-            # a prefill-role engine's export rides here into the decode
-            # pool (a decode server's requeued entry carries the same
-            # handoff back, so a replay imports it again: no re-prefill)
-            if pool.complete(server_id, rid, req.tokens,
-                             first_token_s=req.first_token_s,
-                             handoff=req.handoff):
-                completed_here += 1
-        if inflight:
-            lost = pool.renew(server_id, {rid: len(r.tokens)
-                                          for rid, r in inflight.items()})
+
+    def renew(on: bool) -> list[int]:
+        t0 = time.monotonic_ns() if on else 0
+        progress = {rid: len(r.tokens) for rid, r in inflight.items()}
+        lost = pool.renew(server_id, progress) if progress else []
+        if on:
+            t1 = time.monotonic_ns()
+            spans.record(spans.FLEET_RENEW, t0, t1, attr=len(progress),
+                         tag=tag)
             for rid in lost:
+                spans.event(spans.FLEET_LOST, t1, rid=rid, tag=tag)
+        return lost
+
+    while tick < n_steps:
+        on = spans.enabled
+        t_tick = time.monotonic_ns() if on else 0
+        sid = spans.begin(spans.FLEET_TICK, t_tick) if on else -1
+        busy = False
+        try:
+            if entry.stop.is_set():
+                return 143               # died mid-serve: leases just expire
+            if pool.closed.is_set():
+                break
+            if entry.drain.is_set():
+                break    # scale-down: wind down NOW — leased work is
+                         # released below, not left to wait out its TTL
+            # chaos drills (no-op dict probe when no controller is
+            # installed): a STALLED payload freezes — no fetch, no step, no
+            # completions — but its lease renewals keep flowing with frozen
+            # progress, which is exactly the gray failure only the progress
+            # watchdog can see
+            site = chaos.site(server_id)
+            stalled = site is not None and site.stalled()
+            cut = site is not None and site.partitioned()
+            if stalled:
+                if inflight:
+                    renew(on)
+                time.sleep(0.005)
+                tick += 1
+                continue
+            fid = spans.begin(spans.FLEET_FETCH, t_tick) if on else -1
+            # _live already counts mid-admission (_jobs) requests, so this
+            # is every admitted-or-queued request exactly once
+            want = eng.slots - (len(eng._live) + len(eng.queue))
+            if want > 0 and not cut and not pool.finished():
+                idle = (not any(m.active for m in eng.slot_meta)
+                        and not eng._jobs)
+                for e in pool.fetch(server_id, max_n=want,
+                                    timeout=0.05 if idle else 0.0,
+                                    labels=labels, cancel=entry.stop.is_set):
+                    if (site is not None and e.get("poison")
+                            and site.poison_lethal()):
+                        # poison request: detonates on fetch, killing this
+                        # pilot — the lease is never released; it expires
+                        # and the pool's blast-radius accounting takes over
+                        site.trip_poison(int(e["rid"]))
+                        return 143
+                    req = Request(
+                        rid=int(e["rid"]),
+                        prompt=np.asarray(e["prompt"], np.int32),
+                        max_new_tokens=int(e.get("max_new_tokens", 16)),
+                        submitted=float(e.get("submitted_s",
+                                              time.monotonic())),
+                        handoff=e.get("handoff"))
+                    if req.rid in inflight:
+                        # the pool re-leased a rid this server still holds
+                        # locally: its lease expired mid-partition and
+                        # looped back before this tick's renew could reveal
+                        # the loss.  Purge the stale copy — pairing the
+                        # fresh Request with the old engine result would
+                        # commit truncated tokens (and two live slots under
+                        # one rid is worse)
+                        eng.cancel(req.rid)
+                        inflight.pop(req.rid, None)
+                    eng.done.pop(req.rid, None)  # stale result, lost lease
+                    try:
+                        eng.submit(req)
+                    except ValueError:
+                        pool.reject(server_id, req.rid)  # can NEVER fit here
+                        continue
+                    inflight[req.rid] = req
+                    fetched += 1
+            busy = bool(eng._live or eng.queue or eng._jobs)
+            if on:
+                spans.end(fid, time.monotonic_ns())
+            decoded += eng.step()
+            # the completions' phase starts where the step's span ends (it
+            # holds the device lock's release and the heartbeat)
+            t_s, t_c = eng.last_step_ns
+            dt = (t_c - t_s) / 1e9
+            if site is not None:
+                slow = site.slow_factor()
+                if slow > 1.0:           # straggler: inflate the step time
+                    time.sleep(dt * (slow - 1.0))
+                    dt = dt * slow
+            tick += 1
+            if busy:
+                # an idle poll is no step: metered, its ~0.1 ms would sit in
+                # the monitor's straggler EWMA and the fleet median beside
+                # the serving ticks, and a server whose traffic resumes
+                # after a quiet spell was killed as a straggler of its own
+                # idle ticks
+                proctable.heartbeat(entry.pid, dt)
+                telemetry["step_times"].append(dt)
+            telemetry["steps"] = tick
+            if cut:
+                # control-plane partition: the payload keeps computing but
+                # renewals, completions and telemetry cannot reach the
+                # pool.  Leases expire and the work replays elsewhere;
+                # completions parked in eng.done are reported after the
+                # partition heals (first completion wins keeps it exactly
+                # once either way).
+                if pool.finished() and not inflight:
+                    break
+                continue
+            for rid in [r for r in inflight if r in eng.done]:
+                req = inflight.pop(rid)
+                # a unified or decode-role engine completes with
+                # handoff=None; a prefill-role engine's export rides here
+                # into the decode pool (a decode server's requeued entry
+                # carries the same handoff back, so a replay imports it
+                # again: no re-prefill)
+                if pool.complete(server_id, rid, req.tokens,
+                                 first_token_s=req.first_token_s,
+                                 handoff=req.handoff):
+                    completed_here += 1
+            if on:
+                spans.record(spans.FLEET_COMPLETE, t_c, time.monotonic_ns())
+            for rid in renew(on):
                 eng.cancel(rid)          # re-leased elsewhere: free the slot
                 inflight.pop(rid, None)
-        # the heartbeat consumer sees cache pressure AND per-request
-        # progress — renewals piggyback on the same tick; the same sample
-        # goes to the pool, where the autoscaler reads it as a demand signal
-        live_sample = {
-            **eng.kv_pressure(),
-            "blocked_admissions": eng.blocked_admissions,
-            "free_slots": eng.slots - (len(eng._live) + len(eng.queue)),
-        }
-        if not (site is not None and site.drop_heartbeat()):
-            pool.report_telemetry(server_id, live_sample)
-        telemetry["serve_live"] = {
-            **live_sample,
-            "inflight": {str(rid): len(r.tokens)
-                         for rid, r in inflight.items()}}
-        if pool.finished() and not inflight:
-            break
+            t_r = time.monotonic_ns() if on else 0
+            # the engine's cache pressure and free slots go to the pool,
+            # where the autoscaler reads them as a demand signal
+            if not (site is not None and site.drop_heartbeat()):
+                pool.report_telemetry(server_id, {
+                    **eng.kv_pressure(),
+                    "blocked_admissions": eng.blocked_admissions,
+                    "free_slots": eng.slots - (len(eng._live)
+                                               + len(eng.queue)),
+                })
+            if on:
+                spans.record(spans.FLEET_REPORT, t_r, time.monotonic_ns())
+            if pool.finished() and not inflight:
+                break
+        finally:
+            if on:
+                spans.end(sid, time.monotonic_ns(), attr=int(busy))
     if inflight:                         # graceful end with work leased:
         drained = eng.drain_requests()   # give it back, don't sit on it
         pool.release(server_id, [r.rid for r in drained])

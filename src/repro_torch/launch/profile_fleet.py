@@ -13,87 +13,84 @@ width unless ``--smoke``, 8 slots, max_len 1024, the hand-written
 kernels): ``serve``, 3 pilots and no failure, and ``spec``, 2
 self-drafting pilots with the one holding the most leases killed once 4
 requests have settled.  For every renewal it takes the time since the
-lease was fetched or last renewed by that server, wrapping the pool's
-``fetch`` and ``renew`` for the run (a killed server's own telemetry dies
-with it, so the pool's side is where its gaps can be seen).  Prints one
-JSON line a run: per server its longest fetch-to-first-renewal and
-renewal-to-renewal gaps, renewals and lost leases; the pool's replays and
-lost leases; and the wall time.
+lease was fetched or last renewed by that server, from the spans the
+program records (`repro_torch.core.spans`: each lease's ``pool.wait``,
+each ``fleet.renew``), which a killed server records too up to its death
+(its own telemetry dies with it).  Prints one JSON line a run: per server
+its longest fetch-to-first-renewal and renewal-to-renewal gaps, renewals
+and lost leases; the pool's replays and lost leases; and the wall time.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import time
 
-from repro_torch.analysis.locks import make_lock
 from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.core import spans
 from repro_torch.launch.serve import make_trace, serve_fleet
-from repro_torch.serving.dispatch import FleetDispatcher
 
 RUNS = {"serve": dict(n_pilots=3),
         "spec": dict(n_pilots=2, draft="self", fail_at=4)}
 
 
 class _LeaseGaps:
-    """Wraps ``FleetDispatcher.announce``, ``fetch`` and ``renew`` while
-    entered and records, per server, the longest gap before a lease's
-    first renewal (from its fetch) and between two renewals, the leases
-    lost, the time of each renewal call (``renew_times``) and when it
-    announced itself (``announced``)."""
+    """The renewals of the fleet servers that ran while entered, read from
+    the spans they recorded (`repro_torch.core.spans`), per server: the
+    longest gap before a lease's first renewal (from its ``pool.wait``'s
+    end) and between two renewals both of which renewed a lease it held
+    (a renewal that renews more leases than were fetched since the one
+    before it renews one of them again), the leases renewed
+    (``renewals``) and lost (``lost``), the time of each renewal call
+    that renewed a lease (``renew_times``) and when it announced itself
+    (``announced``), all in monotonic seconds.  Reads nothing while
+    ``spans.enabled`` is off."""
 
     def __init__(self):
-        self._lock = make_lock("profile_fleet.gaps")
-        self._last: dict[tuple, tuple[str, float]] = {}
         self.by_server: dict[str, dict] = {}
         self.renew_times: dict[str, list[float]] = {}
         self.announced: dict[str, float] = {}
 
     def __enter__(self):
-        announce = FleetDispatcher.announce
-        fetch, renew = FleetDispatcher.fetch, FleetDispatcher.renew
-        gaps = self
-
-        def announce_(pool, server_id, labels=None):
-            announce(pool, server_id, labels=labels)
-            with gaps._lock:
-                gaps.announced[server_id] = time.monotonic()
-
-        def fetch_(pool, server_id, **kw):
-            out = fetch(pool, server_id, **kw)
-            now = time.monotonic()
-            with gaps._lock:
-                for e in out:
-                    gaps._last[(server_id, e["rid"])] = ("fetch", now)
-            return out
-
-        def renew_(pool, server_id, progress):
-            now = time.monotonic()
-            lost = renew(pool, server_id, progress)
-            with gaps._lock:
-                gaps.renew_times.setdefault(server_id, []).append(now)
-                row = gaps.by_server.setdefault(server_id, {
-                    "fetch_to_renew_max_s": 0.0, "renew_gap_max_s": 0.0,
-                    "renewals": 0, "lost": 0})
-                for rid in progress:
-                    kind, t = gaps._last.get((server_id, rid), ("renew", now))
-                    key = ("fetch_to_renew_max_s" if kind == "fetch"
-                           else "renew_gap_max_s")
-                    row[key] = max(row[key], now - t)
-                    row["renewals"] += 1
-                    row["lost"] += rid in lost
-                    gaps._last[(server_id, rid)] = ("renew", now)
-            return lost
-
-        self._saved = announce, fetch, renew
-        (FleetDispatcher.announce, FleetDispatcher.fetch,
-         FleetDispatcher.renew) = announce_, fetch_, renew_
+        self._since = time.monotonic_ns()
         return self
 
     def __exit__(self, *exc):
-        (FleetDispatcher.announce, FleetDispatcher.fetch,
-         FleetDispatcher.renew) = self._saved
+        tr = spans.export(self._since)
+        names, cols = tr["names"], tr["spans"]
+        leases: dict[str, list[float]] = {}
+        renews: dict[str, list[tuple[float, int]]] = {}
+        lost: dict[str, int] = {}
+        for k, n in enumerate(cols["name"]):
+            what, tag = names[n], cols["tag"][k]
+            server = names[tag] if tag >= 0 else None
+            t0, t1 = cols["t0"][k] / 1e9, cols["t1"][k] / 1e9
+            if what == "fleet.announce":
+                self.announced[server] = t0
+            elif what == "pool.wait":
+                leases.setdefault(server, []).append(t1)
+            elif what == "fleet.renew" and cols["attr"][k] > 0:
+                renews.setdefault(server, []).append((t0, cols["attr"][k]))
+            elif what == "fleet.lost":
+                lost[server] = lost.get(server, 0) + 1
+        for server, rs in renews.items():
+            rs.sort()
+            times = [t for t, _ in rs]
+            fetched = sorted(leases.get(server, ()))
+            first = [times[i] if i < len(times) else None
+                     for i in (bisect.bisect_left(times, f) for f in fetched)]
+            gaps = [b - a for (a, _), (b, n) in zip(rs, rs[1:])
+                    if n > sum(a < f <= b for f in fetched)]
+            self.renew_times[server] = times
+            self.by_server[server] = {
+                "fetch_to_renew_max_s": max(
+                    (r - f for f, r in zip(fetched, first) if r is not None),
+                    default=0.0),
+                "renew_gap_max_s": max(gaps, default=0.0),
+                "renewals": sum(n for _, n in rs),
+                "lost": lost.get(server, 0)}
 
 
 def profile(ttl: float, run: str, *, smoke: bool = False,

@@ -113,7 +113,8 @@ def _capture_train(step, state, leaves, spec):
         return step(tensors, pytree.tree_unflatten(list(batch), spec))
 
     with DEVICE_LOCK:
-        graph, metrics = CallGraph.first_call(run, leaves, leaves[0].device)
+        graph, metrics = CallGraph.first_call(run, leaves, leaves[0].device,
+                                              kind="train")
         with torch.no_grad():
             for p, g in zip(params, eager, strict=True):
                 if g is not None:
@@ -179,7 +180,7 @@ def make_serve_step(cfg, step_graph: bool = True):
         # (imported here: the serving package imports this module)
         from repro_torch.serving.graph import StepGraph
         graph = StepGraph(lambda: step(params, tensors),
-                          state["token"].device)
+                          state["token"].device, kind="serve_step")
         logits, graph.first = graph.first, None
         state[GRAPH_KEY] = (params, graph)
         return logits, state

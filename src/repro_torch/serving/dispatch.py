@@ -70,6 +70,7 @@ from repro_torch.analysis.locks import (
     make_condition,
     make_lock,
 )
+from repro_torch.core import spans
 from repro_torch.core.taskrepo import BackoffPolicy, TaskRepo, TaskResult
 from repro_torch.core.timerwheel import shared_wheel
 
@@ -427,6 +428,10 @@ class FleetDispatcher:
                 e["rid"] = rid
                 e["submitted_s"] = rec.submitted_s
                 e["attempt"] = task.attempts
+            if spans.enabled:     # the lease: the first part of its TTFT
+                spans.record(spans.POOL_WAIT, round(rec.submitted_s * 1e9),
+                             round(t_now * 1e9), rid=rid,
+                             attr=task.attempts, tag=spans.intern(server_id))
             out.append(e)
         return out
 

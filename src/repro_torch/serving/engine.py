@@ -134,6 +134,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.models import moe
 from repro_torch.models.api import (
     build_model, default_num_blocks, init_decode_state, resolve_device)
@@ -549,6 +550,7 @@ class ServeEngine:
         self._host_pos = [0] * slots
         self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
         self._tick_times: list[float] = []
+        self.last_step_ns = (0, 0)           # the last `step`'s two stamps
         # the disaggregated roles' handoffs: each export's and import's
         # host milliseconds and each export's wire bytes
         self.prefills_exported = 0
@@ -692,7 +694,7 @@ class ServeEngine:
                 t.zero_()
 
         return StepGraph(lambda: step(params, state, active, budget),
-                         self.device, reset)
+                         self.device, reset, kind="decode")
 
     def _capture_spec(self) -> tuple[StepGraph, StepGraph]:
         """Capture the draft chain and the verify step, in that order,
@@ -711,11 +713,11 @@ class ServeEngine:
 
         dg = StepGraph(lambda: draft(dparams, dcache, state["token"],
                                      state["pos"], state["block_tables"])[0],
-                       self.device, reset)
+                       self.device, reset, kind="draft")
         drafts = dg.out
         drafts.zero_()
         vg = StepGraph(lambda: verify(params, state, active, budget, drafts),
-                       self.device, reset)
+                       self.device, reset, kind="verify")
         return dg, vg
 
     def _graphs(self) -> list:
@@ -746,7 +748,8 @@ class ServeEngine:
         shared = self._admit_out.get(kind)
         gen = shared.generation if shared is not None else 0
         g, out = CallGraph.first_call(fn, args, self.device,
-                                      pool=self._admit_pool)
+                                      pool=self._admit_pool, kind=kind,
+                                      key=key)
         if shared is not None and shared.generation != gen:
             graphs.clear()
         graphs[key] = g
@@ -862,6 +865,8 @@ class ServeEngine:
         yet."""
         if req.handoff is not None:
             return self._admit_handoff_into(si, req)
+        # a one-shot admission's span ends at its first-token stamp
+        t_admit = time.monotonic_ns() if spans.enabled else None
         plen = admit_length(len(req.prompt), self.max_len)
         bs = self.block_size
         padded = np.zeros((plen,), np.int32)
@@ -916,10 +921,14 @@ class ServeEngine:
         if self.role == "prefill":
             self._finish_prefill_export(si, req, plen, nxt, padded, keys)
         else:
-            self._finish_admission(si, req, plen, nxt)
+            self._finish_admission(si, req, plen, nxt, t_admit)
         return True
 
-    def _finish_admission(self, si: int, req: Request, plen: int, nxt: int):
+    def _finish_admission(self, si: int, req: Request, plen: int, nxt: int,
+                          t_admit: int | None = None):
+        """Make slot ``si`` decode ``req``; a one-shot admission that began
+        at ``t_admit`` records its ``engine.admit`` span to the
+        first-token stamp."""
         m = self.slot_meta[si]
         m.rid = req.rid
         m.active = True
@@ -927,8 +936,12 @@ class ServeEngine:
         self.budget[si] = req.max_new_tokens
         self._host_pos[si] = plen
         req.tokens.append(nxt)
-        req.first_token_s = time.monotonic() - req.submitted
+        t = time.monotonic_ns()
+        req.first_token_s = t / 1e9 - req.submitted
         self._live[req.rid] = req
+        if t_admit is not None:
+            spans.record(spans.ENGINE_ADMIT, t_admit, t, rid=req.rid,
+                         attr=plen)
 
     # ------------------------------------------------------------------
     # disaggregated serving: KV block export (prefill) / import (decode)
@@ -1214,16 +1227,32 @@ class ServeEngine:
         the eager step, or one draft-and-verify step).  Returns the number
         of tokens committed to live requests.  The tick's time (ITL) starts
         before the device lock is taken: a wait for another thread's device
-        work (a prefetch's warm-up) is part of the gap between tokens."""
-        return self._step(time.monotonic())
+        work (a prefetch's warm-up) is part of the gap between tokens.  The
+        same two stamps bound the ``engine.step`` span (an idle tick's ends
+        when the lock is released) and are ``last_step_ns``; the span's
+        children are each one-shot admission (``engine.admit``) and the
+        decode half (``engine.decode``)."""
+        t_tick = time.monotonic_ns()
+        on = spans.enabled
+        sid = spans.begin(spans.ENGINE_STEP, t_tick) if on else -1
+        emitted, t_end = self._step(t_tick, on)
+        if t_end is None:
+            t_end = time.monotonic_ns()
+        self.last_step_ns = (t_tick, t_end)
+        if on:
+            spans.end(sid, t_end)
+        return emitted
 
     @_on_device
-    def _step(self, t_tick: float) -> int:
+    def _step(self, t_tick: int, traced: bool) -> tuple[int, int | None]:
+        """`step` under the device lock: the tokens committed and the
+        tick's end stamp (None when no slot decoded)."""
         self._admit()
         self._prefill_tick()
         actives = [si for si, m in enumerate(self.slot_meta) if m.active]
         if not actives:
-            return 0
+            return 0, None
+        t_decode = time.monotonic_ns() if traced else 0
         guard = self._guard_rows() if self._jobs else None
         if self.spec == "draft":
             packed = self._spec_step()
@@ -1269,8 +1298,11 @@ class ServeEngine:
             # the target ratified; the last is the target's own next token
             self.spec_accepted += emitted - len(actives)
         self.tokens_emitted += emitted
-        self._tick_times.append(time.monotonic() - t_tick)
-        return emitted
+        t_end = time.monotonic_ns()
+        self._tick_times.append((t_end - t_tick) / 1e9)
+        if traced:
+            spans.record(spans.ENGINE_DECODE, t_decode, t_end)
+        return emitted, t_end
 
     def _spec_step(self):
         """The draft chain, then the verify step (their graphs' replays on
@@ -1531,8 +1563,9 @@ class ServeEngine:
         """Drive the engine from a request trace with staggered arrivals:
         ``{"rid", "prompt": [ints], "max_new_tokens", "at_step"}`` dicts;
         a request becomes visible at tick ``at_step``.  ``on_tick(tick,
-        step_seconds)`` (optional) runs after every tick — the wrapper's
-        heartbeat and stop hook; returning False ends the run."""
+        step_seconds)`` (optional; ``step_seconds`` from `last_step_ns`)
+        runs after every tick — the wrapper's heartbeat and stop hook;
+        returning False ends the run."""
         pending = sorted(enumerate(trace),
                          key=lambda ie: int(ie[1].get("at_step", 0)))
         t0 = time.monotonic()
@@ -1545,11 +1578,11 @@ class ServeEngine:
                     rid=int(e.get("rid", idx)),
                     prompt=np.asarray(e["prompt"], np.int32),
                     max_new_tokens=int(e.get("max_new_tokens", 16))))
-            t_step = time.monotonic()
             decoded += self.step()
             tick += 1
+            t0_ns, t1_ns = self.last_step_ns
             if on_tick is not None and on_tick(
-                    tick, time.monotonic() - t_step) is False:
+                    tick, (t1_ns - t0_ns) / 1e9) is False:
                 break
             if tick >= max_ticks:
                 break

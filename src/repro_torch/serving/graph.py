@@ -48,10 +48,13 @@ its holder, which is how an engine counts its own (`launch_counts`).
 
 from __future__ import annotations
 
+import time
+
 import torch
 import torch.utils._pytree as pytree
 
 from repro_torch.analysis.locks import make_rlock
+from repro_torch.core import spans
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.grouped_matmul.ops import grouped_matmul
@@ -86,16 +89,22 @@ class StepGraph:
     ``torch.cuda.graph_pool_handle()``) lets graphs whose outputs are
     consumed before another of them replays share one memory pool
     (`pool_bytes` reads what the pools hold).  A capture that fails
-    raises: the caller gets no graph and no eager stand-in."""
+    raises: the caller gets no graph and no eager stand-in.  Each capture
+    records a ``graph.capture`` span (`repro_torch.core.spans`), tagged
+    ``kind`` with ``key`` (a shape) as its attribute."""
 
     def __init__(self, fn, device, reset=None, *, warmup: int = 3,
-                 pool=None):
-        if device.type != "cuda":
-            raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
+                 pool=None, kind: str = "step", key: int = 0):
+        t0 = time.monotonic_ns()
         with DEVICE_LOCK:
             self._capture(fn, device, reset, warmup if reset else 1, pool)
+        if spans.enabled:
+            spans.record(spans.GRAPH_CAPTURE, t0, time.monotonic_ns(),
+                         attr=key, tag=spans.intern(kind))
 
     def _capture(self, fn, device, reset, warmup, pool):
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
         before = [w.launches for w in WRAPPERS]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -137,17 +146,20 @@ class CallGraph:
     eager copies before a replay) and replays.  The caller keys one per
     shape."""
 
-    def __init__(self, fn, args, device, *, pool=None):
+    def __init__(self, fn, args, device, *, pool=None, kind: str = "call",
+                 key: int = 0):
         self.inputs = [torch.empty_like(a, device=device) for a in args]
         for dst, src in zip(self.inputs, args):
             dst.copy_(src)
         inputs = self.inputs
-        self.step = StepGraph(lambda: fn(*inputs), device, pool=pool)
+        self.step = StepGraph(lambda: fn(*inputs), device, pool=pool,
+                              kind=kind, key=key)
 
     @classmethod
-    def first_call(cls, fn, args, device, *, pool=None):
+    def first_call(cls, fn, args, device, *, pool=None, kind: str = "call",
+                   key: int = 0):
         """Capture ``fn`` at ``args``; returns ``(graph, fn(*args))``."""
-        g = cls(fn, args, device, pool=pool)
+        g = cls(fn, args, device, pool=pool, kind=kind, key=key)
         first, g.step.first = g.step.first, None
         return g, first
 

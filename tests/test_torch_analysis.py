@@ -430,9 +430,13 @@ def test_the_gate_fails_on_a_finding(tmp_path, capsys):
 
 
 def test_the_repaired_locks_come_from_the_factory():
-    for rel in ("kernels/_build.py", "launch/profile_fleet.py"):
+    for rel in ("kernels/_build.py", "core/spans.py"):
         text = (ROOT / "src" / "repro_torch" / rel).read_text()
         assert "threading.Lock()" not in text and "make_lock(" in text
+    # profile_fleet reads the span recorder after a run: it holds no lock
+    text = (ROOT / "src" / "repro_torch" / "launch/profile_fleet.py"
+            ).read_text()
+    assert "threading.Lock()" not in text
     from repro_torch.analysis.locks import TrackedLock
     from repro_torch.kernels import _build
     assert isinstance(_build._lock, TrackedLock)

@@ -45,7 +45,12 @@ COPIES = {
     "core/monitor.py": ({}, None),
     "core/chaos.py": ({}, None),
     "core/autoscaler.py": ({}, None),
-    "serving/dispatch.py": ({}, None),
+    # the port's span recorder: its import, and each lease's pool.wait
+    # span (the request's submit to its lease) recorded in fetch
+    "serving/dispatch.py": (
+        {73: "the span recorder's import",
+         **{n: "the lease's pool.wait span" for n in range(431, 435)}},
+        None),
     # the port's docstring lines on the handoff's wire format, and its
     # "Invariants:" in place of the reference's line naming its own test
     "serving/blockpool.py": (
